@@ -1,35 +1,51 @@
 """Chip smoke for the PyTorch/CUDA port (``src/repro_torch``): builds the
 port's CUDA kernels from this checkout, holds each against its plain
 PyTorch version on the card, times them, then serves qwen3-1.7b at full
-width from resident RRAM codes and checks that the serving path went
-through the kernels.
+width from resident RRAM codes three ways (f32 codes, int8 codes, the
+ADC-faithful ``codes_adc`` backend) and checks that each serving path
+went through its kernels.
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
 Phases (any failure exits non-zero; no failure is caught):
   1. card     — name and power limit (nvidia-smi), torch's device name;
-  2. build    — nvcc for sm_90a, build seconds and the -Xptxas -v report;
-  3. kernels  — both launchers vs ``dora_linear_ref`` at rtol=atol=1e-4,
-                full-width fused leaves at every GEMV row bucket M in
-                {1, 2, 4, 8, 16, 32, 64} (decode ticks and the engine's
-                admission chunks), the tiled launcher at M=256, ragged
-                shapes;
+  2. build    — nvcc for sm_90a, both sources at once, build seconds and
+                the -Xptxas -v reports;
+  3. kernels  — each kernel vs its plain version (``kernels/ref.py``):
+                * the fused linear, both launchers, f32 body at rtol = atol
+                  = 1e-4 and int8 body within 1e-4 of the output's absmax,
+                  at the full-width fused leaves for every GEMV row bucket
+                  M in {1, 2, 4, 8, 16, 32, 64} (decode ticks and the
+                  engine's admission chunks), the tiled launcher at M=256,
+                  ragged shapes; the int8 exactness case bitwise;
+                * the ADC kernel at the seven unfused leaves for M in {1, 4,
+                  32, 256} and ragged shapes: every output within rtol 1e-4
+                  / atol 1e-6 or one ADC step apart (at most 0.1% of them);
+                  the ADC exactness case bitwise;
   4. timing   — CUDA events around CUDA-graph replays over operand copies
-                rotated past the L2: the kernel, the plain version, and
-                torch.matmul of x by the pre-dequantized bf16 weight
-                (``library_ms``; the port never calls it), beside the
+                rotated past the L2: the kernel, the plain version, and one
+                PyTorch call for the same work where there is one
+                (``library_ms``; the port never calls it): torch.matmul of
+                x by the pre-dequantized bf16 weight for f32, two
+                torch._int_mm on pre-recoded s8 codes for int8 (where that
+                call takes the shape), none for the ADC. Beside it the
                 bound: bytes moved over 3.35 TB/s or operations over the
-                bf16 tensor-core rate of 989 TFLOP/s, whichever is larger
-                (H100 SXM data sheet);
-  5. serving  — Deployment.program(FULL, codes) -> advance(24) -> serve()
-                -> ServeEngine (ragged greedy requests, one chunked) and
-                one fused prefill with B*S > 64; launch counters reset
-                just before and read just after; then codes vs dequant
-                logits of the fused prefill and of one admission chunk
-                per row bucket 8, 16 and 32;
-  6. trace    — torch.profiler over a few steady decode ticks: device busy
-                share, kernels per tick, the largest kernels.
-The last line is the JSON result; the line before it the kernel table.
+                dense rate for the types (989 TFLOP/s bf16, 1979 TOPS s8),
+                whichever is larger (H100 SXM data sheet);
+  5. serving  — Deployment.program(FULL, codes) -> advance(24), then three
+                sessions over the same codes: serve() (f32), serve(accum=
+                "int8"), and a codes_adc Deployment over the same teacher,
+                codes and adapters. Each runs the same traffic through
+                ServeEngine (ragged greedy requests, one chunked) and one
+                fused prefill with B*S > 64, with the launch counters reset
+                just before and read just after (asserted exactly); then
+                codes vs dequant logits (prefill and one admission chunk per
+                row bucket 8, 16, 32), int8 vs f32 logits (gated), and ADC
+                vs f32 logits (reported: the fidelity of the ADC model);
+  6. trace    — torch.profiler over a few steady decode ticks of each
+                session: device busy share, kernels per tick, the largest
+                kernels.
+The last line is the contract line; the line before it the kernel table.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -48,31 +64,57 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # The inputs are bf16 x and u8 codes, and G+ - G- in [-255, 255] is exact
-# in bf16, so the card's peak for this work is its dense bf16 tensor-core
-# rate (data sheet). The kernels' exact-f32 SIMT arithmetic (67 TFLOP/s)
-# is their own choice, not a limit of the card.
+# in bf16, so the card's peak for the f32 body and the ADC is its dense
+# bf16 tensor-core rate; for the int8 body (s8 x, s8-recodable codes) its
+# dense int8 rate (data sheet). The kernels' SIMT arithmetic (67 TFLOP/s
+# f32) is their own choice, not a limit of the card.
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 TOL = 1e-4                  # the reference's f32 kernel tolerance
+# int8 body vs its plain version, relative to the output's absmax: the
+# same row quantization and the same exact int32 sum; only the f32 orders
+# of Xq @ A and of the epilogue differ
+INT8_TOL = 1e-4
+# ADC kernel vs its plain version: within rtol/atol, or (a tile current
+# summed in another f32 order crossing an ADC rounding boundary) one step
+# times the column scale apart, in at most this share of the outputs
+ADC_RTOL, ADC_ATOL, ADC_FLIP_SHARE = 1e-4, 1e-6, 1e-3
 # codes-vs-dequant prefill logits at full width, relative to their absmax:
 # both run bf16 activations between layers, and bf16 rounding flips from
 # the two f32 summation orders compound over 28 layers.
 LOGITS_BOUND = 5e-2
+# int8-vs-f32 codes logits, relative to their absmax: per-row s8
+# quantization of every linear's input (a step of max|x| / 127, an error
+# of ~1-2% of a row's RMS for activations whose max is 4-8 times their
+# RMS) compounds through 28 layers of 7 linears; a broken body gives
+# differences of the order of the logits themselves.
+INT8_LOGITS_BOUND = 0.25
 
 # qwen3-1.7b fused serve leaves: (name, K, N, fused rank)
 LEAVES = [("qkv", 2048, 4096, 24), ("o", 2048, 2048, 8),
           ("gate_up", 2048, 12288, 16), ("down", 6144, 2048, 8)]
+# its unfused leaves, what codes_adc runs: (name, K, N)
+ADC_LEAVES = [("q", 2048, 2048), ("k", 2048, 1024), ("v", 2048, 1024),
+              ("o", 2048, 2048), ("gate", 2048, 6144), ("up", 2048, 6144),
+              ("down", 6144, 2048)]
 # ragged M, K and N; M = 5, 9 and 17 fill part of the 8-, 16- and 32-row
 # buckets with N a multiple of the vector width (vector code loads)
 RAGGED = [(7, 1000, 999, 3), (65, 130, 77, 12), (1, 33, 4097, 1), (130, 257, 31, 5),
           (5, 300, 200, 4), (9, 96, 4096, 2), (17, 1000, 1024, 3)]
+# ragged ADC shapes: K not a multiple of 256, M > 128 (two row blocks, one
+# partial), N not a multiple of the 128-column tile or of 4
+ADC_RAGGED = [(5, 300, 77), (130, 300, 65), (200, 1000, 999), (1, 33, 4097), (17, 257, 1024)]
 # every GEMV row bucket: decode ticks (1-4 slots, up to 64) and the
 # engine's admission chunks, padded to 8, 16 or 32 rows
 DECODE_M = (1, 2, 4, 8, 16, 32, 64)
 PREFILL_M = 256
+ADC_M = (1, 4, 32, 256)
 SLOTS = 4                   # engine slots: the decode batch of phase 5
 # timed row counts: a single stream, the phase-5 decode tick, a full
 # 32-token admission chunk, and a fused prefill
 TIMED_M = (1, SLOTS, 32, PREFILL_M)
+TIMED_M_INT8 = (SLOTS, 32, PREFILL_M)
+TIMED_M_ADC = (SLOTS, PREFILL_M)
 
 
 def log(*args):
@@ -93,14 +135,24 @@ def phase_card():
 
 
 def phase_build():
+    """Build every CUDA source at once (one nvcc each, in threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import crossbar_mvm as C
     from repro_torch.kernels import dora_linear as K
 
-    K.build()
-    info = K.build_info
-    log(f"[build] {os.path.relpath(info['path'], HERE)} compiled={info['compiled']} "
-        f"in {info['seconds']:.2f} s")
-    for line in str(info["log"]).strip().splitlines():
-        log(f"[build] {line}")
+    libs = (K.LIB, C.LIB)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for future in [pool.submit(lib.load) for lib in libs]:
+            future.result()
+    log(f"[build] {len(libs)} sources in {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        info = lib.info
+        log(f"[build] {os.path.relpath(info['path'], HERE)} compiled={info['compiled']} "
+            f"in {info['seconds']:.2f} s")
+        for line in str(info["log"]).strip().splitlines():
+            log(f"[build] {line}")
 
 
 def operands(m, k, n, r, device, seed=0):
@@ -117,43 +169,137 @@ def operands(m, k, n, r, device, seed=0):
     return x, xw.g_pos, xw.g_neg, xw.scale, a, b, gamma
 
 
-def phase_kernels(device):
-    """Each launcher vs the plain version; returns max |err| per launcher."""
-    from repro_torch.kernels import autotune
-    from repro_torch.kernels import dora_linear as K
-    from repro_torch.kernels.ref import dora_linear_ref
+def exact_operands(m, k, n, device, seed, every=(1 << 30, 1 << 30)):
+    """The exactness cases: integer-valued x in [-127, 127] with 127 in
+    every (``every[0]``-row, ``every[1]``-column) block, random codes,
+    scale = gamma = 1, A = B = 0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=device).to(torch.float32)
+    for r0 in range(0, m, every[0]):
+        for c0 in range(0, k, every[1]):
+            x[r0, c0] = 127.0
+    gp, gn = (torch.randint(0, 256, (k, n), generator=g, device=device, dtype=torch.uint8)
+              for _ in range(2))
+    one = torch.ones((1, n), device=device)
+    return x, gp, gn, one, torch.zeros((k, 1), device=device), torch.zeros((1, n), device=device), one
 
-    worst = {"dora_linear_gemv": 0.0, "dora_linear": 0.0}
+
+def _fail(what, got):
+    raise AssertionError(f"{what} disagrees with the plain version: {got}")
+
+
+def phase_kernels(device):
+    """Each kernel vs its plain version; returns max |err| per entry of the
+    kernel table."""
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import crossbar_mvm as C
+    from repro_torch.kernels import dora_linear as K
+
+    worst = {name: 0.0 for name in K.launch_counts()}
+    worst["crossbar_mvm"] = 0.0
     cases = [(m, k, n, r, name) for name, k, n, r in LEAVES for m in DECODE_M]
     cases += [(PREFILL_M, k, n, r, name) for name, k, n, r in LEAVES]
     cases += [(m, k, n, r, "ragged") for m, k, n, r in RAGGED]
     for m, k, n, r, name in cases:
         ops = operands(m, k, n, r, device, seed=m + n)
-        want = dora_linear_ref(*ops)
+        want = {"f32": ref.dora_linear_ref(*ops), "int8": ref.dora_linear_int8_ref(*ops)}
         launchers = [("dora_linear", K.dora_linear)]
         if autotune.use_gemv(m):
             launchers.insert(0, ("dora_linear_gemv", K.dora_linear_gemv))
         for kind, fn in launchers:
-            got = fn(*ops)
+            for accum in autotune.ACCUMS:
+                got = fn(*ops, accum=accum)
+                torch.cuda.synchronize()
+                w = want[accum]
+                err = float((got - w).abs().max())
+                if accum == "f32":
+                    ok = bool(torch.allclose(got, w, rtol=TOL, atol=TOL))
+                    note = ""
+                else:
+                    rel = err / float(w.abs().max())
+                    ok = rel <= INT8_TOL
+                    note = f" ({rel:.2e} of absmax)"
+                key = K.counter(kind, accum)
+                log(f"[kernels] {key:22s} {name:8s} M={m:4d} K={k:5d} N={n:5d} r={r:2d} "
+                    f"max|err|={err:.3e}{note} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    _fail(f"{key} at {(m, k, n, r)}", f"max|err| {err}")
+                worst[key] = max(worst[key], err)
+
+    # int8 exactness: xs = 1 and xq = x, so y = f32(int32 acc) bitwise
+    for m, k, n in ((4, 512, 256), (64, 512, 300), (100, 300, 77), (256, 512, 2048)):
+        ops = exact_operands(m, k, n, device, seed=m)
+        want = ref.dora_linear_int8_ref(*ops)
+        launchers = [("dora_linear", K.dora_linear)]
+        if autotune.use_gemv(m):
+            launchers.insert(0, ("dora_linear_gemv", K.dora_linear_gemv))
+        for kind, fn in launchers:
+            got = fn(*ops, accum="int8")
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
-            log(f"[kernels] {kind:17s} {name:8s} M={m:4d} K={k:5d} N={n:5d} r={r:2d} "
-                f"max|err|={err:.3e} {'ok' if ok else 'FAIL'}")
+            ok = torch.equal(got, want)
+            log(f"[kernels] {K.counter(kind, 'int8'):22s} exact    M={m:4d} K={k:5d} N={n:5d} "
+                f"bitwise {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"{kind} disagrees with the plain version at "
-                                     f"{(m, k, n, r)}: max|err| {err}")
-            worst[kind] = max(worst[kind], err)
+                _fail(f"int8 exactness case {kind} at {(m, k, n)}",
+                      f"max|err| {float((got - want).abs().max())}")
+
+    adc_cases = [(m, k, n, name) for name, k, n in ADC_LEAVES for m in ADC_M]
+    adc_cases += [(m, k, n, "ragged") for m, k, n in ADC_RAGGED]
+    for m, k, n, name in adc_cases:
+        x, gp, gn, scale, *_ = operands(m, k, n, 1, device, seed=m + k + n)
+        want = ref.crossbar_mvm_ref(x, gp, gn, scale)
+        got = C.crossbar_mvm(x, gp, gn, scale)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        bad, flips = ref.adc_disagreement(got, want, x, scale, rtol=ADC_RTOL, atol=ADC_ATOL)
+        ok = bad == 0 and flips <= ADC_FLIP_SHARE * got.numel()
+        log(f"[kernels] crossbar_mvm           {name:8s} M={m:4d} K={k:5d} N={n:5d} "
+            f"max|err|={err:.3e} one-step flips {flips}/{got.numel()} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"crossbar_mvm at {(m, k, n)}", f"{bad} outputs off, {flips} flips")
+        worst["crossbar_mvm"] = max(worst["crossbar_mvm"], err)
+
+    # ADC exactness: 127 in every (128-row, 256-row) block, so step = 4080
+    # and every current is an exact integer below 2^24
+    for m, k, n in ((4, 2048, 512), (130, 300, 65), (256, 6144, 300)):
+        x, gp, gn, one, *_ = exact_operands(
+            m, k, n, device, seed=k, every=(autotune.ADC_BLOCK_ROWS, autotune.ADC_ARRAY_ROWS))
+        assert torch.all(ref.adc_steps(x) == 4080.0)
+        want = ref.crossbar_mvm_ref(x, gp, gn, one)
+        got = C.crossbar_mvm(x, gp, gn, one)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        log(f"[kernels] crossbar_mvm           exact    M={m:4d} K={k:5d} N={n:5d} "
+            f"bitwise {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"ADC exactness case at {(m, k, n)}",
+                  f"max|err| {float((got - want).abs().max())}")
     return worst
 
 
-def bound(m, k, n, r, x_bytes=2):
-    """(bound_ms, bound_by): each input read once, each output written
-    once, against the operations at the bf16 tensor-core rate."""
-    nbytes = 2 * k * n + m * k * x_bytes + 4 * (k * r + r * n + 2 * n) + 4 * m * n
-    flops = 2 * m * k * n + 2 * m * k * r + 2 * m * r * n
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+def bound(nbytes, ops, rate):
+    """(bound_ms, bound_by): ``nbytes`` over the HBM rate against ``ops``
+    at ``rate``, whichever takes longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def linear_bound(m, k, n, r, rate):
+    """The fused linear: bf16 x, both code arrays, the f32 side operands
+    and the f32 output, each moved once."""
+    nbytes = 2 * k * n + 2 * m * k + 4 * (k * r + r * n + 2 * n) + 4 * m * n
+    return bound(nbytes, 2 * m * k * n + 2 * m * k * r + 2 * m * r * n, rate)
+
+
+def adc_bound(m, k, n):
+    """The ADC MVM: bf16 x, both code arrays, scale, the f32 output."""
+    return bound(2 * k * n + 2 * m * k + 4 * n + 4 * m * n, 2 * m * k * n, BF16_FLOP_PER_S)
+
+
+def int_mm_takes(m, k, n):
+    """Whether torch._int_mm (cuBLASLt) accepts an (m, k) x (k, n) product."""
+    return m > 16 and k % 8 == 0 and n % 8 == 0
 
 
 L2_BYTES = 50 * 2 ** 20
@@ -190,46 +336,159 @@ def time_ms(fns, reps=5):
     return ms
 
 
+def _timed_row(rows, kernel, leaf, shape, ops, fn, plain, library, bounds):
+    """Time ``fn`` over every operand copy, ``plain`` over two and the
+    ``library`` closures (or None); log and keep the row."""
+    row = dict(
+        kernel=kernel, leaf=leaf, m=shape[0], k=shape[1], n=shape[2], copies=len(ops),
+        ms=time_ms([lambda o=o: fn(*o) for o in ops]),
+        plain_ms=time_ms([lambda o=o: plain(*o) for o in ops[:2]], reps=2),
+        library_ms=None if library is None else time_ms(library),
+    )
+    row["bound_ms"], row["bound_by"] = bounds
+    rows.append(row)
+    lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+    log(f"[timing] {kernel:22s} {leaf:8s} M={shape[0]:4d} K={shape[1]:5d} N={shape[2]:5d} "
+        f"kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | library {lib} | "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | "
+        f"{row['bound_ms'] / row['ms']:.1%} of bound")
+
+
+def _copies(per_copy):
+    """Operand copies whose total is more than twice the L2."""
+    return max(2, -(-2 * L2_BYTES // per_copy))
+
+
 def phase_timing(device):
+    from repro_torch.kernels import crossbar_mvm as C
     from repro_torch.kernels import dora_linear as K
-    from repro_torch.kernels.ref import dora_linear_ref
+    from repro_torch.kernels import ref
 
     rows = []
     for name, k, n, r in LEAVES:
-        for m in TIMED_M:
-            per_copy = 2 * k * n + 2 * m * k + 4 * m * n
-            copies = max(2, -(-2 * L2_BYTES // per_copy))
-            ops = [operands(m, k, n, r, device, seed=i) for i in range(copies)]
-            w16 = [((o[1].float() - o[2].float()) * o[3]).to(torch.bfloat16) for o in ops]
+        for m in sorted(set(TIMED_M) | set(TIMED_M_INT8)):
+            ops = [operands(m, k, n, r, device, seed=i)
+                   for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
             kind = "dora_linear_gemv" if m <= 64 else "dora_linear"
             fn = getattr(K, kind)
-            row = dict(
-                kernel=kind, leaf=name, m=m, k=k, n=n, r=r, copies=copies,
-                ms=time_ms([lambda o=o: fn(*o) for o in ops]),
-                plain_ms=time_ms([lambda o=o: dora_linear_ref(*o) for o in ops[:2]], reps=2),
-                library_ms=time_ms([lambda o=o, w=w: torch.matmul(o[0], w)
-                                    for o, w in zip(ops, w16)]),
-            )
-            row["bound_ms"], row["bound_by"] = bound(m, k, n, r)
-            rows.append(row)
-            log(f"[timing] {kind:17s} {name:8s} M={m:4d} K={k:5d} N={n:5d} "
-                f"kernel {row['ms']:.4f} ms | plain {row['plain_ms']:.4f} ms | "
-                f"bf16 matmul {row['library_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}) | {row['bound_ms'] / row['ms']:.1%} of bound")
-            del ops, w16
+            if m in TIMED_M:
+                w16 = [((o[1].float() - o[2].float()) * o[3]).to(torch.bfloat16) for o in ops]
+                _timed_row(rows, kind, name, (m, k, n), ops, fn, ref.dora_linear_ref,
+                           [lambda o=o, w=w: torch.matmul(o[0], w) for o, w in zip(ops, w16)],
+                           linear_bound(m, k, n, r, BF16_FLOP_PER_S))
+                del w16
+            if m in TIMED_M_INT8:
+                library = None
+                if int_mm_takes(m, k, n):
+                    s8 = [(ref.quantize_rows(o[0])[0], ref.recode_s8(o[1]), ref.recode_s8(o[2]))
+                          for o in ops]
+                    library = [lambda q=q: (torch._int_mm(q[0], q[1]), torch._int_mm(q[0], q[2]))
+                               for q in s8]
+                _timed_row(rows, K.counter(kind, "int8"), name, (m, k, n), ops,
+                           lambda *o, fn=fn: fn(*o, accum="int8"), ref.dora_linear_int8_ref,
+                           library, linear_bound(m, k, n, r, INT8_OP_PER_S))
+                library = None
+            del ops
+    for name, k, n in ADC_LEAVES:
+        for m in TIMED_M_ADC:
+            ops = [operands(m, k, n, 1, device, seed=i)[:4]
+                   for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
+            _timed_row(rows, "crossbar_mvm", name, (m, k, n), ops, C.crossbar_mvm,
+                       ref.crossbar_mvm_ref, None, adc_bound(m, k, n))
+            del ops
     return rows
+
+
+def reset_counts():
+    from repro_torch.kernels import crossbar_mvm as C
+    from repro_torch.kernels import dora_linear as K
+
+    K.reset_launch_counts()
+    C.reset_launch_counts()
+
+
+def read_counts():
+    from repro_torch.kernels import crossbar_mvm as C
+    from repro_torch.kernels import dora_linear as K
+
+    return {**K.launch_counts(), **C.launch_counts()}
+
+
+def drive(session, prompts, tokens, max_new):
+    """The phase-5 traffic on one session: ragged greedy requests through
+    ServeEngine (submitted one per tick), then one fused prefill. The
+    launch counters are reset just before and read after each part."""
+    from repro_torch.deploy import ServeEngine
+
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=128)
+    reqs = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for p in prompts:
+        reqs.append(engine.submit(p.numpy(), max_new=max_new))
+        engine.step()
+    engine.run()
+    torch.cuda.synchronize()
+    t_engine = time.perf_counter() - t0
+    after_engine = read_counts()
+    logits, _ = session.prefill(tokens, 48)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    vocab = session.cfg.vocab
+    for r in reqs:
+        assert r.done and len(r.tokens) == max_new, r
+        assert all(0 <= t < vocab for t in r.tokens), r.tokens
+    assert torch.isfinite(logits.float()).all()
+    stats = engine.stats()
+    assert stats["generated_tokens"] == stats["first_tokens"] + stats["decode_tokens"]
+    ttft = [r.ttft_seconds for r in reqs]
+    result = {
+        "engine_seconds": t_engine, "ticks": engine.tick,
+        "decode_steps": stats["decode_steps"], "prefill_chunks": stats["prefill_chunks"],
+        "decode_tok_per_s": stats["decode_tok_per_s"],
+        "decode_tokens": stats["decode_tokens"], "decode_seconds": stats["decode_seconds"],
+        "tick_ms": 1e3 * stats["decode_seconds"] / stats["decode_steps"],
+        "ttft_s": ttft, "launches_engine": after_engine, "launches": counts,
+        "streams": [list(r.tokens) for r in reqs],
+    }
+    log(f"[serve] {session.describe()} {session.options}: decode {stats['decode_tokens']} tok in "
+        f"{stats['decode_seconds']:.3f} s = {stats['decode_tok_per_s']:.1f} tok/s ({SLOTS} slots, "
+        f"{result['tick_ms']:.2f} ms per tick, {stats['decode_steps']} ticks, "
+        f"{stats['prefill_chunks']} admission chunks) | TTFT min {min(ttft):.3f} s "
+        f"max {max(ttft):.3f} s")
+    log(f"[serve] launches {counts}")
+    return result, logits
+
+
+def expect_counts(counts, want):
+    """Every launch counter equals ``want`` (0 where not named)."""
+    full = {name: want.get(name, 0) for name in counts}
+    assert counts == full, (counts, full)
+
+
+def compare_logits(label, a, b, bound=None):
+    """max |a - b| relative to b's absmax and top-1 agreement; fails when
+    a ``bound`` is given and exceeded."""
+    a, b = a.float(), b.float()
+    assert torch.isfinite(a).all() and torch.isfinite(b).all()
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    log(f"[serve] {label}: max|diff| {err:.4f} of absmax {scale:.4f} ({err / scale:.2e}"
+        f"{'' if bound is None else f'; bound {bound:g}'}), top-1 agree {top1:.3f}")
+    if bound is not None:
+        assert err <= bound * scale, (label, err, scale)
+    return {"max_abs_diff": err, "absmax": scale, "rel": err / scale, "top1_agree": top1}
 
 
 def phase_serving(device, seed):
     from repro_torch import substrate
     from repro_torch.configs import get_arch
-    from repro_torch.deploy import Deployment, ServeEngine
-    from repro_torch.kernels import dora_linear as K
+    from repro_torch.deploy import Deployment
     from repro_torch.models import transformer as T
 
     cfg = get_arch("qwen3-1.7b").full
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
     t0 = time.perf_counter()
     dep = Deployment.program(cfg, seed, backend="codes", device=device)
     dep.advance(24)
@@ -242,47 +501,25 @@ def phase_serving(device, seed):
     g = torch.Generator().manual_seed(seed)
     prompt_lens, max_new = (5, 40, 17, 9), 16
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in prompt_lens]
-    engine = ServeEngine(session, max_slots=SLOTS, max_len=128)
-    reqs = []
-    t0 = time.perf_counter()
-    for p in prompts:
-        reqs.append(engine.submit(p.numpy(), max_new=max_new))
-        engine.step()
-    engine.run()
-    torch.cuda.synchronize()
-    t_engine = time.perf_counter() - t0
-    ticks = engine.tick
-    after_engine = K.launch_counts()
     # fused prefill: B*S = 3*32 = 96 > 64 rows -> the tiled launcher
     tokens = torch.randint(0, cfg.vocab, (3, 32), generator=g).to(device)
-    logits, _ = session.prefill(tokens, 48)
-    torch.cuda.synchronize()
-    counts = K.launch_counts()
-
-    for r in reqs:
-        assert r.done and len(r.tokens) == max_new, r
-        assert all(0 <= t < cfg.vocab for t in r.tokens), r.tokens
-    assert torch.isfinite(logits.float()).all()
-    stats = engine.stats()
-    assert stats["generated_tokens"] == stats["first_tokens"] + stats["decode_tokens"]
     n_leaves = 4 * cfg.n_layers  # fused qkv, o, gate_up, down per layer
-    # every admission chunk (<= 32 rows) and every decode tick (4 rows)
-    # runs each fused leaf once through the GEMV launcher
-    want_gemv = n_leaves * (stats["prefill_chunks"] + stats["decode_steps"])
-    assert after_engine["dora_linear_gemv"] == want_gemv, (after_engine, want_gemv)
-    assert after_engine["dora_linear"] == 0, after_engine
-    assert counts["dora_linear"] == n_leaves, counts
-    assert counts["dora_linear_gemv"] > 0 and counts["dora_linear"] > 0
+    n_adc = 7 * cfg.n_layers     # q, k, v, o, gate, up, down per layer
+
+    # f32 codes: every admission chunk (<= 32 rows) and every decode tick
+    # (4 rows) runs each fused leaf once through the GEMV launcher
+    result, logits = drive(session, prompts, tokens, max_new)
+    steps = result["prefill_chunks"] + result["decode_steps"]
+    expect_counts(result["launches_engine"], {"dora_linear_gemv": n_leaves * steps})
+    expect_counts(result["launches"], {"dora_linear_gemv": n_leaves * steps,
+                                       "dora_linear": n_leaves})
+    peak_f32 = torch.cuda.max_memory_allocated()
 
     with substrate.use_backend("dequant"), torch.no_grad():
         ref_logits, _ = T.prefill(session.params, tokens, cfg, 48)
-    a, b = logits.float(), ref_logits.float()
-    err = float((a - b).abs().max())
-    scale = float(b.abs().max())
-    top1 = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    log(f"[serve] codes vs dequant prefill logits: max|diff| {err:.4f} of absmax "
-        f"{scale:.4f} ({err / scale:.2e}; bound {LOGITS_BOUND:.0e}), top-1 agree {top1:.3f}")
-    assert err <= LOGITS_BOUND * scale, (err, scale)
+    result["codes_vs_dequant"] = compare_logits(
+        "codes vs dequant prefill logits", logits, ref_logits, LOGITS_BOUND)
+    del ref_logits
 
     # one admission chunk per GEMV row bucket the engine pads to (5, 9 and
     # 17 valid tokens -> 8, 16 and 32 rows), codes vs dequant
@@ -298,37 +535,48 @@ def phase_serving(device, seed):
                 out[backend], _ = T.prefill_chunk(
                     session.params, toks, cache, torch.tensor([0], device=device),
                     torch.tensor([n], device=device), cfg, 48)
-        a, b = out["codes"].float(), out["dequant"].float()
-        assert torch.isfinite(a).all()
-        c_err, c_scale = float((a - b).abs().max()), float(b.abs().max())
-        chunk_errs[width] = c_err / c_scale
-        log(f"[serve] codes vs dequant admission chunk of {n} tokens ({width} rows): "
-            f"max|diff| {c_err:.4f} of absmax {c_scale:.4f} ({c_err / c_scale:.2e}; "
-            f"bound {LOGITS_BOUND:.0e}), same top-1 {bool(a.argmax() == b.argmax())}")
-        assert c_err <= LOGITS_BOUND * c_scale, (n, c_err, c_scale)
+        chunk_errs[width] = compare_logits(
+            f"codes vs dequant admission chunk of {n} tokens ({width} rows)",
+            out["codes"], out["dequant"], LOGITS_BOUND)["rel"]
+    result.update(
+        setup_seconds=t_setup, peak_mem_bytes=peak_f32, rram_bytes=dep.rram_bytes(),
+        sram_bytes=dep.sram_bytes(), calibrated_fraction=dep.calibrated_fraction(),
+        gemv_launches_per_tick=n_leaves, chunk_logits_rel_diff=chunk_errs,
+    )
+    log(f"[serve] f32 codes: peak mem {peak_f32 / 2**30:.2f} GiB | rram_bytes "
+        f"{result['rram_bytes']} sram_bytes {result['sram_bytes']} calibrated "
+        f"{result['calibrated_fraction']:.2%} ({n_leaves} GEMV launches per decode tick)")
 
-    ttft = [r.ttft_seconds for r in reqs]
-    result = {
-        "engine_seconds": t_engine, "ticks": ticks, "setup_seconds": t_setup,
-        "decode_steps": stats["decode_steps"], "prefill_chunks": stats["prefill_chunks"],
-        "decode_tok_per_s": stats["decode_tok_per_s"],
-        "decode_tokens": stats["decode_tokens"], "decode_seconds": stats["decode_seconds"],
-        "tick_ms": 1e3 * stats["decode_seconds"] / stats["decode_steps"],
-        "ttft_s": ttft, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "rram_bytes": dep.rram_bytes(), "sram_bytes": dep.sram_bytes(),
-        "calibrated_fraction": dep.calibrated_fraction(),
-        "launches": counts, "gemv_launches_per_tick": n_leaves,
-        "logits_max_abs_diff": err, "logits_absmax": scale, "top1_agree": top1,
-        "chunk_logits_rel_diff": chunk_errs,
-    }
-    log(f"[serve] decode {stats['decode_tokens']} tok in {stats['decode_seconds']:.3f} s "
-        f"= {stats['decode_tok_per_s']:.1f} tok/s ({SLOTS} slots, "
-        f"{result['tick_ms']:.2f} ms per tick) | TTFT "
-        f"min {min(ttft):.3f} s max {max(ttft):.3f} s | peak mem "
-        f"{result['peak_mem_bytes'] / 2**30:.2f} GiB | rram_bytes {result['rram_bytes']} "
-        f"sram_bytes {result['sram_bytes']} calibrated {result['calibrated_fraction']:.2%}")
-    log(f"[serve] launches {counts} ({n_leaves} GEMV launches per decode tick)")
-    return counts, result, session
+    # int8 codes: the same codes and traffic through the int8 body
+    session8 = dep.serve(accum="int8")
+    int8, logits8 = drive(session8, prompts, tokens, max_new)
+    steps = int8["prefill_chunks"] + int8["decode_steps"]
+    expect_counts(int8["launches_engine"], {"dora_linear_gemv/int8": n_leaves * steps})
+    expect_counts(int8["launches"], {"dora_linear_gemv/int8": n_leaves * steps,
+                                     "dora_linear/int8": n_leaves})
+    int8["int8_vs_f32"] = compare_logits(
+        "int8 vs f32 codes prefill logits", logits8, logits, INT8_LOGITS_BOUND)
+    del logits8
+
+    # codes_adc: a second deployment over the same teacher, codes and
+    # adapters; every unfused leaf of every forward runs the ADC kernel
+    dep_adc = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
+                         dep.teacher_seed, dep.program_seed, dep.drift_hours)
+    session_adc = dep_adc.serve()
+    adc, logits_adc = drive(session_adc, prompts, tokens, max_new)
+    steps = adc["prefill_chunks"] + adc["decode_steps"]
+    expect_counts(adc["launches_engine"], {"crossbar_mvm": n_adc * steps})
+    expect_counts(adc["launches"], {"crossbar_mvm": n_adc * (steps + 1)})
+    adc["adc_vs_f32"] = compare_logits("codes_adc vs f32 codes prefill logits",
+                                       logits_adc, logits)
+    same = sum(a == b for ra, rb in zip(adc["streams"], result["streams"])
+               for a, b in zip(ra, rb))
+    adc["greedy_tokens_equal_f32"] = same / sum(len(r) for r in result["streams"])
+    log(f"[serve] codes_adc greedy tokens equal to f32 codes: {adc['greedy_tokens_equal_f32']:.3f}")
+    result["int8"], result["codes_adc"] = int8, adc
+    result["peak_mem_bytes_all"] = torch.cuda.max_memory_allocated()
+    del logits_adc
+    return result, {"f32": session, "int8": session8, "codes_adc": session_adc}
 
 
 def phase_trace(session, ticks=4):
@@ -392,26 +640,41 @@ def main():
     phase_build()
     worst = phase_kernels(device)
     rows = phase_timing(device)
-    counts, serving, session = phase_serving(device, args.seed)
-    serving["trace"] = phase_trace(session)
-    del session
+    serving, sessions = phase_serving(device, args.seed)
+    for body, run in (("f32", serving), ("int8", serving["int8"]),
+                      ("codes_adc", serving["codes_adc"])):
+        log(f"[trace] {body}")
+        run["trace"] = phase_trace(sessions.pop(body))
 
+    # one transformer layer: the four fused leaves at the decode tick (GEMV)
+    # or the fused prefill (tiled), the seven unfused leaves at the decode
+    # tick for the ADC, summed; launches from each body's serving session
+    session_of = {"dora_linear_gemv": serving, "dora_linear": serving,
+                  "dora_linear_gemv/int8": serving["int8"],
+                  "dora_linear/int8": serving["int8"], "crossbar_mvm": serving["codes_adc"]}
+    launches = {name: run["launches"][name] for name, run in session_of.items()}
+    table = (
+        ("dora_linear_gemv", "dora_linear.cu", "dora_linear.py:194", SLOTS),
+        ("dora_linear", "dora_linear.cu", "dora_linear.py:129", PREFILL_M),
+        ("dora_linear_gemv/int8", "dora_linear.cu", "dora_linear.py:77", SLOTS),
+        ("dora_linear/int8", "dora_linear.cu", "dora_linear.py:77", PREFILL_M),
+        ("crossbar_mvm", "crossbar_mvm.cu", "crossbar_mvm.py:60", SLOTS),
+    )
     kernels = []
-    for kind, line, m in (("dora_linear_gemv", 194, SLOTS), ("dora_linear", 129, PREFILL_M)):
-        mine = [r for r in rows if r["kernel"] == kind and r["m"] == m]
+    for name, source, replaces, m in table:
+        mine = [r for r in rows if r["kernel"] == name and r["m"] == m]
+        library = [r["library_ms"] for r in mine]
         kernels.append({
-            "name": kind, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/dora_linear.cu",
-            "replaces": f"src/repro/kernels/dora_linear.py:{line}",
-            "launches": counts[kind], "max_abs_err": worst[kind],
-            # one transformer layer at the decode tick (gemv) or the fused
-            # prefill (tiled): the four fused leaves, summed
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches[name], "max_abs_err": worst[name],
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": sum(r["bound_ms"] for r in mine),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in mine)
             else "operations",
-            "library_ms": sum(r["library_ms"] for r in mine),
+            "library_ms": None if None in library else sum(library),
         })
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -10,8 +10,9 @@ calibration, snapshot and restore wait).
   continues from those codes.
 * ``dep.advance(hours)`` — the drift clock; event ``i`` of leaf ``path``
   draws from its own generator, so any history replays from the seed.
-* ``dep.serve()`` — merged DoRA magnitudes and, under ``codes``, the
-  prepared (fused) serving tree.
+* ``dep.serve(accum=...)`` — merged DoRA magnitudes and, under
+  ``codes``, the prepared (fused) serving tree run by the f32 or the
+  int8 body; under ``codes_adc`` the raw codes through the ADC kernel.
 
 The port runs on the card: ``device`` defaults to ``"cuda"`` and raises
 when no card is present; the CPU runs only when asked for.
@@ -70,7 +71,8 @@ def _dequant_like(codes: Pytree, like: Pytree) -> Pytree:
 class Deployment:
     """One RRAM deployment over its lifetime. ``self.codes`` (uint8) is
     the ground truth; ``self.base`` is what forwards consume — the codes
-    under ``codes``, their float read-back under ``dequant``."""
+    under ``codes`` and ``codes_adc``, their float read-back under
+    ``dequant``."""
 
     def __init__(self, cfg, backend: str, teacher_base: Pytree, codes: Pytree,
                  adapters: Pytree, teacher_seed: int, program_seed: int,
@@ -148,16 +150,23 @@ class Deployment:
         self._refresh_base()
         return self
 
-    def serve(self) -> serving.ServeSession:
+    def serve(self, *, accum: str = "f32") -> serving.ServeSession:
         """Merge the DoRA magnitudes (Algorithm 2 line 12) and bind a
-        session; under ``codes`` the params are the prepared tree (q/k/v
-        and gate/up fused into single launches)."""
+        session. Under ``codes`` the params are the prepared tree (q/k/v
+        and gate/up fused into single launches) and ``accum`` ("f32" or
+        "int8") picks the kernel body; other backends ignore it. Under
+        ``codes_adc`` the params hold the raw per-leaf codes."""
+        if accum not in ("f32", "int8"):
+            raise ValueError(f"accum must be 'f32' or 'int8', got {accum!r}")
+        options = {}
         with torch.no_grad():
             merged = merge_adapters_for_serve(self.base, self.adapters)
             base = self.base
             if self.backend == "codes":
                 base = substrate.prepare_base_for_serve(self.base, merged, self.cfg)
-        return serving.ServeSession(self, {"base": base, "adapters": merged})
+                options["accum"] = accum
+        return serving.ServeSession(self, {"base": base, "adapters": merged},
+                                    options=options)
 
     def rram_bytes(self) -> int:
         return rram_bytes(self.base)

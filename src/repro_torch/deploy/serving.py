@@ -17,13 +17,18 @@ import torch
 
 from repro_torch import substrate
 
-BACKENDS = ("dequant", "codes")
+BACKENDS = ("dequant", "codes", "codes_adc")
 
 
-def backend_scope(backend: str):
-    """Context manager binding the substrate backend (every backend binds
-    explicitly, ``dequant`` included)."""
-    return substrate.use_backend(backend)
+def backend_scope(backend: str, cfg=None, **options):
+    """Context manager binding the substrate backend and its options
+    (every backend binds explicitly, ``dequant`` included). With the
+    model config, ``codes_adc`` takes its ``code_max``/``adc_bits`` from
+    ``cfg.rram``; an explicit option that conflicts with it raises."""
+    if backend == "codes_adc" and cfg is not None:
+        options["code_max"], options["adc_bits"] = substrate.resolve_adc_limits(
+            cfg.rram, options.get("code_max"), options.get("adc_bits"))
+    return substrate.use_backend(backend, **options)
 
 
 @torch.no_grad()
@@ -93,11 +98,13 @@ def _fold(generator: torch.Generator, i: int) -> torch.Generator:
 class ServeSession:
     """A deployment bound for serving: adapters merged, backend scope
     applied around every call. ``params`` is the ``{"base", "adapters"}``
-    tree the transformer consumes."""
+    tree the transformer consumes; ``options`` are the backend options
+    every call runs under (``accum`` for ``codes``)."""
 
-    def __init__(self, deployment, params):
+    def __init__(self, deployment, params, options: Optional[dict] = None):
         self.deployment = deployment
         self.params = params
+        self.options = dict(options or {})
         self._auto_key_calls = 0
 
     @property
@@ -113,7 +120,9 @@ class ServeSession:
         return self.deployment.device
 
     def scope(self):
-        return backend_scope(self.backend)
+        """The backend scope of every call: the deployment's backend, its
+        config's ADC limits and the session's options."""
+        return backend_scope(self.backend, self.cfg, **self.options)
 
     def _sampling_key(self, temperature: float, key):
         """A generator derived from the deployment seed when the caller

@@ -4,6 +4,7 @@ card raises).
 
     python -m repro_torch.launch.serve --arch qwen3-1.7b --backend codes \
         --drift-hours 24
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --backend codes_adc
     python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke --device cpu
 """
 from __future__ import annotations

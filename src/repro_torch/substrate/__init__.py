@@ -6,16 +6,19 @@ from repro_torch.substrate.backends import (  # noqa: F401
     Backend,
     DEFAULT_BACKEND,
     active_backend_name,
+    active_options,
     available_backends,
     crossbar_linear,
     get_backend,
     register_backend,
+    resolve_adc_limits,
     use_backend,
 )
 from repro_torch.substrate.exec import (  # noqa: F401
     code_column_norms,
     dora_gamma,
     rimc_linear,
+    rimc_mvm_adc,
 )
 from repro_torch.substrate.prepared import (  # noqa: F401
     PreparedCrossbar,

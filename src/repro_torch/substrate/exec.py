@@ -1,10 +1,11 @@
-"""Execution wrappers around the fused crossbar kernel. Port of
-``repro/substrate/exec.py`` (the ADC path waits with its kernel).
+"""Execution wrappers around the crossbar kernels. Port of
+``repro/substrate/exec.py``.
 
 ``rimc_linear`` takes a ``CrossbarWeight``, its DoRA adapter and the
 merged gamma, and dispatches the GEMV launcher when all M rows fit one
-block, the tiled launcher otherwise. The CUDA kernels mask ragged
-edges, so unlike the reference nothing is padded.
+block, the tiled launcher otherwise, with either body (``accum``).
+``rimc_mvm_adc`` is the ADC-faithful MVM without an adapter. The CUDA
+kernels mask ragged edges, so unlike the reference nothing is padded.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 from repro_torch.core import dora as dora_lib
 from repro_torch.core.rram import CrossbarWeight, dequantize
 from repro_torch.kernels import autotune
+from repro_torch.kernels.crossbar_mvm import crossbar_mvm
 from repro_torch.kernels.dora_linear import dora_linear, dora_linear_gemv
 
 
@@ -31,10 +33,10 @@ def dora_gamma(xw: CrossbarWeight, adapter: dict) -> torch.Tensor:
     return (adapter["dora_m"].to(torch.float32) / norm)[None, :]
 
 
-def launch(xf: torch.Tensor, gp, gn, scale, a, b, gamma) -> torch.Tensor:
+def launch(xf: torch.Tensor, gp, gn, scale, a, b, gamma, *, accum: str = "f32") -> torch.Tensor:
     """The launcher for ``xf``'s row count: GEMV while M fits one block."""
     fn = dora_linear_gemv if autotune.use_gemv(xf.shape[0]) else dora_linear
-    return fn(xf, gp, gn, scale, a, b, gamma)
+    return fn(xf, gp, gn, scale, a, b, gamma, accum=accum)
 
 
 def rimc_linear(
@@ -42,9 +44,11 @@ def rimc_linear(
     xw: CrossbarWeight,
     adapter: dict,
     gamma: Optional[torch.Tensor] = None,
+    *,
+    accum: str = "f32",
 ) -> torch.Tensor:
     """Fused Y = gamma * (X W_r + (XA)B); x (..., K), leading dims
-    flattened to M."""
+    flattened to M. ``accum="int8"`` selects the integer body."""
     lead = x.shape[:-1]
     k = x.shape[-1]
     n = xw.g_pos.shape[-1]
@@ -57,5 +61,20 @@ def rimc_linear(
         adapter["lora_a"].to(torch.float32).contiguous(),
         adapter["lora_b"].to(torch.float32).contiguous(),
         gamma.reshape(1, -1).to(torch.float32).contiguous(),
+        accum=accum,
+    )
+    return y.reshape(*lead, n).to(x.dtype)
+
+
+def rimc_mvm_adc(x: torch.Tensor, xw: CrossbarWeight, *, code_max: int = 255,
+                 adc_bits: int = 8) -> torch.Tensor:
+    """ADC-faithful crossbar MVM (no adapter), rounded to x's dtype as
+    the reference rounds it; x (..., K), leading dims flattened to M."""
+    lead = x.shape[:-1]
+    n = xw.g_pos.shape[-1]
+    y = crossbar_mvm(
+        x.reshape(-1, x.shape[-1]).contiguous(), xw.g_pos.contiguous(),
+        xw.g_neg.contiguous(), xw.scale.reshape(1, -1).to(torch.float32).contiguous(),
+        code_max=code_max, adc_bits=adc_bits,
     )
     return y.reshape(*lead, n).to(x.dtype)

@@ -126,15 +126,18 @@ def prepared_ref_forward(x: torch.Tensor, prep: PreparedCrossbar) -> torch.Tenso
     return (y * prep.gamma).to(x.dtype)
 
 
-def rimc_linear_prepared(x: torch.Tensor, prep: PreparedCrossbar) -> torch.Tensor:
+def rimc_linear_prepared(x: torch.Tensor, prep: PreparedCrossbar, *,
+                         accum: str = "f32") -> torch.Tensor:
     """Hot-path fused linear over a 2-D prepared leaf: flatten x to
     (M, K) and launch; the only per-call tensor work besides the kernel
-    is the cast of the f32 result back to x's dtype."""
+    is the cast of the f32 result back to x's dtype. The int8 body reads
+    the same uint8 codes (the reference bakes s8 recodes into the tree
+    for it; here the kernel recodes in registers)."""
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1]).contiguous()
     y = X.launch(
         xf, prep.g_pos, prep.g_neg, prep.scale, prep.lora_a, prep.lora_b,
-        prep.gamma,
+        prep.gamma, accum=accum,
     )
     return y.reshape(*lead, prep.n).to(x.dtype)
 

@@ -1,8 +1,16 @@
 """The port's CUDA kernels on the card (marker ``gpu``; each test skips
 inside itself when no CUDA device is present). The kernels are held
-against their plain PyTorch version at qwen3-1.7b's full-width fused
-leaves and at ragged shapes, rtol = atol = 1e-4 (exact f32 arithmetic
-in both; only the summation order differs).
+against their plain PyTorch version (``kernels/ref.py``) at qwen3-1.7b's
+full-width leaves and at ragged shapes:
+* the fused linear's f32 body at rtol = atol = 1e-4 (exact f32 arithmetic
+  in both; only the summation order differs);
+* its int8 body within 1e-4 of the output's absmax (the same row
+  quantization and exact int32 sum; only f32 orders differ), bitwise on
+  the exactness case (integer x with 127 in every row, scale = gamma = 1,
+  A = B = 0);
+* the ADC kernel within rtol 1e-4 / atol 1e-6 or one ADC step apart in at
+  most 0.1% of the outputs, bitwise on its exactness case (integer x with
+  127 in every (128-row, 256-row) block, so the step is 4080).
 
 This file imports no jax, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -12,7 +20,9 @@ import torch
 
 from repro_torch.core.rram import program
 from repro_torch.kernels import autotune
+from repro_torch.kernels import crossbar_mvm as C
 from repro_torch.kernels import dora_linear as K
+from repro_torch.kernels import ref
 from repro_torch.kernels.ref import dora_linear_ref
 
 pytestmark = pytest.mark.gpu
@@ -22,6 +32,10 @@ LEAVES = [("qkv", 2048, 4096, 24), ("o", 2048, 2048, 8),
           ("gate_up", 2048, 12288, 16), ("down", 6144, 2048, 8)]
 RAGGED = [(7, 1000, 999, 3), (65, 130, 77, 12), (1, 33, 4097, 1), (130, 257, 31, 5),
           (5, 300, 200, 4), (9, 96, 4096, 2), (17, 1000, 1024, 3)]
+# qwen3-1.7b unfused leaves, what codes_adc runs: (name, K, N)
+ADC_LEAVES = [("q", 2048, 2048), ("k", 2048, 1024), ("o", 2048, 2048),
+              ("gate", 2048, 6144), ("down", 6144, 2048)]
+ADC_RAGGED = [(5, 300, 77), (130, 300, 65), (200, 1000, 999), (17, 257, 1024)]
 
 
 @pytest.fixture
@@ -82,7 +96,8 @@ def test_cuda_tensor_never_reaches_plain_version(cuda, monkeypatch):
     K.dora_linear_gemv(*ops)
     K.dora_linear(*ops)
     torch.cuda.synchronize()
-    assert K.launch_counts() == {"dora_linear_gemv": 1, "dora_linear": 1}
+    assert K.launch_counts() == {"dora_linear_gemv": 1, "dora_linear": 1,
+                                 "dora_linear_gemv/int8": 0, "dora_linear/int8": 0}
 
 
 def test_wrapper_rejects_bad_operands(cuda):
@@ -110,3 +125,122 @@ def test_serving_on_card_runs_both_launchers(cuda):
     assert all(len(r.tokens) == 6 for r in reqs)
     assert torch.isfinite(logits.float()).all()
     assert counts["dora_linear_gemv"] > 0 and counts["dora_linear"] > 0
+
+
+def _check_int8(launcher, ops):
+    y = launcher(*ops, accum="int8")
+    torch.cuda.synchronize()
+    want = ref.dora_linear_int8_ref(*ops)
+    assert float((y - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("leaf", LEAVES, ids=[lf[0] for lf in LEAVES])
+def test_int8_gemv_full_width(cuda, leaf, m):
+    _, k, n, r = leaf
+    _check_int8(K.dora_linear_gemv, operands(m, k, n, r, cuda))
+
+
+@pytest.mark.parametrize("leaf", LEAVES, ids=[lf[0] for lf in LEAVES])
+def test_int8_tiled_full_width(cuda, leaf):
+    _, k, n, r = leaf
+    _check_int8(K.dora_linear, operands(256, k, n, r, cuda))
+
+
+@pytest.mark.parametrize("shape", RAGGED)
+def test_int8_ragged_shapes(cuda, shape):
+    m, k, n, r = shape
+    ops = operands(m, k, n, r, cuda, dtype=torch.float32, seed=m)
+    _check_int8(K.dora_linear, ops)
+    if autotune.use_gemv(m):
+        _check_int8(K.dora_linear_gemv, ops)
+
+
+def _exact_int8(m, k, n, device):
+    g = torch.Generator(device=device).manual_seed(m)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=device).to(torch.float32)
+    x[:, 0] = 127.0
+    gp, gn = (torch.randint(0, 256, (k, n), generator=g, device=device, dtype=torch.uint8)
+              for _ in range(2))
+    one = torch.ones((1, n), device=device)
+    return x, gp, gn, one, torch.zeros((k, 1), device=device), torch.zeros((1, n), device=device), one
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 512, 256), (64, 512, 300), (100, 300, 77), (256, 512, 2048)])
+def test_int8_exactness_case(cuda, m, k, n):
+    ops = _exact_int8(m, k, n, cuda)
+    want = ref.dora_linear_int8_ref(*ops)
+    assert torch.equal(K.dora_linear(*ops, accum="int8"), want)
+    if autotune.use_gemv(m):
+        assert torch.equal(K.dora_linear_gemv(*ops, accum="int8"), want)
+
+
+def _check_adc(x, gp, gn, scale):
+    y = C.crossbar_mvm(x, gp, gn, scale)
+    torch.cuda.synchronize()
+    bad, flips = ref.adc_disagreement(y, ref.crossbar_mvm_ref(x, gp, gn, scale), x, scale)
+    assert bad == 0 and flips <= 1e-3 * y.numel(), (bad, flips)
+
+
+@pytest.mark.parametrize("m", [1, 4, 32, 256])
+@pytest.mark.parametrize("leaf", ADC_LEAVES, ids=[lf[0] for lf in ADC_LEAVES])
+def test_adc_full_width(cuda, leaf, m):
+    _, k, n = leaf
+    _check_adc(*operands(m, k, n, 1, cuda, seed=m + k)[:4])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ADC_RAGGED)
+def test_adc_ragged_shapes(cuda, shape, dtype):
+    m, k, n = shape
+    _check_adc(*operands(m, k, n, 1, cuda, dtype=dtype, seed=m)[:4])
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 512), (130, 300, 65), (256, 6144, 300)])
+def test_adc_exactness_case(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(k)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=cuda).to(torch.float32)
+    x[::128, ::256] = 127.0
+    gp, gn = (torch.randint(0, 256, (k, n), generator=g, device=cuda, dtype=torch.uint8)
+              for _ in range(2))
+    one = torch.ones((1, n), device=cuda)
+    assert torch.all(ref.adc_steps(x) == 4080.0)
+    assert torch.equal(C.crossbar_mvm(x, gp, gn, one), ref.crossbar_mvm_ref(x, gp, gn, one))
+
+
+def test_adc_cuda_tensor_never_reaches_plain_version(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(C, "crossbar_mvm_ref", refuse)
+    monkeypatch.setattr(K, "dora_linear_int8_ref", refuse)
+    x, gp, gn, scale, a, b, gamma = operands(3, 300, 96, 2, cuda)
+    K.reset_launch_counts()
+    C.reset_launch_counts()
+    C.crossbar_mvm(x, gp, gn, scale)
+    K.dora_linear_gemv(x, gp, gn, scale, a, b, gamma, accum="int8")
+    K.dora_linear(x, gp, gn, scale, a, b, gamma, accum="int8")
+    torch.cuda.synchronize()
+    assert C.launch_counts() == {"crossbar_mvm": 1}
+    assert K.launch_counts() == {"dora_linear_gemv": 0, "dora_linear": 0,
+                                 "dora_linear_gemv/int8": 1, "dora_linear/int8": 1}
+
+
+def test_int8_and_adc_serving_on_card(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment, ServeEngine
+
+    cfg = get_arch("qwen3_1_7b").smoke
+    dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24)
+    adc = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
+                     dep.teacher_seed, dep.program_seed, dep.drift_hours)
+    for session, key in ((dep.serve(accum="int8"), "dora_linear_gemv/int8"),
+                         (adc.serve(), "crossbar_mvm")):
+        K.reset_launch_counts()
+        C.reset_launch_counts()
+        engine = ServeEngine(session, max_slots=2, max_len=64)
+        reqs = [engine.submit(torch.arange(n) % cfg.vocab, max_new=6) for n in (3, 40)]
+        engine.run()
+        counts = {**K.launch_counts(), **C.launch_counts()}
+        assert all(len(r.tokens) == 6 for r in reqs)
+        assert counts[key] > 0 and sum(counts.values()) == counts[key], counts

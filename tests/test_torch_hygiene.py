@@ -1,8 +1,9 @@
 """The port stands on its own: no module of ``repro_torch`` (nor
 ``chip_smoke.py``) imports jax or the reference package, every module
 imports with jax made unimportable, and nothing falls back silently —
-the entry points raise without a card, the CUDA wrapper raises without
-``nvcc`` and for any non-CPU device it has no kernel for."""
+the entry points raise without a card, the CUDA wrappers (both bodies of
+the fused linear, and the ADC kernel) raise without ``nvcc`` and for any
+non-CPU device they have no kernel for."""
 import os
 import pathlib
 import re
@@ -14,6 +15,8 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.deploy import Deployment
+from repro_torch.kernels import build as B
+from repro_torch.kernels import crossbar_mvm as C
 from repro_torch.kernels import dora_linear as K
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -80,10 +83,23 @@ def test_serve_cli_without_device_raises_when_no_card(monkeypatch):
 
 
 def test_build_raises_without_nvcc(monkeypatch):
-    monkeypatch.setattr(K, "_lib", None)
-    monkeypatch.setattr(K, "find_nvcc", lambda: None)
+    monkeypatch.setattr(K.LIB, "_lib", None)
+    monkeypatch.setattr(B, "find_nvcc", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         K.build()
+
+
+def test_adc_build_raises_without_nvcc(monkeypatch):
+    monkeypatch.setattr(C.LIB, "_lib", None)
+    monkeypatch.setattr(B, "find_nvcc", lambda: None)
+    with pytest.raises(RuntimeError, match="nvcc not found.*crossbar_mvm.cu"):
+        C.build()
+
+
+def test_sources_are_built_from_the_checkout():
+    assert K.LIB.src == ROOT / "src/repro_torch/kernels/csrc/dora_linear.cu"
+    assert C.LIB.src == ROOT / "src/repro_torch/kernels/csrc/crossbar_mvm.cu"
+    assert K.LIB.src.is_file() and C.LIB.src.is_file()
 
 
 @pytest.mark.parametrize("launcher", [K.dora_linear, K.dora_linear_gemv])
@@ -99,4 +115,32 @@ def test_wrapper_has_no_fallback_for_non_cpu_tensors(launcher):
         launcher(*ops)
     with pytest.raises(ValueError, match="several devices"):
         launcher(torch.zeros((4, 8)), *ops[1:])
-    assert K.launch_counts() == {"dora_linear_gemv": 0, "dora_linear": 0}
+    assert set(K.launch_counts().values()) == {0}
+
+
+def _meta(*shapes):
+    return [torch.empty(s, dtype=d, device="meta") for s, d in shapes]
+
+
+@pytest.mark.parametrize("launcher", [K.dora_linear, K.dora_linear_gemv])
+def test_int8_body_has_no_fallback_for_non_cpu_tensors(launcher):
+    ops = _meta(((4, 8), torch.float32), ((8, 6), torch.uint8), ((8, 6), torch.uint8),
+                ((1, 6), torch.float32), ((8, 2), torch.float32), ((2, 6), torch.float32),
+                ((1, 6), torch.float32))
+    K.reset_launch_counts()
+    with pytest.raises(ValueError, match="no .* kernel for device meta"):
+        launcher(*ops, accum="int8")
+    with pytest.raises(ValueError, match="several devices"):
+        launcher(torch.zeros((4, 8)), *ops[1:], accum="int8")
+    assert set(K.launch_counts().values()) == {0}
+
+
+def test_adc_wrapper_has_no_fallback_for_non_cpu_tensors():
+    ops = _meta(((4, 8), torch.float32), ((8, 6), torch.uint8), ((8, 6), torch.uint8),
+                ((1, 6), torch.float32))
+    C.reset_launch_counts()
+    with pytest.raises(ValueError, match="no crossbar_mvm kernel for device meta"):
+        C.crossbar_mvm(*ops)
+    with pytest.raises(ValueError, match="several devices"):
+        C.crossbar_mvm(torch.zeros((4, 8)), *ops[1:])
+    assert C.launch_counts() == {"crossbar_mvm": 0}

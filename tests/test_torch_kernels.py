@@ -75,7 +75,8 @@ def test_cpu_path_launches_no_kernel():
     tk.reset_launch_counts()
     tk.dora_linear_gemv(torch.from_numpy(x), *map(torch.from_numpy, ops))
     tk.dora_linear(torch.from_numpy(x), *map(torch.from_numpy, ops))
-    assert tk.launch_counts() == {"dora_linear_gemv": 0, "dora_linear": 0}
+    assert tk.launch_counts() == {"dora_linear_gemv": 0, "dora_linear": 0,
+                                  "dora_linear_gemv/int8": 0, "dora_linear/int8": 0}
 
 
 @pytest.mark.parametrize("m,expect", [(1, 1), (3, 4), (33, 64), (64, 64)])

@@ -212,14 +212,23 @@ def test_byte_accounting_matches_reference():
 
 
 def test_backend_registry_and_scope():
-    assert tsub.available_backends() == ("codes", "dequant")
+    assert tsub.available_backends() == ("codes", "codes_adc", "dequant")
     assert tsub.active_backend_name() == tsub.DEFAULT_BACKEND == "codes"
+    assert tsub.active_options() == {}
     with tsub.use_backend("dequant"):
         assert tsub.active_backend_name() == "dequant"
-        with tsub.use_backend("codes"):
+        assert tsub.active_options() == {}
+        with tsub.use_backend("codes", accum="int8"):
             assert tsub.active_backend_name() == "codes"
+            assert tsub.active_options() == {"accum": "int8"}
+            with tsub.use_backend("codes_adc", code_max=255, adc_bits=6):
+                assert tsub.active_backend_name() == "codes_adc"
+                assert tsub.active_options() == {"code_max": 255, "adc_bits": 6}
+            assert tsub.active_options() == {"accum": "int8"}
         assert tsub.active_backend_name() == "dequant"
+        assert tsub.active_options() == {}
     assert tsub.active_backend_name() == "codes"
+    assert tsub.active_options() == {}
     with pytest.raises(KeyError, match="unknown substrate backend"):
-        with tsub.use_backend("codes_adc"):
+        with tsub.use_backend("codes_int4"):
             pass
