@@ -18,11 +18,19 @@ Phases (any failure exits non-zero; no failure is caught):
                   M in {1, 2, 4, 8, 16, 32, 64} (decode ticks and the
                   engine's admission chunks), the tiled launcher at M=256,
                   ragged shapes; the int8 exactness case bitwise;
+                * the tiled launcher's tensor-core body (bf16 x, f32) at
+                  the full-width leaves for M in {65, 96, 128, 200, 256,
+                  512}, the ragged shapes with M > 64 and shapes that hit
+                  every masked edge (K, N ragged, M not a multiple of the
+                  tile), each launched twice and the two results bitwise
+                  equal; its SIMT body (f32 x) once per leaf;
                 * the ADC kernel at the seven unfused leaves for M in {1, 4,
                   32, 256} and ragged shapes: every output within rtol 1e-4
                   / atol 1e-6 or one ADC step apart (at most 0.1% of them);
                   the ADC exactness case bitwise;
-  4. timing   — CUDA events around CUDA-graph replays over operand copies
+  4. timing   — (the tiled f32 body also at M=96, the phase-5 prefill,
+                and its time per kernel from torch.profiler)
+                CUDA events around CUDA-graph replays over operand copies
                 rotated past the L2: the kernel, the plain version, and one
                 PyTorch call for the same work where there is one
                 (``library_ms``; the port never calls it): torch.matmul of
@@ -109,12 +117,21 @@ ADC_RAGGED = [(5, 300, 77), (130, 300, 65), (200, 1000, 999), (1, 33, 4097), (17
 DECODE_M = (1, 2, 4, 8, 16, 32, 64)
 PREFILL_M = 256
 ADC_M = (1, 4, 32, 256)
+# the tensor-core tiled body (bf16 x): row counts around its 128-row tile
+# (65 and 200 leave a partial tile), and shapes on every masked edge: K not
+# a multiple of 8 or of the 32-row stage, N not a multiple of 16 or of the
+# 64-column tile, M not a multiple of the tile
+TILED_M = (65, 96, 128, 200, 256, 512)
+MASKED = [(96, 130, 77, 8), (200, 257, 31, 5), (150, 300, 999, 3), (65, 2048, 999, 8),
+          (100, 257, 4096, 4), (130, 2048, 31, 2)]
 SLOTS = 4                   # engine slots: the decode batch of phase 5
 # timed row counts: a single stream, the phase-5 decode tick, a full
 # 32-token admission chunk, and a fused prefill
 TIMED_M = (1, SLOTS, 32, PREFILL_M)
 TIMED_M_INT8 = (SLOTS, 32, PREFILL_M)
 TIMED_M_ADC = (SLOTS, PREFILL_M)
+PREFILL_ROWS = 96           # phase 5's fused prefill: 3 x 32 tokens
+TIMED_M_TILED = (PREFILL_ROWS,)  # also timed for the tiled f32 body only
 
 
 def log(*args):
@@ -243,6 +260,41 @@ def phase_kernels(device):
                 _fail(f"int8 exactness case {kind} at {(m, k, n)}",
                       f"max|err| {float((got - want).abs().max())}")
 
+    # the tensor-core tiled body: bf16 x, twice each (bitwise repeatable)
+    mma = [(m, k, n, r, name) for name, k, n, r in LEAVES for m in TILED_M]
+    mma += [(m, k, n, r, "ragged") for m, k, n, r in RAGGED if m > autotune.GEMV_MAX_M]
+    mma += [(m, k, n, r, "masked") for m, k, n, r in MASKED]
+    for m, k, n, r, name in mma:
+        ops = operands(m, k, n, r, device, seed=m + k + n)
+        want = ref.dora_linear_ref(*ops)
+        got, again = K.dora_linear(*ops), K.dora_linear(*ops)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        same = torch.equal(got, again)
+        ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL)) and same
+        plan = autotune.tiled_tiles(m, n, k)
+        log(f"[kernels] dora_linear mma        {name:8s} M={m:4d} K={k:5d} N={n:5d} r={r:2d} "
+            f"tile {plan.bm}x{autotune.MMA_TILE_N} splits {plan.splits(k)} max|err|={err:.3e} "
+            f"repeat {'bitwise' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"dora_linear (tensor cores) at {(m, k, n, r)}",
+                  f"max|err| {err}, repeat bitwise {same}")
+        worst["dora_linear"] = max(worst["dora_linear"], err)
+    # the SIMT body, which f32 x keeps, once per leaf
+    for name, k, n, r in LEAVES:
+        x, *rest = operands(PREFILL_M, k, n, r, device, seed=k + n)
+        ops = (x.float(), *rest)
+        got = K.dora_linear(*ops)
+        torch.cuda.synchronize()
+        want = ref.dora_linear_ref(*ops)
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
+        log(f"[kernels] dora_linear f32 x      {name:8s} M={PREFILL_M:4d} K={k:5d} N={n:5d} "
+            f"r={r:2d} max|err|={err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"dora_linear (f32 x, SIMT) at {(PREFILL_M, k, n, r)}", f"max|err| {err}")
+        worst["dora_linear"] = max(worst["dora_linear"], err)
+
     adc_cases = [(m, k, n, name) for name, k, n in ADC_LEAVES for m in ADC_M]
     adc_cases += [(m, k, n, "ragged") for m, k, n in ADC_RAGGED]
     for m, k, n, name in adc_cases:
@@ -366,12 +418,12 @@ def phase_timing(device):
 
     rows = []
     for name, k, n, r in LEAVES:
-        for m in sorted(set(TIMED_M) | set(TIMED_M_INT8)):
+        for m in sorted(set(TIMED_M) | set(TIMED_M_INT8) | set(TIMED_M_TILED)):
             ops = [operands(m, k, n, r, device, seed=i)
                    for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
             kind = "dora_linear_gemv" if m <= 64 else "dora_linear"
             fn = getattr(K, kind)
-            if m in TIMED_M:
+            if m in TIMED_M or m in TIMED_M_TILED:
                 w16 = [((o[1].float() - o[2].float()) * o[3]).to(torch.bfloat16) for o in ops]
                 _timed_row(rows, kind, name, (m, k, n), ops, fn, ref.dora_linear_ref,
                            [lambda o=o, w=w: torch.matmul(o[0], w) for o, w in zip(ops, w16)],
@@ -397,6 +449,42 @@ def phase_timing(device):
                        ref.crossbar_mvm_ref, None, adc_bound(m, k, n))
             del ops
     return rows
+
+
+def phase_tiled_breakdown(device):
+    """Device time per layer of each kernel the tiled launcher's
+    tensor-core body launches (its X @ A prologue, the XA sum, the main
+    kernel, the split-K pass), from torch.profiler over one call per leaf
+    after a warm-up call (L2 warm), at the phase-5 prefill's rows and at
+    PREFILL_M. ``None`` where the profiler records no device activity."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import dora_linear as K
+
+    out = {}
+    for m in (PREFILL_ROWS, PREFILL_M):
+        ops = [operands(m, k, n, r, device, seed=1) for _, k, n, r in LEAVES]
+        for o in ops:
+            K.dora_linear(*o)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for o in ops:
+                K.dora_linear(*o)
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = re.search(r"(\w+_kernel)", e.name)
+                name = name.group(1) if name else e.name[:40]
+                by[name] = by.get(name, 0.0) + e.device_time_total / 1e3
+        out[m] = by or None
+        parts = ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+        log(f"[timing] tiled f32 body (bf16 x) per layer at M={m}, by kernel (profiler, "
+            f"L2 warm): {parts or 'no device activity recorded: not measured'}")
+        del ops
+    return out
 
 
 def reset_counts():
@@ -502,7 +590,7 @@ def phase_serving(device, seed):
     prompt_lens, max_new = (5, 40, 17, 9), 16
     prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in prompt_lens]
     # fused prefill: B*S = 3*32 = 96 > 64 rows -> the tiled launcher
-    tokens = torch.randint(0, cfg.vocab, (3, 32), generator=g).to(device)
+    tokens = torch.randint(0, cfg.vocab, (3, PREFILL_ROWS // 3), generator=g).to(device)
     n_leaves = 4 * cfg.n_layers  # fused qkv, o, gate_up, down per layer
     n_adc = 7 * cfg.n_layers     # q, k, v, o, gate, up, down per layer
 
@@ -640,6 +728,7 @@ def main():
     phase_build()
     worst = phase_kernels(device)
     rows = phase_timing(device)
+    breakdown = phase_tiled_breakdown(device)
     serving, sessions = phase_serving(device, args.seed)
     for body, run in (("f32", serving), ("int8", serving["int8"]),
                       ("codes_adc", serving["codes_adc"])):
@@ -679,8 +768,8 @@ def main():
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "timing": rows, "serving": serving,
-                       "kernels": kernels}, f, indent=1)
+            json.dump({"card": smi, "timing": rows, "tiled_breakdown": breakdown,
+                       "serving": serving, "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

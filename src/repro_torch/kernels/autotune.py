@@ -12,7 +12,10 @@ and the only decisions left are:
   instantiated for (each thread holds that many accumulators);
 * the ADC kernel's output rows per block, the smallest instantiation
   that covers the rows of one ADC block, so a decode tick does not pay
-  for 128-row tiles.
+  for 128-row tiles;
+* the tiled launcher's tensor-core body (bf16 x, f32): its tile rows and
+  the rows of K per split (``tiled_tiles``), so that every full-width
+  leaf at prefill fills one wave of blocks on the card's 132 SMs.
 
 The ADC kernel's 128-row block and 256-row array tile are not choices:
 max |x| is taken per (block, tile) and each tile's current is digitized
@@ -20,6 +23,8 @@ on its own, so the result depends on both (``ADC_BLOCK_ROWS``,
 ``ADC_ARRAY_ROWS``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 # largest M the GEMV launcher takes; above it the tiled launcher runs
 GEMV_MAX_M = 64
@@ -37,6 +42,43 @@ ADC_ARRAY_ROWS = 256
 
 # the ADC kernel's output-row instantiations (crossbar_mvm.cu)
 ADC_TILE_ROWS = (16, 32, 64, 128)
+
+
+# the tensor-core body (dora_linear.cu): rows of K per pipeline stage, its
+# tile width, and its tile rows (64 only where M fits one such tile;
+# otherwise 128, so that fewer row tiles read the codes again). Two
+# 128 x 64 blocks fit one SM (shared memory, registers).
+MMA_TILE_K = 32
+MMA_TILE_N = 64
+MMA_TILE_M = (64, 128)
+SMS = 132               # H100 SXM
+WAVE = 2 * SMS          # blocks the card runs at once
+MIN_SPLIT_ROWS = 128    # a K split keeps at least this many rows of K
+
+
+class TilePlan(NamedTuple):
+    bm: int       # rows of a tile; its columns are MMA_TILE_N
+    k_split: int  # rows of K per split, a multiple of MMA_TILE_K
+
+    def splits(self, k: int) -> int:
+        return -(-k // self.k_split)
+
+    def blocks(self, m: int, n: int, k: int) -> int:
+        return -(-m // self.bm) * -(-n // MMA_TILE_N) * self.splits(k)
+
+
+def tiled_tiles(m: int, n: int, k: int) -> TilePlan:
+    """The tensor-core body's tile for an (m, k) x (k, n) product, with K
+    split into as many ordered parts (summed by a second pass) as fill one
+    wave of blocks, each part at least ``MIN_SPLIT_ROWS`` rows of K.
+    Measured on the H100 at the qwen3-1.7b leaves (PERF.md): one full wave
+    beats both fewer blocks and a second, partial wave."""
+    bm = MMA_TILE_M[0] if m <= MMA_TILE_M[0] else MMA_TILE_M[1]
+    tiles = -(-m // bm) * -(-n // MMA_TILE_N)
+    k_steps = -(-k // MMA_TILE_K)
+    splits = max(1, WAVE // tiles)
+    steps = max(-(-k_steps // splits), MIN_SPLIT_ROWS // MMA_TILE_K)
+    return TilePlan(bm, min(steps, k_steps) * MMA_TILE_K)
 
 
 def use_gemv(m: int) -> bool:

@@ -8,7 +8,7 @@
 // (accum="f32") and ::_kernel_int8 (accum="int8", with the jnp helpers
 // _quantize_rows and recode_s8) behind their two launchers:
 // dora_linear_gemv (decode, M <= 64) and dora_linear (prefill, tiled
-// over M).
+// over M and N).
 //
 // The int8 body. Its prologue quantizes each row of X to s8 (xs =
 // max(max|x|, 1e-30) / 127, xq = clip(rint(x / xs), +-127), IEEE division
@@ -26,15 +26,49 @@
 // and the work is M flops per code byte, below the card's ridge point for
 // these inputs up to M ~ 295 (bf16 x; G+ - G- in [-255, 255] is exact in
 // bf16; 989 TFLOP/s on the tensor cores over 3.35 TB/s). Its floor is
-// about 2*K*N bytes over the HBM rate. This port keeps the reference's
-// exact f32 arithmetic on the SIMT units instead (67 TFLOP/s, a ridge of
-// 20 flop/byte), so it holds the reference's 1e-4 tolerance: the decode
-// GEMV (M <= 4) stays under that ridge, but from a few dozen rows up,
-// and for the tiled launcher at prefill, f32 issue caps the kernel far
-// above the byte floor. A bf16 tensor-core body is what would close it.
-// The int8 body moves the same bytes; the card's int8 tensor-core rate
-// (1979 TOPS) puts its ridge even higher, and its SIMT int32
-// multiply-adds issue no faster than the f32 FMAs, so the same holds.
+// about 2*K*N bytes over the HBM rate. The GEMV launcher and the SIMT
+// bodies keep the reference's exact f32 arithmetic on the SIMT units (67
+// TFLOP/s, a ridge of 20 flop/byte): the decode GEMV (M <= 4) stays under
+// that ridge, but from a few dozen rows up the f32 instruction rate caps
+// a SIMT body far above the byte floor. The int8 body moves the same
+// bytes; the card's int8 tensor-core rate (1979 TOPS) puts its ridge even
+// higher, and its SIMT int32 multiply-adds run no faster than the f32
+// FMAs, so the same holds.
+//
+// The tiled launcher with bf16 x (every serving path) therefore runs a
+// tensor-core body: a bf16 x times a bf16 G+ - G- is exact in f32, so
+// mma.sync bf16 with f32 accumulators differs from the SIMT body only in
+// the order of the f32 sums and holds the same 1e-4 tolerance. It
+// computes the reference's _kernel with its epilogue order: accumulate,
+// times scale, plus XA @ B, times gamma. Design:
+// * A 4-stage ring of cp.async copies (16 bytes a thread) stages the x
+//   tile (BM x 32 bf16) and both u8 code tiles (32 x 64) in dynamic
+//   shared memory; copies run two stages ahead of the MMAs.
+// * A conversion pass turns each staged code pair into a bf16 G+ - G-
+//   tile (the 2^23 byte trick below, one exact f32 subtract, one
+//   cvt.rn.bf16x2), once per block, shared by its BM rows; no float
+//   weight reaches device memory. Tile t + 1 is converted while tile t's
+//   MMAs run, into the other of two weight buffers: one barrier a stage.
+// * 8 warps (2 x 4) load fragments with ldmatrix (.trans for the K x N
+//   weight tile; rows padded by 16 bytes against bank conflicts) and run
+//   mma.sync.m16n8k16 bf16 with f32 accumulators. No TF32 anywhere.
+// * Tiles are 128 x 64 (64 x 64 where M <= 64), two blocks an SM; K is
+//   split into ordered parts until the blocks fill one wave
+//   (autotune.tiled_tiles). With several parts each block writes its raw
+//   sums and a second pass adds them in part order, then runs the
+//   epilogue: no atomics, so two launches are bitwise equal.
+// * Its prologue stages 16 rows of x and a 256-row slab of A in shared
+//   memory and writes XA partials; a small kernel sums them in chunk
+//   order into XA, which the epilogue reads once per value.
+// * Ragged K, N and M: the copies need K % 8 == 0, N % 16 == 0 and
+//   16-byte aligned operands; otherwise the same kernel stages its tiles
+//   with masked scalar loads. Both zero-fill past M, N and K.
+// Measured on the H100 (PERF.md), it is not byte-bound: its copies, code
+// conversion and MMAs add up rather than overlap (one or two blocks an
+// SM, a barrier every 32 rows of K), and the X @ A prologue and the
+// split-K pass take about a fifth of a layer.
+// f32 x (not exact in bf16; no serving path passes it to the card) and
+// the int8 body keep the SIMT tiled kernel.
 //
 // What the design does about it:
 // * The weight stays in code space into registers: no float weight ever
@@ -51,17 +85,17 @@
 //   loop: no block waits for another). Each thread loads CPT neighbouring
 //   code bytes of a row as one vector (16 bytes at M <= 4), neighbouring
 //   threads take the rest of the strip's row segment and then the next
-//   rows, and each thread keeps 4 (8) rows of both code arrays in flight. Each thread holds rows x CPT accumulators; the row
-//   groups are summed with warp shuffles, then warp by warp in a fixed
-//   order (deterministic), and the epilogue applies scale, XA @ B and
-//   gamma.
-// * Tiled launcher: a shared-memory SIMT product, 128x128 output tile,
-//   8-deep K tiles, each thread an 8x8 register tile; codes become f32
-//   weights as the tile is loaded. The low-rank term reuses the same
-//   micro-kernel as 8-deep "K tiles" of XA against B after the
-//   accumulators are scaled, then gamma is applied.
-// * Both mask ragged M, K and N themselves (zero-filled loads, guarded
-//   stores), so no operand is ever padded.
+//   rows, and each thread keeps 4 (8) rows of both code arrays in flight.
+//   Each thread holds rows x CPT accumulators; the row groups are summed
+//   with warp shuffles, then warp by warp in a fixed order
+//   (deterministic), and the epilogue applies scale, XA @ B and gamma.
+// * Tiled launcher, SIMT body (f32 x, int8): a shared-memory product,
+//   128x128 output tile, 8-deep K tiles, each thread an 8x8 register
+//   tile; codes become f32 (int8: int32) weights as the tile is loaded.
+//   The low-rank term reuses the same micro-kernel as 8-deep "K tiles" of
+//   XA against B after the accumulators are scaled, then gamma is applied.
+// * All bodies mask ragged M, K and N themselves (zero-filled loads,
+//   guarded stores), so no operand is ever padded.
 //
 // Plain C interface (loaded with ctypes). Every function returns
 // cudaGetLastError() after its launches; the Python wrapper raises on
@@ -205,6 +239,63 @@ __global__ void __launch_bounds__(kPrepThreads)
   }
   xa_partial([&](int k) { return (float)quantize_s8(to_f32(xr[k]), s); }, a, xa, part,
              m, M, kb, ke, R);
+}
+
+// prologue of the tensor-core body, grid (ceil(M / kPrepRowTile), G): the
+// XA partials over kPrepRows rows of K for kPrepRowTile rows of X per
+// block, from shared-memory tiles of x and A (16 ranks at a time), so that
+// each value of A read from memory serves every row of the tile
+constexpr int kPrepRowTile = 16;
+
+__global__ void __launch_bounds__(kPrepThreads)
+    prep_tile_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
+                     float* __restrict__ xa, int M, int K, int R) {
+  // rows padded by 4 floats: 16-byte aligned, 4 banks apart
+  __shared__ __align__(16) float xs[kPrepRowTile][kPrepRows + 4];
+  __shared__ __align__(16) float at[16][kPrepRows + 4];  // A tile, transposed
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * kPrepRowTile;
+  const int kb = blockIdx.y * kPrepRows, kn = min(kPrepRows, K - kb);
+  // constant trip counts, unrolled: every load of a thread in flight at once
+#pragma unroll
+  for (int it = 0; it < kPrepRowTile * kPrepRows / kPrepThreads; ++it) {
+    const int p = tid + it * kPrepThreads;
+    const int i = p / kPrepRows, k = p % kPrepRows;
+    xs[i][k] = (m0 + i < M && k < kn) ? __bfloat162float(x[(size_t)(m0 + i) * K + kb + k]) : 0.f;
+  }
+  const int i = tid / 16, j = tid % 16;
+  for (int r0 = 0; r0 < R; r0 += 16) {
+    __syncthreads();
+#pragma unroll
+    for (int it = 0; it < kPrepRows * 16 / kPrepThreads; ++it) {
+      const int p = tid + it * kPrepThreads;
+      const int k = p / 16, r = r0 + p % 16;
+      at[p % 16][k] = (k < kn && r < R) ? a[(size_t)(kb + k) * R + r] : 0.f;
+    }
+    __syncthreads();
+    float acc = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < kPrepRows; k += 4) {
+      const float4 xv = *reinterpret_cast<const float4*>(&xs[i][k]);
+      const float4 av = *reinterpret_cast<const float4*>(&at[j][k]);
+      acc = fmaf(xv.x, av.x, acc);
+      acc = fmaf(xv.y, av.y, acc);
+      acc = fmaf(xv.z, av.z, acc);
+      acc = fmaf(xv.w, av.w, acc);
+    }
+    if (m0 + i < M && r0 + j < R) xa[((size_t)blockIdx.y * M + m0 + i) * R + r0 + j] = acc;
+  }
+}
+
+// XA = the G partials summed in chunk order (M x R), one thread per value
+__global__ void __launch_bounds__(kPrepThreads)
+    xa_finish_kernel(const float* __restrict__ part, float* __restrict__ xa, int MR, int G) {
+  const int p = blockIdx.x * kPrepThreads + threadIdx.x;
+  if (p >= MR) return;
+  float v = 0.f;
+#pragma unroll 8
+  for (int g = 0; g < G; ++g) v += part[(size_t)g * MR + p];
+  xa[p] = v;
 }
 
 // sum of the G prologue partials of XA[m][j], in chunk order
@@ -407,12 +498,12 @@ __device__ __forceinline__ void micro_tile(const T (*as)[kTileM], const T (*bs)[
   }
 }
 
-// INT8: xq (M x K s8) and xs (M) come from the int8 prologue, x is unused;
-// the tiles hold int32 xq and G+ - G-, and the accumulators are int32 until
-// the epilogue
-template <typename TX, bool VEC, bool INT8>
+// The SIMT body: f32 x (bf16 x runs dora_mma_kernel), or INT8: xq (M x K
+// s8) and xs (M) come from the int8 prologue, x is unused; the tiles hold
+// int32 xq and G+ - G-, and the accumulators are int32 until the epilogue
+template <bool VEC, bool INT8>
 __global__ void __launch_bounds__(kTileThreads)
-    dora_tiled_kernel(const TX* __restrict__ x, const int8_t* __restrict__ xq,
+    dora_tiled_kernel(const float* __restrict__ x, const int8_t* __restrict__ xq,
                       const float* __restrict__ xs, const uint8_t* __restrict__ gp,
                       const uint8_t* __restrict__ gn, const float* __restrict__ scale,
                       const float* __restrict__ b, const float* __restrict__ gamma,
@@ -446,7 +537,7 @@ __global__ void __launch_bounds__(kTileThreads)
       const int m = m0 + lm, k = k0 + lk + i;
       const bool in = m < M && k < K;
       if constexpr (INT8) ast[lk + i][lm] = in ? (int)xq[(size_t)m * K + k] : 0;
-      else ast[lk + i][lm] = in ? to_f32(x[(size_t)m * K + k]) : 0.f;
+      else ast[lk + i][lm] = in ? x[(size_t)m * K + k] : 0.f;
     }
     {
       const int k = k0 + ck;
@@ -515,6 +606,352 @@ __global__ void __launch_bounds__(kTileThreads)
       if (n < N) out[(size_t)m * N + n] = y[i][j] * gamma[n];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// tiled launcher, tensor-core body (bf16 x, f32 accumulation)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 256;  // 8 warps, 2 (rows) x 4 (columns)
+constexpr int kMmaStages = 4;    // stages of the copy ring
+constexpr int kMmaK = 32;        // rows of K per stage (autotune.MMA_TILE_K)
+constexpr int kMmaN = 64;        // output columns per block (autotune.MMA_TILE_N)
+constexpr int kMmaRanks = 32;     // ranks of XA @ B per epilogue pass
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !in
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16x16 bf16, row) x b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// G+ - G- of bytes i and i + 1 of (p, q) as two bf16 (exact: |d| <= 255)
+__device__ __forceinline__ uint32_t code_diff_bf16x2(uint32_t p, uint32_t q, int i) {
+  const __nv_bfloat162 d = __floats2bfloat162_rn(byte_f32(p, i) - byte_f32(q, i),
+                                                 byte_f32(p, i + 1) - byte_f32(q, i + 1));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// a warp's accumulators into y (M x N, f32), row m + 16 i (+8), columns
+// n + 8 j (+1): each column pair as one 8-byte store where N is even, so a
+// quad of lanes writes a whole 32-byte sector
+template <int MT, int NT>
+__device__ __forceinline__ void store_tile(float* __restrict__ y, const float (&acc)[MT][NT][4],
+                                           int M, int N, int m, int n) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m + i * 16 + h * 8;
+      if (row >= M) continue;
+      float* yr = y + (size_t)row * N;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = n + j * 8;
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (N % 2 == 0 && col + 1 < N) {
+          *reinterpret_cast<float2*>(yr + col) = make_float2(v0, v1);
+        } else {
+          if (col < N) yr[col] = v0;
+          if (col + 1 < N) yr[col + 1] = v1;
+        }
+      }
+    }
+}
+
+// Shared memory of the tensor-core body, in bytes: kMmaStages stages of
+// (x tile BM x BK bf16, rows padded to 40 elements; G+ and G- tiles
+// BK x BN u8), then two converted weight tiles BK x BN bf16, rows
+// padded to BN + 8 elements. The pads put the 8 rows an ldmatrix reads
+// in 8 different 16-byte bank groups.
+template <int BM, int BN, int BK>
+struct MmaSmem {
+  static constexpr int XS = BK + 8;  // x row stride (elements)
+  static constexpr int WS = BN + 8;     // weight row stride (elements)
+  static constexpr int X = BM * XS * 2;
+  static constexpr int C = BK * BN;
+  static constexpr int STAGE = X + 2 * C;
+  static constexpr int W = BK * WS * 2;
+  static constexpr int BYTES = kMmaStages * STAGE + 2 * W;
+  // the epilogue reuses the stages: XA (BM x kMmaRanks, rows padded by
+  // one float) and B (kMmaRanks x BN) in f32
+  static_assert(4 * (BM * (kMmaRanks + 1) + kMmaRanks * BN) <= kMmaStages * STAGE,
+                "epilogue tiles fit the stages");
+};
+
+// Block (i, j, s) computes the BM x BN output tile (i, j) over the rows
+// [s * k_split, (s + 1) * k_split) of K. One split (ws == null): the
+// epilogue y = gamma * (acc * scale + XA @ B) follows in the block. Several
+// splits: the block writes its raw sums to ws[s] and
+// splitk_epilogue_kernel finishes the tile. VEC: 16-byte asynchronous
+// copies (K % 8 == 0, N % 16 == 0, 16-byte aligned x and codes), else
+// masked scalar loads; both zero-fill past M, N and K.
+template <int BM, int BN, int BK, bool VEC>
+__global__ void __launch_bounds__(kMmaThreads)
+    dora_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ gp,
+                    const uint8_t* __restrict__ gn, const float* __restrict__ scale,
+                    const float* __restrict__ b, const float* __restrict__ gamma,
+                    const float* __restrict__ xa, float* __restrict__ out,
+                    float* __restrict__ ws, int M, int K, int N, int R, int k_split) {
+  using L = MmaSmem<BM, BN, BK>;
+  constexpr int WTM = BM / 2, WTN = BN / 4;  // warp tile
+  constexpr int MT = WTM / 16, NT = WTN / 8;  // mma tiles per warp
+  static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
+  extern __shared__ __align__(16) float smem_f[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int kb = blockIdx.z * k_split;
+  const int tiles = (min(K, kb + k_split) - kb + BK - 1) / BK;
+
+  auto xs_of = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + st * L::STAGE);
+  };
+  auto gp_of = [&](int st) { return smem + st * L::STAGE + L::X; };
+  auto gn_of = [&](int st) { return smem + st * L::STAGE + L::X + L::C; };
+  auto w_of = [&](int i) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + kMmaStages * L::STAGE + i * L::W);
+  };
+
+  // stage tile t of this split (an empty group past the last tile)
+  auto load_tile = [&](int t) {
+    if (t < tiles) {
+      const int st = t % kMmaStages, k0 = kb + t * BK;
+      __nv_bfloat16* xs = xs_of(st);
+      for (int c = tid; c < BM * (BK / 8); c += kMmaThreads) {
+        const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
+        const int m = m0 + r, k = k0 + kc;
+        __nv_bfloat16* dst = xs + r * L::XS + kc;
+        if (VEC) {
+          const bool in = m < M && k < K;
+          cp_async16(dst, in ? x + (size_t)m * K + k : x, in);
+        } else {
+          uint16_t v[8];
+          const uint16_t* src = reinterpret_cast<const uint16_t*>(x) + (size_t)m * K + k;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v[i] = (m < M && k + i < K) ? src[i] : 0;
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+        }
+      }
+      uint8_t* cps = gp_of(st);
+      uint8_t* cns = gn_of(st);
+      for (int c = tid; c < BK * (BN / 16); c += kMmaThreads) {
+        const int r = c / (BN / 16), nc = (c % (BN / 16)) * 16;
+        const int k = k0 + r, n = n0 + nc;
+        const size_t off = (size_t)k * N + n;
+        if (VEC) {
+          const bool in = k < K && n < N;
+          cp_async16(cps + r * BN + nc, in ? gp + off : gp, in);
+          cp_async16(cns + r * BN + nc, in ? gn + off : gn, in);
+        } else {
+          uint32_t p[4] = {0u, 0u, 0u, 0u}, q[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            if (k < K && n + i < N) {
+              p[i / 4] |= (uint32_t)gp[off + i] << (8 * (i % 4));
+              q[i / 4] |= (uint32_t)gn[off + i] << (8 * (i % 4));
+            }
+          *reinterpret_cast<uint4*>(cps + r * BN + nc) = make_uint4(p[0], p[1], p[2], p[3]);
+          *reinterpret_cast<uint4*>(cns + r * BN + nc) = make_uint4(q[0], q[1], q[2], q[3]);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // codes of tile t -> bf16 G+ - G- in W[t & 1], 8 columns per thread and
+  // step: each code byte is converted once per block
+  auto convert = [&](int t) {
+    const int st = t % kMmaStages;
+    const uint8_t* cps = gp_of(st);
+    const uint8_t* cns = gn_of(st);
+    __nv_bfloat16* w = w_of(t & 1);
+    for (int c = tid; c < BK * (BN / 8); c += kMmaThreads) {
+      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
+      const uint2 p = *reinterpret_cast<const uint2*>(cps + r * BN + nc);
+      const uint2 q = *reinterpret_cast<const uint2*>(cns + r * BN + nc);
+      *reinterpret_cast<uint4*>(w + r * L::WS + nc) =
+          make_uint4(code_diff_bf16x2(p.x, q.x, 0), code_diff_bf16x2(p.x, q.x, 2),
+                     code_diff_bf16x2(p.y, q.y, 0), code_diff_bf16x2(p.y, q.y, 2));
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < kMmaStages - 1; ++t) load_tile(t);
+  cp_async_wait<kMmaStages - 2>();
+  __syncthreads();
+  convert(0);
+
+  // One barrier per tile: tile t's MMAs and tile t + 1's conversion use
+  // different weight buffers, so the warps interleave them.
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kMmaStages - 3>();  // tile t + 1 landed
+    // W[t & 1] is complete, and every warp is done with tile t - 1: its
+    // stage slot and W[(t + 1) & 1] are free
+    __syncthreads();
+    load_tile(t + kMmaStages - 1);
+    if (t + 1 < tiles) convert(t + 1);
+
+    const __nv_bfloat16* xs = xs_of(t % kMmaStages);
+    const __nv_bfloat16* w = w_of(t & 1);
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        ldsm_x4(af[i], xs + (wm * WTM + i * 16 + (lane & 15)) * L::XS + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, w + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * L::WS + wn * WTN +
+                              j * 8 + (lane >> 4) * 8);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(acc[i][j], af[i], bf[0], bf[1]);
+          mma_bf16(acc[i][j + 1], af[i], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // accumulator (i, j, e) is row g (+8 for e >= 2), column q2 (+1 for odd
+  // e) of mma tile (i, j)
+  const int g = lane >> 2, q2 = (lane & 3) * 2;
+  const int wr = wm * WTM + g, wc = wn * WTN + q2;  // tile-local origin
+  if (ws != nullptr) {
+    store_tile<MT, NT>(ws + (size_t)blockIdx.z * M * N, acc, M, N, m0 + wr, n0 + wc);
+    return;
+  }
+
+  // y = acc * scale, then + XA @ B a rank at a time (kMmaRanks ranks per
+  // pass through shared memory), then times gamma
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = n0 + wc + j * 8 + (e & 1);
+      const float s = n < N ? scale[n] : 0.f;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) acc[i][j][e] *= s;
+    }
+  float* xa_s = reinterpret_cast<float*>(smem);  // [BM][kMmaRanks + 1]
+  float* b_s = xa_s + BM * (kMmaRanks + 1);      // [kMmaRanks][BN]
+  for (int r0 = 0; r0 < R; r0 += kMmaRanks) {
+    __syncthreads();
+    // constant trip counts, unrolled: every load of a thread in flight at once
+#pragma unroll
+    for (int it = 0; it < BM * kMmaRanks / kMmaThreads; ++it) {
+      const int p = tid + it * kMmaThreads;
+      const int m = m0 + p / kMmaRanks, r = r0 + p % kMmaRanks;
+      xa_s[(p / kMmaRanks) * (kMmaRanks + 1) + p % kMmaRanks] =
+          (m < M && r < R) ? xa[(size_t)m * R + r] : 0.f;
+    }
+#pragma unroll
+    for (int it = 0; it < kMmaRanks * BN / kMmaThreads; ++it) {
+      const int p = tid + it * kMmaThreads;
+      const int r = r0 + p / BN, n = n0 + p % BN;
+      b_s[p] = (r < R && n < N) ? b[(size_t)r * N + n] : 0.f;
+    }
+    __syncthreads();
+    const int rs = min(kMmaRanks, R - r0);
+    for (int r = 0; r < rs; ++r) {
+      float xv[MT][2], bv[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) xv[i][h] = xa_s[(wr + i * 16 + h * 8) * (kMmaRanks + 1) + r];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) bv[j][h] = b_s[r * BN + wc + j * 8 + h];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][j][e] = fmaf(xv[i][e >> 1], bv[j][e & 1], acc[i][j][e]);
+    }
+  }
+  float gm[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + wc + j * 8 + h;
+      gm[j][h] = n < N ? gamma[n] : 0.f;
+    }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        acc[i][j][2 * h] *= gm[j][0], acc[i][j][2 * h + 1] *= gm[j][1];
+  store_tile<MT, NT>(out, acc, M, N, m0 + wr, n0 + wc);
+}
+
+// the second pass of a split K, grid (M, ceil(N / kPrepThreads)): the S
+// partial sums of ws in split order, then the one-split epilogue in the
+// same order of operations
+__global__ void __launch_bounds__(kPrepThreads)
+    splitk_epilogue_kernel(const float* __restrict__ ws, const float* __restrict__ scale,
+                           const float* __restrict__ b, const float* __restrict__ gamma,
+                           const float* __restrict__ xa, float* __restrict__ out, int M,
+                           int N, int R, int S) {
+  __shared__ float xr[kPrepThreads];
+  const int m = blockIdx.x, tid = threadIdx.x;
+  for (int r = tid; r < R; r += kPrepThreads) xr[r] = xa[(size_t)m * R + r];
+  __syncthreads();
+  const int n = blockIdx.y * kPrepThreads + tid;
+  if (n >= N) return;
+  float acc = 0.f;
+  for (int s = 0; s < S; ++s) acc += ws[((size_t)s * M + m) * N + n];
+  float y = acc * scale[n];
+  for (int r = 0; r < R; ++r) y = fmaf(xr[r], b[(size_t)r * N + n], y);
+  out[(size_t)m * N + n] = y * gamma[n];
 }
 
 // ---------------------------------------------------------------------------
@@ -599,17 +1036,69 @@ cudaError_t gemv_rows(int rows, const Ops& o, cudaStream_t s) {
   }
 }
 
-template <typename TX, bool INT8>
+template <bool INT8>
 cudaError_t launch_tiled(const Ops& o, cudaStream_t s) {
   const dim3 grid((o.N + kTileN - 1) / kTileN, (o.M + kTileM - 1) / kTileM);
   const bool vec = o.N % 4 == 0 && aligned(o.gp, 4) && aligned(o.gn, 4);
-  auto kernel = vec ? dora_tiled_kernel<TX, true, INT8> : dora_tiled_kernel<TX, false, INT8>;
+  auto kernel = vec ? dora_tiled_kernel<true, INT8> : dora_tiled_kernel<false, INT8>;
   kernel<<<grid, kTileThreads, 0, s>>>(
-      (const TX*)o.x, (const int8_t*)o.xq, (const float*)o.xs, (const uint8_t*)o.gp,
+      (const float*)o.x, (const int8_t*)o.xq, (const float*)o.xs, (const uint8_t*)o.gp,
       (const uint8_t*)o.gn, (const float*)o.scale, (const float*)o.b,
       (const float*)o.gamma, (const float*)o.xa, (float*)o.out, o.M, o.K, o.N, o.R,
       prep_chunks(o.K));
   return cudaGetLastError();
+}
+
+template <int BM, int BN, int BK, bool VEC>
+cudaError_t launch_mma_tile(const Ops& o, int k_split, void* ws, cudaStream_t s) {
+  constexpr int smem = MmaSmem<BM, BN, BK>::BYTES;
+  auto kernel = dora_mma_kernel<BM, BN, BK, VEC>;
+  if (smem > 48 * 1024) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int splits = (o.K + k_split - 1) / k_split;
+  const dim3 grid((o.M + BM - 1) / BM, (o.N + BN - 1) / BN, splits);
+  kernel<<<grid, kMmaThreads, smem, s>>>(
+      (const __nv_bfloat16*)o.x, (const uint8_t*)o.gp, (const uint8_t*)o.gn,
+      (const float*)o.scale, (const float*)o.b, (const float*)o.gamma, (const float*)o.xa,
+      (float*)o.out, (float*)ws, o.M, o.K, o.N, o.R, k_split);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  splitk_epilogue_kernel<<<dim3(o.M, (o.N + kPrepThreads - 1) / kPrepThreads), kPrepThreads,
+                           0, s>>>((const float*)ws, (const float*)o.scale, (const float*)o.b,
+                                   (const float*)o.gamma, (const float*)o.xa, (float*)o.out,
+                                   o.M, o.N, o.R, splits);
+  return cudaGetLastError();
+}
+
+// the tensor-core body: its prologue, then BM x BN x BK tiles
+// (autotune.tiled_tiles) with K split into parts of k_split rows; ws:
+// (splits, M, N) f32 scratch, null for one split
+cudaError_t launch_mma(const Ops& o, const void* a, int bm, int k_split, void* ws,
+                       cudaStream_t s) {
+  if ((bm != 64 && bm != 128) || k_split < kMmaK || k_split % kMmaK != 0)
+    return cudaErrorInvalidValue;
+  if ((o.K > k_split) != (ws != nullptr)) return cudaErrorInvalidValue;
+  // XA partials, then XA itself (after the partials in the scratch)
+  const int G = prep_chunks(o.K), MR = o.M * o.R;
+  float* xa = (float*)o.xa + (size_t)G * MR;
+  prep_tile_kernel<<<dim3((o.M + kPrepRowTile - 1) / kPrepRowTile, G), kPrepThreads, 0, s>>>(
+      (const __nv_bfloat16*)o.x, (const float*)a, (float*)o.xa, o.M, o.K, o.R);
+  xa_finish_kernel<<<(MR + kPrepThreads - 1) / kPrepThreads, kPrepThreads, 0, s>>>(
+      (const float*)o.xa, xa, MR, G);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  Ops m = o;
+  m.xa = xa;
+  const bool vec = o.K % 8 == 0 && o.N % 16 == 0 && aligned(o.x, 16) && aligned(o.gp, 16) &&
+                   aligned(o.gn, 16);
+  if (bm == 64)
+    return vec ? launch_mma_tile<64, kMmaN, kMmaK, true>(m, k_split, ws, s)
+               : launch_mma_tile<64, kMmaN, kMmaK, false>(m, k_split, ws, s);
+  return vec ? launch_mma_tile<128, kMmaN, kMmaK, true>(m, k_split, ws, s)
+             : launch_mma_tile<128, kMmaN, kMmaK, false>(m, k_split, ws, s);
 }
 
 }  // namespace
@@ -622,7 +1111,8 @@ extern "C" {
 // also takes xs, an (M,) f32 scratch for the row scales. All contiguous,
 // on the current device, 1 <= R <= 256.
 
-int rimc_xa_scratch(int M, int K, int R) { return prep_chunks(K) * M * R; }
+// (the tensor-core body keeps XA itself after the partials)
+int rimc_xa_scratch(int M, int K, int R) { return (prep_chunks(K) + 1) * M * R; }
 
 // xt: (K, rows) scratch of 4-byte elements (f32 X^T, or int32 Xq^T for
 // the int8 body); rows: the row bucket, a power of two in [M, 64]
@@ -643,23 +1133,29 @@ int rimc_dora_linear_gemv(const void* x, int x_bf16, const void* gp,
   return (int)(int8 ? gemv_rows<true>(rows, o, s) : gemv_rows<false>(rows, o, s));
 }
 
-// xq: (M, K) s8 scratch for the int8 body (null for f32)
+// xq: (M, K) s8 scratch for the int8 body (null for f32). bf16 x with the
+// f32 body runs the tensor-core body with bm x kMmaN tiles (bm 64 or 128)
+// and K split into parts of k_split rows (a multiple of kMmaK); ws: an
+// (ceil(K / k_split), M, N) f32 scratch when there is more than one part,
+// else null. f32 x and the int8 body run the SIMT body and ignore bm,
+// k_split and ws.
 int rimc_dora_linear_tiled(const void* x, int x_bf16, const void* gp,
                            const void* gn, const void* scale, const void* a,
                            const void* b, const void* gamma, void* out, void* xa,
-                           void* xq, void* xs, int M, int K, int N, int R, int int8,
-                           void* stream) {
+                           void* xq, void* xs, void* ws, int M, int K, int N, int R,
+                           int int8, int bm, int k_split, void* stream) {
   if (M < 1 || K < 1 || N < 1 || R < 1 || R > kPrepThreads ||
       (int8 && (xq == nullptr || xs == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const Ops o{x, nullptr, xq, xs, gp, gn, scale, b, gamma, xa, out, M, K, N, R};
+  if (x_bf16 && !int8) return (int)launch_mma(o, a, bm, k_split, ws, s);
   cudaError_t e =
       x_bf16 ? launch_prep<__nv_bfloat16>(x, a, xa, nullptr, xq, xs, M, K, R, 0, int8, s)
              : launch_prep<float>(x, a, xa, nullptr, xq, xs, M, K, R, 0, int8, s);
   if (e != cudaSuccess) return (int)e;
-  const Ops o{x, nullptr, xq, xs, gp, gn, scale, b, gamma, xa, out, M, K, N, R};
-  if (int8) e = launch_tiled<float, true>(o, s);  // x is not read: xq replaces it
-  else e = x_bf16 ? launch_tiled<__nv_bfloat16, false>(o, s) : launch_tiled<float, false>(o, s);
+  e = int8 ? launch_tiled<true>(o, s)  // x is not read: xq replaces it
+           : launch_tiled<false>(o, s);
   return (int)e;
 }
 

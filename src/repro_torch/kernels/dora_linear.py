@@ -8,7 +8,9 @@ Port of ``repro/kernels/dora_linear.py``: the source is
 ``csrc/dora_linear.cu``, its note says what bounds it on the card.
 
 * ``dora_linear_gemv`` — decode-shaped launcher, ``M <= GEMV_MAX_M``.
-* ``dora_linear`` — prefill-shaped launcher, tiled over M.
+* ``dora_linear`` — prefill-shaped launcher, tiled over M and N; with
+  bf16 x and the f32 body it runs on the tensor cores (``mma.sync``),
+  with tiles and K splits from ``autotune.tiled_tiles``.
 
 Both take ``accum``: ``"f32"`` (exact f32 products of x and the codes)
 or ``"int8"`` (x quantized per row to s8, an exact int32 accumulator, the
@@ -62,7 +64,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     operands = [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.rimc_dora_linear_gemv.argtypes = operands + [ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
     lib.rimc_dora_linear_gemv.restype = i32
-    lib.rimc_dora_linear_tiled.argtypes = operands + [ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.rimc_dora_linear_tiled.argtypes = operands + [ptr, ptr, ptr] + [i32] * 7 + [ptr]
     lib.rimc_dora_linear_tiled.restype = i32
     lib.rimc_xa_scratch.argtypes = [i32, i32, i32]
     lib.rimc_xa_scratch.restype = i32
@@ -126,9 +128,17 @@ def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
         )
     else:
         xq = torch.empty((m, k), dtype=torch.int8, device=x.device) if int8 else None
+        # the tensor-core body (bf16 x, f32) splits K when its tiles alone
+        # leave SMs idle; the parts' sums go through ws, summed in order
+        plan = autotune.tiled_tiles(m, n, k)
+        mma = x.dtype == torch.bfloat16 and not int8
+        ws = None
+        if mma and plan.splits(k) > 1:
+            ws = torch.empty((plan.splits(k), m, n), **f32)
         err = lib.rimc_dora_linear_tiled(
             *head, *ptrs, None if xq is None else xq.data_ptr(), xs_ptr,
-            m, k, n, r, int(int8), stream,
+            None if ws is None else ws.data_ptr(), m, k, n, r, int(int8),
+            plan.bm, plan.k_split, stream,
         )
     if err != 0:
         raise RuntimeError(f"{kind} ({accum}) launch failed: cudaError {err}")

@@ -3,7 +3,9 @@ inside itself when no CUDA device is present). The kernels are held
 against their plain PyTorch version (``kernels/ref.py``) at qwen3-1.7b's
 full-width leaves and at ragged shapes:
 * the fused linear's f32 body at rtol = atol = 1e-4 (exact f32 arithmetic
-  in both; only the summation order differs);
+  in both; only the summation order differs), and the tiled launcher's
+  tensor-core body (bf16 x) at the same tolerance, bitwise equal to itself
+  when launched twice;
 * its int8 body within 1e-4 of the output's absmax (the same row
   quantization and exact int32 sum; only f32 orders differ), bitwise on
   the exactness case (integer x with 127 in every row, scale = gamma = 1,
@@ -36,6 +38,12 @@ RAGGED = [(7, 1000, 999, 3), (65, 130, 77, 12), (1, 33, 4097, 1), (130, 257, 31,
 ADC_LEAVES = [("q", 2048, 2048), ("k", 2048, 1024), ("o", 2048, 2048),
               ("gate", 2048, 6144), ("down", 6144, 2048)]
 ADC_RAGGED = [(5, 300, 77), (130, 300, 65), (200, 1000, 999), (17, 257, 1024)]
+# the tensor-core tiled body: rows around its 128-row tile, and shapes on
+# every masked edge (K not a multiple of 8 or 32, N not a multiple of 16 or
+# 64, M not a multiple of the tile)
+TILED_M = [65, 96, 128, 200, 256, 512]
+MASKED = [(96, 130, 77, 8), (200, 257, 31, 5), (150, 300, 999, 3), (65, 2048, 999, 8),
+          (100, 257, 4096, 4), (130, 2048, 31, 2)]
 
 
 @pytest.fixture
@@ -74,6 +82,32 @@ def test_gemv_full_width(cuda, leaf, m):
 def test_tiled_full_width(cuda, leaf):
     _, k, n, r = leaf
     _check(K.dora_linear, operands(256, k, n, r, cuda))
+
+
+@pytest.mark.parametrize("m", TILED_M)
+@pytest.mark.parametrize("leaf", LEAVES, ids=[lf[0] for lf in LEAVES])
+def test_tensor_core_tiled_full_width(cuda, leaf, m):
+    _, k, n, r = leaf
+    _check(K.dora_linear, operands(m, k, n, r, cuda, seed=m))
+
+
+@pytest.mark.parametrize("shape", MASKED)
+def test_tensor_core_tiled_masked_edges(cuda, shape):
+    m, k, n, r = shape
+    _check(K.dora_linear, operands(m, k, n, r, cuda, seed=k + n))
+
+
+@pytest.mark.parametrize("shape", [(96, 2048, 2048, 8), (256, 6144, 2048, 8),
+                                   (512, 2048, 4096, 24), (150, 300, 999, 3)])
+def test_tensor_core_tiled_is_bitwise_repeatable(cuda, shape):
+    ops = operands(*shape, cuda)
+    assert torch.equal(K.dora_linear(*ops), K.dora_linear(*ops))
+
+
+@pytest.mark.parametrize("leaf", LEAVES, ids=[lf[0] for lf in LEAVES])
+def test_f32_x_tiled_full_width(cuda, leaf):
+    _, k, n, r = leaf
+    _check(K.dora_linear, operands(256, k, n, r, cuda, dtype=torch.float32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

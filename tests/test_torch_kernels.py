@@ -18,12 +18,20 @@ from repro_torch.kernels import dora_linear as tk
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 # ragged M (both sides of GEMV_MAX_M), K and N multiples of nothing, r in
-# {1, 4, 12}; then M at the engine's admission-chunk buckets 8, 16 and 32
+# {1, 4, 12}; then M at the engine's admission-chunk buckets 8, 16 and 32;
+# then the tiled range with the edges its tensor-core body masks on the
+# card (K not a multiple of 8, N not a multiple of 16, M not a multiple of
+# the tile)
 CASES = [
     (1, 37, 53, 1), (2, 100, 77, 4), (7, 129, 61, 12),
     (64, 45, 130, 4), (65, 77, 33, 12), (130, 31, 97, 1),
     (8, 50, 64, 4), (16, 33, 96, 1), (32, 70, 48, 12),
+    (96, 130, 77, 8), (128, 257, 31, 5), (200, 300, 999, 3),
 ]
+
+# qwen3-1.7b fused serve leaves: (K, N)
+LEAVES = {"qkv": (2048, 4096), "o": (2048, 2048), "gate_up": (2048, 12288),
+          "down": (6144, 2048)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -90,3 +98,56 @@ def test_dispatch_rule_at_gemv_max_m():
     assert not autotune.use_gemv(autotune.GEMV_MAX_M + 1)
     with pytest.raises(ValueError):
         autotune.gemv_rows(autotune.GEMV_MAX_M + 1)
+
+
+@pytest.mark.parametrize("m", [96, 256])
+@pytest.mark.parametrize("leaf", sorted(LEAVES))
+def test_tiled_tiles_fill_the_card(leaf, m):
+    """At the phase-5 prefill (96 rows) and at 256 rows every full-width
+    leaf launches at least one block per SM, counting K splits; K is split
+    only while the blocks fit one wave."""
+    k, n = LEAVES[leaf]
+    plan = autotune.tiled_tiles(m, n, k)
+    assert plan.blocks(m, n, k) >= autotune.SMS
+    assert plan.splits(k) == 1 or plan.blocks(m, n, k) <= autotune.WAVE
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (65, 2048, 4096), (96, 2048, 2048), (200, 6144, 2048), (512, 2048, 12288),
+    (96, 130, 77), (128, 257, 31), (200, 300, 999), (1, 33, 4097), (70, 31, 9),
+])
+def test_tiled_tiles_cover_each_element_once(m, k, n):
+    """The tiles cover M and N, and the K splits are whole stages that
+    partition [0, K): consecutive, none empty, none past K."""
+    plan = autotune.tiled_tiles(m, n, k)
+    assert plan.bm in autotune.MMA_TILE_M and plan.k_split % autotune.MMA_TILE_K == 0
+    assert plan.bm * -(-m // plan.bm) >= m > plan.bm * (-(-m // plan.bm) - 1)
+    parts = [(s * plan.k_split, min(k, (s + 1) * plan.k_split)) for s in range(plan.splits(k))]
+    assert parts[0][0] == 0 and parts[-1][1] == k
+    assert all(lo < hi for lo, hi in parts)
+    assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+    assert plan.k_split >= min(k, autotune.MIN_SPLIT_ROWS) or plan.splits(k) == 1
+
+
+def test_tiled_binding_matches_the_c_signature():
+    """The ctypes argument list of every C function has as many entries as
+    its declaration in csrc/dora_linear.cu has parameters."""
+    import re
+    from types import SimpleNamespace
+
+    src = tk.LIB.src.read_text()
+    names = ("rimc_dora_linear_gemv", "rimc_dora_linear_tiled", "rimc_xa_scratch")
+    lib = SimpleNamespace(**{nm: SimpleNamespace() for nm in names})
+    tk._bind(lib)
+    for nm in names:
+        params = re.search(rf"int {nm}\(([^)]*)\)", src).group(1)
+        assert len(getattr(lib, nm).argtypes) == params.count(",") + 1, nm
+
+
+def test_tile_constants_match_the_kernel():
+    """The policy's stage depth and tile width are the kernel's."""
+    import re
+
+    src = tk.LIB.src.read_text()
+    for name, value in (("kMmaK", autotune.MMA_TILE_K), ("kMmaN", autotune.MMA_TILE_N)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
