@@ -18,18 +18,20 @@ Phases (any failure exits non-zero; no failure is caught):
                   M in {1, 2, 4, 8, 16, 32, 64} (decode ticks and the
                   engine's admission chunks), the tiled launcher at M=256,
                   ragged shapes; the int8 exactness case bitwise;
-                * the tiled launcher's tensor-core body (bf16 x, f32) at
-                  the full-width leaves for M in {65, 96, 128, 200, 256,
-                  512}, the ragged shapes with M > 64 and shapes that hit
-                  every masked edge (K, N ragged, M not a multiple of the
-                  tile), each launched twice and the two results bitwise
-                  equal; its SIMT body (f32 x) once per leaf;
+                * the tiled launcher's tensor-core bodies, f32 (bf16 x)
+                  and int8 (s8 x u8), at the full-width leaves for M in
+                  {65, 96, 128, 200, 256, 512}, the ragged shapes with
+                  M > 64 and shapes that hit every masked edge (K, N
+                  ragged, M not a multiple of the tile), each launched
+                  twice and the two results bitwise equal; the int8
+                  exactness case where the plan splits K; the f32 body's
+                  SIMT kernel (f32 x) once per leaf;
                 * the ADC kernel at the seven unfused leaves for M in {1, 4,
                   32, 256} and ragged shapes: every output within rtol 1e-4
                   / atol 1e-6 or one ADC step apart (at most 0.1% of them);
                   the ADC exactness case bitwise;
-  4. timing   — (the tiled f32 body also at M=96, the phase-5 prefill,
-                and its time per kernel from torch.profiler)
+  4. timing   — (the tiled f32 and int8 bodies also at M=96, the phase-5
+                prefill, and their time per kernel from torch.profiler)
                 CUDA events around CUDA-graph replays over operand copies
                 rotated past the L2: the kernel, the plain version, and one
                 PyTorch call for the same work where there is one
@@ -50,6 +52,8 @@ Phases (any failure exits non-zero; no failure is caught):
                 codes vs dequant logits (prefill and one admission chunk per
                 row bucket 8, 16, 32), int8 vs f32 logits (gated), and ADC
                 vs f32 logits (reported: the fidelity of the ADC model);
+                the fused prefill's wall time from CUDA events, per
+                session;
   6. trace    — torch.profiler over a few steady decode ticks of each
                 session: device busy share, kernels per tick, the largest
                 kernels.
@@ -117,21 +121,24 @@ ADC_RAGGED = [(5, 300, 77), (130, 300, 65), (200, 1000, 999), (1, 33, 4097), (17
 DECODE_M = (1, 2, 4, 8, 16, 32, 64)
 PREFILL_M = 256
 ADC_M = (1, 4, 32, 256)
-# the tensor-core tiled body (bf16 x): row counts around its 128-row tile
-# (65 and 200 leave a partial tile), and shapes on every masked edge: K not
-# a multiple of 8 or of the 32-row stage, N not a multiple of 16 or of the
-# 64-column tile, M not a multiple of the tile
+# the tensor-core tiled bodies (f32 with bf16 x, int8): row counts around
+# their 128-row tile (65 and 200 leave a partial tile), and shapes on every
+# masked edge: K not a multiple of 8 (16 for s8) or of the 32- or 64-row
+# stage, N not a multiple of 16 or of the 64-column tile, M not a multiple
+# of the tile
 TILED_M = (65, 96, 128, 200, 256, 512)
 MASKED = [(96, 130, 77, 8), (200, 257, 31, 5), (150, 300, 999, 3), (65, 2048, 999, 8),
           (100, 257, 4096, 4), (130, 2048, 31, 2)]
 SLOTS = 4                   # engine slots: the decode batch of phase 5
-# timed row counts: a single stream, the phase-5 decode tick, a full
-# 32-token admission chunk, and a fused prefill
-TIMED_M = (1, SLOTS, 32, PREFILL_M)
-TIMED_M_INT8 = (SLOTS, 32, PREFILL_M)
-TIMED_M_ADC = (SLOTS, PREFILL_M)
 PREFILL_ROWS = 96           # phase 5's fused prefill: 3 x 32 tokens
-TIMED_M_TILED = (PREFILL_ROWS,)  # also timed for the tiled f32 body only
+PROMPT_LENS = (5, 40, 17, 9)  # phase 5's ragged engine requests
+MAX_NEW = 16                # greedy tokens per request
+# timed row counts: a single stream, the phase-5 decode tick, a full
+# 32-token admission chunk, phase 5's fused prefill and a larger one
+TIMED_M = (1, SLOTS, 32, PREFILL_M)
+TIMED_M_INT8 = (SLOTS, 32, PREFILL_ROWS, PREFILL_M)
+TIMED_M_ADC = (SLOTS, PREFILL_M)
+TIMED_M_TILED = (PREFILL_ROWS,)  # also timed for the tiled f32 body
 
 
 def log(*args):
@@ -243,8 +250,13 @@ def phase_kernels(device):
                     _fail(f"{key} at {(m, k, n, r)}", f"max|err| {err}")
                 worst[key] = max(worst[key], err)
 
-    # int8 exactness: xs = 1 and xq = x, so y = f32(int32 acc) bitwise
-    for m, k, n in ((4, 512, 256), (64, 512, 300), (100, 300, 77), (256, 512, 2048)):
+    # int8 exactness: y = f32(int32 acc) * xs with the reference's xs,
+    # bitwise; the tiled cases with M > 64 split K on the tensor cores
+    exact = ((4, 512, 256), (64, 512, 300), (100, 300, 77), (256, 512, 2048),
+             (130, 6144, 2048))
+    assert any(m > autotune.GEMV_MAX_M and autotune.tiled_tiles(m, n, k, "int8").splits(k) > 1
+               for m, k, n in exact)
+    for m, k, n in exact:
         ops = exact_operands(m, k, n, device, seed=m)
         want = ref.dora_linear_int8_ref(*ops)
         launchers = [("dora_linear", K.dora_linear)]
@@ -254,32 +266,45 @@ def phase_kernels(device):
             got = fn(*ops, accum="int8")
             torch.cuda.synchronize()
             ok = torch.equal(got, want)
-            log(f"[kernels] {K.counter(kind, 'int8'):22s} exact    M={m:4d} K={k:5d} N={n:5d} "
-                f"bitwise {'ok' if ok else 'FAIL'}")
+            splits = ("" if kind == "dora_linear_gemv" else
+                      f" splits {autotune.tiled_tiles(m, n, k, 'int8').splits(k)}")
+            log(f"[kernels] {K.counter(kind, 'int8'):22s} exact    M={m:4d} K={k:5d} N={n:5d}"
+                f"{splits} bitwise {'ok' if ok else 'FAIL'}")
             if not ok:
                 _fail(f"int8 exactness case {kind} at {(m, k, n)}",
                       f"max|err| {float((got - want).abs().max())}")
 
-    # the tensor-core tiled body: bf16 x, twice each (bitwise repeatable)
+    # both tensor-core tiled bodies: bf16 x, twice each (bitwise repeatable)
     mma = [(m, k, n, r, name) for name, k, n, r in LEAVES for m in TILED_M]
     mma += [(m, k, n, r, "ragged") for m, k, n, r in RAGGED if m > autotune.GEMV_MAX_M]
     mma += [(m, k, n, r, "masked") for m, k, n, r in MASKED]
     for m, k, n, r, name in mma:
         ops = operands(m, k, n, r, device, seed=m + k + n)
-        want = ref.dora_linear_ref(*ops)
-        got, again = K.dora_linear(*ops), K.dora_linear(*ops)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        same = torch.equal(got, again)
-        ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL)) and same
-        plan = autotune.tiled_tiles(m, n, k)
-        log(f"[kernels] dora_linear mma        {name:8s} M={m:4d} K={k:5d} N={n:5d} r={r:2d} "
-            f"tile {plan.bm}x{autotune.MMA_TILE_N} splits {plan.splits(k)} max|err|={err:.3e} "
-            f"repeat {'bitwise' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            _fail(f"dora_linear (tensor cores) at {(m, k, n, r)}",
-                  f"max|err| {err}, repeat bitwise {same}")
-        worst["dora_linear"] = max(worst["dora_linear"], err)
+        for accum in autotune.ACCUMS:
+            got, again = K.dora_linear(*ops, accum=accum), K.dora_linear(*ops, accum=accum)
+            torch.cuda.synchronize()
+            same = torch.equal(got, again)
+            if accum == "f32":
+                want = ref.dora_linear_ref(*ops)
+                err = float((got - want).abs().max())
+                ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL)) and same
+                note = ""
+            else:
+                want = ref.dora_linear_int8_ref(*ops)
+                err = float((got - want).abs().max())
+                rel = err / float(want.abs().max())
+                ok = rel <= INT8_TOL and same
+                note = f" ({rel:.2e} of absmax)"
+            plan = autotune.tiled_tiles(m, n, k, accum)
+            key = K.counter("dora_linear", accum)
+            log(f"[kernels] {key + ' mma':22s} {name:8s} M={m:4d} K={k:5d} N={n:5d} r={r:2d} "
+                f"tile {plan.bm}x{autotune.MMA_TILE_N} splits {plan.splits(k)} "
+                f"max|err|={err:.3e}{note} "
+                f"repeat {'bitwise' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"{key} (tensor cores) at {(m, k, n, r)}",
+                      f"max|err| {err}, repeat bitwise {same}")
+            worst[key] = max(worst[key], err)
     # the SIMT body, which f32 x keeps, once per leaf
     for name, k, n, r in LEAVES:
         x, *rest = operands(PREFILL_M, k, n, r, device, seed=k + n)
@@ -453,10 +478,11 @@ def phase_timing(device):
 
 def phase_tiled_breakdown(device):
     """Device time per layer of each kernel the tiled launcher's
-    tensor-core body launches (its X @ A prologue, the XA sum, the main
-    kernel, the split-K pass), from torch.profiler over one call per leaf
-    after a warm-up call (L2 warm), at the phase-5 prefill's rows and at
-    PREFILL_M. ``None`` where the profiler records no device activity."""
+    tensor-core bodies launch (for int8 the row scales; the X @ A
+    prologue; the XA sum; the main kernel; the split-K pass), from
+    torch.profiler over one call per leaf after a warm-up call (L2 warm),
+    at the phase-5 prefill's rows and at PREFILL_M, per body. ``None``
+    where the profiler records no device activity."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
@@ -464,26 +490,28 @@ def phase_tiled_breakdown(device):
     from repro_torch.kernels import dora_linear as K
 
     out = {}
-    for m in (PREFILL_ROWS, PREFILL_M):
-        ops = [operands(m, k, n, r, device, seed=1) for _, k, n, r in LEAVES]
-        for o in ops:
-            K.dora_linear(*o)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for accum, label in (("f32", "f32 body (bf16 x)"), ("int8", "int8 body")):
+        for m in (PREFILL_ROWS, PREFILL_M):
+            ops = [operands(m, k, n, r, device, seed=1) for _, k, n, r in LEAVES]
             for o in ops:
-                K.dora_linear(*o)
+                K.dora_linear(*o, accum=accum)
             torch.cuda.synchronize()
-        by = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = re.search(r"(\w+_kernel)", e.name)
-                name = name.group(1) if name else e.name[:40]
-                by[name] = by.get(name, 0.0) + e.device_time_total / 1e3
-        out[m] = by or None
-        parts = ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
-        log(f"[timing] tiled f32 body (bf16 x) per layer at M={m}, by kernel (profiler, "
-            f"L2 warm): {parts or 'no device activity recorded: not measured'}")
-        del ops
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for o in ops:
+                    K.dora_linear(*o, accum=accum)
+                torch.cuda.synchronize()
+            by = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    name = re.search(r"(\w+_kernel)", e.name)
+                    name = name.group(1) if name else e.name[:40]
+                    by[name] = by.get(name, 0.0) + e.device_time_total / 1e3
+            out[f"{accum}/{m}"] = by or None
+            parts = ", ".join(f"{k} {v:.4f} ms"
+                              for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+            log(f"[timing] tiled {label} per layer at M={m}, by kernel (profiler, "
+                f"L2 warm): {parts or 'no device activity recorded: not measured'}")
+            del ops
     return out
 
 
@@ -500,6 +528,31 @@ def read_counts():
     from repro_torch.kernels import dora_linear as K
 
     return {**K.launch_counts(), **C.launch_counts()}
+
+
+def serving_inputs(vocab, seed, device):
+    """Phase 5's traffic, drawn from ``seed``: the ragged engine prompts,
+    the fused prefill's tokens (3 x 32 = 96 > 64 rows, so the tiled
+    launcher), and the generator, to draw more from."""
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, vocab, (n,), generator=g) for n in PROMPT_LENS]
+    tokens = torch.randint(0, vocab, (3, PREFILL_ROWS // 3), generator=g).to(device)
+    return prompts, tokens, g
+
+
+def time_prefill(session, tokens, reps=1):
+    """Wall time of each of ``reps`` fused prefills on the device's clock
+    (CUDA events around the whole eager call, host launch gaps included),
+    and the last one's logits."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for _ in range(reps):
+        start.record()
+        logits, _ = session.prefill(tokens, 48)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, logits
 
 
 def drive(session, prompts, tokens, max_new):
@@ -520,9 +573,10 @@ def drive(session, prompts, tokens, max_new):
     torch.cuda.synchronize()
     t_engine = time.perf_counter() - t0
     after_engine = read_counts()
-    logits, _ = session.prefill(tokens, 48)
-    torch.cuda.synchronize()
+    (prefill_ms,), logits = time_prefill(session, tokens)
     counts = read_counts()
+    # again, uncounted, now that every shape has been seen once
+    warm, _ = time_prefill(session, tokens, reps=3)
     vocab = session.cfg.vocab
     for r in reqs:
         assert r.done and len(r.tokens) == max_new, r
@@ -539,12 +593,17 @@ def drive(session, prompts, tokens, max_new):
         "tick_ms": 1e3 * stats["decode_seconds"] / stats["decode_steps"],
         "ttft_s": ttft, "launches_engine": after_engine, "launches": counts,
         "streams": [list(r.tokens) for r in reqs],
+        "prefill_rows": int(tokens.numel()), "prefill_ms": prefill_ms,
+        "prefill_ms_warm": warm,
     }
     log(f"[serve] {session.describe()} {session.options}: decode {stats['decode_tokens']} tok in "
         f"{stats['decode_seconds']:.3f} s = {stats['decode_tok_per_s']:.1f} tok/s ({SLOTS} slots, "
         f"{result['tick_ms']:.2f} ms per tick, {stats['decode_steps']} ticks, "
         f"{stats['prefill_chunks']} admission chunks) | TTFT min {min(ttft):.3f} s "
         f"max {max(ttft):.3f} s")
+    log(f"[serve] fused prefill ({tokens.shape[0]} x {tokens.shape[1]} tokens) wall "
+        f"{prefill_ms:.3f} ms (CUDA events; counted run), warm repeats "
+        f"{', '.join(f'{t:.3f}' for t in warm)} ms")
     log(f"[serve] launches {counts}")
     return result, logits
 
@@ -586,17 +645,13 @@ def phase_serving(device, seed):
     log(f"[serve] {session.describe()}")
     log(f"[serve] program + advance(24) + serve: {t_setup:.2f} s")
 
-    g = torch.Generator().manual_seed(seed)
-    prompt_lens, max_new = (5, 40, 17, 9), 16
-    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in prompt_lens]
-    # fused prefill: B*S = 3*32 = 96 > 64 rows -> the tiled launcher
-    tokens = torch.randint(0, cfg.vocab, (3, PREFILL_ROWS // 3), generator=g).to(device)
+    prompts, tokens, g = serving_inputs(cfg.vocab, seed, device)
     n_leaves = 4 * cfg.n_layers  # fused qkv, o, gate_up, down per layer
     n_adc = 7 * cfg.n_layers     # q, k, v, o, gate, up, down per layer
 
     # f32 codes: every admission chunk (<= 32 rows) and every decode tick
     # (4 rows) runs each fused leaf once through the GEMV launcher
-    result, logits = drive(session, prompts, tokens, max_new)
+    result, logits = drive(session, prompts, tokens, MAX_NEW)
     steps = result["prefill_chunks"] + result["decode_steps"]
     expect_counts(result["launches_engine"], {"dora_linear_gemv": n_leaves * steps})
     expect_counts(result["launches"], {"dora_linear_gemv": n_leaves * steps,
@@ -637,7 +692,7 @@ def phase_serving(device, seed):
 
     # int8 codes: the same codes and traffic through the int8 body
     session8 = dep.serve(accum="int8")
-    int8, logits8 = drive(session8, prompts, tokens, max_new)
+    int8, logits8 = drive(session8, prompts, tokens, MAX_NEW)
     steps = int8["prefill_chunks"] + int8["decode_steps"]
     expect_counts(int8["launches_engine"], {"dora_linear_gemv/int8": n_leaves * steps})
     expect_counts(int8["launches"], {"dora_linear_gemv/int8": n_leaves * steps,
@@ -651,7 +706,7 @@ def phase_serving(device, seed):
     dep_adc = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
                          dep.teacher_seed, dep.program_seed, dep.drift_hours)
     session_adc = dep_adc.serve()
-    adc, logits_adc = drive(session_adc, prompts, tokens, max_new)
+    adc, logits_adc = drive(session_adc, prompts, tokens, MAX_NEW)
     steps = adc["prefill_chunks"] + adc["decode_steps"]
     expect_counts(adc["launches_engine"], {"crossbar_mvm": n_adc * steps})
     expect_counts(adc["launches"], {"crossbar_mvm": n_adc * (steps + 1)})
@@ -662,6 +717,9 @@ def phase_serving(device, seed):
     adc["greedy_tokens_equal_f32"] = same / sum(len(r) for r in result["streams"])
     log(f"[serve] codes_adc greedy tokens equal to f32 codes: {adc['greedy_tokens_equal_f32']:.3f}")
     result["int8"], result["codes_adc"] = int8, adc
+    log("[serve] fused prefill wall (CUDA events, counted run | warm best): " + ", ".join(
+        f"{body} {run['prefill_ms']:.3f} | {min(run['prefill_ms_warm']):.3f} ms"
+        for body, run in (("f32", result), ("int8", int8), ("codes_adc", adc))))
     result["peak_mem_bytes_all"] = torch.cuda.max_memory_allocated()
     del logits_adc
     return result, {"f32": session, "int8": session8, "codes_adc": session_adc}

@@ -13,9 +13,10 @@ and the only decisions left are:
 * the ADC kernel's output rows per block, the smallest instantiation
   that covers the rows of one ADC block, so a decode tick does not pay
   for 128-row tiles;
-* the tiled launcher's tensor-core body (bf16 x, f32): its tile rows and
-  the rows of K per split (``tiled_tiles``), so that every full-width
-  leaf at prefill fills one wave of blocks on the card's 132 SMs.
+* the tiled launcher's tensor-core bodies (int8; f32 with bf16 x): their
+  tile rows and the rows of K per split (``tiled_tiles``, per body), so
+  that every full-width leaf at prefill fills one wave of blocks on the
+  card's 132 SMs.
 
 The ADC kernel's 128-row block and 256-row array tile are not choices:
 max |x| is taken per (block, tile) and each tile's current is digitized
@@ -44,21 +45,23 @@ ADC_ARRAY_ROWS = 256
 ADC_TILE_ROWS = (16, 32, 64, 128)
 
 
-# the tensor-core body (dora_linear.cu): rows of K per pipeline stage, its
-# tile width, and its tile rows (64 only where M fits one such tile;
-# otherwise 128, so that fewer row tiles read the codes again). Two
-# 128 x 64 blocks fit one SM (shared memory, registers).
-MMA_TILE_K = 32
-MMA_TILE_N = 64
+# rows of K per pipeline stage, per tensor-core body: f32 (bf16 x; kMmaK)
+# and int8 (kMmaKInt8). Measured on the H100 at the qwen3-1.7b leaves at
+# 96 and 256 rows (PERF.md): f32, 32-row stages; int8, 64-row stages
+# (32-row stages were slower, tools/sweep_tiled_int8.py).
+MMA_BODIES = {"f32": 32, "int8": 64}
+# tile rows: 64 only where M fits one such tile; otherwise 128, so that
+# fewer row tiles read the codes again
 MMA_TILE_M = (64, 128)
+MMA_TILE_N = 64         # tile columns, both bodies (kMmaN)
 SMS = 132               # H100 SXM
-WAVE = 2 * SMS          # blocks the card runs at once
+WAVE = 2 * SMS          # blocks the card runs at once (two an SM, either body)
 MIN_SPLIT_ROWS = 128    # a K split keeps at least this many rows of K
 
 
 class TilePlan(NamedTuple):
     bm: int       # rows of a tile; its columns are MMA_TILE_N
-    k_split: int  # rows of K per split, a multiple of MMA_TILE_K
+    k_split: int  # rows of K per split, a multiple of the body's stage
 
     def splits(self, k: int) -> int:
         return -(-k // self.k_split)
@@ -67,18 +70,19 @@ class TilePlan(NamedTuple):
         return -(-m // self.bm) * -(-n // MMA_TILE_N) * self.splits(k)
 
 
-def tiled_tiles(m: int, n: int, k: int) -> TilePlan:
-    """The tensor-core body's tile for an (m, k) x (k, n) product, with K
+def tiled_tiles(m: int, n: int, k: int, accum: str) -> TilePlan:
+    """A tensor-core body's tile for an (m, k) x (k, n) product, with K
     split into as many ordered parts (summed by a second pass) as fill one
     wave of blocks, each part at least ``MIN_SPLIT_ROWS`` rows of K.
     Measured on the H100 at the qwen3-1.7b leaves (PERF.md): one full wave
     beats both fewer blocks and a second, partial wave."""
+    stage = MMA_BODIES[accum]
     bm = MMA_TILE_M[0] if m <= MMA_TILE_M[0] else MMA_TILE_M[1]
     tiles = -(-m // bm) * -(-n // MMA_TILE_N)
-    k_steps = -(-k // MMA_TILE_K)
+    k_steps = -(-k // stage)
     splits = max(1, WAVE // tiles)
-    steps = max(-(-k_steps // splits), MIN_SPLIT_ROWS // MMA_TILE_K)
-    return TilePlan(bm, min(steps, k_steps) * MMA_TILE_K)
+    steps = max(-(-k_steps // splits), -(-MIN_SPLIT_ROWS // stage))
+    return TilePlan(bm, min(steps, k_steps) * stage)
 
 
 def use_gemv(m: int) -> bool:

@@ -10,65 +10,86 @@
 // dora_linear_gemv (decode, M <= 64) and dora_linear (prefill, tiled
 // over M and N).
 //
+// Which body runs where:
+//
+//     launcher  body  x          kernel                        arithmetic
+//     GEMV      f32   f32, bf16  dora_gemv_kernel<..., false>  SIMT f32
+//     GEMV      int8  f32, bf16  dora_gemv_kernel<..., true>   SIMT int32
+//     tiled     f32   bf16       dora_mma_kernel<..., false>   mma.sync bf16, f32 acc
+//     tiled     f32   f32        dora_tiled_kernel             SIMT f32
+//     tiled     int8  f32, bf16  dora_mma_kernel<..., true>    mma.sync s8 x u8, s32 acc
+//
 // The int8 body. Its prologue quantizes each row of X to s8 (xs =
 // max(max|x|, 1e-30) / 127, xq = clip(rint(x / xs), +-127), IEEE division
 // and round-half-even, so xq and xs match the reference bitwise) and
-// computes Xq @ A in f32. The main loops then accumulate xq * (G+ - G-) in
-// int32 on the SIMT units: a code byte is read zero-extended and the
-// difference of the pair taken in registers, which equals the reference's
-// (G+ - 128) - (G- - 128) recode without storing any s8 copy of the codes.
-// The sum is exact in any order (|acc| <= K * 127 * 255 < 2^31 for every K
-// the models have), so it equals the reference's int32 accumulator
-// bitwise; the f32 epilogue keeps the reference's order of operations.
+// computes Xq @ A in f32. The GEMV accumulates xq * (G+ - G-) in int32 on
+// the SIMT units: a code byte is read zero-extended and the difference of
+// the pair taken in registers. The tiled launcher accumulates on the
+// tensor cores: mma.m16n8k32 s8 x u8 takes the u8 codes as they are, as
+// xq . G+ plus (-xq) . G- into one s32 accumulator (-xq is exact in s8,
+// |xq| <= 127). Either equals the reference's (G+ - 128) - (G- - 128)
+// recode without storing any s8 copy of the codes. The sum is exact in
+// any order: every partial stays below 2 * K * 127 * 255 < 2^31 for every
+// K the models have (K <= 19200), so it equals the reference's int32
+// accumulator bitwise; the f32 epilogue keeps the reference's order of
+// operations: f32(acc) * xs * scale, plus the low-rank term, times gamma.
 //
 // What bounds it on an H100. Every shape the serving path gives is bound
 // by bytes: each weight is two code bytes (G+ and G-) read once per call,
 // and the work is M flops per code byte, below the card's ridge point for
 // these inputs up to M ~ 295 (bf16 x; G+ - G- in [-255, 255] is exact in
-// bf16; 989 TFLOP/s on the tensor cores over 3.35 TB/s). Its floor is
-// about 2*K*N bytes over the HBM rate. The GEMV launcher and the SIMT
-// bodies keep the reference's exact f32 arithmetic on the SIMT units (67
-// TFLOP/s, a ridge of 20 flop/byte): the decode GEMV (M <= 4) stays under
-// that ridge, but from a few dozen rows up the f32 instruction rate caps
-// a SIMT body far above the byte floor. The int8 body moves the same
-// bytes; the card's int8 tensor-core rate (1979 TOPS) puts its ridge even
-// higher, and its SIMT int32 multiply-adds run no faster than the f32
-// FMAs, so the same holds.
+// bf16; 989 TFLOP/s on the tensor cores over 3.35 TB/s) and M ~ 590 (s8
+// x and u8 codes; 1979 TOPS). Its floor is about 2*K*N bytes over the HBM
+// rate. The GEMV launcher and the SIMT tiled body keep the reference's
+// exact arithmetic on the SIMT units (67 TFLOP/s f32, a ridge of 20
+// flop/byte; int32 multiply-adds run no faster): the decode GEMV (M <= 4)
+// stays under that ridge, but from a few dozen rows up the instruction
+// rate caps a SIMT body far above the byte floor. So every tiled call the
+// serving paths make runs on the tensor cores.
 //
-// The tiled launcher with bf16 x (every serving path) therefore runs a
-// tensor-core body: a bf16 x times a bf16 G+ - G- is exact in f32, so
-// mma.sync bf16 with f32 accumulators differs from the SIMT body only in
-// the order of the f32 sums and holds the same 1e-4 tolerance. It
-// computes the reference's _kernel with its epilogue order: accumulate,
-// times scale, plus XA @ B, times gamma. Design:
+// The tensor-core bodies. The f32 body (bf16 x) multiplies a bf16 x by a
+// bf16 G+ - G-, exact in f32, so mma.sync bf16 with f32 accumulators
+// differs from the SIMT body only in the order of the f32 sums and holds
+// the same 1e-4 tolerance. The int8 body multiplies the s8 xq by the u8
+// codes, exactly. Design, shared by both:
 // * A 4-stage ring of cp.async copies (16 bytes a thread) stages the x
-//   tile (BM x 32 bf16) and both u8 code tiles (32 x 64) in dynamic
-//   shared memory; copies run two stages ahead of the MMAs.
-// * A conversion pass turns each staged code pair into a bf16 G+ - G-
-//   tile (the 2^23 byte trick below, one exact f32 subtract, one
-//   cvt.rn.bf16x2), once per block, shared by its BM rows; no float
-//   weight reaches device memory. Tile t + 1 is converted while tile t's
-//   MMAs run, into the other of two weight buffers: one barrier a stage.
-// * 8 warps (2 x 4) load fragments with ldmatrix (.trans for the K x N
-//   weight tile; rows padded by 16 bytes against bank conflicts) and run
-//   mma.sync.m16n8k16 bf16 with f32 accumulators. No TF32 anywhere.
-// * Tiles are 128 x 64 (64 x 64 where M <= 64), two blocks an SM; K is
-//   split into ordered parts until the blocks fill one wave
-//   (autotune.tiled_tiles). With several parts each block writes its raw
-//   sums and a second pass adds them in part order, then runs the
+//   tile (BM x BK bf16 or s8) and both u8 code tiles (BK x BN) in
+//   dynamic shared memory; copies run two stages ahead of the MMAs.
+// * A pass over each staged code pair, once per block and shared by its
+//   BM rows, puts the weight into the layout the MMA reads; no float or
+//   s8 weight reaches device memory. f32 body: a bf16 G+ - G- tile (the
+//   2^23 byte trick below, one exact f32 subtract, one cvt.rn.bf16x2).
+//   int8 body: a byte transpose (4 x 4 blocks by __byte_perm) of each
+//   code tile into words of 4 consecutive K of one column, the B
+//   fragment of mma.m16n8k32 (sm_90 has no 8-bit ldmatrix.trans). Tile
+//   t + 1 is converted while tile t's MMAs run, into the other of two
+//   weight buffers: one barrier a stage.
+// * 8 warps (2 x 4) load x fragments with ldmatrix and run mma.sync:
+//   m16n8k16 bf16 with B by ldmatrix.trans (f32 body); m16n8k32 s8 x u8
+//   with B as one 32-bit shared load per register, twice per step (G+
+//   with xq, then G- with xq negated byte by byte in registers) (int8
+//   body). Rows of every tile are padded against bank conflicts. No TF32
+//   anywhere.
+// * Tiles are BM x 64 (BM 128, or 64 where M <= 64); K is split into
+//   ordered parts until the blocks fill one wave (autotune.tiled_tiles,
+//   per body). With several parts each block writes its raw sums (f32 or
+//   int32) and a second pass adds them in part order, then runs the
 //   epilogue: no atomics, so two launches are bitwise equal.
-// * Its prologue stages 16 rows of x and a 256-row slab of A in shared
-//   memory and writes XA partials; a small kernel sums them in chunk
-//   order into XA, which the epilogue reads once per value.
-// * Ragged K, N and M: the copies need K % 8 == 0, N % 16 == 0 and
-//   16-byte aligned operands; otherwise the same kernel stages its tiles
-//   with masked scalar loads. Both zero-fill past M, N and K.
-// Measured on the H100 (PERF.md), it is not byte-bound: its copies, code
+// * X @ A: a prologue stages 16 rows of x and a 256-row slab of A in
+//   shared memory and writes XA partials, which a small kernel sums in
+//   chunk order into XA; the epilogue reads one value per (row, rank).
+//   int8 body: a first pass takes each row's scale xs (one block a row,
+//   each row read once), then the prologue quantizes x to xq as it stages
+//   it, writes xq (M x K s8, the main kernel's x operand) and the
+//   partials of Xq @ A.
+// * Ragged K, N and M: the copies need K % 8 (bf16) or K % 16 (s8) == 0,
+//   N % 16 == 0 and 16-byte aligned operands; otherwise the same kernel
+//   stages its tiles with masked scalar loads. Both zero-fill past M, N
+//   and K.
+// Measured on the H100 (PERF.md), neither is byte-bound: copies, weight
 // conversion and MMAs add up rather than overlap (one or two blocks an
-// SM, a barrier every 32 rows of K), and the X @ A prologue and the
-// split-K pass take about a fifth of a layer.
-// f32 x (not exact in bf16; no serving path passes it to the card) and
-// the int8 body keep the SIMT tiled kernel.
+// SM, a barrier every stage), and the prologue, the XA sum and the
+// split-K pass take a fifth or more of a layer.
 //
 // What the design does about it:
 // * The weight stays in code space into registers: no float weight ever
@@ -89,11 +110,11 @@
 //   Each thread holds rows x CPT accumulators; the row groups are summed
 //   with warp shuffles, then warp by warp in a fixed order
 //   (deterministic), and the epilogue applies scale, XA @ B and gamma.
-// * Tiled launcher, SIMT body (f32 x, int8): a shared-memory product,
+// * Tiled launcher, SIMT body (f32 x only): a shared-memory product,
 //   128x128 output tile, 8-deep K tiles, each thread an 8x8 register
-//   tile; codes become f32 (int8: int32) weights as the tile is loaded.
-//   The low-rank term reuses the same micro-kernel as 8-deep "K tiles" of
-//   XA against B after the accumulators are scaled, then gamma is applied.
+//   tile; codes become f32 weights as the tile is loaded. The low-rank
+//   term reuses the same micro-kernel as 8-deep "K tiles" of XA against
+//   B after the accumulators are scaled, then gamma is applied.
 // * All bodies mask ragged M, K and N themselves (zero-filled loads,
 //   guarded stores), so no operand is ever padded.
 //
@@ -200,28 +221,11 @@ __global__ void __launch_bounds__(kPrepThreads)
   xa_partial([&](int k) { return to_f32(xr[k]); }, a, xa, part, m, M, kb, ke, R);
 }
 
-// int8 body, same grid: the row quantization, xs (M) f32, Xq as s8 (M x K,
-// tiled launcher) or transposed as int32 (K x rows, zero rows past M,
-// GEMV launcher), and the partials of Xq @ A in f32. Each block takes
-// max |x| over its whole row (a few KB, read again by each chunk's block)
-// so that one launch does it all.
+// the int8 row scale of row xr: max(max|x|, 1e-30) / 127, by the whole
+// block (wmax: kPrepThreads / 32 floats of shared memory)
 template <typename TX>
-__global__ void __launch_bounds__(kPrepThreads)
-    prep_int8_kernel(const TX* __restrict__ x, const float* __restrict__ a,
-                     float* __restrict__ xa, float* __restrict__ xs,
-                     int8_t* __restrict__ xq, int* __restrict__ xqt, int M, int K,
-                     int R, int rows) {
-  __shared__ float part[kPrepThreads];
-  __shared__ float wmax[kPrepThreads / 32];
-  const int m = blockIdx.x;
+__device__ __forceinline__ float row_scale(const TX* __restrict__ xr, int K, float* wmax) {
   const int tid = threadIdx.x;
-  const int kb = blockIdx.y * kPrepRows, ke = min(K, kb + kPrepRows);
-  if (m >= M) {
-    if (xqt != nullptr)
-      for (int k = kb + tid; k < ke; k += kPrepThreads) xqt[(size_t)k * rows + m] = 0;
-    return;
-  }
-  const TX* xr = x + (size_t)m * K;
   float amax = 0.f;
   for (int k = tid; k < K; k += kPrepThreads) amax = fmaxf(amax, fabsf(to_f32(xr[k])));
   for (int off = 16; off > 0; off >>= 1)
@@ -230,28 +234,60 @@ __global__ void __launch_bounds__(kPrepThreads)
   __syncthreads();
   amax = wmax[0];
   for (int w = 1; w < kPrepThreads / 32; ++w) amax = fmaxf(amax, wmax[w]);
-  const float s = __fdiv_rn(fmaxf(amax, 1e-30f), 127.f);
-  if (blockIdx.y == 0 && tid == 0) xs[m] = s;
-  for (int k = kb + tid; k < ke; k += kPrepThreads) {
-    const int q = quantize_s8(to_f32(xr[k]), s);
-    if (xq != nullptr) xq[(size_t)m * K + k] = (int8_t)q;
-    if (xqt != nullptr) xqt[(size_t)k * rows + m] = q;
+  return __fdiv_rn(fmaxf(amax, 1e-30f), 127.f);
+}
+
+// int8 body, GEMV launcher, same grid: the row quantization, xs (M) f32,
+// Xq transposed as int32 (K x rows, zero rows past M), and the partials
+// of Xq @ A in f32. Each block takes max |x| over its whole row (a few
+// KB, read again by each chunk's block) so that one launch does it all.
+template <typename TX>
+__global__ void __launch_bounds__(kPrepThreads)
+    prep_int8_kernel(const TX* __restrict__ x, const float* __restrict__ a,
+                     float* __restrict__ xa, float* __restrict__ xs, int* __restrict__ xqt,
+                     int M, int K, int R, int rows) {
+  __shared__ float part[kPrepThreads];
+  __shared__ float wmax[kPrepThreads / 32];
+  const int m = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int kb = blockIdx.y * kPrepRows, ke = min(K, kb + kPrepRows);
+  if (m >= M) {
+    for (int k = kb + tid; k < ke; k += kPrepThreads) xqt[(size_t)k * rows + m] = 0;
+    return;
   }
+  const TX* xr = x + (size_t)m * K;
+  const float s = row_scale(xr, K, wmax);
+  if (blockIdx.y == 0 && tid == 0) xs[m] = s;
+  for (int k = kb + tid; k < ke; k += kPrepThreads)
+    xqt[(size_t)k * rows + m] = quantize_s8(to_f32(xr[k]), s);
   xa_partial([&](int k) { return (float)quantize_s8(to_f32(xr[k]), s); }, a, xa, part,
              m, M, kb, ke, R);
 }
 
-// prologue of the tensor-core body, grid (ceil(M / kPrepRowTile), G): the
-// XA partials over kPrepRows rows of K for kPrepRowTile rows of X per
+// int8 body, tiled launcher, grid M: the row scales xs, each row read once
+template <typename TX>
+__global__ void __launch_bounds__(kPrepThreads)
+    row_scale_kernel(const TX* __restrict__ x, float* __restrict__ xs, int K) {
+  __shared__ float wmax[kPrepThreads / 32];
+  const float s = row_scale(x + (size_t)blockIdx.x * K, K, wmax);
+  if (threadIdx.x == 0) xs[blockIdx.x] = s;
+}
+
+// prologue of the tensor-core bodies, grid (ceil(M / kPrepRowTile), G):
+// the XA partials over kPrepRows rows of K for kPrepRowTile rows of X per
 // block, from shared-memory tiles of x and A (16 ranks at a time), so that
-// each value of A read from memory serves every row of the tile
+// each value of A read from memory serves every row of the tile. INT8:
+// x is quantized with the row scales xs as it is staged, written to xq
+// (M x K s8), and the partials are those of Xq @ A.
 constexpr int kPrepRowTile = 16;
 
+template <typename TX, bool INT8>
 __global__ void __launch_bounds__(kPrepThreads)
-    prep_tile_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
-                     float* __restrict__ xa, int M, int K, int R) {
+    prep_tile_kernel(const TX* __restrict__ x, const float* __restrict__ xs,
+                     const float* __restrict__ a, float* __restrict__ xa,
+                     int8_t* __restrict__ xq, int M, int K, int R) {
   // rows padded by 4 floats: 16-byte aligned, 4 banks apart
-  __shared__ __align__(16) float xs[kPrepRowTile][kPrepRows + 4];
+  __shared__ __align__(16) float xt[kPrepRowTile][kPrepRows + 4];
   __shared__ __align__(16) float at[16][kPrepRows + 4];  // A tile, transposed
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * kPrepRowTile;
@@ -261,7 +297,18 @@ __global__ void __launch_bounds__(kPrepThreads)
   for (int it = 0; it < kPrepRowTile * kPrepRows / kPrepThreads; ++it) {
     const int p = tid + it * kPrepThreads;
     const int i = p / kPrepRows, k = p % kPrepRows;
-    xs[i][k] = (m0 + i < M && k < kn) ? __bfloat162float(x[(size_t)(m0 + i) * K + kb + k]) : 0.f;
+    const int m = m0 + i;
+    float v = 0.f;
+    if (m < M && k < kn) {
+      const size_t e = (size_t)m * K + kb + k;
+      v = to_f32(x[e]);
+      if constexpr (INT8) {
+        const int q = quantize_s8(v, xs[m]);
+        xq[e] = (int8_t)q;
+        v = (float)q;
+      }
+    }
+    xt[i][k] = v;
   }
   const int i = tid / 16, j = tid % 16;
   for (int r0 = 0; r0 < R; r0 += 16) {
@@ -276,7 +323,7 @@ __global__ void __launch_bounds__(kPrepThreads)
     float acc = 0.f;
 #pragma unroll 4
     for (int k = 0; k < kPrepRows; k += 4) {
-      const float4 xv = *reinterpret_cast<const float4*>(&xs[i][k]);
+      const float4 xv = *reinterpret_cast<const float4*>(&xt[i][k]);
       const float4 av = *reinterpret_cast<const float4*>(&at[j][k]);
       acc = fmaf(xv.x, av.x, acc);
       acc = fmaf(xv.y, av.y, acc);
@@ -479,44 +526,34 @@ __device__ __forceinline__ int tile_row(int t, int i) {  // i in [0, 8)
 }
 
 // one 8-deep step of the 8x8 register tile: acc += as^T-tile x bs-tile
-template <typename T>
-__device__ __forceinline__ void micro_tile(const T (*as)[kTileM], const T (*bs)[kTileN],
-                                           int ty, int tx, T (&acc)[8][8]) {
-  using V4 = typename Num<!std::is_same<T, float>::value>::V4;
+__device__ __forceinline__ void micro_tile(const float (*as)[kTileM], const float (*bs)[kTileN],
+                                           int ty, int tx, float (&acc)[8][8]) {
 #pragma unroll
   for (int kk = 0; kk < kTileK; ++kk) {
-    const V4 a0 = *reinterpret_cast<const V4*>(&as[kk][ty * 4]);
-    const V4 a1 = *reinterpret_cast<const V4*>(&as[kk][64 + ty * 4]);
-    const V4 b0 = *reinterpret_cast<const V4*>(&bs[kk][tx * 4]);
-    const V4 b1 = *reinterpret_cast<const V4*>(&bs[kk][64 + tx * 4]);
-    const T av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const T bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
+    const float4 a1 = *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]);
+    const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
+    const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = mad(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
-// The SIMT body: f32 x (bf16 x runs dora_mma_kernel), or INT8: xq (M x K
-// s8) and xs (M) come from the int8 prologue, x is unused; the tiles hold
-// int32 xq and G+ - G-, and the accumulators are int32 until the epilogue
-template <bool VEC, bool INT8>
+// The SIMT body, for f32 x with the f32 body (bf16 x and the int8 body run
+// dora_mma_kernel)
+template <bool VEC>
 __global__ void __launch_bounds__(kTileThreads)
-    dora_tiled_kernel(const float* __restrict__ x, const int8_t* __restrict__ xq,
-                      const float* __restrict__ xs, const uint8_t* __restrict__ gp,
+    dora_tiled_kernel(const float* __restrict__ x, const uint8_t* __restrict__ gp,
                       const uint8_t* __restrict__ gn, const float* __restrict__ scale,
                       const float* __restrict__ b, const float* __restrict__ gamma,
-                      const float* __restrict__ xa, float* __restrict__ out, int M,
-                      int K, int N, int R, int G) {
-  using T = typename Num<INT8>::T;
-  using V4 = typename Num<INT8>::V4;
-  __shared__ __align__(16) uint32_t as_raw[kTileK * kTileM];  // x tile, transposed
-  __shared__ __align__(16) uint32_t bs_raw[kTileK * kTileN];  // weight tile
-  T (*ast)[kTileM] = reinterpret_cast<T (*)[kTileM]>(as_raw);
-  T (*bst)[kTileN] = reinterpret_cast<T (*)[kTileN]>(bs_raw);
-  float (*as)[kTileM] = reinterpret_cast<float (*)[kTileM]>(as_raw);
-  float (*bs)[kTileN] = reinterpret_cast<float (*)[kTileN]>(bs_raw);
+                      const float* __restrict__ xa, float* __restrict__ out, int M, int K,
+                      int N, int R, int G) {
+  __shared__ __align__(16) float as[kTileK][kTileM];  // x tile, transposed
+  __shared__ __align__(16) float bs[kTileK][kTileN];  // weight tile
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int m0 = blockIdx.y * kTileM, n0 = blockIdx.x * kTileN;
@@ -524,20 +561,18 @@ __global__ void __launch_bounds__(kTileThreads)
   const int lm = tid / 2, lk = (tid % 2) * 4;
   const int ck = tid / 32, cn = (tid % 32) * 4;
 
-  T acc[8][8];
+  float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += kTileK) {
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = m0 + lm, k = k0 + lk + i;
-      const bool in = m < M && k < K;
-      if constexpr (INT8) ast[lk + i][lm] = in ? (int)xq[(size_t)m * K + k] : 0;
-      else ast[lk + i][lm] = in ? x[(size_t)m * K + k] : 0.f;
+      as[lk + i][lm] = (m < M && k < K) ? x[(size_t)m * K + k] : 0.f;
     }
     {
       const int k = k0 + ck;
@@ -545,47 +580,30 @@ __global__ void __launch_bounds__(kTileThreads)
       const size_t off = (size_t)min(k, K - 1) * N + n0 + cn;
       const uint32_t p = load_codes<4, VEC>(gp + off, valid).w[0];
       const uint32_t q = load_codes<4, VEC>(gn + off, valid).w[0];
-      V4 w;
-      w.x = code_diff<INT8>(p, q, 0);
-      w.y = code_diff<INT8>(p, q, 1);
-      w.z = code_diff<INT8>(p, q, 2);
-      w.w = code_diff<INT8>(p, q, 3);
-      *reinterpret_cast<V4*>(&bst[ck][cn]) = w;
+      *reinterpret_cast<float4*>(&bs[ck][cn]) =
+          make_float4(code_diff<false>(p, q, 0), code_diff<false>(p, q, 1),
+                      code_diff<false>(p, q, 2), code_diff<false>(p, q, 3));
     }
     __syncthreads();
-    micro_tile<T>(ast, bst, ty, tx, acc);
+    micro_tile(as, bs, ty, tx, acc);
   }
 
-  // y = acc * scale + XA @ B (int8: f32(acc) * xs * scale + (XA * xs) @ B):
-  // scale first, then the low-rank term through the same micro-kernel,
-  // 8 ranks at a time
+  // y = acc * scale + XA @ B: scale first, then the low-rank term through
+  // the same micro-kernel, 8 ranks at a time
   float y[8][8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int n = n0 + tile_row(tx, j);
     const float s = n < N ? scale[n] : 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if constexpr (INT8) {
-        const int m = m0 + tile_row(ty, i);
-        const float xsm = m < M ? xs[m] : 0.f;
-        y[i][j] = __fmul_rn(__fmul_rn((float)acc[i][j], xsm), s);
-      } else {
-        y[i][j] = acc[i][j] * s;
-      }
-    }
+    for (int i = 0; i < 8; ++i) y[i][j] = acc[i][j] * s;
   }
   for (int r0 = 0; r0 < R; r0 += kTileK) {
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = m0 + lm, r = r0 + lk + i;
-      float v = 0.f;
-      if (m < M && r < R) {
-        v = xa_sum(xa, G, M, R, m, r);
-        if constexpr (INT8) v = __fmul_rn(v, xs[m]);
-      }
-      as[lk + i][lm] = v;
+      as[lk + i][lm] = (m < M && r < R) ? xa_sum(xa, G, M, R, m, r) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -593,7 +611,7 @@ __global__ void __launch_bounds__(kTileThreads)
       bs[ck][cn + i] = (r < R && n < N) ? b[(size_t)r * N + n] : 0.f;
     }
     __syncthreads();
-    micro_tile<float>(as, bs, ty, tx, y);
+    micro_tile(as, bs, ty, tx, y);
   }
 
 #pragma unroll
@@ -609,14 +627,18 @@ __global__ void __launch_bounds__(kTileThreads)
 }
 
 // ---------------------------------------------------------------------------
-// tiled launcher, tensor-core body (bf16 x, f32 accumulation)
+// tiled launcher, tensor-core bodies: f32 (bf16 x, f32 accumulators) and
+// int8 (s8 xq x u8 codes, s32 accumulators)
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaThreads = 256;  // 8 warps, 2 (rows) x 4 (columns)
 constexpr int kMmaStages = 4;    // stages of the copy ring
-constexpr int kMmaK = 32;        // rows of K per stage (autotune.MMA_TILE_K)
-constexpr int kMmaN = 64;        // output columns per block (autotune.MMA_TILE_N)
 constexpr int kMmaRanks = 32;     // ranks of XA @ B per epilogue pass
+// rows of K per stage, per body (autotune.MMA_BODIES), and output
+// columns per block, both bodies (autotune.MMA_TILE_N)
+constexpr int kMmaK = 32;
+constexpr int kMmaKInt8 = 64;
+constexpr int kMmaN = 64;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -657,6 +679,30 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a (16x32 s8, row) x b (32x8 u8, col), s32 accumulators
+__device__ __forceinline__ void mma_s8u8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// -v of each of the four s8 of v, all in [-127, 127]: a subtraction from
+// 0x80 per byte, which never borrows across bytes, then the sign bit
+__device__ __forceinline__ uint32_t neg_s8x4(uint32_t v) {
+  return (0x80808080u - (v & 0x7f7f7f7fu)) ^ (~v & 0x80808080u);
+}
+
+// 4 x 4 byte transpose: byte j of r[i] becomes byte i of word j
+__device__ __forceinline__ uint4 transpose_4x4(const uint32_t (&r)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
+  return make_uint4(__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
+                    __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632));
+}
+
 // G+ - G- of bytes i and i + 1 of (p, q) as two bf16 (exact: |d| <= 255)
 __device__ __forceinline__ uint32_t code_diff_bf16x2(uint32_t p, uint32_t q, int i) {
   const __nv_bfloat162 d = __floats2bfloat162_rn(byte_f32(p, i) - byte_f32(q, i),
@@ -664,25 +710,29 @@ __device__ __forceinline__ uint32_t code_diff_bf16x2(uint32_t p, uint32_t q, int
   return *reinterpret_cast<const uint32_t*>(&d);
 }
 
-// a warp's accumulators into y (M x N, f32), row m + 16 i (+8), columns
-// n + 8 j (+1): each column pair as one 8-byte store where N is even, so a
-// quad of lanes writes a whole 32-byte sector
-template <int MT, int NT>
-__device__ __forceinline__ void store_tile(float* __restrict__ y, const float (&acc)[MT][NT][4],
-                                           int M, int N, int m, int n) {
+// a warp's accumulators (f32 or s32) into y (M x N), row m + 16 i (+8),
+// columns n + 8 j (+1): each column pair as one 8-byte store where N is
+// even, so a quad of lanes writes a whole 32-byte sector
+template <int MT, int NT, typename T>
+__device__ __forceinline__ void store_tile(T* __restrict__ y, const T (&acc)[MT][NT][4], int M,
+                                           int N, int m, int n) {
+  using T2 = typename std::conditional<std::is_same<T, float>::value, float2, int2>::type;
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = m + i * 16 + h * 8;
       if (row >= M) continue;
-      float* yr = y + (size_t)row * N;
+      T* yr = y + (size_t)row * N;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int col = n + j * 8;
-        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        const T v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
         if (N % 2 == 0 && col + 1 < N) {
-          *reinterpret_cast<float2*>(yr + col) = make_float2(v0, v1);
+          T2 v;
+          v.x = v0;
+          v.y = v1;
+          *reinterpret_cast<T2*>(yr + col) = v;
         } else {
           if (col < N) yr[col] = v0;
           if (col + 1 < N) yr[col + 1] = v1;
@@ -691,19 +741,24 @@ __device__ __forceinline__ void store_tile(float* __restrict__ y, const float (&
     }
 }
 
-// Shared memory of the tensor-core body, in bytes: kMmaStages stages of
-// (x tile BM x BK bf16, rows padded to 40 elements; G+ and G- tiles
-// BK x BN u8), then two converted weight tiles BK x BN bf16, rows
-// padded to BN + 8 elements. The pads put the 8 rows an ldmatrix reads
-// in 8 different 16-byte bank groups.
-template <int BM, int BN, int BK>
+// Shared memory of a tensor-core body, in bytes: kMmaStages stages of
+// (x tile BM x BK, bf16 or s8, rows padded by 16 bytes; G+ and G- tiles
+// BK x BN u8, int8 body: rows padded by 16 bytes), then two weight
+// buffers. f32 body: a BK x BN bf16 G+ - G- tile, rows padded to BN + 8
+// elements. int8 body: the G+ then the G- tile as BK / 4 rows of BN
+// words (4 consecutive K of one column each), rows padded to BN + 8
+// words. The pads put the 8 rows an ldmatrix reads in 8 different 16-byte
+// bank groups, the 32 words of an int8 B fragment load in 32 banks, and
+// the two row groups of a warp's transpose reads in different banks.
+template <int BM, int BN, int BK, bool INT8>
 struct MmaSmem {
-  static constexpr int XS = BK + 8;  // x row stride (elements)
-  static constexpr int WS = BN + 8;     // weight row stride (elements)
-  static constexpr int X = BM * XS * 2;
-  static constexpr int C = BK * BN;
+  static constexpr int XS = BK * (INT8 ? 1 : 2) + 16;  // x row stride, bytes
+  static constexpr int CS = INT8 ? BN + 16 : BN;        // code row stride, bytes
+  static constexpr int WS = BN + 8;  // weight row stride: bf16 elements or words
+  static constexpr int X = BM * XS;
+  static constexpr int C = BK * CS;
   static constexpr int STAGE = X + 2 * C;
-  static constexpr int W = BK * WS * 2;
+  static constexpr int W = INT8 ? 2 * (BK / 4) * WS * 4 : BK * WS * 2;
   static constexpr int BYTES = kMmaStages * STAGE + 2 * W;
   // the epilogue reuses the stages: XA (BM x kMmaRanks, rows padded by
   // one float) and B (kMmaRanks x BN) in f32
@@ -712,23 +767,32 @@ struct MmaSmem {
 };
 
 // Block (i, j, s) computes the BM x BN output tile (i, j) over the rows
-// [s * k_split, (s + 1) * k_split) of K. One split (ws == null): the
-// epilogue y = gamma * (acc * scale + XA @ B) follows in the block. Several
-// splits: the block writes its raw sums to ws[s] and
-// splitk_epilogue_kernel finishes the tile. VEC: 16-byte asynchronous
-// copies (K % 8 == 0, N % 16 == 0, 16-byte aligned x and codes), else
+// [s * k_split, (s + 1) * k_split) of K. x: bf16 x (f32 body) or the
+// prologue's s8 xq (int8 body, with its row scales xs). One split (ws ==
+// null): the epilogue y = gamma * (acc * scale + XA @ B) (int8: f32(acc)
+// * xs * scale, and XA * xs) follows in the block. Several splits: the
+// block writes its raw sums to ws[s] and splitk_epilogue_kernel finishes
+// the tile. VEC: 16-byte asynchronous copies (K a multiple of the x
+// elements in 16 bytes, N % 16 == 0, 16-byte aligned x and codes), else
 // masked scalar loads; both zero-fill past M, N and K.
-template <int BM, int BN, int BK, bool VEC>
+template <int BM, int BN, int BK, bool VEC, bool INT8>
 __global__ void __launch_bounds__(kMmaThreads)
-    dora_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ gp,
-                    const uint8_t* __restrict__ gn, const float* __restrict__ scale,
-                    const float* __restrict__ b, const float* __restrict__ gamma,
-                    const float* __restrict__ xa, float* __restrict__ out,
-                    float* __restrict__ ws, int M, int K, int N, int R, int k_split) {
-  using L = MmaSmem<BM, BN, BK>;
-  constexpr int WTM = BM / 2, WTN = BN / 4;  // warp tile
-  constexpr int MT = WTM / 16, NT = WTN / 8;  // mma tiles per warp
-  static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
+    dora_mma_kernel(const void* __restrict__ xv, const float* __restrict__ xs,
+                    const uint8_t* __restrict__ gp, const uint8_t* __restrict__ gn,
+                    const float* __restrict__ scale, const float* __restrict__ b,
+                    const float* __restrict__ gamma, const float* __restrict__ xa,
+                    float* __restrict__ out, typename Num<INT8>::T* __restrict__ ws, int M,
+                    int K, int N, int R, int k_split) {
+  using L = MmaSmem<BM, BN, BK, INT8>;
+  using T = typename Num<INT8>::T;                                   // accumulator
+  using XBits = typename std::conditional<INT8, uint8_t, uint16_t>::type;  // one x element
+  constexpr int EPC = 16 / (int)sizeof(XBits);  // x elements per 16 bytes
+  constexpr int WTM = BM / 2, WTN = BN / 4;      // warp tile
+  constexpr int MT = WTM / 16, NT = WTN / 8;     // mma tiles per warp
+  constexpr int QK = BK / 4, QN = BN / 4;        // int8 weight words per tile
+  static_assert(NT % 2 == 0, "bf16 B fragments load two n8 tiles at a time");
+  static_assert(BK % (INT8 ? 32 : 16) == 0, "whole mma steps per stage");
+  const XBits* x = reinterpret_cast<const XBits*>(xv);
   extern __shared__ __align__(16) float smem_f[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -737,32 +801,28 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int kb = blockIdx.z * k_split;
   const int tiles = (min(K, kb + k_split) - kb + BK - 1) / BK;
 
-  auto xs_of = [&](int st) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + st * L::STAGE);
-  };
+  auto x_of = [&](int st) { return smem + st * L::STAGE; };
   auto gp_of = [&](int st) { return smem + st * L::STAGE + L::X; };
   auto gn_of = [&](int st) { return smem + st * L::STAGE + L::X + L::C; };
-  auto w_of = [&](int i) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + kMmaStages * L::STAGE + i * L::W);
-  };
+  auto w_of = [&](int i) { return smem + kMmaStages * L::STAGE + i * L::W; };
 
   // stage tile t of this split (an empty group past the last tile)
   auto load_tile = [&](int t) {
     if (t < tiles) {
       const int st = t % kMmaStages, k0 = kb + t * BK;
-      __nv_bfloat16* xs = xs_of(st);
-      for (int c = tid; c < BM * (BK / 8); c += kMmaThreads) {
-        const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
+      unsigned char* xst = x_of(st);
+      for (int c = tid; c < BM * (BK / EPC); c += kMmaThreads) {
+        const int r = c / (BK / EPC), kc = (c % (BK / EPC)) * EPC;
         const int m = m0 + r, k = k0 + kc;
-        __nv_bfloat16* dst = xs + r * L::XS + kc;
+        unsigned char* dst = xst + r * L::XS + kc * (int)sizeof(XBits);
         if (VEC) {
           const bool in = m < M && k < K;
           cp_async16(dst, in ? x + (size_t)m * K + k : x, in);
         } else {
-          uint16_t v[8];
-          const uint16_t* src = reinterpret_cast<const uint16_t*>(x) + (size_t)m * K + k;
+          __align__(16) XBits v[EPC];
+          const XBits* src = x + (size_t)m * K + k;
 #pragma unroll
-          for (int i = 0; i < 8; ++i) v[i] = (m < M && k + i < K) ? src[i] : 0;
+          for (int i = 0; i < EPC; ++i) v[i] = (m < M && k + i < K) ? src[i] : 0;
           *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
         }
       }
@@ -774,8 +834,8 @@ __global__ void __launch_bounds__(kMmaThreads)
         const size_t off = (size_t)k * N + n;
         if (VEC) {
           const bool in = k < K && n < N;
-          cp_async16(cps + r * BN + nc, in ? gp + off : gp, in);
-          cp_async16(cns + r * BN + nc, in ? gn + off : gn, in);
+          cp_async16(cps + r * L::CS + nc, in ? gp + off : gp, in);
+          cp_async16(cns + r * L::CS + nc, in ? gn + off : gn, in);
         } else {
           uint32_t p[4] = {0u, 0u, 0u, 0u}, q[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
@@ -784,36 +844,105 @@ __global__ void __launch_bounds__(kMmaThreads)
               p[i / 4] |= (uint32_t)gp[off + i] << (8 * (i % 4));
               q[i / 4] |= (uint32_t)gn[off + i] << (8 * (i % 4));
             }
-          *reinterpret_cast<uint4*>(cps + r * BN + nc) = make_uint4(p[0], p[1], p[2], p[3]);
-          *reinterpret_cast<uint4*>(cns + r * BN + nc) = make_uint4(q[0], q[1], q[2], q[3]);
+          *reinterpret_cast<uint4*>(cps + r * L::CS + nc) = make_uint4(p[0], p[1], p[2], p[3]);
+          *reinterpret_cast<uint4*>(cns + r * L::CS + nc) = make_uint4(q[0], q[1], q[2], q[3]);
         }
       }
     }
     cp_async_commit();
   };
 
-  float acc[MT][NT][4];
+  T acc[MT][NT][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
-  // codes of tile t -> bf16 G+ - G- in W[t & 1], 8 columns per thread and
-  // step: each code byte is converted once per block
+  // the codes of tile t -> the weight buffer t & 1; each code byte is
+  // converted once per block
   auto convert = [&](int t) {
     const int st = t % kMmaStages;
     const uint8_t* cps = gp_of(st);
     const uint8_t* cns = gn_of(st);
-    __nv_bfloat16* w = w_of(t & 1);
-    for (int c = tid; c < BK * (BN / 8); c += kMmaThreads) {
-      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-      const uint2 p = *reinterpret_cast<const uint2*>(cps + r * BN + nc);
-      const uint2 q = *reinterpret_cast<const uint2*>(cns + r * BN + nc);
-      *reinterpret_cast<uint4*>(w + r * L::WS + nc) =
-          make_uint4(code_diff_bf16x2(p.x, q.x, 0), code_diff_bf16x2(p.x, q.x, 2),
-                     code_diff_bf16x2(p.y, q.y, 0), code_diff_bf16x2(p.y, q.y, 2));
+    if constexpr (INT8) {
+      // a 4 x 4 block of codes per thread and step: word row q < QK of
+      // the buffer is G+ rows [4q, 4q + 4), row QK + q the same of G-
+      uint32_t* w = reinterpret_cast<uint32_t*>(w_of(t & 1));
+      for (int c = tid; c < 2 * QK * QN; c += kMmaThreads) {
+        const int q = c / QN, nq = c % QN;
+        const uint8_t* src = (q < QK ? cps : cns) + (q % QK) * 4 * L::CS + nq * 4;
+        uint32_t r[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) r[i] = *reinterpret_cast<const uint32_t*>(src + i * L::CS);
+        *reinterpret_cast<uint4*>(w + q * L::WS + nq * 4) = transpose_4x4(r);
+      }
+    } else {
+      // bf16 G+ - G-, 8 columns per thread and step
+      __nv_bfloat16* w = reinterpret_cast<__nv_bfloat16*>(w_of(t & 1));
+      for (int c = tid; c < BK * (BN / 8); c += kMmaThreads) {
+        const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
+        const uint2 p = *reinterpret_cast<const uint2*>(cps + r * L::CS + nc);
+        const uint2 q = *reinterpret_cast<const uint2*>(cns + r * L::CS + nc);
+        *reinterpret_cast<uint4*>(w + r * L::WS + nc) =
+            make_uint4(code_diff_bf16x2(p.x, q.x, 0), code_diff_bf16x2(p.x, q.x, 2),
+                       code_diff_bf16x2(p.y, q.y, 0), code_diff_bf16x2(p.y, q.y, 2));
+      }
+    }
+  };
+
+  // the MMAs of one staged tile (x tile xt, weight buffer w)
+  auto mma_tile = [&](const unsigned char* xt, const unsigned char* w) {
+    if constexpr (INT8) {
+      const uint32_t* wp = reinterpret_cast<const uint32_t*>(w);
+      const uint32_t* wq = wp + QK * L::WS;  // G-
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 32) {
+        uint32_t af[MT][4], bp[NT][2], bq[NT][2];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          ldsm_x4(af[i], xt + (wm * WTM + i * 16 + (lane & 15)) * L::XS + kk + (lane >> 4) * 16);
+        // B fragment of column g: words K/4 = kk/4 + (lane & 3) and 4 more
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int o = (kk / 4 + (lane & 3)) * L::WS + wn * WTN + j * 8 + (lane >> 2);
+          bp[j][0] = wp[o], bp[j][1] = wp[o + 4 * L::WS];
+          bq[j][0] = wq[o], bq[j][1] = wq[o + 4 * L::WS];
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_s8u8(acc[i][j], af[i], bp[j][0], bp[j][1]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) af[i][e] = neg_s8x4(af[i][e]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_s8u8(acc[i][j], af[i], bq[j][0], bq[j][1]);
+      }
+    } else {
+      const __nv_bfloat16* wb = reinterpret_cast<const __nv_bfloat16*>(w);
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          ldsm_x4(af[i], xt + (wm * WTM + i * 16 + (lane & 15)) * L::XS + (kk + (lane >> 4) * 8) * 2);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t bf[4];
+          ldsm_x4_trans(bf, wb + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * L::WS + wn * WTN +
+                                j * 8 + (lane >> 4) * 8);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            mma_bf16(acc[i][j], af[i], bf[0], bf[1]);
+            mma_bf16(acc[i][j + 1], af[i], bf[2], bf[3]);
+          }
+        }
+      }
     }
   };
 
@@ -832,27 +961,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     __syncthreads();
     load_tile(t + kMmaStages - 1);
     if (t + 1 < tiles) convert(t + 1);
-
-    const __nv_bfloat16* xs = xs_of(t % kMmaStages);
-    const __nv_bfloat16* w = w_of(t & 1);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldsm_x4(af[i], xs + (wm * WTM + i * 16 + (lane & 15)) * L::XS + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, w + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * L::WS + wn * WTN +
-                              j * 8 + (lane >> 4) * 8);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          mma_bf16(acc[i][j], af[i], bf[0], bf[1]);
-          mma_bf16(acc[i][j + 1], af[i], bf[2], bf[3]);
-        }
-      }
-    }
+    mma_tile(x_of(t % kMmaStages), w_of(t & 1));
   }
   cp_async_wait<0>();
 
@@ -861,12 +970,22 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int g = lane >> 2, q2 = (lane & 3) * 2;
   const int wr = wm * WTM + g, wc = wn * WTN + q2;  // tile-local origin
   if (ws != nullptr) {
-    store_tile<MT, NT>(ws + (size_t)blockIdx.z * M * N, acc, M, N, m0 + wr, n0 + wc);
+    store_tile<MT, NT, T>(ws + (size_t)blockIdx.z * M * N, acc, M, N, m0 + wr, n0 + wc);
     return;
   }
 
-  // y = acc * scale, then + XA @ B a rank at a time (kMmaRanks ranks per
-  // pass through shared memory), then times gamma
+  // y = acc * scale (int8: f32(acc) * xs * scale), then + XA @ B a rank at
+  // a time (kMmaRanks ranks per pass through shared memory; int8: XA * xs),
+  // then times gamma
+  float xsr[MT][2];  // int8: the row scale of each accumulator row
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wr + i * 16 + h * 8;
+      xsr[i][h] = (INT8 && m < M) ? xs[m] : 0.f;
+    }
+  float y[MT][NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -874,7 +993,9 @@ __global__ void __launch_bounds__(kMmaThreads)
       const int n = n0 + wc + j * 8 + (e & 1);
       const float s = n < N ? scale[n] : 0.f;
 #pragma unroll
-      for (int i = 0; i < MT; ++i) acc[i][j][e] *= s;
+      for (int i = 0; i < MT; ++i)
+        y[i][j][e] = INT8 ? __fmul_rn(__fmul_rn((float)acc[i][j][e], xsr[i][e >> 1]), s)
+                          : acc[i][j][e] * s;
     }
   float* xa_s = reinterpret_cast<float*>(smem);  // [BM][kMmaRanks + 1]
   float* b_s = xa_s + BM * (kMmaRanks + 1);      // [kMmaRanks][BN]
@@ -885,8 +1006,12 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int it = 0; it < BM * kMmaRanks / kMmaThreads; ++it) {
       const int p = tid + it * kMmaThreads;
       const int m = m0 + p / kMmaRanks, r = r0 + p % kMmaRanks;
-      xa_s[(p / kMmaRanks) * (kMmaRanks + 1) + p % kMmaRanks] =
-          (m < M && r < R) ? xa[(size_t)m * R + r] : 0.f;
+      float v = 0.f;
+      if (m < M && r < R) {
+        v = xa[(size_t)m * R + r];
+        if (INT8) v = __fmul_rn(v, xs[m]);
+      }
+      xa_s[(p / kMmaRanks) * (kMmaRanks + 1) + p % kMmaRanks] = v;
     }
 #pragma unroll
     for (int it = 0; it < kMmaRanks * BN / kMmaThreads; ++it) {
@@ -912,7 +1037,7 @@ __global__ void __launch_bounds__(kMmaThreads)
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            acc[i][j][e] = fmaf(xv[i][e >> 1], bv[j][e & 1], acc[i][j][e]);
+            y[i][j][e] = fmaf(xv[i][e >> 1], bv[j][e & 1], y[i][j][e]);
     }
   }
   float gm[NT][2];
@@ -929,27 +1054,30 @@ __global__ void __launch_bounds__(kMmaThreads)
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        acc[i][j][2 * h] *= gm[j][0], acc[i][j][2 * h + 1] *= gm[j][1];
-  store_tile<MT, NT>(out, acc, M, N, m0 + wr, n0 + wc);
+        y[i][j][2 * h] *= gm[j][0], y[i][j][2 * h + 1] *= gm[j][1];
+  store_tile<MT, NT, float>(out, y, M, N, m0 + wr, n0 + wc);
 }
 
 // the second pass of a split K, grid (M, ceil(N / kPrepThreads)): the S
-// partial sums of ws in split order, then the one-split epilogue in the
-// same order of operations
+// partial sums of ws (f32, or int32 for the int8 body) in split order,
+// then the one-split epilogue in the same order of operations
+template <bool INT8>
 __global__ void __launch_bounds__(kPrepThreads)
-    splitk_epilogue_kernel(const float* __restrict__ ws, const float* __restrict__ scale,
+    splitk_epilogue_kernel(const typename Num<INT8>::T* __restrict__ ws,
+                           const float* __restrict__ xs, const float* __restrict__ scale,
                            const float* __restrict__ b, const float* __restrict__ gamma,
                            const float* __restrict__ xa, float* __restrict__ out, int M,
                            int N, int R, int S) {
   __shared__ float xr[kPrepThreads];
   const int m = blockIdx.x, tid = threadIdx.x;
-  for (int r = tid; r < R; r += kPrepThreads) xr[r] = xa[(size_t)m * R + r];
+  for (int r = tid; r < R; r += kPrepThreads)
+    xr[r] = INT8 ? __fmul_rn(xa[(size_t)m * R + r], xs[m]) : xa[(size_t)m * R + r];
   __syncthreads();
   const int n = blockIdx.y * kPrepThreads + tid;
   if (n >= N) return;
-  float acc = 0.f;
+  typename Num<INT8>::T acc = 0;
   for (int s = 0; s < S; ++s) acc += ws[((size_t)s * M + m) * N + n];
-  float y = acc * scale[n];
+  float y = INT8 ? __fmul_rn(__fmul_rn((float)acc, xs[m]), scale[n]) : acc * scale[n];
   for (int r = 0; r < R; ++r) y = fmaf(xr[r], b[(size_t)r * N + n], y);
   out[(size_t)m * N + n] = y * gamma[n];
 }
@@ -973,17 +1101,15 @@ struct Ops {
   int M, K, N, R;
 };
 
-// the prologue of either body; xt (GEMV launcher) or xq (tiled, int8) may
-// be null
+// the prologue of the GEMV launcher (xt: X^T or Xq^T) or of the SIMT tiled
+// body (xt null, f32 only)
 template <typename TX>
-cudaError_t launch_prep(const void* x, const void* a, void* xa, void* xt, void* xq,
-                        void* xs, int M, int K, int R, int rows, bool int8,
-                        cudaStream_t s) {
+cudaError_t launch_prep(const void* x, const void* a, void* xa, void* xt, void* xs, int M,
+                        int K, int R, int rows, bool int8, cudaStream_t s) {
   const dim3 grid(xt != nullptr ? (M > rows ? M : rows) : M, prep_chunks(K));
   if (int8)
     prep_int8_kernel<TX><<<grid, kPrepThreads, 0, s>>>(
-        (const TX*)x, (const float*)a, (float*)xa, (float*)xs, (int8_t*)xq, (int*)xt,
-        M, K, R, rows);
+        (const TX*)x, (const float*)a, (float*)xa, (float*)xs, (int*)xt, M, K, R, rows);
   else
     prep_kernel<TX><<<grid, kPrepThreads, 0, s>>>(
         (const TX*)x, (const float*)a, (float*)xa, (float*)xt, M, K, R, rows);
@@ -1036,23 +1162,23 @@ cudaError_t gemv_rows(int rows, const Ops& o, cudaStream_t s) {
   }
 }
 
-template <bool INT8>
+// the SIMT tiled body (f32 x, f32 body), after its prologue
 cudaError_t launch_tiled(const Ops& o, cudaStream_t s) {
   const dim3 grid((o.N + kTileN - 1) / kTileN, (o.M + kTileM - 1) / kTileM);
   const bool vec = o.N % 4 == 0 && aligned(o.gp, 4) && aligned(o.gn, 4);
-  auto kernel = vec ? dora_tiled_kernel<true, INT8> : dora_tiled_kernel<false, INT8>;
+  auto kernel = vec ? dora_tiled_kernel<true> : dora_tiled_kernel<false>;
   kernel<<<grid, kTileThreads, 0, s>>>(
-      (const float*)o.x, (const int8_t*)o.xq, (const float*)o.xs, (const uint8_t*)o.gp,
-      (const uint8_t*)o.gn, (const float*)o.scale, (const float*)o.b,
-      (const float*)o.gamma, (const float*)o.xa, (float*)o.out, o.M, o.K, o.N, o.R,
-      prep_chunks(o.K));
+      (const float*)o.x, (const uint8_t*)o.gp, (const uint8_t*)o.gn, (const float*)o.scale,
+      (const float*)o.b, (const float*)o.gamma, (const float*)o.xa, (float*)o.out, o.M, o.K,
+      o.N, o.R, prep_chunks(o.K));
   return cudaGetLastError();
 }
 
-template <int BM, int BN, int BK, bool VEC>
+template <int BM, int BN, int BK, bool VEC, bool INT8>
 cudaError_t launch_mma_tile(const Ops& o, int k_split, void* ws, cudaStream_t s) {
-  constexpr int smem = MmaSmem<BM, BN, BK>::BYTES;
-  auto kernel = dora_mma_kernel<BM, BN, BK, VEC>;
+  using T = typename Num<INT8>::T;
+  constexpr int smem = MmaSmem<BM, BN, BK, INT8>::BYTES;
+  auto kernel = dora_mma_kernel<BM, BN, BK, VEC, INT8>;
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1061,44 +1187,74 @@ cudaError_t launch_mma_tile(const Ops& o, int k_split, void* ws, cudaStream_t s)
   const int splits = (o.K + k_split - 1) / k_split;
   const dim3 grid((o.M + BM - 1) / BM, (o.N + BN - 1) / BN, splits);
   kernel<<<grid, kMmaThreads, smem, s>>>(
-      (const __nv_bfloat16*)o.x, (const uint8_t*)o.gp, (const uint8_t*)o.gn,
+      INT8 ? o.xq : o.x, (const float*)o.xs, (const uint8_t*)o.gp, (const uint8_t*)o.gn,
       (const float*)o.scale, (const float*)o.b, (const float*)o.gamma, (const float*)o.xa,
-      (float*)o.out, (float*)ws, o.M, o.K, o.N, o.R, k_split);
+      (float*)o.out, (T*)ws, o.M, o.K, o.N, o.R, k_split);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
-  splitk_epilogue_kernel<<<dim3(o.M, (o.N + kPrepThreads - 1) / kPrepThreads), kPrepThreads,
-                           0, s>>>((const float*)ws, (const float*)o.scale, (const float*)o.b,
-                                   (const float*)o.gamma, (const float*)o.xa, (float*)o.out,
-                                   o.M, o.N, o.R, splits);
+  splitk_epilogue_kernel<INT8>
+      <<<dim3(o.M, (o.N + kPrepThreads - 1) / kPrepThreads), kPrepThreads, 0, s>>>(
+          (const T*)ws, (const float*)o.xs, (const float*)o.scale, (const float*)o.b,
+          (const float*)o.gamma, (const float*)o.xa, (float*)o.out, o.M, o.N, o.R, splits);
   return cudaGetLastError();
 }
 
-// the tensor-core body: its prologue, then BM x BN x BK tiles
+template <int BK, bool INT8>
+cudaError_t launch_mma_tiles(const Ops& o, int bm, bool vec, int k_split, void* ws,
+                             cudaStream_t s) {
+  if (bm == 64)
+    return vec ? launch_mma_tile<64, kMmaN, BK, true, INT8>(o, k_split, ws, s)
+               : launch_mma_tile<64, kMmaN, BK, false, INT8>(o, k_split, ws, s);
+  return vec ? launch_mma_tile<128, kMmaN, BK, true, INT8>(o, k_split, ws, s)
+             : launch_mma_tile<128, kMmaN, BK, false, INT8>(o, k_split, ws, s);
+}
+
+// the int8 tensor-core body's prologue: the row scales xs, then xq and the
+// XA partials over the grid of prep_tile_kernel
+template <typename TX>
+void int8_prologue(const Ops& o, const void* a, dim3 grid, cudaStream_t s) {
+  row_scale_kernel<TX><<<o.M, kPrepThreads, 0, s>>>((const TX*)o.x, (float*)o.xs, o.K);
+  prep_tile_kernel<TX, true><<<grid, kPrepThreads, 0, s>>>(
+      (const TX*)o.x, (const float*)o.xs, (const float*)a, (float*)o.xa, (int8_t*)o.xq, o.M,
+      o.K, o.R);
+}
+
+// a tensor-core body: its prologue, then BM x BN x BK tiles
 // (autotune.tiled_tiles) with K split into parts of k_split rows; ws:
-// (splits, M, N) f32 scratch, null for one split
-cudaError_t launch_mma(const Ops& o, const void* a, int bm, int k_split, void* ws,
-                       cudaStream_t s) {
-  if ((bm != 64 && bm != 128) || k_split < kMmaK || k_split % kMmaK != 0)
+// (splits, M, N) f32 (int8: int32) scratch, null for one split
+cudaError_t launch_mma(const Ops& o, const void* a, bool x_bf16, bool int8, int bm,
+                       int k_split, void* ws, cudaStream_t s) {
+  const int bk = int8 ? kMmaKInt8 : kMmaK;
+  if ((bm != 64 && bm != 128) || k_split < bk || k_split % bk != 0)
     return cudaErrorInvalidValue;
   if ((o.K > k_split) != (ws != nullptr)) return cudaErrorInvalidValue;
-  // XA partials, then XA itself (after the partials in the scratch)
+  // int8: the row scales; then the XA partials (int8: with xq), then XA
+  // itself (after the partials in the scratch)
   const int G = prep_chunks(o.K), MR = o.M * o.R;
   float* xa = (float*)o.xa + (size_t)G * MR;
-  prep_tile_kernel<<<dim3((o.M + kPrepRowTile - 1) / kPrepRowTile, G), kPrepThreads, 0, s>>>(
-      (const __nv_bfloat16*)o.x, (const float*)a, (float*)o.xa, o.M, o.K, o.R);
+  const dim3 grid((o.M + kPrepRowTile - 1) / kPrepRowTile, G);
+  if (int8 && x_bf16)
+    int8_prologue<__nv_bfloat16>(o, a, grid, s);
+  else if (int8)
+    int8_prologue<float>(o, a, grid, s);
+  else
+    prep_tile_kernel<__nv_bfloat16, false><<<grid, kPrepThreads, 0, s>>>(
+        (const __nv_bfloat16*)o.x, nullptr, (const float*)a, (float*)o.xa, nullptr, o.M, o.K,
+        o.R);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
   xa_finish_kernel<<<(MR + kPrepThreads - 1) / kPrepThreads, kPrepThreads, 0, s>>>(
       (const float*)o.xa, xa, MR, G);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   Ops m = o;
   m.xa = xa;
-  const bool vec = o.K % 8 == 0 && o.N % 16 == 0 && aligned(o.x, 16) && aligned(o.gp, 16) &&
-                   aligned(o.gn, 16);
-  if (bm == 64)
-    return vec ? launch_mma_tile<64, kMmaN, kMmaK, true>(m, k_split, ws, s)
-               : launch_mma_tile<64, kMmaN, kMmaK, false>(m, k_split, ws, s);
-  return vec ? launch_mma_tile<128, kMmaN, kMmaK, true>(m, k_split, ws, s)
-             : launch_mma_tile<128, kMmaN, kMmaK, false>(m, k_split, ws, s);
+  const bool codes16 = o.N % 16 == 0 && aligned(o.gp, 16) && aligned(o.gn, 16);
+  if (int8)
+    return launch_mma_tiles<kMmaKInt8, true>(
+        m, bm, codes16 && o.K % 16 == 0 && aligned(o.xq, 16), k_split, ws, s);
+  return launch_mma_tiles<kMmaK, false>(
+      m, bm, codes16 && o.K % 8 == 0 && aligned(o.x, 16), k_split, ws, s);
 }
 
 }  // namespace
@@ -1126,19 +1282,20 @@ int rimc_dora_linear_gemv(const void* x, int x_bf16, const void* gp,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e =
-      x_bf16 ? launch_prep<__nv_bfloat16>(x, a, xa, xt, nullptr, xs, M, K, R, rows, int8, s)
-             : launch_prep<float>(x, a, xa, xt, nullptr, xs, M, K, R, rows, int8, s);
+      x_bf16 ? launch_prep<__nv_bfloat16>(x, a, xa, xt, xs, M, K, R, rows, int8, s)
+             : launch_prep<float>(x, a, xa, xt, xs, M, K, R, rows, int8, s);
   if (e != cudaSuccess) return (int)e;
   const Ops o{x, xt, nullptr, xs, gp, gn, scale, b, gamma, xa, out, M, K, N, R};
   return (int)(int8 ? gemv_rows<true>(rows, o, s) : gemv_rows<false>(rows, o, s));
 }
 
-// xq: (M, K) s8 scratch for the int8 body (null for f32). bf16 x with the
-// f32 body runs the tensor-core body with bm x kMmaN tiles (bm 64 or 128)
-// and K split into parts of k_split rows (a multiple of kMmaK); ws: an
-// (ceil(K / k_split), M, N) f32 scratch when there is more than one part,
-// else null. f32 x and the int8 body run the SIMT body and ignore bm,
-// k_split and ws.
+// xq: (M, K) s8 scratch for the int8 body (null for f32). The int8 body,
+// and the f32 body with bf16 x, run a tensor-core body with bm x kMmaN
+// tiles (bm 64 or 128) and K split into parts of k_split
+// rows (a multiple of the body's kMmaK or kMmaKInt8); ws: a
+// (ceil(K / k_split), M, N) scratch (f32; int32 for the int8 body) when
+// there is more than one part, else null. f32 x with the f32 body runs
+// the SIMT body and ignores bm, k_split and ws.
 int rimc_dora_linear_tiled(const void* x, int x_bf16, const void* gp,
                            const void* gn, const void* scale, const void* a,
                            const void* b, const void* gamma, void* out, void* xa,
@@ -1149,14 +1306,10 @@ int rimc_dora_linear_tiled(const void* x, int x_bf16, const void* gp,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Ops o{x, nullptr, xq, xs, gp, gn, scale, b, gamma, xa, out, M, K, N, R};
-  if (x_bf16 && !int8) return (int)launch_mma(o, a, bm, k_split, ws, s);
-  cudaError_t e =
-      x_bf16 ? launch_prep<__nv_bfloat16>(x, a, xa, nullptr, xq, xs, M, K, R, 0, int8, s)
-             : launch_prep<float>(x, a, xa, nullptr, xq, xs, M, K, R, 0, int8, s);
+  if (int8 || x_bf16) return (int)launch_mma(o, a, x_bf16, int8, bm, k_split, ws, s);
+  cudaError_t e = launch_prep<float>(x, a, xa, nullptr, nullptr, M, K, R, 0, false, s);
   if (e != cudaSuccess) return (int)e;
-  e = int8 ? launch_tiled<true>(o, s)  // x is not read: xq replaces it
-           : launch_tiled<false>(o, s);
-  return (int)e;
+  return (int)launch_tiled(o, s);
 }
 
 }  // extern "C"

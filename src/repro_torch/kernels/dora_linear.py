@@ -8,9 +8,10 @@ Port of ``repro/kernels/dora_linear.py``: the source is
 ``csrc/dora_linear.cu``, its note says what bounds it on the card.
 
 * ``dora_linear_gemv`` — decode-shaped launcher, ``M <= GEMV_MAX_M``.
-* ``dora_linear`` — prefill-shaped launcher, tiled over M and N; with
-  bf16 x and the f32 body it runs on the tensor cores (``mma.sync``),
-  with tiles and K splits from ``autotune.tiled_tiles``.
+* ``dora_linear`` — prefill-shaped launcher, tiled over M and N; the
+  int8 body, and the f32 body with bf16 x, run on the tensor cores
+  (``mma.sync`` s8 x u8 or bf16), with tiles and K splits from
+  ``autotune.tiled_tiles``; f32 x with the f32 body runs a SIMT body.
 
 Both take ``accum``: ``"f32"`` (exact f32 products of x and the codes)
 or ``"int8"`` (x quantized per row to s8, an exact int32 accumulator, the
@@ -128,13 +129,14 @@ def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
         )
     else:
         xq = torch.empty((m, k), dtype=torch.int8, device=x.device) if int8 else None
-        # the tensor-core body (bf16 x, f32) splits K when its tiles alone
-        # leave SMs idle; the parts' sums go through ws, summed in order
-        plan = autotune.tiled_tiles(m, n, k)
-        mma = x.dtype == torch.bfloat16 and not int8
+        # the tensor-core bodies (int8; f32 with bf16 x) split K when their
+        # tiles alone leave SMs idle; the parts' raw sums go through ws,
+        # summed in order. f32 x with the f32 body (SIMT) ignores the plan.
+        plan = autotune.tiled_tiles(m, n, k, accum)
         ws = None
-        if mma and plan.splits(k) > 1:
-            ws = torch.empty((plan.splits(k), m, n), **f32)
+        if plan.splits(k) > 1 and (int8 or x.dtype == torch.bfloat16):
+            ws = torch.empty((plan.splits(k), m, n),
+                             dtype=torch.int32 if int8 else torch.float32, device=x.device)
         err = lib.rimc_dora_linear_tiled(
             *head, *ptrs, None if xq is None else xq.data_ptr(), xs_ptr,
             None if ws is None else ws.data_ptr(), m, k, n, r, int(int8),

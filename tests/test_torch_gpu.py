@@ -9,7 +9,10 @@ full-width leaves and at ragged shapes:
 * its int8 body within 1e-4 of the output's absmax (the same row
   quantization and exact int32 sum; only f32 orders differ), bitwise on
   the exactness case (integer x with 127 in every row, scale = gamma = 1,
-  A = B = 0);
+  A = B = 0); the tiled launcher's int8 body (tensor cores, s8 x u8) at
+  the same tolerance for every tiled shape of the f32 one, bitwise equal
+  to itself when launched twice, and bitwise on the exactness case where
+  its plan splits K;
 * the ADC kernel within rtol 1e-4 / atol 1e-6 or one ADC step apart in at
   most 0.1% of the outputs, bitwise on its exactness case (integer x with
   127 in every (128-row, 256-row) block, so the step is 4080).
@@ -207,6 +210,33 @@ def test_int8_exactness_case(cuda, m, k, n):
     assert torch.equal(K.dora_linear(*ops, accum="int8"), want)
     if autotune.use_gemv(m):
         assert torch.equal(K.dora_linear_gemv(*ops, accum="int8"), want)
+
+
+@pytest.mark.parametrize("m", TILED_M)
+@pytest.mark.parametrize("leaf", LEAVES, ids=[lf[0] for lf in LEAVES])
+def test_int8_tensor_core_tiled_full_width(cuda, leaf, m):
+    _, k, n, r = leaf
+    _check_int8(K.dora_linear, operands(m, k, n, r, cuda, seed=m))
+
+
+@pytest.mark.parametrize("shape", MASKED)
+def test_int8_tensor_core_tiled_masked_edges(cuda, shape):
+    m, k, n, r = shape
+    _check_int8(K.dora_linear, operands(m, k, n, r, cuda, seed=k + n))
+
+
+@pytest.mark.parametrize("shape", [(96, 2048, 2048, 8), (256, 6144, 2048, 8),
+                                   (512, 2048, 4096, 24), (150, 300, 999, 3)])
+def test_int8_tensor_core_tiled_is_bitwise_repeatable(cuda, shape):
+    ops = operands(*shape, cuda)
+    assert torch.equal(K.dora_linear(*ops, accum="int8"), K.dora_linear(*ops, accum="int8"))
+
+
+@pytest.mark.parametrize("m,k,n", [(100, 300, 77), (256, 512, 2048), (130, 6144, 2048)])
+def test_int8_tensor_core_exactness_with_split_k(cuda, m, k, n):
+    assert autotune.tiled_tiles(m, n, k, "int8").splits(k) > 1
+    ops = _exact_int8(m, k, n, cuda)
+    assert torch.equal(K.dora_linear(*ops, accum="int8"), ref.dora_linear_int8_ref(*ops))
 
 
 def _check_adc(x, gp, gn, scale):

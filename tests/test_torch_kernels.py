@@ -102,12 +102,13 @@ def test_dispatch_rule_at_gemv_max_m():
 
 @pytest.mark.parametrize("m", [96, 256])
 @pytest.mark.parametrize("leaf", sorted(LEAVES))
-def test_tiled_tiles_fill_the_card(leaf, m):
+@pytest.mark.parametrize("accum", autotune.ACCUMS)
+def test_tiled_tiles_fill_the_card(accum, leaf, m):
     """At the phase-5 prefill (96 rows) and at 256 rows every full-width
     leaf launches at least one block per SM, counting K splits; K is split
-    only while the blocks fit one wave."""
+    only while the blocks fit one wave. For each tensor-core body."""
     k, n = LEAVES[leaf]
-    plan = autotune.tiled_tiles(m, n, k)
+    plan = autotune.tiled_tiles(m, n, k, accum)
     assert plan.blocks(m, n, k) >= autotune.SMS
     assert plan.splits(k) == 1 or plan.blocks(m, n, k) <= autotune.WAVE
 
@@ -116,11 +117,13 @@ def test_tiled_tiles_fill_the_card(leaf, m):
     (65, 2048, 4096), (96, 2048, 2048), (200, 6144, 2048), (512, 2048, 12288),
     (96, 130, 77), (128, 257, 31), (200, 300, 999), (1, 33, 4097), (70, 31, 9),
 ])
-def test_tiled_tiles_cover_each_element_once(m, k, n):
-    """The tiles cover M and N, and the K splits are whole stages that
-    partition [0, K): consecutive, none empty, none past K."""
-    plan = autotune.tiled_tiles(m, n, k)
-    assert plan.bm in autotune.MMA_TILE_M and plan.k_split % autotune.MMA_TILE_K == 0
+@pytest.mark.parametrize("accum", autotune.ACCUMS)
+def test_tiled_tiles_cover_each_element_once(accum, m, k, n):
+    """The tiles cover M and N, and the K splits are whole stages of the
+    body that partition [0, K): consecutive, none empty, none past K."""
+    plan = autotune.tiled_tiles(m, n, k, accum)
+    stage = autotune.MMA_BODIES[accum]
+    assert plan.bm in autotune.MMA_TILE_M and plan.k_split % stage == 0
     assert plan.bm * -(-m // plan.bm) >= m > plan.bm * (-(-m // plan.bm) - 1)
     parts = [(s * plan.k_split, min(k, (s + 1) * plan.k_split)) for s in range(plan.splits(k))]
     assert parts[0][0] == 0 and parts[-1][1] == k
@@ -145,9 +148,12 @@ def test_tiled_binding_matches_the_c_signature():
 
 
 def test_tile_constants_match_the_kernel():
-    """The policy's stage depth and tile width are the kernel's."""
+    """The policy's stage depth per tensor-core body and its tile width are
+    the kernel's."""
     import re
 
     src = tk.LIB.src.read_text()
-    for name, value in (("kMmaK", autotune.MMA_TILE_K), ("kMmaN", autotune.MMA_TILE_N)):
+    for name, value in (("kMmaK", autotune.MMA_BODIES["f32"]),
+                        ("kMmaKInt8", autotune.MMA_BODIES["int8"]),
+                        ("kMmaN", autotune.MMA_TILE_N)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
