@@ -17,7 +17,10 @@ Phases (any failure exits non-zero; no failure is caught):
                   at the full-width fused leaves for every GEMV row bucket
                   M in {1, 2, 4, 8, 16, 32, 64} (decode ticks and the
                   engine's admission chunks), the tiled launcher at M=256,
-                  ragged shapes; the int8 exactness case bitwise;
+                  ragged shapes; the int8 exactness case bitwise; the
+                  GEMV's tensor-core f32 body (bf16 x) launched twice and
+                  bitwise equal at every bucket, and at the edges of its K
+                  split; its SIMT body (f32 x) once per leaf;
                 * the tiled launcher's tensor-core bodies, f32 (bf16 x)
                   and int8 (s8 x u8), at the full-width leaves for M in
                   {65, 96, 128, 200, 256, 512}, the ragged shapes with
@@ -31,7 +34,10 @@ Phases (any failure exits non-zero; no failure is caught):
                   / atol 1e-6 or one ADC step apart (at most 0.1% of them);
                   the ADC exactness case bitwise;
   4. timing   — (the tiled f32 and int8 bodies also at M=96, the phase-5
-                prefill, and their time per kernel from torch.profiler)
+                prefill; the f32 GEMV also at M = 8, 16, 64; the time per
+                kernel from torch.profiler of both tiled bodies at M = 96,
+                256 and of both GEMV bodies at M = 4, 32, per layer and
+                per leaf against its bound)
                 CUDA events around CUDA-graph replays over operand copies
                 rotated past the L2: the kernel, the plain version, and one
                 PyTorch call for the same work where there is one
@@ -129,6 +135,11 @@ ADC_M = (1, 4, 32, 256)
 TILED_M = (65, 96, 128, 200, 256, 512)
 MASKED = [(96, 130, 77, 8), (200, 257, 31, 5), (150, 300, 999, 3), (65, 2048, 999, 8),
           (100, 257, 4096, 4), (130, 2048, 31, 2)]
+# the tensor-core GEMV's K split at its edges (autotune.gemv_plan): one part
+# shorter than a stage, a short last part, K not a multiple of 8, N ragged
+# or not a multiple of the 128-column strip, M ragged in its bucket
+GEMV_EDGES = [(4, 40, 4096, 8), (5, 1000, 2048, 8), (9, 2050, 999, 3), (17, 6144, 2049, 8),
+              (33, 2048, 2064, 4), (64, 100, 300, 24), (1, 300, 130, 1)]
 SLOTS = 4                   # engine slots: the decode batch of phase 5
 PREFILL_ROWS = 96           # phase 5's fused prefill: 3 x 32 tokens
 PROMPT_LENS = (5, 40, 17, 9)  # phase 5's ragged engine requests
@@ -139,6 +150,7 @@ TIMED_M = (1, SLOTS, 32, PREFILL_M)
 TIMED_M_INT8 = (SLOTS, 32, PREFILL_ROWS, PREFILL_M)
 TIMED_M_ADC = (SLOTS, PREFILL_M)
 TIMED_M_TILED = (PREFILL_ROWS,)  # also timed for the tiled f32 body
+TIMED_M_GEMV = (8, 16, 64)       # also timed for the f32 GEMV: chunk buckets, 64
 
 
 def log(*args):
@@ -239,6 +251,10 @@ def phase_kernels(device):
                 if accum == "f32":
                     ok = bool(torch.allclose(got, w, rtol=TOL, atol=TOL))
                     note = ""
+                    if kind == "dora_linear_gemv":  # the tensor-core GEMV, twice
+                        same = torch.equal(got, fn(*ops, accum=accum))
+                        ok = ok and same
+                        note = f" repeat {'bitwise' if same else 'DIFFERS'}"
                 else:
                     rel = err / float(w.abs().max())
                     ok = rel <= INT8_TOL
@@ -305,20 +321,38 @@ def phase_kernels(device):
                 _fail(f"{key} (tensor cores) at {(m, k, n, r)}",
                       f"max|err| {err}, repeat bitwise {same}")
             worst[key] = max(worst[key], err)
-    # the SIMT body, which f32 x keeps, once per leaf
-    for name, k, n, r in LEAVES:
-        x, *rest = operands(PREFILL_M, k, n, r, device, seed=k + n)
-        ops = (x.float(), *rest)
-        got = K.dora_linear(*ops)
+    # the tensor-core GEMV where its K split leaves a short or a single
+    # part, K or N is ragged: twice each, bitwise repeatable
+    for m, k, n, r in GEMV_EDGES:
+        ops = operands(m, k, n, r, device, seed=k + n)
+        got, again = K.dora_linear_gemv(*ops), K.dora_linear_gemv(*ops)
         torch.cuda.synchronize()
         want = ref.dora_linear_ref(*ops)
         err = float((got - want).abs().max())
-        ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
-        log(f"[kernels] dora_linear f32 x      {name:8s} M={PREFILL_M:4d} K={k:5d} N={n:5d} "
-            f"r={r:2d} max|err|={err:.3e} {'ok' if ok else 'FAIL'}")
+        same = torch.equal(got, again)
+        ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL)) and same
+        log(f"[kernels] dora_linear_gemv mma   edge     M={m:4d} K={k:5d} N={n:5d} r={r:2d} "
+            f"parts {autotune.gemv_plan(m, n, k)} max|err|={err:.3e} "
+            f"repeat {'bitwise' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
         if not ok:
-            _fail(f"dora_linear (f32 x, SIMT) at {(PREFILL_M, k, n, r)}", f"max|err| {err}")
-        worst["dora_linear"] = max(worst["dora_linear"], err)
+            _fail(f"dora_linear_gemv (tensor cores) at {(m, k, n, r)}",
+                  f"max|err| {err}, repeat bitwise {same}")
+        worst["dora_linear_gemv"] = max(worst["dora_linear_gemv"], err)
+    # the SIMT bodies, which f32 x keeps, once per leaf
+    for name, k, n, r in LEAVES:
+        for kind, m in (("dora_linear", PREFILL_M), ("dora_linear_gemv", SLOTS)):
+            x, *rest = operands(m, k, n, r, device, seed=k + n)
+            ops = (x.float(), *rest)
+            got = getattr(K, kind)(*ops)
+            torch.cuda.synchronize()
+            want = ref.dora_linear_ref(*ops)
+            err = float((got - want).abs().max())
+            ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
+            log(f"[kernels] {kind + ' f32 x':22s} {name:8s} M={m:4d} K={k:5d} N={n:5d} "
+                f"r={r:2d} max|err|={err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"{kind} (f32 x, SIMT) at {(m, k, n, r)}", f"max|err| {err}")
+            worst[kind] = max(worst[kind], err)
 
     adc_cases = [(m, k, n, name) for name, k, n in ADC_LEAVES for m in ADC_M]
     adc_cases += [(m, k, n, "ragged") for m, k, n in ADC_RAGGED]
@@ -443,12 +477,12 @@ def phase_timing(device):
 
     rows = []
     for name, k, n, r in LEAVES:
-        for m in sorted(set(TIMED_M) | set(TIMED_M_INT8) | set(TIMED_M_TILED)):
+        for m in sorted({*TIMED_M, *TIMED_M_INT8, *TIMED_M_TILED, *TIMED_M_GEMV}):
             ops = [operands(m, k, n, r, device, seed=i)
                    for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
             kind = "dora_linear_gemv" if m <= 64 else "dora_linear"
             fn = getattr(K, kind)
-            if m in TIMED_M or m in TIMED_M_TILED:
+            if m in TIMED_M or m in TIMED_M_TILED or m in TIMED_M_GEMV:
                 w16 = [((o[1].float() - o[2].float()) * o[3]).to(torch.bfloat16) for o in ops]
                 _timed_row(rows, kind, name, (m, k, n), ops, fn, ref.dora_linear_ref,
                            [lambda o=o, w=w: torch.matmul(o[0], w) for o, w in zip(ops, w16)],
@@ -476,42 +510,81 @@ def phase_timing(device):
     return rows
 
 
-def phase_tiled_breakdown(device):
-    """Device time per layer of each kernel the tiled launcher's
-    tensor-core bodies launch (for int8 the row scales; the X @ A
-    prologue; the XA sum; the main kernel; the split-K pass), from
-    torch.profiler over one call per leaf after a warm-up call (L2 warm),
-    at the phase-5 prefill's rows and at PREFILL_M, per body. ``None``
-    where the profiler records no device activity."""
+def kernel_breakdown(device, kind, accum, m):
+    """Device time of each kernel that one call of the ``kind`` launcher
+    (body ``accum``, ``m`` rows) launches, per fused leaf, from
+    torch.profiler around one call per leaf after a warm-up call (L2
+    warm): {leaf: {kernel: ms}}, ``None`` for a leaf where the profiler
+    records no device activity."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import dora_linear as K
 
+    fn = getattr(K, kind)
     out = {}
-    for accum, label in (("f32", "f32 body (bf16 x)"), ("int8", "int8 body")):
-        for m in (PREFILL_ROWS, PREFILL_M):
-            ops = [operands(m, k, n, r, device, seed=1) for _, k, n, r in LEAVES]
-            for o in ops:
-                K.dora_linear(*o, accum=accum)
+    for leaf, k, n, r in LEAVES:
+        ops = operands(m, k, n, r, device, seed=1)
+        fn(*ops, accum=accum)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*ops, accum=accum)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for o in ops:
-                    K.dora_linear(*o, accum=accum)
-                torch.cuda.synchronize()
-            by = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    name = re.search(r"(\w+_kernel)", e.name)
-                    name = name.group(1) if name else e.name[:40]
-                    by[name] = by.get(name, 0.0) + e.device_time_total / 1e3
-            out[f"{accum}/{m}"] = by or None
-            parts = ", ".join(f"{k} {v:.4f} ms"
-                              for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
-            log(f"[timing] tiled {label} per layer at M={m}, by kernel (profiler, "
-                f"L2 warm): {parts or 'no device activity recorded: not measured'}")
-            del ops
+        by = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = re.search(r"(\w+_kernel)", e.name)
+                name = name.group(1) if name else e.name[:40]
+                by[name] = by.get(name, 0.0) + e.device_time_total / 1e3
+        out[leaf] = by or None
+        del ops
+    return out
+
+
+def log_breakdown(label, accum, m, per_leaf):
+    """Log a ``kernel_breakdown``: per layer by kernel, and each leaf's
+    total against its bound (L2 warm, so a leaf can beat its HBM bound)."""
+    if None in per_leaf.values():
+        log(f"[timing] {label} at M={m}: no device activity recorded: not measured")
+        return
+    layer = {}
+    for by in per_leaf.values():
+        for name, ms in by.items():
+            layer[name] = layer.get(name, 0.0) + ms
+    total = sum(layer.values())
+    parts = ", ".join(f"{name} {ms:.4f} ms ({ms / total:.1%})"
+                      for name, ms in sorted(layer.items(), key=lambda kv: -kv[1]))
+    log(f"[timing] {label} per layer at M={m}, by kernel (profiler, L2 warm): "
+        f"{total:.4f} ms = {parts}")
+    rate = INT8_OP_PER_S if accum == "int8" else BF16_FLOP_PER_S
+    leaves = []
+    for leaf, k, n, r in LEAVES:
+        ms = sum(per_leaf[leaf].values())
+        b = linear_bound(m, k, n, r, rate)[0]
+        leaves.append(f"{leaf} {ms:.4f} ms ({b / ms:.1%} of bound)")
+    log(f"[timing] {label} per leaf at M={m}: {', '.join(leaves)}")
+
+
+# (launcher, body, label, rows) of phase 4's breakdowns: the tiled bodies
+# at the phase-5 prefill and at PREFILL_M, the GEMV bodies at the decode
+# tick and a full admission chunk
+BREAKDOWNS = [(kind, accum, f"{label} {body}", m)
+              for kind, label, ms in (("dora_linear", "tiled", (PREFILL_ROWS, PREFILL_M)),
+                                      ("dora_linear_gemv", "GEMV", (SLOTS, 32)))
+              for accum, body in (("f32", "f32 body (bf16 x)"), ("int8", "int8 body"))
+              for m in ms]
+
+
+def phase_breakdown(device):
+    """Device time per kernel of each launcher and body in ``BREAKDOWNS``
+    (for the int8 body the row scales; the X @ A prologue; the XA sum;
+    the main kernel; the split-K pass, where the launcher has them)."""
+    out = {}
+    for kind, accum, label, m in BREAKDOWNS:
+        per_leaf = kernel_breakdown(device, kind, accum, m)
+        log_breakdown(label, accum, m, per_leaf)
+        out[f"{kind}/{accum}/{m}"] = per_leaf
     return out
 
 
@@ -786,7 +859,7 @@ def main():
     phase_build()
     worst = phase_kernels(device)
     rows = phase_timing(device)
-    breakdown = phase_tiled_breakdown(device)
+    breakdown = phase_breakdown(device)
     serving, sessions = phase_serving(device, args.seed)
     for body, run in (("f32", serving), ("int8", serving["int8"]),
                       ("codes_adc", serving["codes_adc"])):
@@ -826,7 +899,7 @@ def main():
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "timing": rows, "tiled_breakdown": breakdown,
+            json.dump({"card": smi, "timing": rows, "breakdown": breakdown,
                        "serving": serving, "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

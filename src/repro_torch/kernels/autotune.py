@@ -16,7 +16,10 @@ and the only decisions left are:
 * the tiled launcher's tensor-core bodies (int8; f32 with bf16 x): their
   tile rows and the rows of K per split (``tiled_tiles``, per body), so
   that every full-width leaf at prefill fills one wave of blocks on the
-  card's 132 SMs.
+  card's 132 SMs;
+* the GEMV launcher's tensor-core body (f32 with bf16 x): the parts of its
+  ordered K split (``gemv_plan``), so that every full-width leaf at every
+  row bucket launches a block per SM, within one wave.
 
 The ADC kernel's 128-row block and 256-row array tile are not choices:
 max |x| is taken per (block, tile) and each tile's current is digitized
@@ -100,3 +103,39 @@ def gemv_rows(m: int) -> int:
 def adc_tile_rows(m: int) -> int:
     """Output rows per block of the ADC kernel for ``m`` rows of x."""
     return next(t for t in ADC_TILE_ROWS if min(m, ADC_BLOCK_ROWS) <= t)
+
+
+# the GEMV launcher's tensor-core body (dora_linear.cu): output columns per
+# block (kGemvMmaN), rows of K per pipeline stage (kGemvMmaK), and most
+# chunks of K of its X @ A blocks (kGemvXaChunks), each whole slabs of
+# XA_SLAB rows (kPrepRows) for XA_ROW_TILE rows of x a block
+# (kPrepRowTile). Two blocks fit an SM (launch bounds, at most 96 KB of
+# shared memory), so WAVE is its wave too.
+GEMV_MMA_COLS = 128
+GEMV_MMA_STAGE = 64
+GEMV_XA_CHUNKS = 24
+XA_SLAB = 256
+XA_ROW_TILE = 16
+
+
+def gemv_blocks(m: int, n: int, k: int, parts: int) -> int:
+    """Blocks of one tensor-core GEMV launch (the launcher's grid): a
+    block per 128-column strip and part of K, and the X @ A blocks, a
+    16-row tile of x times a chunk of K."""
+    slabs = -(-k // XA_SLAB)
+    sub = -(-slabs // GEMV_XA_CHUNKS)
+    strips = -(-n // GEMV_MMA_COLS)
+    return strips * parts + -(-m // XA_ROW_TILE) * -(-slabs // sub)
+
+
+def gemv_plan(m: int, n: int, k: int) -> int:
+    """The tensor-core GEMV's parts of K (whole stages each) for an (m, k)
+    x (k, n) product: the fewest (at most one per stage of K) that give
+    every SM a block of column strip and part, fewer where the launch would
+    not fit one wave. Fewer parts mean fewer raw sums for the strip's last
+    block to add."""
+    strips = -(-n // GEMV_MMA_COLS)
+    parts = min(-(-k // GEMV_MMA_STAGE), -(-SMS // strips))
+    while parts > 1 and gemv_blocks(m, n, k, parts) > WAVE:
+        parts -= 1
+    return parts

@@ -13,7 +13,8 @@
 // Which body runs where:
 //
 //     launcher  body  x          kernel                        arithmetic
-//     GEMV      f32   f32, bf16  dora_gemv_kernel<..., false>  SIMT f32
+//     GEMV      f32   bf16       dora_gemv_mma_kernel          mma.sync bf16, f32 acc
+//     GEMV      f32   f32        dora_gemv_kernel<..., false>  SIMT f32
 //     GEMV      int8  f32, bf16  dora_gemv_kernel<..., true>   SIMT int32
 //     tiled     f32   bf16       dora_mma_kernel<..., false>   mma.sync bf16, f32 acc
 //     tiled     f32   f32        dora_tiled_kernel             SIMT f32
@@ -43,12 +44,13 @@
 // rate. The GEMV launcher and the SIMT tiled body keep the reference's
 // exact arithmetic on the SIMT units (67 TFLOP/s f32, a ridge of 20
 // flop/byte; int32 multiply-adds run no faster): the decode GEMV (M <= 4)
-// stays under that ridge, but from a few dozen rows up the instruction
-// rate caps a SIMT body far above the byte floor. So every tiled call the
-// serving paths make runs on the tensor cores.
+// stays under that ridge, but from 16 rows up the instruction rate caps a
+// SIMT body above the byte floor (M = 32: 3.2 GFLOP a layer, 0.048 ms at
+// 67 TFLOP/s). So every call of the f32 serving path (bf16 x) runs on the
+// tensor cores, GEMV and tiled alike.
 //
-// The tensor-core bodies. The f32 body (bf16 x) multiplies a bf16 x by a
-// bf16 G+ - G-, exact in f32, so mma.sync bf16 with f32 accumulators
+// The tiled tensor-core bodies. The f32 body (bf16 x) multiplies a bf16
+// x by a bf16 G+ - G-, exact in f32, so mma.sync bf16 with f32 accumulators
 // differs from the SIMT body only in the order of the f32 sums and holds
 // the same 1e-4 tolerance. The int8 body multiplies the s8 xq by the u8
 // codes, exactly. Design, shared by both:
@@ -96,14 +98,31 @@
 //   reaches device memory. A code byte becomes a float by OR-ing it into
 //   the mantissa of 2^23 (one byte permute); G+ - G- is then one exact
 //   f32 subtract, with no int-to-float conversion.
-// * A prologue kernel computes X @ A (M x R) once per call, and for the
-//   GEMV launcher also X^T as f32 (K x rows, zero rows past M). The TPU
-//   kernel accumulated X @ A inside every grid step's K loop; on the
-//   card every block would redo it, which cost more than streaming the
-//   codes, so it runs once and the main kernels read the small result.
-// * GEMV launcher: a block owns a strip of 32 (16 from 8 rows up) output
-//   columns and all of K (the TPU grid's sequential K axis becomes a
-//   loop: no block waits for another). Each thread loads CPT neighbouring
+// * X @ A (M x R) is computed once per call, not by every block: the TPU
+//   kernel accumulated it inside every grid step's K loop, and on the card
+//   every block redoing it cost more than streaming the codes. The SIMT
+//   bodies run a prologue kernel first (for the SIMT GEMV also X^T as f32,
+//   K x rows, zero rows past M); the tensor-core GEMV gives it to the first
+//   blocks of its own grid.
+// * GEMV launcher, tensor-core body (bf16 x), dora_gemv_mma_kernel. The
+//   code stream bounds it (2 bytes a weight, M <= 64 MMA rows of work), and
+//   at the decode tick a leaf streams 8-50 MB in a few microseconds, so its
+//   fixed costs weigh as much as its pipeline (PERF.md: the launch, the
+//   ramp of the copies and the strips' last blocks after the last code
+//   byte set the small leaves' time). So: one launch; a block per 128
+//   output columns and part of K (autotune.gemv_plan: at least a block per
+//   SM, within one wave), the parts added in part order by each strip's
+//   last block (a ticket, no atomics on data), whose loads in flight are
+//   capped so that it does not spill (it did, and cost 13% at M = 4); X @ A
+//   in the grid's first blocks, one round trip per 256 rows of K; 16-byte
+//   cp.async copies of codes and x into a 4-stage ring, no X^T in memory;
+//   G+ - G- converted to bf16 in registers and fed to mma.sync m16n8k16 as
+//   the A operand of Y^T = W^T X^T, with x padded to 8 rows as B (details
+//   at the kernel).
+// * GEMV launcher, SIMT bodies (f32 x; the int8 body): a block owns a
+//   strip of 32 (16 from 8 rows up) output columns and all of K (the TPU
+//   grid's sequential K axis becomes a loop: no block waits for another).
+//   Each thread loads CPT neighbouring
 //   code bytes of a row as one vector (16 bytes at M <= 4), neighbouring
 //   threads take the rest of the strip's row segment and then the next
 //   rows, and each thread keeps 4 (8) rows of both code arrays in flight.
@@ -201,24 +220,23 @@ __device__ __forceinline__ void xa_partial(F xval, const float* __restrict__ a,
   }
 }
 
-// f32 body, grid (max(M, rows), G = ceil(K / kPrepRows)): XA partials and,
-// for the GEMV launcher, XT = X^T as f32 (zero rows past M).
-template <typename TX>
+// f32 body with f32 x, grid (max(M, rows), G = ceil(K / kPrepRows)): XA
+// partials and, for the GEMV launcher, XT = X^T (zero rows past M).
 __global__ void __launch_bounds__(kPrepThreads)
-    prep_kernel(const TX* __restrict__ x, const float* __restrict__ a,
-                float* __restrict__ xa, float* __restrict__ xt, int M, int K,
-                int R, int rows) {
+    prep_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                float* __restrict__ xa, float* __restrict__ xt, int M, int K, int R,
+                int rows) {
   __shared__ float part[kPrepThreads];
   const int m = blockIdx.x;
   const int tid = threadIdx.x;
   const int kb = blockIdx.y * kPrepRows, ke = min(K, kb + kPrepRows);
   if (xt != nullptr && m < rows) {
     for (int k = kb + tid; k < ke; k += kPrepThreads)
-      xt[(size_t)k * rows + m] = m < M ? to_f32(x[(size_t)m * K + k]) : 0.f;
+      xt[(size_t)k * rows + m] = m < M ? x[(size_t)m * K + k] : 0.f;
   }
   if (m >= M) return;
-  const TX* xr = x + (size_t)m * K;
-  xa_partial([&](int k) { return to_f32(xr[k]); }, a, xa, part, m, M, kb, ke, R);
+  const float* xr = x + (size_t)m * K;
+  xa_partial([&](int k) { return xr[k]; }, a, xa, part, m, M, kb, ke, R);
 }
 
 // the int8 row scale of row xr: max(max|x|, 1e-30) / 127, by the whole
@@ -1083,6 +1101,480 @@ __global__ void __launch_bounds__(kPrepThreads)
 }
 
 // ---------------------------------------------------------------------------
+// GEMV launcher, f32 body with bf16 x: tensor cores
+// ---------------------------------------------------------------------------
+
+// output columns per block (autotune.GEMV_MMA_COLS), rows of K per stage
+// (autotune.GEMV_MMA_STAGE), stages of the copy ring, most chunks of K
+// of the X @ A blocks, whose partials the epilogue adds (autotune.
+// GEMV_XA_CHUNKS)
+constexpr int kGemvMmaN = 128;
+constexpr int kGemvMmaK = 64;
+constexpr int kGemvMmaStages = 4;
+constexpr int kGemvXaChunks = 24;
+constexpr int kGemvXaRanks = 32;   // ranks of X @ A per pass of its blocks
+constexpr int kGemvMmaRanks = 32;  // ranks of XA @ B per epilogue pass
+// loads a thread of a strip's last block keeps in flight: float4 groups of
+// the parts' raw sums, and X @ A partials. More would not fit the 128
+// registers of two blocks an SM beside the rest: at 16 and 24 the kernel
+// spilled, and took 13% longer at M = 4 (PERF.md)
+constexpr int kGemvSumsInFlight = 4;
+constexpr int kGemvXaInFlight = 8;
+
+// Shared memory of the tensor-core GEMV for NT tiles of 8 rows: per stage
+// the G+ and G- tiles (kGemvMmaK x kGemvMmaN u8) and the x tile (8 NT x
+// kGemvMmaK bf16), all unpadded, their 16-byte chunks XOR-swizzled (below).
+// The X @ A blocks and the epilogue reuse the ring.
+template <int NT>
+struct GemvMmaSmem {
+  static constexpr int C = kGemvMmaK * kGemvMmaN;
+  static constexpr int X = 8 * NT * kGemvMmaK * 2;
+  static constexpr int STAGE = 2 * C + X;
+  static constexpr int BYTES = kGemvMmaStages * STAGE;
+  static_assert(kPrepRowTile * (kPrepRows + 8) * 2 + kPrepRows * kGemvXaRanks * 4 <= BYTES,
+                "the X @ A tiles fit the ring");
+  static_assert(4 * ((kGemvMmaRanks + 2) * kGemvMmaN + 8 * NT * kGemvMmaRanks) <= BYTES,
+                "the epilogue's B, scale, gamma and XA fit the ring");
+  static_assert(4 * 1024 * NT <= BYTES, "the K halves' sums fit the ring");
+};
+
+// byte offset of 16-byte chunk c (columns 16c..16c+15) of code row r: the
+// chunks are swizzled by bits 2-3 of the row, so the four rows a lane
+// group reads (4t + i, same i) fall in four different bank groups
+__device__ __forceinline__ int code_chunk(int r, int c) {
+  return r * kGemvMmaN + ((c ^ (((r >> 2) & 3) << 1)) << 4);
+}
+// byte offset of chunk c (K 8c..8c+7) of x row rho: swizzled by its low
+// two bits, so the rows 8j + g of one half warp fall in different banks
+__device__ __forceinline__ int x_chunk(int rho, int c) {
+  return rho * kGemvMmaK * 2 + ((c ^ ((rho & 3) << 1)) << 4);
+}
+
+// G+ - G- of byte i of (p0, q0) and of (p1, q1) as two bf16 (exact), the
+// first in the low half
+__device__ __forceinline__ uint32_t code_diff2_bf16x2(uint32_t p0, uint32_t q0, uint32_t p1,
+                                                      uint32_t q1, int i) {
+  const __nv_bfloat162 d = __floats2bfloat162_rn(byte_f32(p0, i) - byte_f32(q0, i),
+                                                 byte_f32(p1, i) - byte_f32(q1, i));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// 4 bytes global -> shared, asynchronously; zero-filled when !in
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// X @ A partials of the tensor-core GEMV: rows [m0, m0 + 16) of X over
+// chunk g of K (`sub` slabs of kPrepRows rows, in order), ranks in passes
+// of kGemvXaRanks, written to xa[g][m][:]. Each slab is copied to shared
+// memory in one go (cp.async: x as bf16 rows, 16 bytes a copy where K % 8
+// == 0 and x is aligned, and A's rows for the pass), so a block waits
+// about one memory round trip per slab while the code stream loads the
+// card.
+__device__ __forceinline__ void gemv_xa_tile(const __nv_bfloat16* __restrict__ x,
+                                             const float* __restrict__ a,
+                                             float* __restrict__ xa, int M, int K, int R,
+                                             int m0, int g, int sub, bool vec,
+                                             __nv_bfloat16 (*xt)[kPrepRows + 8],
+                                             float (*at)[kGemvXaRanks]) {
+  const int tid = threadIdx.x;
+  const int i = tid / 16, j = tid % 16;  // row m0 + i, ranks r0 + j and r0 + j + 16
+  const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
+  for (int r0 = 0; r0 < R; r0 += kGemvXaRanks) {
+    float acc0 = 0.f, acc1 = 0.f;
+    for (int s = 0; s < sub; ++s) {
+      const int kb = (g * sub + s) * kPrepRows, kn = min(kPrepRows, K - kb);
+      if (kn <= 0) break;
+      __syncthreads();  // the previous slab is done with xt and at
+      if (vec) {
+#pragma unroll
+        for (int it = 0; it < kPrepRowTile * kPrepRows / 8 / kPrepThreads; ++it) {
+          const int p = tid + it * kPrepThreads, r = p / (kPrepRows / 8), k = p % (kPrepRows / 8) * 8;
+          const bool in = m0 + r < M && k < kn;
+          cp_async16(&xt[r][k], in ? xb + (size_t)(m0 + r) * K + kb + k : xb, in);
+        }
+      } else {
+        for (int p = tid; p < kPrepRowTile * kPrepRows; p += kPrepThreads) {
+          const int r = p / kPrepRows, k = p % kPrepRows;
+          xt[r][k] = m0 + r < M && k < kn ? x[(size_t)(m0 + r) * K + kb + k]
+                                          : __float2bfloat16(0.f);
+        }
+      }
+#pragma unroll 8
+      for (int it = 0; it < kGemvXaRanks * kPrepRows / kPrepThreads; ++it) {
+        const int p = tid + it * kPrepThreads, k = p / kGemvXaRanks, r = r0 + p % kGemvXaRanks;
+        const bool in = k < kn && r < R;
+        cp_async4(&at[k][p % kGemvXaRanks], in ? a + (size_t)(kb + k) * R + r : a, in);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll 4
+      for (int k = 0; k < kPrepRows; k += 2) {
+        const uint32_t xw = *reinterpret_cast<const uint32_t*>(&xt[i][k]);
+        const float x0 = __uint_as_float(xw << 16), x1 = __uint_as_float(xw & 0xffff0000u);
+        acc0 = fmaf(x0, at[k][j], acc0), acc1 = fmaf(x0, at[k][j + 16], acc1);
+        acc0 = fmaf(x1, at[k + 1][j], acc0), acc1 = fmaf(x1, at[k + 1][j + 16], acc1);
+      }
+    }
+    const int m = m0 + i;
+    float* dst = xa + ((size_t)g * M + m) * R + r0;
+    if (m < M && r0 + j < R) dst[j] = acc0;
+    if (m < M && r0 + j + 16 < R) dst[j + 16] = acc1;
+  }
+}
+
+// 4 floats at p, of which the first `valid` exist (zeros for the rest),
+// bypassing L1: one 16-byte load where all 4 do and v4 (p 16-byte aligned)
+__device__ __forceinline__ float4 ldcg4(const float* p, int valid, bool v4) {
+  if (v4 && valid >= 4) return __ldcg(reinterpret_cast<const float4*>(p));
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid > 0) v.x = __ldcg(p);
+  if (valid > 1) v.y = __ldcg(p + 1);
+  if (valid > 2) v.z = __ldcg(p + 2);
+  if (valid > 3) v.w = __ldcg(p + 3);
+  return v;
+}
+
+// One launch. Its first XT G blocks (XT = ceil(M / 16) tiles of 16 rows of
+// x, G chunks of K) compute the X @ A partials (gemv_xa_tile) and count
+// themselves in sem[0]. Every other block (strip c, part p) computes the
+// raw sums of columns [128 c, 128 c + 128) over part p of K (whole stages
+// of kGemvMmaK rows, split as evenly as they go) and writes them to
+// ws[p]; the last of a strip's parts to arrive (a ticket in sem[1 + c],
+// which it resets) adds ws[0..parts) in part order and applies the
+// epilogue y = gamma * (acc * scale + XA @ B), XA being the G partials
+// added in chunk order once sem[0] says they are all written; the last
+// strip to finish resets sem[0]. No data goes through atomics, so two
+// launches are bitwise equal, and sem is all zero again at the end.
+//
+// Waiting: only a strip's last block waits, for the X @ A blocks, and
+// those wait for nothing and have the lowest block indices: blocks start
+// in index order, and every plan fits one wave (autotune.gemv_plan), so
+// they are running or done.
+//
+// Main loop: a kGemvMmaStages ring of 16-byte cp.async copies (codes and x;
+// one barrier a stage). Warp (wc, wk) takes columns 32 wc..+32 and the K
+// half 32 wk..+32 of each stage; the two K halves are added in warp order
+// at the end. The MMA is the swapped product Y^T = W^T X^T, m16n8k16 bf16:
+// 16 output columns are the MMA's rows, 8 rows of x its columns. Lane
+// (g, t) reads one word (4 columns) of 4 code rows 4t + i and converts in
+// registers: MMA row g takes column 4g + 2c and row g + 8 column 4g + 2c +
+// 1 of column tile c, and the MMA's k index 2t + (0, 1, 8, 9) is the
+// stage's row 4t + (0, 1, 2, 3), so the B fragment is 4 contiguous bf16 of
+// x: one 8-byte shared load. No float weight reaches memory.
+//
+// The strip's last block reads the parts' raw sums with B, scale and gamma,
+// then XA's partials, a few loads in flight a thread (kGemvSumsInFlight,
+// kGemvXaInFlight), so that it needs no more registers than the main loop.
+template <int NT, bool VEC>
+__global__ void __launch_bounds__(kGemvThreads, 2)
+    dora_gemv_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
+                         const uint8_t* __restrict__ gp, const uint8_t* __restrict__ gn,
+                         const float* __restrict__ scale, const float* __restrict__ b,
+                         const float* __restrict__ gamma, float* __restrict__ out,
+                         float* __restrict__ ws, float* __restrict__ xa, int* __restrict__ sem,
+                         int M, int K, int N, int R, int parts, int G, int sub) {
+  using L = GemvMmaSmem<NT>;
+  extern __shared__ __align__(16) float smem_f[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  __shared__ int last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int XT = (M + kPrepRowTile - 1) / kPrepRowTile, xa_blocks = XT * G;
+
+  if ((int)blockIdx.x < xa_blocks) {
+    gemv_xa_tile(x, a, xa, M, K, R, (blockIdx.x % XT) * kPrepRowTile, blockIdx.x / XT, sub,
+                 VEC, reinterpret_cast<__nv_bfloat16(*)[kPrepRows + 8]>(smem),
+                 reinterpret_cast<float(*)[kGemvXaRanks]>(
+                     smem + kPrepRowTile * (kPrepRows + 8) * 2));
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) atomicAdd(sem, 1);
+    return;
+  }
+
+  const int blk = blockIdx.x - xa_blocks;
+  const int part = blk % parts, strip = blk / parts;
+  const int strips = (gridDim.x - xa_blocks) / parts;
+  const int n0 = strip * kGemvMmaN;
+  const int stages = (K + kGemvMmaK - 1) / kGemvMmaK;
+  const int kb = part * stages / parts * kGemvMmaK;
+  const int ke = min(K, (part + 1) * stages / parts * kGemvMmaK);
+  const int tiles = (ke - kb + kGemvMmaK - 1) / kGemvMmaK;
+  const int wc = warp & 3, wk = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
+
+  // stage tile j of this part (an empty group past the last tile); rows
+  // past the part's end, columns past N and rows of x past M are zeros
+  auto load_tile = [&](int j) {
+    if (j < tiles) {
+      unsigned char* st = smem + (j % kGemvMmaStages) * L::STAGE;
+      const int k0 = kb + j * kGemvMmaK;
+#pragma unroll
+      for (int it = 0; it < kGemvMmaK * (kGemvMmaN / 16) / kGemvThreads; ++it) {
+        const int q = tid + it * kGemvThreads;
+        const int r = q / (kGemvMmaN / 16), c = q % (kGemvMmaN / 16);
+        const int k = k0 + r, n = n0 + c * 16;
+        const size_t off = (size_t)k * N + n;
+        unsigned char* dp = st + code_chunk(r, c);
+        if (VEC) {
+          const bool in = k < ke && n < N;
+          cp_async16(dp, in ? gp + off : gp, in);
+          cp_async16(dp + L::C, in ? gn + off : gn, in);
+        } else {
+          uint32_t pw[4] = {0u, 0u, 0u, 0u}, qw[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            if (k < ke && n + i < N) {
+              pw[i / 4] |= (uint32_t)gp[off + i] << (8 * (i % 4));
+              qw[i / 4] |= (uint32_t)gn[off + i] << (8 * (i % 4));
+            }
+          *reinterpret_cast<uint4*>(dp) = make_uint4(pw[0], pw[1], pw[2], pw[3]);
+          *reinterpret_cast<uint4*>(dp + L::C) = make_uint4(qw[0], qw[1], qw[2], qw[3]);
+        }
+      }
+      for (int q = tid; q < 8 * NT * (kGemvMmaK / 8); q += kGemvThreads) {
+        const int rho = q / (kGemvMmaK / 8), c = q % (kGemvMmaK / 8);
+        const int k = k0 + c * 8;
+        unsigned char* dp = st + 2 * L::C + x_chunk(rho, c);
+        const uint16_t* src = xb + (size_t)rho * K + k;
+        if (VEC) {
+          const bool in = rho < M && k < ke;
+          cp_async16(dp, in ? src : xb, in);
+        } else {
+          __align__(16) uint16_t v[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v[i] = (rho < M && k + i < ke) ? src[i] : 0;
+          *reinterpret_cast<uint4*>(dp) = *reinterpret_cast<const uint4*>(v);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][NT][4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+
+  // the MMAs of this warp's K half of tile j
+  auto mma_tile = [&](int j) {
+    const unsigned char* st = smem + (j % kGemvMmaStages) * L::STAGE;
+    const unsigned char* xs = st + 2 * L::C;
+    // this lane's word of a code row: (r >> 2) & 3 == t for its rows
+    const int cw = (((2 * wc + (g >> 2)) ^ (t << 1)) << 4) + (g & 3) * 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r0 = 32 * wk + 16 * h + 4 * t;
+      uint32_t p[4], q[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = *reinterpret_cast<const uint32_t*>(st + (r0 + i) * kGemvMmaN + cw);
+        q[i] = *reinterpret_cast<const uint32_t*>(st + L::C + (r0 + i) * kGemvMmaN + cw);
+      }
+      uint32_t af[2][4];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        af[c][0] = code_diff2_bf16x2(p[0], q[0], p[1], q[1], 2 * c);
+        af[c][1] = code_diff2_bf16x2(p[0], q[0], p[1], q[1], 2 * c + 1);
+        af[c][2] = code_diff2_bf16x2(p[2], q[2], p[3], q[3], 2 * c);
+        af[c][3] = code_diff2_bf16x2(p[2], q[2], p[3], q[3], 2 * c + 1);
+      }
+      // x row 8 j + g, K 4t..4t+3 of this half: chunk xc, half t & 1
+      const int xc = 4 * wk + 2 * h + (t >> 1);
+#pragma unroll
+      for (int jt = 0; jt < NT; ++jt) {
+        const uint2 bv =
+            *reinterpret_cast<const uint2*>(xs + x_chunk(8 * jt + g, xc) + 8 * (t & 1));
+        mma_bf16(acc[0][jt], af[0], bv.x, bv.y);
+        mma_bf16(acc[1][jt], af[1], bv.x, bv.y);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int j = 0; j < kGemvMmaStages - 1; ++j) load_tile(j);
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<kGemvMmaStages - 2>();  // tile j landed
+    // every warp is done with tile j - 1: its stage slot is free
+    __syncthreads();
+    load_tile(j + kGemvMmaStages - 1);
+    mma_tile(j);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the second K half's sums onto the first, then this part's raw sums to
+  // ws[part]: lane (g, t) holds columns 4g..4g+3 of its warp's 32 for rows
+  // 8 jt + 2t (+1)
+  float* red = smem_f;  // [warp wc][c][jt][e][lane]
+  if (wk == 1) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[(((wc * 2 + c) * NT + j) * 4 + e) * 32 + lane] = acc[c][j][e];
+  }
+  __syncthreads();
+  if (wk == 0) {
+    const int nc = n0 + 32 * wc + 4 * g;
+    float* wp = ws + (size_t)part * M * N;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int m = 8 * j + 2 * t + u;
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = e >> 1, i = ((e & 1) << 1) + u;  // column 4g + e
+          v[e] = acc[c][j][i] + red[(((wc * 2 + c) * NT + j) * 4 + i) * 32 + lane];
+        }
+        if (m >= M) continue;
+        float* row = wp + (size_t)m * N;
+        if (N % 4 == 0 && nc < N) {
+          *reinterpret_cast<float4*>(row + nc) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (nc + e < N) row[nc + e] = v[e];
+        }
+      }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(sem + 1 + strip, 1) == parts - 1;
+    if (last) atomicExch(sem + 1 + strip, 0);  // every part of the strip has counted
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // The strip's last block. Thread i takes the groups of 4 columns i,
+  // i + 256, ... (row m, columns 4 (i % 32)..+3). First: B for ranks
+  // [0, kGemvMmaRanks), scale and gamma of the strip, a look at sem[0],
+  // and the groups' raw sums of every part, added in part order
+  // (kGemvSumsInFlight / NT parts of every group in flight at a time, at
+  // least one). Then, once every X @ A block has written (usually long
+  // since), XA for those ranks: its G partials added in chunk order,
+  // kGemvXaInFlight at a time.
+  float* b_s = smem_f;                             // [kGemvMmaRanks][kGemvMmaN]
+  float* sg_s = b_s + kGemvMmaRanks * kGemvMmaN;   // scale[128], gamma[128]
+  float* xa_s = sg_s + 2 * kGemvMmaN;              // [M][kGemvMmaRanks]
+  constexpr int PB = NT < kGemvSumsInFlight ? kGemvSumsInFlight / NT : 1;
+  const bool v4 = N % 4 == 0;  // ws and out rows: 16-byte aligned groups
+  int seen = 0;
+  if (tid == 0) seen = *reinterpret_cast<volatile int*>(sem);
+  auto stage_b = [&](int r0) {
+#pragma unroll
+    for (int it = 0; it < kGemvMmaRanks * kGemvMmaN / kGemvThreads; ++it) {
+      const int p = tid + it * kGemvThreads;
+      const int r = r0 + p / kGemvMmaN, n = n0 + p % kGemvMmaN;
+      b_s[p] = r < R && n < N ? b[(size_t)r * N + n] : 0.f;
+    }
+  };
+  stage_b(0);
+  {
+    const int n = n0 + tid % kGemvMmaN;
+    sg_s[tid] = n < N ? (tid < kGemvMmaN ? scale[n] : gamma[n]) : 0.f;
+  }
+  float4 y[NT];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) y[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int q0 = 0; q0 < parts; q0 += PB) {
+    float4 v[NT][PB];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int it = tid + i * kGemvThreads, m = it / 32, n = n0 + it % 32 * 4;
+#pragma unroll
+      for (int u = 0; u < PB; ++u)
+        v[i][u] = ldcg4(ws + ((size_t)(q0 + u) * M + m) * N + n,
+                        m < M && q0 + u < parts ? N - n : 0, v4);
+    }
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int u = 0; u < PB; ++u)
+        if (q0 + u < parts)
+          y[i].x += v[i][u].x, y[i].y += v[i][u].y, y[i].z += v[i][u].z, y[i].w += v[i][u].w;
+  }
+  if (tid == 0 && seen < xa_blocks) {
+    const volatile int* count = sem;
+    while (*count < xa_blocks) __nanosleep(128);
+  }
+  __syncthreads();
+  __threadfence();
+  auto stage_xa = [&](int r0) {
+    for (int i = 0; i < NT; ++i) {  // M * kGemvMmaRanks <= NT * kGemvThreads
+      const int p = tid + i * kGemvThreads;
+      const int m = p / kGemvMmaRanks, r = r0 + p % kGemvMmaRanks;
+      float sum = 0.f;
+      for (int q0 = 0; q0 < G; q0 += kGemvXaInFlight) {
+        float v[kGemvXaInFlight];
+#pragma unroll
+        for (int q = 0; q < kGemvXaInFlight; ++q)
+          v[q] = m < M && r < R && q0 + q < G
+                     ? __ldcg(xa + ((size_t)(q0 + q) * M + m) * R + r) : 0.f;
+#pragma unroll
+        for (int q = 0; q < kGemvXaInFlight; ++q)
+          if (q0 + q < G) sum += v[q];
+      }
+      if (m < M) xa_s[p] = sum;
+    }
+  };
+  stage_xa(0);
+  float4 low[NT];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) low[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r0 = 0; r0 < R; r0 += kGemvMmaRanks) {
+    if (r0 > 0) {
+      stage_b(r0);
+      stage_xa(r0);
+    }
+    __syncthreads();
+    const int rs = min(kGemvMmaRanks, R - r0);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int it = tid + i * kGemvThreads, m = it / 32, c = it % 32 * 4;
+      if (m >= M) continue;
+      for (int r = 0; r < rs; ++r) {
+        const float xv = xa_s[m * kGemvMmaRanks + r];
+        const float4 bv = *reinterpret_cast<const float4*>(b_s + r * kGemvMmaN + c);
+        low[i].x = fmaf(xv, bv.x, low[i].x), low[i].y = fmaf(xv, bv.y, low[i].y);
+        low[i].z = fmaf(xv, bv.z, low[i].z), low[i].w = fmaf(xv, bv.w, low[i].w);
+      }
+    }
+    __syncthreads();  // b_s and xa_s are free for the next ranks
+  }
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int it = tid + i * kGemvThreads, m = it / 32, c = it % 32 * 4, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    const float o[4] = {(y[i].x * sg_s[c] + low[i].x) * sg_s[kGemvMmaN + c],
+                        (y[i].y * sg_s[c + 1] + low[i].y) * sg_s[kGemvMmaN + c + 1],
+                        (y[i].z * sg_s[c + 2] + low[i].z) * sg_s[kGemvMmaN + c + 2],
+                        (y[i].w * sg_s[c + 3] + low[i].w) * sg_s[kGemvMmaN + c + 3]};
+    float* dst = out + (size_t)m * N + n;
+    if (v4 && n + 3 < N) {
+      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n + e < N) dst[e] = o[e];
+    }
+  }
+  // every XA read of this block is done: the last strip resets sem[0]
+  if (tid == 0 && atomicAdd(sem, 1) == xa_blocks + strips - 1) atomicExch(sem, 0);
+}
+
+// ---------------------------------------------------------------------------
 // host-side launch helpers
 // ---------------------------------------------------------------------------
 
@@ -1101,18 +1593,21 @@ struct Ops {
   int M, K, N, R;
 };
 
-// the prologue of the GEMV launcher (xt: X^T or Xq^T) or of the SIMT tiled
-// body (xt null, f32 only)
-template <typename TX>
-cudaError_t launch_prep(const void* x, const void* a, void* xa, void* xt, void* xs, int M,
-                        int K, int R, int rows, bool int8, cudaStream_t s) {
+// the prologue of the SIMT GEMV body (xt: X^T or Xq^T) or of the SIMT tiled
+// body (xt null, f32 only); the f32 body takes f32 x, the int8 body either
+cudaError_t launch_prep(const void* x, bool x_bf16, const void* a, void* xa, void* xt,
+                        void* xs, int M, int K, int R, int rows, bool int8, cudaStream_t s) {
   const dim3 grid(xt != nullptr ? (M > rows ? M : rows) : M, prep_chunks(K));
-  if (int8)
-    prep_int8_kernel<TX><<<grid, kPrepThreads, 0, s>>>(
-        (const TX*)x, (const float*)a, (float*)xa, (float*)xs, (int*)xt, M, K, R, rows);
+  if (!int8)
+    prep_kernel<<<grid, kPrepThreads, 0, s>>>((const float*)x, (const float*)a, (float*)xa,
+                                               (float*)xt, M, K, R, rows);
+  else if (x_bf16)
+    prep_int8_kernel<__nv_bfloat16><<<grid, kPrepThreads, 0, s>>>(
+        (const __nv_bfloat16*)x, (const float*)a, (float*)xa, (float*)xs, (int*)xt, M, K, R,
+        rows);
   else
-    prep_kernel<TX><<<grid, kPrepThreads, 0, s>>>(
-        (const TX*)x, (const float*)a, (float*)xa, (float*)xt, M, K, R, rows);
+    prep_int8_kernel<float><<<grid, kPrepThreads, 0, s>>>(
+        (const float*)x, (const float*)a, (float*)xa, (float*)xs, (int*)xt, M, K, R, rows);
   return cudaGetLastError();
 }
 
@@ -1160,6 +1655,29 @@ cudaError_t gemv_rows(int rows, const Ops& o, cudaStream_t s) {
     case 64: return gemv_vec<64, 1, INT8>(o, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// the tensor-core GEMV (bf16 x, f32 body), NT tiles of 8 rows: one launch,
+// the X @ A blocks first (at most kGemvXaChunks chunks of K per 16 rows of x)
+template <int NT>
+cudaError_t launch_gemv_mma(const void* x, const void* a, const Ops& o, void* ws, void* sem,
+                            int parts, cudaStream_t s) {
+  constexpr int smem = GemvMmaSmem<NT>::BYTES;
+  const bool vec = o.N % 16 == 0 && aligned(o.gp, 16) && aligned(o.gn, 16) && o.K % 8 == 0 &&
+                   aligned(x, 16);
+  auto kernel = vec ? dora_gemv_mma_kernel<NT, true> : dora_gemv_mma_kernel<NT, false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int slabs = prep_chunks(o.K);
+  const int sub = (slabs + kGemvXaChunks - 1) / kGemvXaChunks;  // slabs per chunk
+  const int G = (slabs + sub - 1) / sub;
+  const int xa_blocks = (o.M + kPrepRowTile - 1) / kPrepRowTile * G;
+  const int strips = (o.N + kGemvMmaN - 1) / kGemvMmaN;
+  kernel<<<xa_blocks + strips * parts, kGemvThreads, smem, s>>>(
+      (const __nv_bfloat16*)x, (const float*)a, (const uint8_t*)o.gp, (const uint8_t*)o.gn,
+      (const float*)o.scale, (const float*)o.b, (const float*)o.gamma, (float*)o.out,
+      (float*)ws, (float*)o.xa, (int*)sem, o.M, o.K, o.N, o.R, parts, G, sub);
+  return cudaGetLastError();
 }
 
 // the SIMT tiled body (f32 x, f32 body), after its prologue
@@ -1278,15 +1796,49 @@ int rimc_dora_linear_gemv(const void* x, int x_bf16, const void* gp,
                           void* xt, void* xs, int M, int K, int N, int R, int rows,
                           int int8, void* stream) {
   if (M < 1 || M > rows || K < 1 || N < 1 || R < 1 || R > kPrepThreads ||
-      (int8 && xs == nullptr))
+      (int8 && xs == nullptr) || (x_bf16 && !int8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e =
-      x_bf16 ? launch_prep<__nv_bfloat16>(x, a, xa, xt, xs, M, K, R, rows, int8, s)
-             : launch_prep<float>(x, a, xa, xt, xs, M, K, R, rows, int8, s);
+  cudaError_t e = launch_prep(x, x_bf16, a, xa, xt, xs, M, K, R, rows, int8, s);
   if (e != cudaSuccess) return (int)e;
   const Ops o{x, xt, nullptr, xs, gp, gn, scale, b, gamma, xa, out, M, K, N, R};
   return (int)(int8 ? gemv_rows<true>(rows, o, s) : gemv_rows<false>(rows, o, s));
+}
+
+// The f32 body with bf16 x: x (M, K) bf16; xa: rimc_xa_scratch(M, K, R)
+// floats (the X @ A partials); ws: a (parts, M, N) f32 scratch; sem:
+// rimc_gemv_mma_sems(N) ints, all zero, which the launch leaves all zero
+// (launches sharing sem must not overlap); rows: the row bucket, a power
+// of two in [M, 64]; parts: the parts of K, 1 <= parts <= the stages of
+// kGemvMmaK rows in K (autotune.gemv_plan).
+int rimc_gemv_mma_sems(int N) { return 1 + (N + kGemvMmaN - 1) / kGemvMmaN; }
+
+// *id: the id of the CUDA graph capture running on stream, 0 when none
+// is, so that each captured graph can hold tickets of its own
+int rimc_capture_id(void* stream, unsigned long long* id) {
+  cudaStreamCaptureStatus status;
+  *id = 0;
+  const cudaError_t e = cudaStreamGetCaptureInfo((cudaStream_t)stream, &status, id);
+  if (e == cudaSuccess && status != cudaStreamCaptureStatusActive) *id = 0;
+  return (int)e;
+}
+
+int rimc_dora_linear_gemv_mma(const void* x, const void* gp, const void* gn,
+                              const void* scale, const void* a, const void* b,
+                              const void* gamma, void* out, void* xa, void* ws, void* sem,
+                              int M, int K, int N, int R, int rows, int parts, void* stream) {
+  if (M < 1 || M > rows || K < 1 || N < 1 || R < 1 || R > kPrepThreads || parts < 1 ||
+      parts > (K + kGemvMmaK - 1) / kGemvMmaK)
+    return (int)cudaErrorInvalidValue;
+  const Ops o{x, nullptr, nullptr, nullptr, gp, gn, scale, b, gamma, xa, out, M, K, N, R};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (rows) {
+    case 1: case 2: case 4: case 8: return (int)launch_gemv_mma<1>(x, a, o, ws, sem, parts, s);
+    case 16: return (int)launch_gemv_mma<2>(x, a, o, ws, sem, parts, s);
+    case 32: return (int)launch_gemv_mma<4>(x, a, o, ws, sem, parts, s);
+    case 64: return (int)launch_gemv_mma<8>(x, a, o, ws, sem, parts, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // xq: (M, K) s8 scratch for the int8 body (null for f32). The int8 body,
@@ -1307,7 +1859,7 @@ int rimc_dora_linear_tiled(const void* x, int x_bf16, const void* gp,
   cudaStream_t s = (cudaStream_t)stream;
   const Ops o{x, nullptr, xq, xs, gp, gn, scale, b, gamma, xa, out, M, K, N, R};
   if (int8 || x_bf16) return (int)launch_mma(o, a, x_bf16, int8, bm, k_split, ws, s);
-  cudaError_t e = launch_prep<float>(x, a, xa, nullptr, nullptr, M, K, R, 0, false, s);
+  cudaError_t e = launch_prep(x, false, a, xa, nullptr, nullptr, M, K, R, 0, false, s);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_tiled(o, s);
 }

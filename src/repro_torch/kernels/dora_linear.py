@@ -7,7 +7,10 @@ Computes, in one pass over the crossbar codes (paper eq. 2 + eq. 6):
 Port of ``repro/kernels/dora_linear.py``: the source is
 ``csrc/dora_linear.cu``, its note says what bounds it on the card.
 
-* ``dora_linear_gemv`` — decode-shaped launcher, ``M <= GEMV_MAX_M``.
+* ``dora_linear_gemv`` — decode-shaped launcher, ``M <= GEMV_MAX_M``; the
+  f32 body with bf16 x runs on the tensor cores (``mma.sync`` bf16) in one
+  launch, with K split into the parts ``autotune.gemv_plan`` says; f32 x
+  and the int8 body run a SIMT body behind a prologue.
 * ``dora_linear`` — prefill-shaped launcher, tiled over M and N; the
   int8 body, and the f32 body with bf16 x, run on the tensor cores
   (``mma.sync`` s8 x u8 or bf16), with tiles and K splits from
@@ -67,13 +70,40 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rimc_dora_linear_gemv.restype = i32
     lib.rimc_dora_linear_tiled.argtypes = operands + [ptr, ptr, ptr] + [i32] * 7 + [ptr]
     lib.rimc_dora_linear_tiled.restype = i32
+    lib.rimc_dora_linear_gemv_mma.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
+    lib.rimc_dora_linear_gemv_mma.restype = i32
     lib.rimc_xa_scratch.argtypes = [i32, i32, i32]
     lib.rimc_xa_scratch.restype = i32
+    lib.rimc_gemv_mma_sems.argtypes = [i32]
+    lib.rimc_gemv_mma_sems.restype = i32
+    lib.rimc_capture_id.argtypes = [ptr, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.rimc_capture_id.restype = i32
 
 
 LIB = CudaLibrary("dora_linear.cu", _bind)
 build = LIB.load
 build_info = LIB.info
+
+# the tensor-core GEMV's tickets, zeros that every launch leaves as it
+# found them: (capture id, tensor) per (device, stream)
+_SEMS: Dict[tuple, tuple] = {}
+
+
+def _sems(lib, device, stream: int, count: int) -> torch.Tensor:
+    """Tickets for a launch on ``stream``; launches sharing them must not
+    overlap. Eager launches share their stream's, which run in order. A
+    CUDA graph gets its own, zeroed in the graph where its capture first
+    needs them (one small node a graph), so graphs may replay on any
+    streams at once."""
+    capture = ctypes.c_ulonglong(0)
+    err = lib.rimc_capture_id(stream, ctypes.byref(capture))
+    if err != 0:
+        raise RuntimeError(f"dora_linear_gemv: stream capture query failed: cudaError {err}")
+    held = _SEMS.get((device, stream))
+    if held is None or held[0] != capture.value or held[1].numel() < count:
+        held = _SEMS[(device, stream)] = (
+            capture.value, torch.zeros((count,), dtype=torch.int32, device=device))
+    return held[1]
 
 
 def _check(x, g_pos, g_neg, scale, a, b, gamma):
@@ -119,7 +149,16 @@ def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
     ptrs = [t.data_ptr() for t in (g_pos, g_neg, scale, a, b, gamma, out, xa)]
     head = [x.data_ptr(), int(x.dtype == torch.bfloat16)]
     xs_ptr = None if xs is None else xs.data_ptr()
-    if kind == "dora_linear_gemv":
+    if kind == "dora_linear_gemv" and not int8 and x.dtype == torch.bfloat16:
+        parts = autotune.gemv_plan(m, n, k)
+        # each K part's raw sums, added in part order by the strip's last block
+        ws = torch.empty((parts, m, n), **f32)
+        sem = _sems(lib, x.device, stream, lib.rimc_gemv_mma_sems(n))
+        err = lib.rimc_dora_linear_gemv_mma(
+            x.data_ptr(), *ptrs, ws.data_ptr(), sem.data_ptr(), m, k, n, r,
+            autotune.gemv_rows(m), parts, stream,
+        )
+    elif kind == "dora_linear_gemv":
         rows = autotune.gemv_rows(m)
         # X^T (f32) or Xq^T (int32), zero rows past M
         xt = torch.empty((k, rows), dtype=torch.int32 if int8 else torch.float32,

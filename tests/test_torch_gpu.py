@@ -3,9 +3,9 @@ inside itself when no CUDA device is present). The kernels are held
 against their plain PyTorch version (``kernels/ref.py``) at qwen3-1.7b's
 full-width leaves and at ragged shapes:
 * the fused linear's f32 body at rtol = atol = 1e-4 (exact f32 arithmetic
-  in both; only the summation order differs), and the tiled launcher's
-  tensor-core body (bf16 x) at the same tolerance, bitwise equal to itself
-  when launched twice;
+  in both; only the summation order differs), and both launchers'
+  tensor-core bodies (bf16 x) at the same tolerance, bitwise equal to
+  themselves when launched twice; f32 x still runs the SIMT bodies;
 * its int8 body within 1e-4 of the output's absmax (the same row
   quantization and exact int32 sum; only f32 orders differ), bitwise on
   the exactness case (integer x with 127 in every row, scale = gamma = 1,
@@ -79,6 +79,116 @@ def _check(launcher, ops):
 def test_gemv_full_width(cuda, leaf, m):
     _, k, n, r = leaf
     _check(K.dora_linear_gemv, operands(m, k, n, r, cuda))
+
+
+# the tensor-core GEMV's K split (autotune.gemv_plan) at its edges: a
+# single part shorter than a stage (K < 64), parts of unequal length, a
+# short last stage, K not a multiple of 8 (masked copies), N ragged or not
+# a multiple of the 128-column strip, M ragged in its bucket
+GEMV_EDGES = [(4, 40, 4096, 8), (5, 1000, 2048, 8), (9, 2050, 999, 3), (17, 6144, 2049, 8),
+              (33, 2048, 2064, 4), (64, 100, 300, 24), (1, 300, 130, 1)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("leaf", LEAVES, ids=[lf[0] for lf in LEAVES])
+def test_tensor_core_gemv_is_bitwise_repeatable(cuda, leaf, m):
+    _, k, n, r = leaf
+    ops = operands(m, k, n, r, cuda, seed=m + 1)
+    assert torch.equal(K.dora_linear_gemv(*ops), K.dora_linear_gemv(*ops))
+
+
+@pytest.mark.parametrize("shape", GEMV_EDGES)
+def test_tensor_core_gemv_k_split_edges(cuda, shape):
+    m, k, n, r = shape
+    ops = operands(m, k, n, r, cuda, seed=k + n)
+    _check(K.dora_linear_gemv, ops)
+    assert torch.equal(K.dora_linear_gemv(*ops), K.dora_linear_gemv(*ops))
+
+
+def _gemv_kernels(ops, accum):
+    """Names of the kernels one GEMV call launches (torch.profiler)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    K.dora_linear_gemv(*ops, accum=accum)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        K.dora_linear_gemv(*ops, accum=accum)
+        torch.cuda.synchronize()
+    return [re.search(r"(\w+_kernel)", e.name).group(1) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("dtype,accum,kernels", [
+    (torch.bfloat16, "f32", ["dora_gemv_mma_kernel"]),
+    (torch.float32, "f32", ["prep_kernel", "dora_gemv_kernel"]),
+    (torch.bfloat16, "int8", ["prep_int8_kernel", "dora_gemv_kernel"]),
+])
+def test_gemv_body_per_x_type(cuda, dtype, accum, kernels):
+    """bf16 x with the f32 body runs the tensor-core GEMV alone (one launch,
+    X @ A included); f32 x and the int8 body keep the SIMT body behind its
+    prologue; each call counts one launch."""
+    ops = operands(4, 2048, 2048, 8, cuda, dtype=dtype)
+    names = _gemv_kernels(ops, accum)
+    if not names:
+        pytest.skip("the profiler recorded no device activity")
+    assert names == kernels
+    K.reset_launch_counts()
+    K.dora_linear_gemv(*ops, accum=accum)
+    assert K.launch_counts()[K.counter("dora_linear_gemv", accum)] == 1
+    assert sum(K.launch_counts().values()) == 1
+
+
+def test_tensor_core_gemv_leaves_its_tickets_zero_and_replays(cuda):
+    """The tickets are zero after every launch, so a CUDA graph of the call
+    replays to the eager result."""
+    ops = operands(4, 2048, 4096, 24, cuda, seed=3)
+    want = K.dora_linear_gemv(*ops)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        K.dora_linear_gemv(*ops)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = K.dora_linear_gemv(*ops)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert all(int(sem.abs().sum()) == 0 for _, sem in K._SEMS.values())
+
+
+def test_tensor_core_gemv_graphs_hold_tickets_of_their_own(cuda):
+    """Two graphs captured the default way (one capture stream) after a
+    wider eager call replay at once on two streams, each to its eager
+    result: every capture holds its own tickets, and the eager tickets,
+    widened first, are not the graphs'."""
+    K.dora_linear_gemv(*operands(4, 2048, 12288, 16, cuda, seed=5))
+    leaves = [operands(4, 2048, 2048, 8, cuda, seed=6), operands(4, 2048, 4096, 24, cuda, seed=7)]
+    wants = [K.dora_linear_gemv(*ops) for ops in leaves]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for ops in leaves:
+            K.dora_linear_gemv(*ops)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, gots = [], []
+    for ops in leaves:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            gots.append(K.dora_linear_gemv(*ops))
+    K.dora_linear_gemv(*operands(4, 2048, 12288, 16, cuda, seed=8))  # eager, after capture
+    streams = [torch.cuda.Stream() for _ in graphs]
+    for _ in range(5):
+        for stream, graph in zip(streams, graphs):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(gots, wants):
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("leaf", LEAVES, ids=[lf[0] for lf in LEAVES])

@@ -132,6 +132,37 @@ def test_tiled_tiles_cover_each_element_once(accum, m, k, n):
     assert plan.k_split >= min(k, autotune.MIN_SPLIT_ROWS) or plan.splits(k) == 1
 
 
+@pytest.mark.parametrize("m", autotune.GEMV_ROW_BUCKETS)
+@pytest.mark.parametrize("leaf", sorted(LEAVES))
+def test_gemv_plan_fills_the_card(leaf, m):
+    """At every row bucket every full-width leaf launches at least one
+    block of column strip and K part per SM, and the whole launch (X @ A
+    blocks included) fits one wave, so its blocks run at once."""
+    k, n = LEAVES[leaf]
+    parts = autotune.gemv_plan(m, n, k)
+    assert -(-n // autotune.GEMV_MMA_COLS) * parts >= autotune.SMS
+    assert autotune.gemv_blocks(m, n, k, parts) <= autotune.WAVE
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (4, 2048, 4096), (32, 6144, 2048), (1, 2048, 12288), (64, 2048, 2048),
+    (4, 40, 4096), (5, 1000, 2048), (9, 2050, 999), (17, 6144, 2049), (1, 33, 4097),
+])
+def test_gemv_plan_parts_partition_k(m, k, n):
+    """The K parts, bounded as the kernel bounds them (kb, ke of
+    dora_gemv_mma_kernel, checked in test_tile_constants_match_the_kernel),
+    are whole stages that partition [0, K) in order: consecutive, none
+    empty, none past K."""
+    parts = autotune.gemv_plan(m, n, k)
+    stages = -(-k // autotune.GEMV_MMA_STAGE)
+    assert 1 <= parts <= stages
+    ranges = [(p * stages // parts * autotune.GEMV_MMA_STAGE,
+               min(k, (p + 1) * stages // parts * autotune.GEMV_MMA_STAGE)) for p in range(parts)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
 def test_tiled_binding_matches_the_c_signature():
     """The ctypes argument list of every C function has as many entries as
     its declaration in csrc/dora_linear.cu has parameters."""
@@ -139,7 +170,8 @@ def test_tiled_binding_matches_the_c_signature():
     from types import SimpleNamespace
 
     src = tk.LIB.src.read_text()
-    names = ("rimc_dora_linear_gemv", "rimc_dora_linear_tiled", "rimc_xa_scratch")
+    names = ("rimc_dora_linear_gemv", "rimc_dora_linear_gemv_mma", "rimc_dora_linear_tiled",
+             "rimc_xa_scratch", "rimc_gemv_mma_sems", "rimc_capture_id")
     lib = SimpleNamespace(**{nm: SimpleNamespace() for nm in names})
     tk._bind(lib)
     for nm in names:
@@ -148,12 +180,20 @@ def test_tiled_binding_matches_the_c_signature():
 
 
 def test_tile_constants_match_the_kernel():
-    """The policy's stage depth per tensor-core body and its tile width are
-    the kernel's."""
+    """The policy's stage depths and tile widths per tensor-core body, and
+    the GEMV's X @ A tiling that its plan counts, are the kernel's; the
+    kernel bounds its K parts as test_gemv_plan_parts_partition_k does."""
     import re
 
     src = tk.LIB.src.read_text()
     for name, value in (("kMmaK", autotune.MMA_BODIES["f32"]),
                         ("kMmaKInt8", autotune.MMA_BODIES["int8"]),
-                        ("kMmaN", autotune.MMA_TILE_N)):
+                        ("kMmaN", autotune.MMA_TILE_N),
+                        ("kGemvMmaN", autotune.GEMV_MMA_COLS),
+                        ("kGemvMmaK", autotune.GEMV_MMA_STAGE),
+                        ("kGemvXaChunks", autotune.GEMV_XA_CHUNKS),
+                        ("kPrepRows", autotune.XA_SLAB),
+                        ("kPrepRowTile", autotune.XA_ROW_TILE)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
+    assert "const int kb = part * stages / parts * kGemvMmaK;" in src
+    assert "const int ke = min(K, (part + 1) * stages / parts * kGemvMmaK);" in src
