@@ -29,15 +29,22 @@ Phases (any failure exits non-zero; no failure is caught):
                   twice and the two results bitwise equal; the int8
                   exactness case where the plan splits K; the f32 body's
                   SIMT kernel (f32 x) once per leaf;
-                * the ADC kernel at the seven unfused leaves for M in {1, 4,
-                  32, 256} and ragged shapes: every output within rtol 1e-4
-                  / atol 1e-6 or one ADC step apart (at most 0.1% of them);
-                  the ADC exactness case bitwise;
+                * the ADC kernel's tensor-core body (bf16 x) at the seven
+                  unfused leaves for M in {1, 4, 32, 96, 256} and ragged
+                  shapes: every output within rtol 1e-4 / atol 1e-6 or one
+                  ADC step apart (at most 0.1% of them), each launched twice
+                  and bitwise equal; the exactness case bitwise with f32 and
+                  bf16 x; shapes whose plan splits K bitwise equal to
+                  unsplit and other splits (``ADC_SPLITS``); CUDA-graph
+                  replays bitwise equal to the eager result, two graphs
+                  replayed at once on two streams; its SIMT body (f32 x)
+                  once per leaf;
   4. timing   — (the tiled f32 and int8 bodies also at M=96, the phase-5
-                prefill; the f32 GEMV also at M = 8, 16, 64; the time per
-                kernel from torch.profiler of both tiled bodies at M = 96,
-                256 and of both GEMV bodies at M = 4, 32, per layer and
-                per leaf against its bound)
+                prefill; the f32 GEMV also at M = 8, 16, 64; the ADC at
+                M = 4, 32, 96, 256; the time per kernel from torch.profiler
+                of both tiled bodies at M = 96, 256, of both GEMV bodies at
+                M = 4, 32 and of the ADC at M = 4, 256, per layer and per
+                leaf against its bound)
                 CUDA events around CUDA-graph replays over operand copies
                 rotated past the L2: the kernel, the plain version, and one
                 PyTorch call for the same work where there is one
@@ -126,7 +133,13 @@ ADC_RAGGED = [(5, 300, 77), (130, 300, 65), (200, 1000, 999), (1, 33, 4097), (17
 # engine's admission chunks, padded to 8, 16 or 32 rows
 DECODE_M = (1, 2, 4, 8, 16, 32, 64)
 PREFILL_M = 256
-ADC_M = (1, 4, 32, 256)
+ADC_M = (1, 4, 32, 96, 256)  # 96: phase 5's fused prefill (PREFILL_ROWS)
+# the ADC kernel's plans at their edges (autotune.adc_plan): shapes whose
+# plan splits K: a tile a part (K of 8 and 9 tiles), two (24 tiles),
+# uneven parts with a ragged last tile (K = 300, 600, 1000), M over one
+# 128-row block, N ragged; each checked against one part and other splits
+ADC_SPLITS = [(4, 2048, 1024), (4, 6144, 2048), (32, 2304, 2048), (200, 1000, 999),
+              (1, 300, 77), (96, 2048, 2048), (17, 600, 4097)]
 # the tensor-core tiled bodies (f32 with bf16 x, int8): row counts around
 # their 128-row tile (65 and 200 leave a partial tile), and shapes on every
 # masked edge: K not a multiple of 8 (16 for s8) or of the 32- or 64-row
@@ -148,7 +161,7 @@ MAX_NEW = 16                # greedy tokens per request
 # 32-token admission chunk, phase 5's fused prefill and a larger one
 TIMED_M = (1, SLOTS, 32, PREFILL_M)
 TIMED_M_INT8 = (SLOTS, 32, PREFILL_ROWS, PREFILL_M)
-TIMED_M_ADC = (SLOTS, PREFILL_M)
+TIMED_M_ADC = (SLOTS, 32, PREFILL_ROWS, PREFILL_M)
 TIMED_M_TILED = (PREFILL_ROWS,)  # also timed for the tiled f32 body
 TIMED_M_GEMV = (8, 16, 64)       # also timed for the f32 GEMV: chunk buckets, 64
 
@@ -218,6 +231,48 @@ def exact_operands(m, k, n, device, seed, every=(1 << 30, 1 << 30)):
               for _ in range(2))
     one = torch.ones((1, n), device=device)
     return x, gp, gn, one, torch.zeros((k, 1), device=device), torch.zeros((1, n), device=device), one
+
+
+def adc_plans(m, k, n):
+    """Parts of K of the ADC kernel for one shape: one (unsplit), the
+    policy's, two, three, and every tile a part."""
+    from repro_torch.kernels import autotune
+
+    tiles = -(-k // autotune.ADC_ARRAY_ROWS)
+    return sorted({1, autotune.adc_plan(m, k, n), min(tiles, 2), min(tiles, 3), tiles})
+
+
+def adc_graph_replays(device, replays=5):
+    """Two ADC calls whose plans split K, each captured in its own CUDA
+    graph (with tickets of its own) after a warm-up on a side stream,
+    replayed ``replays`` times at once on two streams: whether every replay
+    equals the eager result bitwise."""
+    from repro_torch.kernels import crossbar_mvm as C
+
+    leaves = [operands(SLOTS, 2048, 2048, 1, device, seed=5)[:4],
+              operands(SLOTS, 6144, 2048, 1, device, seed=6)[:4]]
+    wants = [C.crossbar_mvm(*ops) for ops in leaves]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for ops in leaves:
+            C.crossbar_mvm(*ops)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, gots = [], []
+    for ops in leaves:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            gots.append(C.crossbar_mvm(*ops))
+    streams = [torch.cuda.Stream() for _ in graphs]
+    same = True
+    for _ in range(replays):
+        for stream, graph in zip(streams, graphs):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(got, want) for got, want in zip(gots, wants))
+    return same
 
 
 def _fail(what, got):
@@ -354,38 +409,91 @@ def phase_kernels(device):
                 _fail(f"{kind} (f32 x, SIMT) at {(m, k, n, r)}", f"max|err| {err}")
             worst[kind] = max(worst[kind], err)
 
+    # the ADC kernel's tensor-core body (bf16 x), twice each (bitwise repeatable)
     adc_cases = [(m, k, n, name) for name, k, n in ADC_LEAVES for m in ADC_M]
     adc_cases += [(m, k, n, "ragged") for m, k, n in ADC_RAGGED]
     for m, k, n, name in adc_cases:
         x, gp, gn, scale, *_ = operands(m, k, n, 1, device, seed=m + k + n)
         want = ref.crossbar_mvm_ref(x, gp, gn, scale)
-        got = C.crossbar_mvm(x, gp, gn, scale)
+        got, again = C.crossbar_mvm(x, gp, gn, scale), C.crossbar_mvm(x, gp, gn, scale)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         bad, flips = ref.adc_disagreement(got, want, x, scale, rtol=ADC_RTOL, atol=ADC_ATOL)
-        ok = bad == 0 and flips <= ADC_FLIP_SHARE * got.numel()
+        same = torch.equal(got, again)
+        ok = bad == 0 and flips <= ADC_FLIP_SHARE * got.numel() and same
         log(f"[kernels] crossbar_mvm           {name:8s} M={m:4d} K={k:5d} N={n:5d} "
-            f"max|err|={err:.3e} one-step flips {flips}/{got.numel()} "
+            f"parts {autotune.adc_plan(m, k, n)} max|err|={err:.3e} one-step flips "
+            f"{flips}/{got.numel()} repeat {'bitwise' if same else 'DIFFERS'} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            _fail(f"crossbar_mvm at {(m, k, n)}", f"{bad} outputs off, {flips} flips")
+            _fail(f"crossbar_mvm at {(m, k, n)}",
+                  f"{bad} outputs off, {flips} flips, repeat bitwise {same}")
         worst["crossbar_mvm"] = max(worst["crossbar_mvm"], err)
 
     # ADC exactness: 127 in every (128-row, 256-row) block, so step = 4080
-    # and every current is an exact integer below 2^24
-    for m, k, n in ((4, 2048, 512), (130, 300, 65), (256, 6144, 300)):
+    # and every current is an exact integer below 2^24; f32 x (SIMT body)
+    # and the same x in bf16 (exact: integers in [-127, 127])
+    for m, k, n in ((4, 2048, 512), (130, 300, 65), (96, 2048, 1024), (256, 6144, 300)):
         x, gp, gn, one, *_ = exact_operands(
             m, k, n, device, seed=k, every=(autotune.ADC_BLOCK_ROWS, autotune.ADC_ARRAY_ROWS))
         assert torch.all(ref.adc_steps(x) == 4080.0)
-        want = ref.crossbar_mvm_ref(x, gp, gn, one)
-        got = C.crossbar_mvm(x, gp, gn, one)
+        for xd in (x, x.to(torch.bfloat16)):
+            want = ref.crossbar_mvm_ref(xd, gp, gn, one)
+            got = C.crossbar_mvm(xd, gp, gn, one)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, want)
+            log(f"[kernels] crossbar_mvm           exact    M={m:4d} K={k:5d} N={n:5d} "
+                f"x {str(xd.dtype)[6:]} bitwise {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"ADC exactness case at {(m, k, n)}, x {xd.dtype}",
+                      f"max|err| {float((got - want).abs().max())}")
+
+    # the result does not depend on the plan: the splits of K
+    for m, k, n in ADC_SPLITS:
+        x, gp, gn, scale, *_ = operands(m, k, n, 1, device, seed=k + n)
+        policy, got = autotune.adc_plan, {}
+        assert policy(m, k, n) > 1, (m, k, n)
+        try:
+            for parts in adc_plans(m, k, n):
+                autotune.adc_plan = lambda *_, p=parts: p
+                got[parts] = C.crossbar_mvm(x, gp, gn, scale)
+        finally:
+            autotune.adc_plan = policy
         torch.cuda.synchronize()
-        ok = torch.equal(got, want)
-        log(f"[kernels] crossbar_mvm           exact    M={m:4d} K={k:5d} N={n:5d} "
-            f"bitwise {'ok' if ok else 'FAIL'}")
+        base = got[1]
+        same = all(torch.equal(base, y) for y in got.values())
+        bad, flips = ref.adc_disagreement(base, ref.crossbar_mvm_ref(x, gp, gn, scale), x,
+                                          scale, rtol=ADC_RTOL, atol=ADC_ATOL)
+        ok = same and bad == 0 and flips <= ADC_FLIP_SHARE * base.numel()
+        log(f"[kernels] crossbar_mvm           split    M={m:4d} K={k:5d} N={n:5d} "
+            f"parts {sorted(got)} (policy {policy(m, k, n)}) "
+            f"{'bitwise equal' if same else 'DIFFER'} {'ok' if ok else 'FAIL'}")
         if not ok:
-            _fail(f"ADC exactness case at {(m, k, n)}",
-                  f"max|err| {float((got - want).abs().max())}")
+            _fail(f"crossbar_mvm plans at {(m, k, n)}", f"bitwise {same}, {bad} off, {flips} flips")
+
+    # CUDA graphs: each replay bitwise equal to the eager call; two graphs
+    # replayed at once on two streams
+    same = adc_graph_replays(device)
+    log(f"[kernels] crossbar_mvm           graphs   two captures on two streams, 5 replays "
+        f"{'bitwise equal to eager' if same else 'DIFFER'} {'ok' if same else 'FAIL'}")
+    if not same:
+        _fail("crossbar_mvm graph replay", "differs from the eager result")
+
+    # the SIMT body, which f32 x keeps, once per leaf
+    for name, k, n in ADC_LEAVES:
+        x, gp, gn, scale, *_ = operands(SLOTS, k, n, 1, device, seed=k + n)
+        x = x.float()
+        got = C.crossbar_mvm(x, gp, gn, scale)
+        torch.cuda.synchronize()
+        want = ref.crossbar_mvm_ref(x, gp, gn, scale)
+        err = float((got - want).abs().max())
+        bad, flips = ref.adc_disagreement(got, want, x, scale, rtol=ADC_RTOL, atol=ADC_ATOL)
+        ok = bad == 0 and flips <= ADC_FLIP_SHARE * got.numel()
+        log(f"[kernels] crossbar_mvm f32 x     {name:8s} M={SLOTS:4d} K={k:5d} N={n:5d} "
+            f"max|err|={err:.3e} one-step flips {flips}/{got.numel()} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"crossbar_mvm (f32 x, SIMT) at {(SLOTS, k, n)}", f"{bad} off, {flips} flips")
+        worst["crossbar_mvm"] = max(worst["crossbar_mvm"], err)
     return worst
 
 
@@ -510,9 +618,9 @@ def phase_timing(device):
     return rows
 
 
-def kernel_breakdown(device, kind, accum, m):
-    """Device time of each kernel that one call of the ``kind`` launcher
-    (body ``accum``, ``m`` rows) launches, per fused leaf, from
+def kernel_breakdown(device, fn, leaves, m):
+    """Device time of each kernel that one call ``fn(*operands)`` launches
+    (``m`` rows), per leaf of ``leaves`` ((name, K, N, rank) each), from
     torch.profiler around one call per leaf after a warm-up call (L2
     warm): {leaf: {kernel: ms}}, ``None`` for a leaf where the profiler
     records no device activity."""
@@ -520,16 +628,13 @@ def kernel_breakdown(device, kind, accum, m):
 
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import dora_linear as K
-
-    fn = getattr(K, kind)
     out = {}
-    for leaf, k, n, r in LEAVES:
+    for leaf, k, n, r in leaves:
         ops = operands(m, k, n, r, device, seed=1)
-        fn(*ops, accum=accum)
+        fn(*ops)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(*ops, accum=accum)
+            fn(*ops)
             torch.cuda.synchronize()
         by = {}
         for e in prof.events():
@@ -542,9 +647,10 @@ def kernel_breakdown(device, kind, accum, m):
     return out
 
 
-def log_breakdown(label, accum, m, per_leaf):
+def log_breakdown(label, m, per_leaf, bounds):
     """Log a ``kernel_breakdown``: per layer by kernel, and each leaf's
-    total against its bound (L2 warm, so a leaf can beat its HBM bound)."""
+    total against its bound (``bounds``: leaf -> ms; L2 warm, so a leaf can
+    beat its HBM bound)."""
     if None in per_leaf.values():
         log(f"[timing] {label} at M={m}: no device activity recorded: not measured")
         return
@@ -557,34 +663,57 @@ def log_breakdown(label, accum, m, per_leaf):
                       for name, ms in sorted(layer.items(), key=lambda kv: -kv[1]))
     log(f"[timing] {label} per layer at M={m}, by kernel (profiler, L2 warm): "
         f"{total:.4f} ms = {parts}")
-    rate = INT8_OP_PER_S if accum == "int8" else BF16_FLOP_PER_S
-    leaves = []
-    for leaf, k, n, r in LEAVES:
-        ms = sum(per_leaf[leaf].values())
-        b = linear_bound(m, k, n, r, rate)[0]
-        leaves.append(f"{leaf} {ms:.4f} ms ({b / ms:.1%} of bound)")
+    leaves = [f"{leaf} {sum(by.values()):.4f} ms ({bounds[leaf] / sum(by.values()):.1%} of bound)"
+              for leaf, by in per_leaf.items()]
     log(f"[timing] {label} per leaf at M={m}: {', '.join(leaves)}")
+
+
+def linear_breakdown(device, kind, accum, m, label):
+    """``kernel_breakdown`` of one fused-linear launcher and body over the
+    fused leaves, logged against their bounds."""
+    from repro_torch.kernels import dora_linear as K
+
+    fn = getattr(K, kind)
+    per_leaf = kernel_breakdown(device, lambda *o: fn(*o, accum=accum), LEAVES, m)
+    rate = INT8_OP_PER_S if accum == "int8" else BF16_FLOP_PER_S
+    log_breakdown(label, m, per_leaf,
+                  {leaf: linear_bound(m, k, n, r, rate)[0] for leaf, k, n, r in LEAVES})
+    return per_leaf
+
+
+def adc_breakdown(device, m):
+    """``kernel_breakdown`` of the ADC kernel (bf16 x) over the unfused
+    leaves, logged against their bounds: one kernel a call."""
+    from repro_torch.kernels import crossbar_mvm as C
+
+    per_leaf = kernel_breakdown(device, lambda *o: C.crossbar_mvm(*o[:4]),
+                                [(leaf, k, n, 1) for leaf, k, n in ADC_LEAVES], m)
+    log_breakdown("ADC (bf16 x)", m, per_leaf,
+                  {leaf: adc_bound(m, k, n)[0] for leaf, k, n in ADC_LEAVES})
+    return per_leaf
 
 
 # (launcher, body, label, rows) of phase 4's breakdowns: the tiled bodies
 # at the phase-5 prefill and at PREFILL_M, the GEMV bodies at the decode
-# tick and a full admission chunk
+# tick and a full admission chunk; the ADC at the decode tick and PREFILL_M
 BREAKDOWNS = [(kind, accum, f"{label} {body}", m)
               for kind, label, ms in (("dora_linear", "tiled", (PREFILL_ROWS, PREFILL_M)),
                                       ("dora_linear_gemv", "GEMV", (SLOTS, 32)))
               for accum, body in (("f32", "f32 body (bf16 x)"), ("int8", "int8 body"))
               for m in ms]
+ADC_BREAKDOWN_M = (SLOTS, PREFILL_M)
 
 
 def phase_breakdown(device):
     """Device time per kernel of each launcher and body in ``BREAKDOWNS``
     (for the int8 body the row scales; the X @ A prologue; the XA sum;
-    the main kernel; the split-K pass, where the launcher has them)."""
+    the main kernel; the split-K pass, where the launcher has them), and
+    of the ADC kernel at ``ADC_BREAKDOWN_M``."""
     out = {}
     for kind, accum, label, m in BREAKDOWNS:
-        per_leaf = kernel_breakdown(device, kind, accum, m)
-        log_breakdown(label, accum, m, per_leaf)
-        out[f"{kind}/{accum}/{m}"] = per_leaf
+        out[f"{kind}/{accum}/{m}"] = linear_breakdown(device, kind, accum, m, label)
+    for m in ADC_BREAKDOWN_M:
+        out[f"crossbar_mvm/{m}"] = adc_breakdown(device, m)
     return out
 
 

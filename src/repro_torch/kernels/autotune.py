@@ -10,9 +10,9 @@ and the only decisions left are:
   keeps), the tiled launcher above it; both run either body (f32, int8);
 * the GEMV launcher's row bucket: the power of two the kernel is
   instantiated for (each thread holds that many accumulators);
-* the ADC kernel's output rows per block, the smallest instantiation
-  that covers the rows of one ADC block, so a decode tick does not pay
-  for 128-row tiles;
+* the ADC kernel's tensor-core body (bf16 x): the ordered parts of its K
+  split (``adc_plan``), so that every unfused leaf at every serving row
+  count launches about three blocks an SM, within one wave;
 * the tiled launcher's tensor-core bodies (int8; f32 with bf16 x): their
   tile rows and the rows of K per split (``tiled_tiles``, per body), so
   that every full-width leaf at prefill fills one wave of blocks on the
@@ -43,9 +43,6 @@ ACCUMS = ("f32", "int8")
 # and rows of one crossbar activation
 ADC_BLOCK_ROWS = 128
 ADC_ARRAY_ROWS = 256
-
-# the ADC kernel's output-row instantiations (crossbar_mvm.cu)
-ADC_TILE_ROWS = (16, 32, 64, 128)
 
 
 # rows of K per pipeline stage, per tensor-core body: f32 (bf16 x; kMmaK)
@@ -100,11 +97,6 @@ def gemv_rows(m: int) -> int:
     raise ValueError(f"GEMV launcher takes at most {GEMV_MAX_M} rows, got {m}")
 
 
-def adc_tile_rows(m: int) -> int:
-    """Output rows per block of the ADC kernel for ``m`` rows of x."""
-    return next(t for t in ADC_TILE_ROWS if min(m, ADC_BLOCK_ROWS) <= t)
-
-
 # the GEMV launcher's tensor-core body (dora_linear.cu): output columns per
 # block (kGemvMmaN), rows of K per pipeline stage (kGemvMmaK), and most
 # chunks of K of its X @ A blocks (kGemvXaChunks), each whole slabs of
@@ -139,3 +131,67 @@ def gemv_plan(m: int, n: int, k: int) -> int:
     while parts > 1 and gemv_blocks(m, n, k, parts) > WAVE:
         parts -= 1
     return parts
+
+
+# The ADC kernel's tensor-core body (crossbar_mvm.cu, adc_mma_kernel): its
+# n-tiles of 8 rows of x (kMmaRowTiles; a block holds its 128-row block in
+# the fewest that cover min(M, 128)), output columns a warp owns
+# (kMmaWarpCols) and a block (kMmaN, the strip), rows of K a stage (kMmaK),
+# stages of its copy ring (kMmaStages), and the shared memory an SM offers
+# blocks (228 KB, 1 KB of it reserved a block).
+ADC_ROW_TILES = (1, 2, 4, 8, 12, 16)
+ADC_WARP_COLS = 16
+ADC_STRIP = 64
+ADC_STAGE_ROWS = 64
+ADC_STAGES = 4
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK_RESERVED = 1024
+
+
+def adc_row_tiles(m: int) -> int:
+    """The n-tiles of 8 rows a block of the ADC kernel holds for ``m``
+    rows of x: the fewest that cover one 128-row block's rows."""
+    rows = min(m, ADC_BLOCK_ROWS)
+    return next(nt for nt in ADC_ROW_TILES if 8 * nt >= rows)
+
+
+def adc_min_blocks(nt: int) -> int:
+    """Blocks an SM must hold by the kernel's launch bounds
+    (AdcMinBlocks): four below 8 tiles of rows, two from there."""
+    return (1 if nt >= 8 else 2) * (8 // (ADC_STRIP // ADC_WARP_COLS))
+
+
+def adc_smem(nt: int) -> int:
+    """Dynamic shared memory of one block: the ring of both code slabs and
+    the x slab (AdcSmem::RING)."""
+    return ADC_STAGES * (2 * ADC_STAGE_ROWS * ADC_STRIP + 16 * nt * ADC_STAGE_ROWS)
+
+
+def adc_wave(m: int) -> int:
+    """Blocks the card holds at once: SMS times the blocks an SM is sure
+    to hold (launch bounds and shared memory)."""
+    nt = adc_row_tiles(m)
+    fit = SMEM_PER_SM // (adc_smem(nt) + SMEM_PER_BLOCK_RESERVED)
+    return SMS * min(adc_min_blocks(nt), fit)
+
+
+def adc_blocks(m: int, n: int, parts: int) -> int:
+    """Blocks of one launch: a block per (128-row block, strip, part)."""
+    return -(-m // ADC_BLOCK_ROWS) * -(-n // ADC_STRIP) * parts
+
+
+# blocks the ADC kernel's plan aims at: about three a SM (measured on the
+# H100, tools/sweep_adc.py: fewer leave the code stream short of loads in
+# flight, more add partials for the strips' last blocks to sum)
+ADC_TARGET_BLOCKS = 3 * SMS
+
+
+def adc_plan(m: int, k: int, n: int) -> int:
+    """Ordered parts of K, on 256-row tile boundaries, of the ADC kernel's
+    launch for an (m, k) x (k, n) product with bf16 x: the most (at most
+    one a tile) that keep the launch within ``ADC_TARGET_BLOCKS`` and one
+    wave. Measured on the H100 at the qwen3-1.7b leaves for 4, 32, 96 and
+    256 rows (tools/sweep_adc.py)."""
+    tiles = -(-k // ADC_ARRAY_ROWS)
+    cap = min(ADC_TARGET_BLOCKS, adc_wave(m))
+    return max(1, min(tiles, cap // adc_blocks(m, n, 1)))

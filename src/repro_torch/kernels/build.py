@@ -18,6 +18,8 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
@@ -86,3 +88,24 @@ def device_of(*tensors):
     if len(devices) != 1:
         raise ValueError(f"operands on several devices: {sorted(map(str, devices))}")
     return devices.pop()
+
+
+def tickets(held: Dict[tuple, tuple], capture_id, device, stream: int,
+            count: int) -> torch.Tensor:
+    """``count`` int32 tickets for a launch on ``stream``: zeros that every
+    launch leaves zero, so launches sharing them must not overlap. Eager
+    launches share their stream's, which run in order. A CUDA graph gets
+    its own, allocated (and zeroed, one small node a graph) where its
+    capture first needs them, so graphs may replay on any streams at once.
+    ``held`` maps (device, stream) to (capture id, tensor); ``capture_id``
+    is a library's export that gives the id of the capture running on a
+    stream (0 when none is)."""
+    capture = ctypes.c_ulonglong(0)
+    err = capture_id(stream, ctypes.byref(capture))
+    if err != 0:
+        raise RuntimeError(f"stream capture query failed: cudaError {err}")
+    entry = held.get((device, stream))
+    if entry is None or entry[0] != capture.value or entry[1].numel() < count:
+        entry = held[(device, stream)] = (
+            capture.value, torch.zeros((count,), dtype=torch.int32, device=device))
+    return entry[1]

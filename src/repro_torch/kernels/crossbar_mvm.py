@@ -11,11 +11,14 @@ tracks max |x| over the (128-row block, tile):
 The digitized partials accumulate over the K tiles and the per-column
 scale applies at the end. Port of ``repro/kernels/crossbar_mvm.py``
 (whose docstring's ``/ 64`` is wrong; its code divides by 16, as here).
-The source is ``csrc/crossbar_mvm.cu``.
+The source is ``csrc/crossbar_mvm.cu``: bf16 x (what serving passes) runs
+its tensor-core body in one launch, K split into the ordered parts of
+``autotune.adc_plan``; f32 x its SIMT body (three launches).
 
 A tensor on the CPU takes the plain version (``ref.crossbar_mvm_ref``);
 a CUDA tensor launches the kernel or raises — there is no fallback.
-``launch_counts`` counts the launches.
+``launch_counts`` counts the calls that launch (one each, whatever the
+body).
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import autotune
-from repro_torch.kernels.build import CudaLibrary, device_of
+from repro_torch.kernels.build import CudaLibrary, device_of, tickets
 from repro_torch.kernels.ref import crossbar_mvm_ref
 
 _LAUNCHES: Dict[str, int] = {"crossbar_mvm": 0}
@@ -42,9 +45,16 @@ def reset_launch_counts() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rimc_crossbar_mvm.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr,
-                                      i32, i32, i32, i32, f32, f32, f32, ptr]
+    lib.rimc_crossbar_mvm.argtypes = [ptr] * 7 + [i32] * 3 + [f32] * 3 + [ptr]
     lib.rimc_crossbar_mvm.restype = i32
+    lib.rimc_crossbar_mvm_mma.argtypes = [ptr] * 7 + [i32] * 4 + [f32] * 3 + [ptr]
+    lib.rimc_crossbar_mvm_mma.restype = i32
+    lib.rimc_adc_mma_sems.argtypes = [i32, i32]
+    lib.rimc_adc_mma_sems.restype = i32
+    lib.rimc_adc_mma_scratch.argtypes = [i32] * 4
+    lib.rimc_adc_mma_scratch.restype = ctypes.c_longlong
+    lib.rimc_adc_capture_id.argtypes = [ptr, ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.rimc_adc_capture_id.restype = i32
     lib.rimc_adc_step_scratch.argtypes = [i32, i32]
     lib.rimc_adc_step_scratch.restype = i32
     lib.rimc_adc_part_scratch.argtypes = [i32, i32, i32]
@@ -54,6 +64,10 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIB = CudaLibrary("crossbar_mvm.cu", _bind)
 build = LIB.load
 build_info = LIB.info
+
+# the tensor-core body's tickets, zeros that every launch leaves as it
+# found them: (capture id, tensor) per (device, stream)
+_SEMS: Dict[tuple, tuple] = {}
 
 
 def _check(x, g_pos, g_neg, scale):
@@ -84,16 +98,28 @@ def _launch(x, g_pos, g_neg, scale, code_max: int, adc_bits: int):
     lib = build()
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), **f32)
-    step = torch.empty((lib.rimc_adc_step_scratch(m, k),), **f32)
-    part = torch.empty((lib.rimc_adc_part_scratch(m, k, n),), **f32)
     adc_max = 2.0 ** (adc_bits - 1) - 1.0
-    err = lib.rimc_crossbar_mvm(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), g_pos.data_ptr(),
-        g_neg.data_ptr(), scale.data_ptr(), out.data_ptr(), step.data_ptr(),
-        part.data_ptr(), m, k, n, autotune.adc_tile_rows(m),
-        float(autotune.ADC_ARRAY_ROWS * code_max), adc_max * 16.0, adc_max,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    consts = (float(autotune.ADC_ARRAY_ROWS * code_max), adc_max * 16.0, adc_max)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (x, g_pos, g_neg, scale, out)]
+    if x.dtype == torch.bfloat16:
+        parts = autotune.adc_plan(m, k, n)
+        ws = sem = None
+        if parts > 1:
+            # part 0's running sum and each later tile's digitized partial,
+            # added in tile order by the strip's last block
+            ws = torch.empty((lib.rimc_adc_mma_scratch(m, k, n, parts),), **f32)
+            sem = tickets(_SEMS, lib.rimc_adc_capture_id, x.device, stream,
+                          lib.rimc_adc_mma_sems(m, n))
+        err = lib.rimc_crossbar_mvm_mma(
+            *ptrs, None if ws is None else ws.data_ptr(),
+            None if sem is None else sem.data_ptr(), m, k, n, parts, *consts, stream,
+        )
+    else:
+        step = torch.empty((lib.rimc_adc_step_scratch(m, k),), **f32)
+        part = torch.empty((lib.rimc_adc_part_scratch(m, k, n),), **f32)
+        err = lib.rimc_crossbar_mvm(*ptrs, step.data_ptr(), part.data_ptr(), m, k, n,
+                                    *consts, stream)
     if err != 0:
         raise RuntimeError(f"crossbar_mvm launch failed: cudaError {err}")
     _LAUNCHES["crossbar_mvm"] += 1

@@ -37,7 +37,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import autotune
-from repro_torch.kernels.build import CudaLibrary, device_of
+from repro_torch.kernels.build import CudaLibrary, device_of, tickets
 from repro_torch.kernels.ref import dora_linear_int8_ref, dora_linear_ref
 
 MAX_RANK = 256  # the X @ A prologue gives each rank at least one thread
@@ -84,26 +84,9 @@ LIB = CudaLibrary("dora_linear.cu", _bind)
 build = LIB.load
 build_info = LIB.info
 
-# the tensor-core GEMV's tickets, zeros that every launch leaves as it
-# found them: (capture id, tensor) per (device, stream)
+# the tensor-core GEMV's tickets (build.tickets), zeros that every launch
+# leaves as it found them: (capture id, tensor) per (device, stream)
 _SEMS: Dict[tuple, tuple] = {}
-
-
-def _sems(lib, device, stream: int, count: int) -> torch.Tensor:
-    """Tickets for a launch on ``stream``; launches sharing them must not
-    overlap. Eager launches share their stream's, which run in order. A
-    CUDA graph gets its own, zeroed in the graph where its capture first
-    needs them (one small node a graph), so graphs may replay on any
-    streams at once."""
-    capture = ctypes.c_ulonglong(0)
-    err = lib.rimc_capture_id(stream, ctypes.byref(capture))
-    if err != 0:
-        raise RuntimeError(f"dora_linear_gemv: stream capture query failed: cudaError {err}")
-    held = _SEMS.get((device, stream))
-    if held is None or held[0] != capture.value or held[1].numel() < count:
-        held = _SEMS[(device, stream)] = (
-            capture.value, torch.zeros((count,), dtype=torch.int32, device=device))
-    return held[1]
 
 
 def _check(x, g_pos, g_neg, scale, a, b, gamma):
@@ -153,7 +136,8 @@ def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
         parts = autotune.gemv_plan(m, n, k)
         # each K part's raw sums, added in part order by the strip's last block
         ws = torch.empty((parts, m, n), **f32)
-        sem = _sems(lib, x.device, stream, lib.rimc_gemv_mma_sems(n))
+        sem = tickets(_SEMS, lib.rimc_capture_id, x.device, stream,
+                      lib.rimc_gemv_mma_sems(n))
         err = lib.rimc_dora_linear_gemv_mma(
             x.data_ptr(), *ptrs, ws.data_ptr(), sem.data_ptr(), m, k, n, r,
             autotune.gemv_rows(m), parts, stream,

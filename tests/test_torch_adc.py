@@ -43,6 +43,7 @@ from repro_torch import substrate as tsub
 from repro_torch.core import dora as tdora
 from repro_torch.core.rram import RramConfig
 from repro_torch.deploy import serving as tserving
+from repro_torch.kernels import autotune
 from repro_torch.kernels import crossbar_mvm as tc
 from repro_torch.kernels import ref as tref
 from repro_torch.substrate import exec as texec
@@ -215,6 +216,90 @@ def test_cpu_path_launches_no_kernel():
     tc.reset_launch_counts()
     tc.crossbar_mvm(x, gp, gn, scale)
     assert tc.launch_counts() == {"crossbar_mvm": 0}
+
+
+# -- the tensor-core body's plan (autotune.adc_plan) ---------------------------
+
+# qwen3-1.7b unfused leaves, what codes_adc runs: (K, N); the serving row
+# counts (decode ticks of 1-16 slots, admission chunks of 32, phase 5's
+# 96-row prefill, a 256-row prefill); ragged shapes (K not a multiple of
+# 256, M over one 128-row block, N ragged)
+ADC_LEAVES = {"q": (2048, 2048), "k": (2048, 1024), "v": (2048, 1024), "o": (2048, 2048),
+              "gate": (2048, 6144), "up": (2048, 6144), "down": (6144, 2048)}
+PLAN_SHAPES = [pytest.param(m, k, n, id=f"{leaf}-{m}")
+               for leaf, (k, n) in ADC_LEAVES.items() for m in (1, 4, 8, 16, 32, 96, 256)]
+PLAN_SHAPES += [pytest.param(m, k, n, id=f"ragged-{m}-{k}-{n}") for m, k, n in
+                [(5, 300, 77), (130, 300, 65), (200, 1000, 999), (1, 33, 4097), (17, 257, 1024)]]
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_adc_plan_parts_blocks_and_wave(m, k, n):
+    """The plan's parts of K, bounded as the kernel bounds them (t0, t1 of
+    adc_mma_kernel, checked in test_adc_constants_match_the_kernel), are
+    whole 256-row tiles that partition [0, K) in order; a block holds
+    whole 128-row blocks of x; the launch fits one wave, its shared memory
+    an SM."""
+    parts = autotune.adc_plan(m, k, n)
+    tiles = -(-k // autotune.ADC_ARRAY_ROWS)
+    assert isinstance(parts, int) and 1 <= parts <= tiles
+    bounds = [(p * tiles // parts * autotune.ADC_ARRAY_ROWS,
+               min(k, (p + 1) * tiles // parts * autotune.ADC_ARRAY_ROWS))
+              for p in range(parts)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(lo < hi and lo % autotune.ADC_ARRAY_ROWS == 0 for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    # the scratch's slots: part 0's running sum, then one per tile of the
+    # later parts (the kernel's t - a1 + 1), each M x N
+    a1 = tiles // parts
+    assert parts == 1 or bounds[1][0] == a1 * autotune.ADC_ARRAY_ROWS
+    rows = 8 * autotune.adc_row_tiles(m)
+    assert rows >= min(m, autotune.ADC_BLOCK_ROWS) and rows <= autotune.ADC_BLOCK_ROWS
+    assert autotune.adc_blocks(m, n, parts) <= autotune.adc_wave(m)
+    assert autotune.adc_smem(rows // 8) + autotune.SMEM_PER_BLOCK_RESERVED <= \
+        autotune.SMEM_PER_SM // autotune.adc_min_blocks(rows // 8)
+
+
+def test_adc_constants_match_the_kernel():
+    """The plan's view of the tensor-core body (row tiles, warp columns,
+    strip, stage rows and ring, the blocks an SM must hold, shared memory
+    a block, the parts' tile bounds and scratch) is the kernel's."""
+    import re
+
+    src = tc.LIB.src.read_text()
+    names = ("kBlockRows", "kArrayRows", "kMmaWarpCols", "kMmaN", "kMmaK", "kMmaStages")
+    const = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+             for name in names}
+    assert const == {"kBlockRows": autotune.ADC_BLOCK_ROWS,
+                     "kArrayRows": autotune.ADC_ARRAY_ROWS,
+                     "kMmaWarpCols": autotune.ADC_WARP_COLS,
+                     "kMmaN": autotune.ADC_STRIP,
+                     "kMmaK": autotune.ADC_STAGE_ROWS,
+                     "kMmaStages": autotune.ADC_STAGES}
+    tiles = re.search(r"constexpr int kMmaRowTiles\[\] = \{([^}]*)\};", src).group(1)
+    assert tuple(int(v) for v in tiles.split(",")) == autotune.ADC_ROW_TILES
+    assert "constexpr int kMmaWarps = kMmaN / kMmaWarpCols;" in src
+    assert "(NT >= 8 ? 1 : 2) * (8 / kMmaWarps)" in src
+    assert "static constexpr int STAGE = 2 * C + X;" in src
+    assert "static constexpr int RING = kMmaStages * STAGE;" in src
+    assert "const int t0 = part * T / parts, t1 = (part + 1) * T / parts;" in src
+    assert "return parts > 1 ? (long long)(T - T / parts + 1) * M * N : 0;" in src
+
+
+def test_adc_binding_matches_the_c_signature():
+    """The ctypes argument list of every C function of the ADC source has
+    as many entries as its declaration has parameters."""
+    import re
+    from types import SimpleNamespace
+
+    src = tc.LIB.src.read_text()
+    names = ("rimc_crossbar_mvm", "rimc_crossbar_mvm_mma", "rimc_adc_mma_sems",
+             "rimc_adc_mma_scratch", "rimc_adc_capture_id", "rimc_adc_step_scratch",
+             "rimc_adc_part_scratch")
+    lib = SimpleNamespace(**{nm: SimpleNamespace() for nm in names})
+    tc._bind(lib)
+    for nm in names:
+        params = re.search(rf"\b{nm}\(([^)]*)\)", src).group(1)
+        assert len(getattr(lib, nm).argtypes) == params.count(",") + 1, nm
 
 
 # -- serving ------------------------------------------------------------------

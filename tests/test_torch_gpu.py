@@ -15,7 +15,10 @@ full-width leaves and at ragged shapes:
   its plan splits K;
 * the ADC kernel within rtol 1e-4 / atol 1e-6 or one ADC step apart in at
   most 0.1% of the outputs, bitwise on its exactness case (integer x with
-  127 in every (128-row, 256-row) block, so the step is 4080).
+  127 in every (128-row, 256-row) block, so the step is 4080) with f32 and
+  with bf16 x; its tensor-core body (bf16 x) bitwise equal to itself when
+  launched twice, under any plan (splits of K, strips, stages) and when
+  replayed from CUDA graphs; f32 x still runs the SIMT body.
 
 This file imports no jax, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -41,6 +44,12 @@ RAGGED = [(7, 1000, 999, 3), (65, 130, 77, 12), (1, 33, 4097, 1), (130, 257, 31,
 ADC_LEAVES = [("q", 2048, 2048), ("k", 2048, 1024), ("o", 2048, 2048),
               ("gate", 2048, 6144), ("down", 6144, 2048)]
 ADC_RAGGED = [(5, 300, 77), (130, 300, 65), (200, 1000, 999), (17, 257, 1024)]
+# the ADC kernel's plans at their edges (autotune.adc_plan): shapes whose
+# plan splits K: a tile a part (K of 8 and 9 tiles), two (24 tiles),
+# uneven parts with a ragged last tile (K = 300, 600, 1000), M over one
+# 128-row block, N ragged
+ADC_SPLITS = [(4, 2048, 1024), (4, 6144, 2048), (32, 2304, 2048), (200, 1000, 999),
+              (1, 300, 77), (96, 2048, 2048), (17, 600, 4097)]
 # the tensor-core tiled body: rows around its 128-row tile, and shapes on
 # every masked edge (K not a multiple of 8 or 32, N not a multiple of 16 or
 # 64, M not a multiple of the tile)
@@ -356,7 +365,7 @@ def _check_adc(x, gp, gn, scale):
     assert bad == 0 and flips <= 1e-3 * y.numel(), (bad, flips)
 
 
-@pytest.mark.parametrize("m", [1, 4, 32, 256])
+@pytest.mark.parametrize("m", [1, 4, 32, 96, 256])
 @pytest.mark.parametrize("leaf", ADC_LEAVES, ids=[lf[0] for lf in ADC_LEAVES])
 def test_adc_full_width(cuda, leaf, m):
     _, k, n = leaf
@@ -380,6 +389,107 @@ def test_adc_exactness_case(cuda, m, k, n):
     one = torch.ones((1, n), device=cuda)
     assert torch.all(ref.adc_steps(x) == 4080.0)
     assert torch.equal(C.crossbar_mvm(x, gp, gn, one), ref.crossbar_mvm_ref(x, gp, gn, one))
+
+
+def _exact_adc(m, k, n, device):
+    g = torch.Generator(device=device).manual_seed(k)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=device).to(torch.float32)
+    x[::128, ::256] = 127.0
+    gp, gn = (torch.randint(0, 256, (k, n), generator=g, device=device, dtype=torch.uint8)
+              for _ in range(2))
+    return x, gp, gn, torch.ones((1, n), device=device)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 512), (130, 300, 65), (96, 2048, 1024),
+                                   (256, 6144, 300)])
+def test_adc_exactness_case_bf16(cuda, m, k, n):
+    """Integer x in [-127, 127] is exact in bf16 and every tile current is
+    an integer below 2^24: the tensor-core body is bitwise exact."""
+    x, gp, gn, one = _exact_adc(m, k, n, cuda)
+    x = x.to(torch.bfloat16)
+    assert torch.all(ref.adc_steps(x) == 4080.0)
+    assert torch.equal(C.crossbar_mvm(x, gp, gn, one), ref.crossbar_mvm_ref(x, gp, gn, one))
+
+
+@pytest.mark.parametrize("m", [1, 4, 32, 96, 256])
+@pytest.mark.parametrize("leaf", ADC_LEAVES, ids=[lf[0] for lf in ADC_LEAVES])
+def test_adc_tensor_core_is_bitwise_repeatable(cuda, leaf, m):
+    _, k, n = leaf
+    ops = operands(m, k, n, 1, cuda, seed=m + n)[:4]
+    assert torch.equal(C.crossbar_mvm(*ops), C.crossbar_mvm(*ops))
+
+
+@pytest.mark.parametrize("shape", ADC_SPLITS)
+def test_adc_result_is_independent_of_the_plan(cuda, shape, monkeypatch):
+    """Splits of K on 256-row tiles give the same bits: each tile's
+    current is summed the same way by whichever block owns it, and the
+    digitized partials are added in tile order."""
+    m, k, n = shape
+    ops = operands(m, k, n, 1, cuda, seed=k)[:4]
+    assert autotune.adc_plan(m, k, n) > 1
+    want = C.crossbar_mvm(*ops)
+    tiles = -(-k // autotune.ADC_ARRAY_ROWS)
+    for parts in (1, min(tiles, 2), min(tiles, 3), tiles):
+        monkeypatch.setattr(autotune, "adc_plan", lambda *_, p=parts: p)
+        assert torch.equal(C.crossbar_mvm(*ops), want), parts
+
+
+def test_adc_graphs_replay_with_tickets_of_their_own(cuda):
+    """Two ADC calls whose plans split K, each captured in its own CUDA
+    graph, replay at once on two streams to their eager results, and the
+    tickets are zero again after every launch."""
+    leaves = [operands(4, 2048, 2048, 1, cuda, seed=5)[:4],
+              operands(4, 6144, 2048, 1, cuda, seed=6)[:4]]
+    assert all(autotune.adc_plan(4, o[1].shape[0], o[1].shape[1]) > 1 for o in leaves)
+    wants = [C.crossbar_mvm(*ops) for ops in leaves]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for ops in leaves:
+            C.crossbar_mvm(*ops)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, gots = [], []
+    for ops in leaves:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            gots.append(C.crossbar_mvm(*ops))
+    streams = [torch.cuda.Stream() for _ in graphs]
+    for _ in range(5):
+        for stream, graph in zip(streams, graphs):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(gots, wants):
+            assert torch.equal(got, want)
+    assert all(int(sem.abs().sum()) == 0 for _, sem in C._SEMS.values())
+
+
+@pytest.mark.parametrize("dtype,kernels", [
+    (torch.bfloat16, ["adc_mma_kernel"]),
+    (torch.float32, ["adc_step_kernel", "adc_tile_kernel", "adc_sum_kernel"]),
+])
+def test_adc_body_per_x_type(cuda, dtype, kernels):
+    """bf16 x runs the tensor-core body alone (one launch); f32 x keeps the
+    three-launch SIMT body; each call counts one launch."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    ops = operands(4, 2048, 2048, 1, cuda, dtype=dtype)[:4]
+    C.crossbar_mvm(*ops)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        C.crossbar_mvm(*ops)
+        torch.cuda.synchronize()
+    names = [re.search(r"(\w+_kernel)", e.name).group(1) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "_kernel" in e.name]
+    if not names:
+        pytest.skip("the profiler recorded no device activity")
+    assert names == kernels
+    C.reset_launch_counts()
+    C.crossbar_mvm(*ops)
+    assert C.launch_counts() == {"crossbar_mvm": 1}
 
 
 def test_adc_cuda_tensor_never_reaches_plain_version(cuda, monkeypatch):

@@ -8,7 +8,7 @@ fused leaf and per layer (the four leaves summed):
   and, for f32, one ``torch.matmul`` of x by the pre-dequantized bf16
   weight (the yardstick of ``chip_smoke.py`` phase 4);
 * each body's time per kernel at M = 4 and 32 (``chip_smoke.
-  kernel_breakdown``: torch.profiler, L2 warm).
+  linear_breakdown``: torch.profiler, L2 warm).
 
 Uses only the kernels' public wrappers, so it times any checkout of the
 port against the same inputs; run it on two checkouts in one call to
@@ -77,9 +77,8 @@ def main():
               + ", ".join(f"{leaf} {row['ms']:.4f}" for leaf, row in layer["leaves"].items()))
     for accum in ("f32", "int8"):
         for m in BREAKDOWN_M:
-            per_leaf = S.kernel_breakdown(device, "dora_linear_gemv", accum, m)
-            S.log_breakdown(f"GEMV {accum}", accum, m, per_leaf)
-            result["breakdown"][f"{accum}/{m}"] = per_leaf
+            result["breakdown"][f"{accum}/{m}"] = S.linear_breakdown(
+                device, "dora_linear_gemv", accum, m, f"GEMV {accum}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
