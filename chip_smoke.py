@@ -18,9 +18,15 @@ Phases (any failure exits non-zero; no failure is caught):
                   M in {1, 2, 4, 8, 16, 32, 64} (decode ticks and the
                   engine's admission chunks), the tiled launcher at M=256,
                   ragged shapes; the int8 exactness case bitwise; the
-                  GEMV's tensor-core f32 body (bf16 x) launched twice and
-                  bitwise equal at every bucket, and at the edges of its K
-                  split; its SIMT body (f32 x) once per leaf;
+                  GEMV's tensor-core bodies, f32 (bf16 x) and int8 (any x),
+                  launched twice and bitwise equal at every bucket, and at
+                  the edges of their K split; the int8 GEMV's exactness
+                  cases bitwise where its plan splits K, its result bitwise
+                  independent of the plan (``GEMV_INT8_PLANS``: parts of K,
+                  row scales in the launch or a pass before it), two CUDA
+                  graphs of it replayed at once on two streams bitwise equal
+                  to eager; the f32 SIMT body (f32 x) and the int8 GEMV
+                  with f32 x once per leaf;
                 * the tiled launcher's tensor-core bodies, f32 (bf16 x)
                   and int8 (s8 x u8), at the full-width leaves for M in
                   {65, 96, 128, 200, 256, 512}, the ragged shapes with
@@ -40,7 +46,8 @@ Phases (any failure exits non-zero; no failure is caught):
                   replayed at once on two streams; its SIMT body (f32 x)
                   once per leaf;
   4. timing   — (the tiled f32 and int8 bodies also at M=96, the phase-5
-                prefill; the f32 GEMV also at M = 8, 16, 64; the ADC at
+                prefill; both GEMV bodies also at M = 8, 16, 64, the int8
+                one also at M=1; the ADC at
                 M = 4, 32, 96, 256; the time per kernel from torch.profiler
                 of both tiled bodies at M = 96, 256, of both GEMV bodies at
                 M = 4, 32 and of the ADC at M = 4, 256, per layer and per
@@ -153,6 +160,13 @@ MASKED = [(96, 130, 77, 8), (200, 257, 31, 5), (150, 300, 999, 3), (65, 2048, 99
 # or not a multiple of the 128-column strip, M ragged in its bucket
 GEMV_EDGES = [(4, 40, 4096, 8), (5, 1000, 2048, 8), (9, 2050, 999, 3), (17, 6144, 2049, 8),
               (33, 2048, 2064, 4), (64, 100, 300, 24), (1, 300, 130, 1)]
+# the int8 GEMV's exactness cases: the decode tick's largest K and a full
+# admission chunk, both with a plan that splits K, and two small shapes
+GEMV_INT8_EXACT = ((4, 6144, 2048), (32, 2048, 4096), (4, 512, 256), (64, 512, 300))
+# the int8 GEMV's plan at its edges, each shape run under several parts of
+# K and with the row scales taken in the launch and in a pass before it
+GEMV_INT8_PLANS = [(4, 2048, 4096, 24), (4, 6144, 2048, 8), (32, 2048, 2048, 8),
+                   (64, 2048, 12288, 16), (17, 1000, 999, 3), (1, 300, 130, 1)]
 SLOTS = 4                   # engine slots: the decode batch of phase 5
 PREFILL_ROWS = 96           # phase 5's fused prefill: 3 x 32 tokens
 PROMPT_LENS = (5, 40, 17, 9)  # phase 5's ragged engine requests
@@ -160,7 +174,7 @@ MAX_NEW = 16                # greedy tokens per request
 # timed row counts: a single stream, the phase-5 decode tick, a full
 # 32-token admission chunk, phase 5's fused prefill and a larger one
 TIMED_M = (1, SLOTS, 32, PREFILL_M)
-TIMED_M_INT8 = (SLOTS, 32, PREFILL_ROWS, PREFILL_M)
+TIMED_M_INT8 = (1, SLOTS, 8, 16, 32, 64, PREFILL_ROWS, PREFILL_M)  # every GEMV bucket too
 TIMED_M_ADC = (SLOTS, 32, PREFILL_ROWS, PREFILL_M)
 TIMED_M_TILED = (PREFILL_ROWS,)  # also timed for the tiled f32 body
 TIMED_M_GEMV = (8, 16, 64)       # also timed for the f32 GEMV: chunk buckets, 64
@@ -242,27 +256,23 @@ def adc_plans(m, k, n):
     return sorted({1, autotune.adc_plan(m, k, n), min(tiles, 2), min(tiles, 3), tiles})
 
 
-def adc_graph_replays(device, replays=5):
-    """Two ADC calls whose plans split K, each captured in its own CUDA
-    graph (with tickets of its own) after a warm-up on a side stream,
-    replayed ``replays`` times at once on two streams: whether every replay
+def graph_replays(calls, replays=5):
+    """Kernel calls (closures), each captured in its own CUDA graph (with
+    tickets of its own) after a warm-up on a side stream, replayed
+    ``replays`` times at once on one stream each: whether every replay
     equals the eager result bitwise."""
-    from repro_torch.kernels import crossbar_mvm as C
-
-    leaves = [operands(SLOTS, 2048, 2048, 1, device, seed=5)[:4],
-              operands(SLOTS, 6144, 2048, 1, device, seed=6)[:4]]
-    wants = [C.crossbar_mvm(*ops) for ops in leaves]
+    wants = [call() for call in calls]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for ops in leaves:
-            C.crossbar_mvm(*ops)
+        for call in calls:
+            call()
     torch.cuda.current_stream().wait_stream(side)
     graphs, gots = [], []
-    for ops in leaves:
+    for call in calls:
         graphs.append(torch.cuda.CUDAGraph())
         with torch.cuda.graph(graphs[-1]):
-            gots.append(C.crossbar_mvm(*ops))
+            gots.append(call())
     streams = [torch.cuda.Stream() for _ in graphs]
     same = True
     for _ in range(replays):
@@ -275,8 +285,58 @@ def adc_graph_replays(device, replays=5):
     return same
 
 
+def adc_graph_replays(device):
+    """``graph_replays`` of two ADC calls whose plans split K."""
+    from repro_torch.kernels import crossbar_mvm as C
+
+    leaves = [operands(SLOTS, 2048, 2048, 1, device, seed=5)[:4],
+              operands(SLOTS, 6144, 2048, 1, device, seed=6)[:4]]
+    return graph_replays([lambda o=o: C.crossbar_mvm(*o) for o in leaves])
+
+
+def int8_gemv_graph_replays(device):
+    """``graph_replays`` of two int8 GEMV calls at the decode tick whose
+    plans split K, and whether every ticket is zero again after them."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import dora_linear as K
+
+    leaves = [operands(SLOTS, 2048, 4096, 24, device, seed=5),
+              operands(SLOTS, 6144, 2048, 8, device, seed=6)]
+    assert all(autotune.gemv_plan(SLOTS, o[1].shape[1], o[1].shape[0], "int8") > 1
+               for o in leaves)
+    same = graph_replays([lambda o=o: K.dora_linear_gemv(*o, accum="int8") for o in leaves])
+    return same and all(int(sem.abs().sum()) == 0 for _, sem in K._SEMS.values())
+
+
+def int8_gemv_plans(m, k, n):
+    """(parts, prescale) plans of the int8 GEMV for one shape: the policy's
+    parts, one, two, three and one a stage, each with the row scales in the
+    launch and in a pass before it."""
+    from repro_torch.kernels import autotune
+
+    stages = -(-k // autotune.GEMV_MMA_STAGE)
+    parts = {1, autotune.gemv_plan(m, n, k, "int8"), min(stages, 2), min(stages, 3), stages}
+    return [(p, pre) for p in sorted(parts) for pre in (False, True)]
+
+
 def _fail(what, got):
     raise AssertionError(f"{what} disagrees with the plain version: {got}")
+
+
+def _vs_plain(got, ops, accum):
+    """(max |err|, ok, note) of a fused-linear result against its plain
+    version: rtol = atol = TOL for the f32 body, within INT8_TOL of the
+    output's absmax for the int8 body."""
+    from repro_torch.kernels import ref
+
+    if accum == "f32":
+        want = ref.dora_linear_ref(*ops)
+        err = float((got - want).abs().max())
+        return err, bool(torch.allclose(got, want, rtol=TOL, atol=TOL)), ""
+    want = ref.dora_linear_int8_ref(*ops)
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    return err, rel <= INT8_TOL, f" ({rel:.2e} of absmax)"
 
 
 def phase_kernels(device):
@@ -293,7 +353,6 @@ def phase_kernels(device):
     cases += [(m, k, n, r, "ragged") for m, k, n, r in RAGGED]
     for m, k, n, r, name in cases:
         ops = operands(m, k, n, r, device, seed=m + n)
-        want = {"f32": ref.dora_linear_ref(*ops), "int8": ref.dora_linear_int8_ref(*ops)}
         launchers = [("dora_linear", K.dora_linear)]
         if autotune.use_gemv(m):
             launchers.insert(0, ("dora_linear_gemv", K.dora_linear_gemv))
@@ -301,19 +360,11 @@ def phase_kernels(device):
             for accum in autotune.ACCUMS:
                 got = fn(*ops, accum=accum)
                 torch.cuda.synchronize()
-                w = want[accum]
-                err = float((got - w).abs().max())
-                if accum == "f32":
-                    ok = bool(torch.allclose(got, w, rtol=TOL, atol=TOL))
-                    note = ""
-                    if kind == "dora_linear_gemv":  # the tensor-core GEMV, twice
-                        same = torch.equal(got, fn(*ops, accum=accum))
-                        ok = ok and same
-                        note = f" repeat {'bitwise' if same else 'DIFFERS'}"
-                else:
-                    rel = err / float(w.abs().max())
-                    ok = rel <= INT8_TOL
-                    note = f" ({rel:.2e} of absmax)"
+                err, ok, note = _vs_plain(got, ops, accum)
+                if kind == "dora_linear_gemv":  # the tensor-core GEMVs, twice
+                    same = torch.equal(got, fn(*ops, accum=accum))
+                    ok = ok and same
+                    note += f" repeat {'bitwise' if same else 'DIFFERS'}"
                 key = K.counter(kind, accum)
                 log(f"[kernels] {key:22s} {name:8s} M={m:4d} K={k:5d} N={n:5d} r={r:2d} "
                     f"max|err|={err:.3e}{note} {'ok' if ok else 'FAIL'}")
@@ -323,10 +374,10 @@ def phase_kernels(device):
 
     # int8 exactness: y = f32(int32 acc) * xs with the reference's xs,
     # bitwise; the tiled cases with M > 64 split K on the tensor cores
-    exact = ((4, 512, 256), (64, 512, 300), (100, 300, 77), (256, 512, 2048),
-             (130, 6144, 2048))
+    exact = GEMV_INT8_EXACT + ((100, 300, 77), (256, 512, 2048), (130, 6144, 2048))
     assert any(m > autotune.GEMV_MAX_M and autotune.tiled_tiles(m, n, k, "int8").splits(k) > 1
                for m, k, n in exact)
+    assert all(autotune.gemv_plan(m, n, k, "int8") > 1 for m, k, n in GEMV_INT8_EXACT[:2])
     for m, k, n in exact:
         ops = exact_operands(m, k, n, device, seed=m)
         want = ref.dora_linear_int8_ref(*ops)
@@ -337,8 +388,8 @@ def phase_kernels(device):
             got = fn(*ops, accum="int8")
             torch.cuda.synchronize()
             ok = torch.equal(got, want)
-            splits = ("" if kind == "dora_linear_gemv" else
-                      f" splits {autotune.tiled_tiles(m, n, k, 'int8').splits(k)}")
+            splits = (f" parts {autotune.gemv_plan(m, n, k, 'int8')}" if kind == "dora_linear_gemv"
+                      else f" splits {autotune.tiled_tiles(m, n, k, 'int8').splits(k)}")
             log(f"[kernels] {K.counter(kind, 'int8'):22s} exact    M={m:4d} K={k:5d} N={n:5d}"
                 f"{splits} bitwise {'ok' if ok else 'FAIL'}")
             if not ok:
@@ -355,17 +406,8 @@ def phase_kernels(device):
             got, again = K.dora_linear(*ops, accum=accum), K.dora_linear(*ops, accum=accum)
             torch.cuda.synchronize()
             same = torch.equal(got, again)
-            if accum == "f32":
-                want = ref.dora_linear_ref(*ops)
-                err = float((got - want).abs().max())
-                ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL)) and same
-                note = ""
-            else:
-                want = ref.dora_linear_int8_ref(*ops)
-                err = float((got - want).abs().max())
-                rel = err / float(want.abs().max())
-                ok = rel <= INT8_TOL and same
-                note = f" ({rel:.2e} of absmax)"
+            err, ok, note = _vs_plain(got, ops, accum)
+            ok = ok and same
             plan = autotune.tiled_tiles(m, n, k, accum)
             key = K.counter("dora_linear", accum)
             log(f"[kernels] {key + ' mma':22s} {name:8s} M={m:4d} K={k:5d} N={n:5d} r={r:2d} "
@@ -376,38 +418,77 @@ def phase_kernels(device):
                 _fail(f"{key} (tensor cores) at {(m, k, n, r)}",
                       f"max|err| {err}, repeat bitwise {same}")
             worst[key] = max(worst[key], err)
-    # the tensor-core GEMV where its K split leaves a short or a single
+    # the tensor-core GEMVs where their K split leaves a short or a single
     # part, K or N is ragged: twice each, bitwise repeatable
     for m, k, n, r in GEMV_EDGES:
         ops = operands(m, k, n, r, device, seed=k + n)
-        got, again = K.dora_linear_gemv(*ops), K.dora_linear_gemv(*ops)
+        for accum in autotune.ACCUMS:
+            got = K.dora_linear_gemv(*ops, accum=accum)
+            again = K.dora_linear_gemv(*ops, accum=accum)
+            torch.cuda.synchronize()
+            err, ok, note = _vs_plain(got, ops, accum)
+            same = torch.equal(got, again)
+            ok = ok and same
+            key = K.counter("dora_linear_gemv", accum)
+            log(f"[kernels] {key + ' mma':22s} edge     M={m:4d} K={k:5d} N={n:5d} r={r:2d} "
+                f"parts {autotune.gemv_plan(m, n, k, accum)} max|err|={err:.3e}{note} "
+                f"repeat {'bitwise' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"{key} (tensor cores) at {(m, k, n, r)}",
+                      f"max|err| {err}, repeat bitwise {same}")
+            worst[key] = max(worst[key], err)
+
+    # the int8 GEMV's result does not depend on its plan: parts of K, and
+    # row scales in the launch or in a pass before it
+    for m, k, n, r in GEMV_INT8_PLANS:
+        ops = operands(m, k, n, r, device, seed=m + k)
+        policy = (autotune.gemv_plan, autotune.gemv_int8_prescale)
+        got = {}
+        try:
+            for parts, pre in int8_gemv_plans(m, k, n):
+                autotune.gemv_plan = lambda *_, p=parts: p
+                autotune.gemv_int8_prescale = lambda *_, q=pre: q
+                got[(parts, pre)] = K.dora_linear_gemv(*ops, accum="int8")
+        finally:
+            autotune.gemv_plan, autotune.gemv_int8_prescale = policy
         torch.cuda.synchronize()
-        want = ref.dora_linear_ref(*ops)
-        err = float((got - want).abs().max())
-        same = torch.equal(got, again)
-        ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL)) and same
-        log(f"[kernels] dora_linear_gemv mma   edge     M={m:4d} K={k:5d} N={n:5d} r={r:2d} "
-            f"parts {autotune.gemv_plan(m, n, k)} max|err|={err:.3e} "
-            f"repeat {'bitwise' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+        base = got[(1, False)]
+        same = all(torch.equal(base, y) for y in got.values())
+        err, ok, note = _vs_plain(base, ops, "int8")
+        ok = ok and same
+        log(f"[kernels] dora_linear_gemv/int8  plans    M={m:4d} K={k:5d} N={n:5d} r={r:2d} "
+            f"parts {sorted({p for p, _ in got})} (policy {autotune.gemv_plan(m, n, k, 'int8')}) "
+            f"x row scales in the launch and before it{note} "
+            f"{'bitwise equal' if same else 'DIFFER'} {'ok' if ok else 'FAIL'}")
         if not ok:
-            _fail(f"dora_linear_gemv (tensor cores) at {(m, k, n, r)}",
-                  f"max|err| {err}, repeat bitwise {same}")
-        worst["dora_linear_gemv"] = max(worst["dora_linear_gemv"], err)
-    # the SIMT bodies, which f32 x keeps, once per leaf
+            _fail(f"dora_linear_gemv/int8 plans at {(m, k, n, r)}", f"bitwise {same}, {note}")
+
+    # CUDA graphs of the int8 GEMV: each replay bitwise equal to the eager
+    # call; two graphs replayed at once on two streams
+    same = int8_gemv_graph_replays(device)
+    log(f"[kernels] dora_linear_gemv/int8  graphs   two captures on two streams, 5 replays "
+        f"{'bitwise equal to eager, tickets zero' if same else 'DIFFER'} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        _fail("dora_linear_gemv/int8 graph replay", "differs from the eager result")
+
+    # f32 x, once per leaf: the SIMT bodies of the f32 body, and the int8
+    # GEMV (its tensor-core body takes either x)
     for name, k, n, r in LEAVES:
-        for kind, m in (("dora_linear", PREFILL_M), ("dora_linear_gemv", SLOTS)):
+        for kind, accum, m in (("dora_linear", "f32", PREFILL_M),
+                               ("dora_linear_gemv", "f32", SLOTS),
+                               ("dora_linear_gemv", "int8", SLOTS)):
             x, *rest = operands(m, k, n, r, device, seed=k + n)
             ops = (x.float(), *rest)
-            got = getattr(K, kind)(*ops)
+            got = getattr(K, kind)(*ops, accum=accum)
             torch.cuda.synchronize()
-            want = ref.dora_linear_ref(*ops)
-            err = float((got - want).abs().max())
-            ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
-            log(f"[kernels] {kind + ' f32 x':22s} {name:8s} M={m:4d} K={k:5d} N={n:5d} "
-                f"r={r:2d} max|err|={err:.3e} {'ok' if ok else 'FAIL'}")
+            err, ok, note = _vs_plain(got, ops, accum)
+            key = K.counter(kind, accum)
+            log(f"[kernels] {key + ' f32 x':22s} {name:8s} M={m:4d} K={k:5d} N={n:5d} "
+                f"r={r:2d} max|err|={err:.3e}{note} {'ok' if ok else 'FAIL'}")
             if not ok:
-                _fail(f"{kind} (f32 x, SIMT) at {(m, k, n, r)}", f"max|err| {err}")
-            worst[kind] = max(worst[kind], err)
+                _fail(f"{key} (f32 x) at {(m, k, n, r)}", f"max|err| {err}")
+            worst[key] = max(worst[key], err)
 
     # the ADC kernel's tensor-core body (bf16 x), twice each (bitwise repeatable)
     adc_cases = [(m, k, n, name) for name, k, n in ADC_LEAVES for m in ADC_M]

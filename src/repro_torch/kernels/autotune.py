@@ -17,9 +17,10 @@ and the only decisions left are:
   tile rows and the rows of K per split (``tiled_tiles``, per body), so
   that every full-width leaf at prefill fills one wave of blocks on the
   card's 132 SMs;
-* the GEMV launcher's tensor-core body (f32 with bf16 x): the parts of its
-  ordered K split (``gemv_plan``), so that every full-width leaf at every
-  row bucket launches a block per SM, within one wave.
+* the GEMV launcher's tensor-core bodies (f32 with bf16 x; int8 with any
+  x): the parts of their ordered K split (``gemv_plan``, per body), and
+  from which row bucket the int8 body takes its row scales in a pass of
+  their own (``gemv_int8_prescale``).
 
 The ADC kernel's 128-row block and 256-row array tile are not choices:
 max |x| is taken per (block, tile) and each tile's current is digitized
@@ -97,12 +98,15 @@ def gemv_rows(m: int) -> int:
     raise ValueError(f"GEMV launcher takes at most {GEMV_MAX_M} rows, got {m}")
 
 
-# the GEMV launcher's tensor-core body (dora_linear.cu): output columns per
-# block (kGemvMmaN), rows of K per pipeline stage (kGemvMmaK), and most
-# chunks of K of its X @ A blocks (kGemvXaChunks), each whole slabs of
+# the GEMV launcher's tensor-core bodies (dora_linear.cu: f32,
+# dora_gemv_mma_kernel; int8, dora_gemv_int8_kernel), both: output columns
+# per block (kGemvMmaN), rows of K per pipeline stage (kGemvMmaK), and most
+# chunks of K of their X @ A blocks (kGemvXaChunks), each whole slabs of
 # XA_SLAB rows (kPrepRows) for XA_ROW_TILE rows of x a block
-# (kPrepRowTile). Two blocks fit an SM (launch bounds, at most 96 KB of
-# shared memory), so WAVE is its wave too.
+# (kPrepRowTile); the int8 body keeps its X @ A blocks within
+# GEMV_XA_CHUNKS in all (fewer chunks from 32 rows up). Two blocks of the
+# f32 body fit an SM (launch bounds, at most 96 KB of shared memory), so
+# WAVE is its wave too; the int8 body's is gemv_int8_wave.
 GEMV_MMA_COLS = 128
 GEMV_MMA_STAGE = 64
 GEMV_XA_CHUNKS = 24
@@ -110,27 +114,67 @@ XA_SLAB = 256
 XA_ROW_TILE = 16
 
 
-def gemv_blocks(m: int, n: int, k: int, parts: int) -> int:
-    """Blocks of one tensor-core GEMV launch (the launcher's grid): a
-    block per 128-column strip and part of K, and the X @ A blocks, a
-    16-row tile of x times a chunk of K."""
+def gemv_blocks(m: int, n: int, k: int, parts: int, accum: str) -> int:
+    """Blocks of one launch of a tensor-core GEMV body (the launcher's
+    grid): a block per 128-column strip and part of K, and the X @ A
+    blocks, a 16-row tile of x times a chunk of K (f32: at most
+    GEMV_XA_CHUNKS chunks; int8: at most GEMV_XA_CHUNKS blocks in all)."""
+    tiles = -(-m // XA_ROW_TILE)
     slabs = -(-k // XA_SLAB)
-    sub = -(-slabs // GEMV_XA_CHUNKS)
+    sub = -(-slabs // (GEMV_XA_CHUNKS if accum == "f32" else GEMV_XA_CHUNKS // tiles))
     strips = -(-n // GEMV_MMA_COLS)
-    return strips * parts + -(-m // XA_ROW_TILE) * -(-slabs // sub)
+    return strips * parts + tiles * -(-slabs // sub)
 
 
-def gemv_plan(m: int, n: int, k: int) -> int:
-    """The tensor-core GEMV's parts of K (whole stages each) for an (m, k)
-    x (k, n) product: the fewest (at most one per stage of K) that give
-    every SM a block of column strip and part, fewer where the launch would
-    not fit one wave. Fewer parts mean fewer raw sums for the strip's last
-    block to add."""
+def gemv_plan(m: int, n: int, k: int, accum: str) -> int:
+    """A tensor-core GEMV body's parts of K (whole stages each, at most one
+    per stage of K) for an (m, k) x (k, n) product.
+
+    f32: the fewest that give every SM a block of column strip and part,
+    fewer where the launch would not fit one wave. Fewer parts mean fewer
+    raw sums for the strip's last block to add.
+
+    int8: the most whose whole launch, X @ A blocks included, fits one
+    wave (``gemv_int8_wave``; one part where even that exceeds it). More
+    blocks keep more code stages in flight, and the int8 body, which
+    quantizes each stage behind a barrier, needs them: measured on the H100
+    at the qwen3-1.7b leaves (tools/sweep_gemv.py --accum int8), one block
+    an SM took 10% longer a layer at M = 4 (13% at M = 1, 8% at M = 32),
+    and this plan is within 2% of the best split of each leaf up to 8
+    rows, 6% at 16 and 3% at 32."""
+    stages = -(-k // GEMV_MMA_STAGE)
     strips = -(-n // GEMV_MMA_COLS)
-    parts = min(-(-k // GEMV_MMA_STAGE), -(-SMS // strips))
-    while parts > 1 and gemv_blocks(m, n, k, parts) > WAVE:
+    if accum == "int8":
+        xa_blocks = gemv_blocks(m, n, k, 0, accum)
+        return max(1, min(stages, (gemv_int8_wave(m) - xa_blocks) // strips))
+    parts = min(stages, -(-SMS // strips))
+    while parts > 1 and gemv_blocks(m, n, k, parts, accum) > WAVE:
         parts -= 1
     return parts
+
+
+def gemv_int8_wave(m: int) -> int:
+    """Blocks of the int8 GEMV the card holds at once for ``m`` rows: two
+    an SM below 64 rows, one at 64 (dora_gemv_int8_kernel's launch bounds;
+    a static_assert in its GemvInt8Smem holds its shared memory, for
+    either x type, to two blocks an SM)."""
+    return SMS * (2 if gemv_rows(m) < GEMV_MAX_M else 1)
+
+
+# the int8 GEMV body's row scales: from this row bucket up a pass of their
+# own (row_scale_kernel, each row read once) runs before the kernel; below
+# it every block of the one launch reads all of x for them, which costs
+# more than that pass once x is large. Measured on the H100 at the
+# qwen3-1.7b leaves (tools/sweep_gemv.py --accum int8): inside the launch
+# 7-8% faster a layer at 1 to 8 rows and 2% at 16; the pass 4% faster at
+# 32 and 5% at 64
+GEMV_INT8_PRESCALE_ROWS = 32
+
+
+def gemv_int8_prescale(m: int) -> bool:
+    """Whether the int8 GEMV of ``m`` rows takes its row scales in a pass
+    before the kernel (two launches) rather than inside it (one)."""
+    return gemv_rows(m) >= GEMV_INT8_PRESCALE_ROWS
 
 
 # The ADC kernel's tensor-core body (crossbar_mvm.cu, adc_mma_kernel): its

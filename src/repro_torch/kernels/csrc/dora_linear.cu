@@ -15,21 +15,21 @@
 //     launcher  body  x          kernel                        arithmetic
 //     GEMV      f32   bf16       dora_gemv_mma_kernel          mma.sync bf16, f32 acc
 //     GEMV      f32   f32        dora_gemv_kernel<..., false>  SIMT f32
-//     GEMV      int8  f32, bf16  dora_gemv_kernel<..., true>   SIMT int32
+//     GEMV      int8  f32, bf16  dora_gemv_int8_kernel         mma.sync u8 x s8, s32 acc
 //     tiled     f32   bf16       dora_mma_kernel<..., false>   mma.sync bf16, f32 acc
 //     tiled     f32   f32        dora_tiled_kernel             SIMT f32
 //     tiled     int8  f32, bf16  dora_mma_kernel<..., true>    mma.sync s8 x u8, s32 acc
 //
-// The int8 body. Its prologue quantizes each row of X to s8 (xs =
-// max(max|x|, 1e-30) / 127, xq = clip(rint(x / xs), +-127), IEEE division
-// and round-half-even, so xq and xs match the reference bitwise) and
-// computes Xq @ A in f32. The GEMV accumulates xq * (G+ - G-) in int32 on
-// the SIMT units: a code byte is read zero-extended and the difference of
-// the pair taken in registers. The tiled launcher accumulates on the
-// tensor cores: mma.m16n8k32 s8 x u8 takes the u8 codes as they are, as
-// xq . G+ plus (-xq) . G- into one s32 accumulator (-xq is exact in s8,
-// |xq| <= 127). Either equals the reference's (G+ - 128) - (G- - 128)
-// recode without storing any s8 copy of the codes. The sum is exact in
+// The int8 body. Each row of X is quantized to s8 (xs = max(max|x|,
+// 1e-30) / 127, xq = clip(rint(x / xs), +-127), IEEE division and
+// round-half-even, so xq and xs match the reference bitwise) and Xq @ A is
+// computed in f32. Both launchers accumulate on the tensor cores with
+// mma.m16n8k32 on the u8 codes as they are, as xq . G+ plus (-xq) . G-
+// into one s32 accumulator (-xq is exact in s8, |xq| <= 127): the tiled
+// launcher with x as the s8 A operand, the GEMV with the codes as the u8
+// A operand of the swapped product. Either equals the reference's
+// (G+ - 128) - (G- - 128) recode without storing any s8 copy of the
+// codes. The sum is exact in
 // any order: every partial stays below 2 * K * 127 * 255 < 2^31 for every
 // K the models have (K <= 19200), so it equals the reference's int32
 // accumulator bitwise; the f32 epilogue keeps the reference's order of
@@ -41,13 +41,13 @@
 // these inputs up to M ~ 295 (bf16 x; G+ - G- in [-255, 255] is exact in
 // bf16; 989 TFLOP/s on the tensor cores over 3.35 TB/s) and M ~ 590 (s8
 // x and u8 codes; 1979 TOPS). Its floor is about 2*K*N bytes over the HBM
-// rate. The GEMV launcher and the SIMT tiled body keep the reference's
+// rate. The SIMT bodies (f32 x with the f32 body) keep the reference's
 // exact arithmetic on the SIMT units (67 TFLOP/s f32, a ridge of 20
-// flop/byte; int32 multiply-adds run no faster): the decode GEMV (M <= 4)
-// stays under that ridge, but from 16 rows up the instruction rate caps a
-// SIMT body above the byte floor (M = 32: 3.2 GFLOP a layer, 0.048 ms at
-// 67 TFLOP/s). So every call of the f32 serving path (bf16 x) runs on the
-// tensor cores, GEMV and tiled alike.
+// flop/byte): the decode GEMV (M <= 4) stays under that ridge, but from 16
+// rows up the instruction rate caps a SIMT body above the byte floor (M =
+// 32: 3.2 GFLOP a layer, 0.048 ms at 67 TFLOP/s). So every call of the
+// serving paths (bf16 x; the int8 body with any x) runs on the tensor
+// cores, GEMV and tiled alike.
 //
 // The tiled tensor-core bodies. The f32 body (bf16 x) multiplies a bf16
 // x by a bf16 G+ - G-, exact in f32, so mma.sync bf16 with f32 accumulators
@@ -102,8 +102,8 @@
 //   kernel accumulated it inside every grid step's K loop, and on the card
 //   every block redoing it cost more than streaming the codes. The SIMT
 //   bodies run a prologue kernel first (for the SIMT GEMV also X^T as f32,
-//   K x rows, zero rows past M); the tensor-core GEMV gives it to the first
-//   blocks of its own grid.
+//   K x rows, zero rows past M); the tensor-core GEMVs give it to the first
+//   blocks of their own grid.
 // * GEMV launcher, tensor-core body (bf16 x), dora_gemv_mma_kernel. The
 //   code stream bounds it (2 bytes a weight, M <= 64 MMA rows of work), and
 //   at the decode tick a leaf streams 8-50 MB in a few microseconds, so its
@@ -119,7 +119,12 @@
 //   G+ - G- converted to bf16 in registers and fed to mma.sync m16n8k16 as
 //   the A operand of Y^T = W^T X^T, with x padded to 8 rows as B (details
 //   at the kernel).
-// * GEMV launcher, SIMT bodies (f32 x; the int8 body): a block owns a
+// * GEMV launcher, int8 body, dora_gemv_int8_kernel: the same layout and
+//   bound (2 code bytes a weight), one launch (the row scales taken by
+//   every block, or, from autotune.GEMV_INT8_PRESCALE_ROWS rows, by a pass
+//   before it), x quantized to s8 once per block and stage (details at
+//   the kernel).
+// * GEMV launcher, SIMT body (f32 x with the f32 body): a block owns a
 //   strip of 32 (16 from 8 rows up) output columns and all of K (the TPU
 //   grid's sequential K axis becomes a loop: no block waits for another).
 //   Each thread loads CPT neighbouring
@@ -163,23 +168,13 @@ __device__ __forceinline__ float byte_f32(uint32_t w, int i) {
   return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440u | (uint32_t)i));
 }
 
-// byte i of w, zero-extended
-__device__ __forceinline__ int byte_i32(uint32_t w, int i) {
-  return (int)__byte_perm(w, 0u, 0x4440u | (uint32_t)i);
-}
+// the accumulator type of a body
+template <bool INT8> struct Num { using T = float; };
+template <> struct Num<true> { using T = int; };
 
-// the accumulator type of a body, and its 16-byte vector
-template <bool INT8> struct Num { using T = float; using V4 = float4; };
-template <> struct Num<true> { using T = int; using V4 = int4; };
-
-__device__ __forceinline__ float mad(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ int mad(int a, int b, int c) { return a * b + c; }
-
-// one code of each array -> the weight G+ - G- in the body's type
-template <bool INT8>
-__device__ __forceinline__ typename Num<INT8>::T code_diff(uint32_t p, uint32_t q, int i) {
-  if constexpr (INT8) return byte_i32(p, i) - byte_i32(q, i);
-  else return byte_f32(p, i) - byte_f32(q, i);
+// byte i of each code array -> the weight G+ - G- (exact in f32)
+__device__ __forceinline__ float code_diff(uint32_t p, uint32_t q, int i) {
+  return byte_f32(p, i) - byte_f32(q, i);
 }
 
 // the reference's _quantize_rows for one element, given its row's xs
@@ -255,34 +250,9 @@ __device__ __forceinline__ float row_scale(const TX* __restrict__ xr, int K, flo
   return __fdiv_rn(fmaxf(amax, 1e-30f), 127.f);
 }
 
-// int8 body, GEMV launcher, same grid: the row quantization, xs (M) f32,
-// Xq transposed as int32 (K x rows, zero rows past M), and the partials
-// of Xq @ A in f32. Each block takes max |x| over its whole row (a few
-// KB, read again by each chunk's block) so that one launch does it all.
-template <typename TX>
-__global__ void __launch_bounds__(kPrepThreads)
-    prep_int8_kernel(const TX* __restrict__ x, const float* __restrict__ a,
-                     float* __restrict__ xa, float* __restrict__ xs, int* __restrict__ xqt,
-                     int M, int K, int R, int rows) {
-  __shared__ float part[kPrepThreads];
-  __shared__ float wmax[kPrepThreads / 32];
-  const int m = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int kb = blockIdx.y * kPrepRows, ke = min(K, kb + kPrepRows);
-  if (m >= M) {
-    for (int k = kb + tid; k < ke; k += kPrepThreads) xqt[(size_t)k * rows + m] = 0;
-    return;
-  }
-  const TX* xr = x + (size_t)m * K;
-  const float s = row_scale(xr, K, wmax);
-  if (blockIdx.y == 0 && tid == 0) xs[m] = s;
-  for (int k = kb + tid; k < ke; k += kPrepThreads)
-    xqt[(size_t)k * rows + m] = quantize_s8(to_f32(xr[k]), s);
-  xa_partial([&](int k) { return (float)quantize_s8(to_f32(xr[k]), s); }, a, xa, part,
-             m, M, kb, ke, R);
-}
-
-// int8 body, tiled launcher, grid M: the row scales xs, each row read once
+// int8 body, grid M: the row scales xs, each row read once (the tiled
+// launcher; the GEMV's pass before its kernel, from
+// autotune.GEMV_INT8_PRESCALE_ROWS rows)
 template <typename TX>
 __global__ void __launch_bounds__(kPrepThreads)
     row_scale_kernel(const TX* __restrict__ x, float* __restrict__ xs, int K) {
@@ -416,14 +386,13 @@ __device__ __forceinline__ Codes<CPT> load_codes(const uint8_t* p, int valid) {
   return c;
 }
 
-template <typename T, int MT>
-__device__ __forceinline__ void load_x(const T* __restrict__ xt, int k, T (&xv)[MT]) {
-  using V4 = typename Num<!std::is_same<T, float>::value>::V4;
-  const T* p = xt + (size_t)k * MT;
+template <int MT>
+__device__ __forceinline__ void load_x(const float* __restrict__ xt, int k, float (&xv)[MT]) {
+  const float* p = xt + (size_t)k * MT;
   if constexpr (MT % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < MT / 4; ++i) {
-      const V4 v = __ldg(reinterpret_cast<const V4*>(p) + i);
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
       xv[4 * i] = v.x; xv[4 * i + 1] = v.y; xv[4 * i + 2] = v.z; xv[4 * i + 3] = v.w;
     }
   } else {
@@ -432,35 +401,30 @@ __device__ __forceinline__ void load_x(const T* __restrict__ xt, int k, T (&xv)[
   }
 }
 
-// MT: rows (a power of two >= M); CPT: columns per thread, MT * CPT <= 64;
-// COLS: output columns per block; U: code rows each thread keeps in flight;
-// INT8: the int8 body (xt holds Xq^T as int32, xs the row scales) or f32
-template <int MT, int CPT, int COLS, int U, bool VEC, bool INT8>
+// The SIMT GEMV, for f32 x with the f32 body (X^T in xt). MT: rows (a
+// power of two >= M); CPT: columns per thread, MT * CPT <= 64; COLS: output
+// columns per block; U: code rows each thread keeps in flight
+template <int MT, int CPT, int COLS, int U, bool VEC>
 __global__ void __launch_bounds__(kGemvThreads)
-    dora_gemv_kernel(const typename Num<INT8>::T* __restrict__ xt,
-                     const float* __restrict__ xs, const uint8_t* __restrict__ gp,
+    dora_gemv_kernel(const float* __restrict__ xt, const uint8_t* __restrict__ gp,
                      const uint8_t* __restrict__ gn, const float* __restrict__ scale,
                      const float* __restrict__ b, const float* __restrict__ gamma,
                      const float* __restrict__ xa_g, float* __restrict__ out, int M,
                      int K, int N, int R, int G) {
-  using T = typename Num<INT8>::T;
   static_assert(COLS % CPT == 0 && 32 % (COLS / CPT) == 0, "column split");
   constexpr int TPR = COLS / CPT;             // threads per code row
   constexpr int RPS = kGemvThreads / TPR;     // row groups per block
   extern __shared__ float smem[];
-  T* red = reinterpret_cast<T*>(smem);  // [MT][COLS]
-  float* xa = smem + MT * COLS;         // [M][R], times xs[m] in the int8 body
+  float* red = smem;              // [MT][COLS]
+  float* xa = smem + MT * COLS;   // [M][R]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ct = tid % TPR, rg = tid / TPR;
   const int col0 = blockIdx.x * COLS + ct * CPT;
   const int valid = min(CPT, N - col0);  // columns of this thread inside N
 
-  for (int p = tid; p < M * R; p += kGemvThreads) {
-    const float v = xa_sum(xa_g, G, M, R, p / R, p % R);
-    xa[p] = INT8 ? __fmul_rn(v, xs[p / R]) : v;
-  }
+  for (int p = tid; p < M * R; p += kGemvThreads) xa[p] = xa_sum(xa_g, G, M, R, p / R, p % R);
 
-  T acc[MT][CPT];
+  float acc[MT][CPT];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -480,13 +444,13 @@ __global__ void __launch_bounds__(kGemvThreads)
     for (int u = 0; u < U; ++u) {
       const int k = k0 + u * RPS;
       if (k >= K) break;
-      T xv[MT];
-      load_x<T, MT>(xt, k, xv);
+      float xv[MT];
+      load_x<MT>(xt, k, xv);
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
-        const T w = code_diff<INT8>(cp[u].w[c / 4], cn[u].w[c / 4], c % 4);
+        const float w = code_diff(cp[u].w[c / 4], cn[u].w[c / 4], c % 4);
 #pragma unroll
-        for (int m = 0; m < MT; ++m) acc[m][c] = mad(xv[m], w, acc[m][c]);
+        for (int m = 0; m < MT; ++m) acc[m][c] = fmaf(xv[m], w, acc[m][c]);
       }
     }
   }
@@ -506,27 +470,21 @@ __global__ void __launch_bounds__(kGemvThreads)
       for (int m = 0; m < MT; ++m)
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
-          T* r = red + m * COLS + ct * CPT + c;
+          float* r = red + m * COLS + ct * CPT + c;
           *r = (w == 0) ? acc[m][c] : *r + acc[m][c];
         }
     }
     __syncthreads();
   }
 
-  // epilogue: Y = gamma * (acc * scale + XA @ B[:, n]); int8:
-  // Y = gamma * (f32(acc) * xs * scale + (XA * xs) @ B[:, n])
+  // epilogue: Y = gamma * (acc * scale + XA @ B[:, n])
   for (int p = tid; p < M * COLS; p += kGemvThreads) {
     const int m = p / COLS, c = p - m * COLS;
     const int n = blockIdx.x * COLS + c;
     if (n >= N) continue;
     float low = 0.f;
     for (int j = 0; j < R; ++j) low = fmaf(xa[m * R + j], b[(size_t)j * N + n], low);
-    if constexpr (INT8) {
-      const float y = __fmul_rn(__fmul_rn((float)red[m * COLS + c], xs[m]), scale[n]);
-      out[(size_t)m * N + n] = __fmul_rn(__fadd_rn(y, low), gamma[n]);
-    } else {
-      out[(size_t)m * N + n] = (red[m * COLS + c] * scale[n] + low) * gamma[n];
-    }
+    out[(size_t)m * N + n] = (red[m * COLS + c] * scale[n] + low) * gamma[n];
   }
 }
 
@@ -599,8 +557,8 @@ __global__ void __launch_bounds__(kTileThreads)
       const uint32_t p = load_codes<4, VEC>(gp + off, valid).w[0];
       const uint32_t q = load_codes<4, VEC>(gn + off, valid).w[0];
       *reinterpret_cast<float4*>(&bs[ck][cn]) =
-          make_float4(code_diff<false>(p, q, 0), code_diff<false>(p, q, 1),
-                      code_diff<false>(p, q, 2), code_diff<false>(p, q, 3));
+          make_float4(code_diff(p, q, 0), code_diff(p, q, 1), code_diff(p, q, 2),
+                      code_diff(p, q, 3));
     }
     __syncthreads();
     micro_tile(as, bs, ty, tx, acc);
@@ -1575,6 +1533,578 @@ __global__ void __launch_bounds__(kGemvThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
+// GEMV launcher, int8 body (any x): tensor cores
+// ---------------------------------------------------------------------------
+
+// The int8 tensor-core GEMV keeps the f32 one's strip (kGemvMmaN columns),
+// stage (kGemvMmaK rows of K), ring (kGemvMmaStages) and X @ A chunks. Its
+// s8 x slab of a stage: rows of kGemvMmaK / 4 words, padded by 4 words so
+// that the 8 rows of a B fragment load fall in 8 different bank groups.
+constexpr int kXqStride = kGemvMmaK / 4 + 4;
+
+// Shared memory of the int8 tensor-core GEMV for NT tiles of 8 rows of x
+// of type TX: per stage the G+ and G- tiles (kGemvMmaK x kGemvMmaN u8,
+// chunks swizzled as code_chunk says) and the raw x tile (8 NT x kGemvMmaK
+// TX, unpadded), then two buffers of the quantized x tile, each its xq
+// words then its -xq words (8 NT rows of kXqStride words). The X @ A
+// blocks and the epilogue reuse the ring.
+template <int NT, typename TX>
+struct GemvInt8Smem {
+  static constexpr int C = kGemvMmaK * kGemvMmaN;
+  static constexpr int X = 8 * NT * kGemvMmaK * (int)sizeof(TX);
+  static constexpr int STAGE = 2 * C + X;
+  static constexpr int RING = kGemvMmaStages * STAGE;
+  static constexpr int XQ = 8 * NT * kXqStride;  // words of xq (and of -xq) a buffer
+  static constexpr int BYTES = RING + 2 * 2 * XQ * 4;
+  static_assert(4 * kPrepRowTile * (kPrepRows + 4) + kPrepRows * kGemvXaRanks * 4 <= RING,
+                "the X @ A tiles fit the ring");
+  static_assert(4 * ((kGemvMmaRanks + 2) * kGemvMmaN + 8 * NT * kGemvMmaRanks) <= RING,
+                "the epilogue's B, scale, gamma and XA fit the ring");
+  static_assert(4 * 1024 * NT <= RING, "the K halves' sums fit the ring");
+  // autotune.gemv_int8_wave counts on the launch bounds' two blocks an SM
+  // below 8 tiles of rows: their shared memory (1 KB a block reserved, and
+  // the kernel's static row scales) must fit the SM's 228 KB
+  static_assert(NT == 8 || 2 * (BYTES + 1024 + 512) <= 233472, "two blocks fit an SM");
+};
+
+// 4 consecutive values of x at p as f32
+__device__ __forceinline__ void x4_f32(const float* p, float (&v)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+}
+__device__ __forceinline__ void x4_f32(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(u.x << 16), v[1] = __uint_as_float(u.x & 0xffff0000u);
+  v[2] = __uint_as_float(u.y << 16), v[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
+// max |v| over the 16 bytes u of x values of type TX
+template <typename TX>
+__device__ __forceinline__ float absmax16(uint4 u);
+template <>
+__device__ __forceinline__ float absmax16<float>(uint4 u) {
+  return fmaxf(fmaxf(fabsf(__uint_as_float(u.x)), fabsf(__uint_as_float(u.y))),
+               fmaxf(fabsf(__uint_as_float(u.z)), fabsf(__uint_as_float(u.w))));
+}
+template <>
+__device__ __forceinline__ float absmax16<__nv_bfloat16>(uint4 u) {
+  // bf16 magnitudes compare as unsigned halfwords
+  const uint32_t h = __vmaxu2(__vmaxu2(u.x & 0x7fff7fffu, u.y & 0x7fff7fffu),
+                              __vmaxu2(u.z & 0x7fff7fffu, u.w & 0x7fff7fffu));
+  return __uint_as_float(max(h << 16, h & 0xffff0000u));
+}
+
+// The row scales of rows [m0, m0 + rows) of x (M x K) into xs_s[0, rows),
+// one warp a row: max(max |x|, 1e-30) / 127, as the reference's
+// _quantize_rows; rows past M get 1 (their zeros quantize to 0). VEC: the
+// rows as 16-byte loads (K a multiple of the values in 16 bytes, x aligned)
+template <bool VEC, typename TX>
+__device__ __forceinline__ void gemv_row_scales(const TX* __restrict__ x, int M, int K, int m0,
+                                                int rows, float* xs_s) {
+  constexpr int EPV = 16 / (int)sizeof(TX);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = warp; i < rows; i += kGemvWarps) {
+    const int m = m0 + i;
+    float amax = 0.f;
+    if (m < M) {
+      const TX* xr = x + (size_t)m * K;
+      if (VEC) {
+        const uint4* v = reinterpret_cast<const uint4*>(xr);
+#pragma unroll 8
+        for (int c = lane; c < K / EPV; c += 32) amax = fmaxf(amax, absmax16<TX>(__ldg(v + c)));
+      } else {
+        for (int k = lane; k < K; k += 32) amax = fmaxf(amax, fabsf(to_f32(xr[k])));
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    if (lane == 0) xs_s[i] = m < M ? __fdiv_rn(fmaxf(amax, 1e-30f), 127.f) : 1.f;
+  }
+}
+
+// X @ A partials of the int8 tensor-core GEMV: gemv_xa_tile on xq, the
+// rows [m0, m0 + 16) of x quantized with their scales xs_s as each slab is
+// staged in shared memory (as f32, exact), A's rows copied meanwhile
+template <typename TX>
+__device__ __forceinline__ void gemv_xa_tile_int8(const TX* __restrict__ x,
+                                                  const float* xs_s,
+                                                  const float* __restrict__ a,
+                                                  float* __restrict__ xa, int M, int K, int R,
+                                                  int m0, int g, int sub,
+                                                  float (*xt)[kPrepRows + 4],
+                                                  float (*at)[kGemvXaRanks]) {
+  const int tid = threadIdx.x;
+  const int i = tid / 16, j = tid % 16;  // row m0 + i, ranks r0 + j and r0 + j + 16
+  for (int r0 = 0; r0 < R; r0 += kGemvXaRanks) {
+    float acc0 = 0.f, acc1 = 0.f;
+    for (int s = 0; s < sub; ++s) {
+      const int kb = (g * sub + s) * kPrepRows, kn = min(kPrepRows, K - kb);
+      if (kn <= 0) break;
+      __syncthreads();  // the previous slab is done with xt and at
+#pragma unroll 8
+      for (int it = 0; it < kGemvXaRanks * kPrepRows / kPrepThreads; ++it) {
+        const int p = tid + it * kPrepThreads, k = p / kGemvXaRanks, r = r0 + p % kGemvXaRanks;
+        const bool in = k < kn && r < R;
+        cp_async4(&at[k][p % kGemvXaRanks], in ? a + (size_t)(kb + k) * R + r : a, in);
+      }
+      cp_async_commit();
+#pragma unroll 4
+      for (int it = 0; it < kPrepRowTile * kPrepRows / kPrepThreads; ++it) {
+        const int p = tid + it * kPrepThreads, r = p / kPrepRows, k = p % kPrepRows;
+        const int m = m0 + r;
+        xt[r][k] = m < M && k < kn
+                       ? (float)quantize_s8(to_f32(x[(size_t)m * K + kb + k]), xs_s[r])
+                       : 0.f;
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll 4
+      for (int k = 0; k < kPrepRows; k += 4) {
+        const float4 xv = *reinterpret_cast<const float4*>(&xt[i][k]);
+        acc0 = fmaf(xv.x, at[k][j], acc0), acc1 = fmaf(xv.x, at[k][j + 16], acc1);
+        acc0 = fmaf(xv.y, at[k + 1][j], acc0), acc1 = fmaf(xv.y, at[k + 1][j + 16], acc1);
+        acc0 = fmaf(xv.z, at[k + 2][j], acc0), acc1 = fmaf(xv.z, at[k + 2][j + 16], acc1);
+        acc0 = fmaf(xv.w, at[k + 3][j], acc0), acc1 = fmaf(xv.w, at[k + 3][j + 16], acc1);
+      }
+    }
+    const int m = m0 + i;
+    float* dst = xa + ((size_t)g * M + m) * R + r0;
+    if (m < M && r0 + j < R) dst[j] = acc0;
+    if (m < M && r0 + j + 16 < R) dst[j + 16] = acc1;
+  }
+}
+
+// c += a (16x32 u8, row) x b (32x8 s8, col), s32 accumulators
+__device__ __forceinline__ void mma_u8s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 4 ints at p, of which the first `valid` exist (zeros for the rest),
+// bypassing L1: one 16-byte load where all 4 do and v4 (p 16-byte aligned)
+__device__ __forceinline__ int4 ldcg4i(const int* p, int valid, bool v4) {
+  if (v4 && valid >= 4) return __ldcg(reinterpret_cast<const int4*>(p));
+  int4 v = make_int4(0, 0, 0, 0);
+  if (valid > 0) v.x = __ldcg(p);
+  if (valid > 1) v.y = __ldcg(p + 1);
+  if (valid > 2) v.z = __ldcg(p + 2);
+  if (valid > 3) v.w = __ldcg(p + 3);
+  return v;
+}
+
+// The int8 body of the GEMV launcher in one launch, for x of type TX (f32
+// or bf16). It replaces the TPU kernel repro/kernels/dora_linear.py::
+// _kernel_int8 as dora_linear_gemv runs it, with the jnp helpers
+// _quantize_rows and recode_s8:
+//
+//     xs = max(max|x_row|, 1e-30) / 127,  xq = clip(rint(x / xs), +-127)
+//     Y  = gamma * (f32(xq @ (G+ - G-)) * xs * scale + ((xq @ A) * xs) @ B)
+//
+// What bounds it: the code stream, 2 bytes a weight (0.0308 ms a
+// qwen3-1.7b layer at M = 4 on an H100); the s8 x u8 MMAs are M operations
+// a code byte, far under the int8 tensor-core ridge. The design streams
+// the codes as the f32 tensor-core GEMV does and keeps every other cost
+// off that stream:
+// * Grid and order as dora_gemv_mma_kernel: the first XT G blocks (at
+//   most kGemvXaChunks) compute the X @ A partials on xq
+//   (gemv_xa_tile_int8) and count themselves in
+//   sem[0]; every other block (strip c, part p) writes its parts' raw
+//   int32 sums to ws[p], and the strip's last block (a ticket in
+//   sem[1 + c]) adds ws[0..parts) in part order (exact integers: the
+//   result does not depend on the split), and applies the epilogue in the
+//   reference's
+//   order: XA = the chunk partials summed in chunk order, times xs; then
+//   f32(acc) * xs * scale + XA @ B, times gamma, each product and sum
+//   rounded alone. The last strip resets sem[0].
+// * Row scales inside the launch: every block takes max |x| of the rows
+//   it needs, a warp a row, after it has issued its first stages of codes
+//   (xs_in null); max is order-free and the division IEEE, so every block
+//   gets the same bits. From autotune.GEMV_INT8_PRESCALE_ROWS rows, where
+//   every block reading all of x costs more than a pass of its own, the
+//   launcher runs row_scale_kernel first and the blocks read xs_in.
+// * Main loop: a kGemvMmaStages ring of 16-byte cp.async copies of both
+//   code slabs and the raw x slab. Each staged x slab is quantized once per
+//   block, into shared s8 words of xq and -xq (double-buffered: stage j + 1
+//   is quantized while stage j's MMAs run, one barrier a stage). Warp (wc,
+//   wk) takes columns 32 wc..+32 and the K half 32 wk..+32 of each stage;
+//   the K halves are added at the end. The MMA is mma.m16n8k32 u8 x s8 on
+//   the swapped product Y^T = W^T X^T: 16 output columns are its rows, 8
+//   rows of x its columns. Lane (g, t) reads one word (4 columns) of the
+//   code rows 4t + i and 16 + 4t + i (i < 4) of its K half and turns each
+//   group of 4 with transpose_4x4 into words of 4 consecutive K of one
+//   column: MMA row g takes column 4g + 2c and row g + 8 column 4g + 2c + 1
+//   of column tile c, the A fragment as it is. The B fragment is one
+//   32-bit shared load of 4 consecutive K of one xq row. G+ is multiplied
+//   by xq and G- by -xq into one s32 accumulator: no s8 copy of the codes
+//   and no float weight reaches memory.
+// * Rows of x past M are zeros, with scale 1; ragged K and N (VEC false:
+//   K not a multiple of the values in 16 bytes, N % 16, unaligned
+//   operands) are staged by masked, zero-filling scalar loads.
+template <int NT, bool VEC, typename TX>
+__global__ void __launch_bounds__(kGemvThreads, NT < 8 ? 2 : 1)
+    dora_gemv_int8_kernel(const TX* __restrict__ x, const float* __restrict__ xs_in,
+                          const float* __restrict__ a, const uint8_t* __restrict__ gp,
+                          const uint8_t* __restrict__ gn, const float* __restrict__ scale,
+                          const float* __restrict__ b, const float* __restrict__ gamma,
+                          float* __restrict__ out, int* __restrict__ ws, float* __restrict__ xa,
+                          int* __restrict__ sem, int M, int K, int N, int R, int parts, int G,
+                          int sub) {
+  using L = GemvInt8Smem<NT, TX>;
+  constexpr int EPC = 16 / (int)sizeof(TX);  // x values a 16-byte copy
+  constexpr int XW = kGemvMmaK * (int)sizeof(TX);  // bytes of a raw x row of a stage
+  using XBits = typename std::conditional<sizeof(TX) == 2, uint16_t, uint32_t>::type;
+  extern __shared__ __align__(16) float smem_f[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  __shared__ float xs_s[8 * NT > kPrepRowTile ? 8 * NT : kPrepRowTile];
+  __shared__ int last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int XT = (M + kPrepRowTile - 1) / kPrepRowTile, xa_blocks = XT * G;
+
+  if ((int)blockIdx.x < xa_blocks) {
+    const int m0 = (blockIdx.x % XT) * kPrepRowTile;
+    if (xs_in != nullptr) {
+      if (tid < kPrepRowTile) xs_s[tid] = m0 + tid < M ? xs_in[m0 + tid] : 1.f;
+    } else {
+      gemv_row_scales<VEC>(x, M, K, m0, kPrepRowTile, xs_s);
+    }
+    __syncthreads();
+    gemv_xa_tile_int8(x, xs_s, a, xa, M, K, R, m0, blockIdx.x / XT, sub,
+                      reinterpret_cast<float(*)[kPrepRows + 4]>(smem),
+                      reinterpret_cast<float(*)[kGemvXaRanks]>(
+                          smem + 4 * kPrepRowTile * (kPrepRows + 4)));
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) atomicAdd(sem, 1);
+    return;
+  }
+
+  const int blk = blockIdx.x - xa_blocks;
+  const int part = blk % parts, strip = blk / parts;
+  const int strips = (gridDim.x - xa_blocks) / parts;
+  const int n0 = strip * kGemvMmaN;
+  const int stages = (K + kGemvMmaK - 1) / kGemvMmaK;
+  const int kb = part * stages / parts * kGemvMmaK;
+  const int ke = min(K, (part + 1) * stages / parts * kGemvMmaK);
+  const int tiles = (ke - kb + kGemvMmaK - 1) / kGemvMmaK;
+  const int wc = warp & 3, wk = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  auto xq_of = [&](int i) {
+    return reinterpret_cast<uint32_t*>(smem + L::RING) + i * 2 * L::XQ;
+  };
+
+  // stage tile j of this part (an empty group past the last tile); rows
+  // past the part's end, columns past N and rows of x past M are zeros
+  auto load_tile = [&](int j) {
+    if (j < tiles) {
+      unsigned char* st = smem + (j % kGemvMmaStages) * L::STAGE;
+      const int k0 = kb + j * kGemvMmaK;
+#pragma unroll
+      for (int it = 0; it < kGemvMmaK * (kGemvMmaN / 16) / kGemvThreads; ++it) {
+        const int q = tid + it * kGemvThreads;
+        const int r = q / (kGemvMmaN / 16), c = q % (kGemvMmaN / 16);
+        const int k = k0 + r, n = n0 + c * 16;
+        const size_t off = (size_t)k * N + n;
+        unsigned char* dp = st + code_chunk(r, c);
+        if (VEC) {
+          const bool in = k < ke && n < N;
+          cp_async16(dp, in ? gp + off : gp, in);
+          cp_async16(dp + L::C, in ? gn + off : gn, in);
+        } else {
+          uint32_t pw[4] = {0u, 0u, 0u, 0u}, qw[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            if (k < ke && n + i < N) {
+              pw[i / 4] |= (uint32_t)gp[off + i] << (8 * (i % 4));
+              qw[i / 4] |= (uint32_t)gn[off + i] << (8 * (i % 4));
+            }
+          *reinterpret_cast<uint4*>(dp) = make_uint4(pw[0], pw[1], pw[2], pw[3]);
+          *reinterpret_cast<uint4*>(dp + L::C) = make_uint4(qw[0], qw[1], qw[2], qw[3]);
+        }
+      }
+      for (int q = tid; q < 8 * NT * (kGemvMmaK / EPC); q += kGemvThreads) {
+        const int rho = q / (kGemvMmaK / EPC), c = q % (kGemvMmaK / EPC);
+        const int k = k0 + c * EPC;
+        unsigned char* dp = st + 2 * L::C + rho * XW + c * 16;
+        const XBits* src = reinterpret_cast<const XBits*>(x) + (size_t)rho * K + k;
+        if (VEC) {
+          const bool in = rho < M && k < ke;
+          cp_async16(dp, in ? src : reinterpret_cast<const XBits*>(x), in);
+        } else {
+          __align__(16) XBits v[EPC];
+#pragma unroll
+          for (int i = 0; i < EPC; ++i) v[i] = (rho < M && k + i < ke) ? src[i] : 0;
+          *reinterpret_cast<uint4*>(dp) = *reinterpret_cast<const uint4*>(v);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // tile j's x slab -> xq and -xq words in buffer j & 1, once per block;
+  // rows past M are zero words without a division (an IEEE division of 0
+  // takes the slow path, which cost up to a third of the kernel at M = 1)
+  auto quantize = [&](int j) {
+    const unsigned char* xr = smem + (j % kGemvMmaStages) * L::STAGE + 2 * L::C;
+    uint32_t* qb = xq_of(j & 1);
+    for (int q = tid; q < 8 * NT * (kGemvMmaK / 4); q += kGemvThreads) {
+      const int rho = q / (kGemvMmaK / 4), w = q % (kGemvMmaK / 4);
+      uint32_t word = 0u;
+      if (rho < M) {
+        float v[4];
+        x4_f32(reinterpret_cast<const TX*>(xr + rho * XW) + 4 * w, v);
+        const float s = xs_s[rho];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) word |= ((uint32_t)quantize_s8(v[e], s) & 0xffu) << (8 * e);
+      }
+      qb[rho * kXqStride + w] = word;
+      qb[L::XQ + rho * kXqStride + w] = neg_s8x4(word);
+    }
+  };
+
+  int acc[2][NT][4];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0;
+
+  // the MMAs of this warp's K half of tile j
+  auto mma_tile = [&](int j) {
+    const unsigned char* st = smem + (j % kGemvMmaStages) * L::STAGE;
+    // this lane's word of a code row: (r >> 2) & 3 == t for its rows
+    const int cw = (((2 * wc + (g >> 2)) ^ (t << 1)) << 4) + (g & 3) * 4;
+    uint4 pa[2], na[2];  // [K 4t.. or 16 + 4t..] words of 4 K of columns 4g..4g+3
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r0 = 32 * wk + 16 * h + 4 * t;
+      uint32_t p[4], q[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = *reinterpret_cast<const uint32_t*>(st + (r0 + i) * kGemvMmaN + cw);
+        q[i] = *reinterpret_cast<const uint32_t*>(st + L::C + (r0 + i) * kGemvMmaN + cw);
+      }
+      pa[h] = transpose_4x4(p);
+      na[h] = transpose_4x4(q);
+    }
+    const uint32_t* qb = xq_of(j & 1) + g * kXqStride + 8 * wk + t;
+#pragma unroll
+    for (int jt = 0; jt < NT; ++jt) {
+      const uint32_t* xr = qb + 8 * jt * kXqStride;
+      const uint32_t b0 = xr[0], b1 = xr[4], nb0 = xr[L::XQ], nb1 = xr[L::XQ + 4];
+      mma_u8s8(acc[0][jt], pa[0].x, pa[0].y, pa[1].x, pa[1].y, b0, b1);
+      mma_u8s8(acc[1][jt], pa[0].z, pa[0].w, pa[1].z, pa[1].w, b0, b1);
+      mma_u8s8(acc[0][jt], na[0].x, na[0].y, na[1].x, na[1].y, nb0, nb1);
+      mma_u8s8(acc[1][jt], na[0].z, na[0].w, na[1].z, na[1].w, nb0, nb1);
+    }
+  };
+
+#pragma unroll
+  for (int j = 0; j < kGemvMmaStages - 1; ++j) load_tile(j);
+  // the row scales while the first stages land
+  if (xs_in != nullptr) {
+    if (tid < 8 * NT) xs_s[tid] = tid < M ? xs_in[tid] : 1.f;
+  } else {
+    gemv_row_scales<VEC>(x, M, K, 0, 8 * NT, xs_s);
+  }
+  cp_async_wait<kGemvMmaStages - 2>();  // tile 0 landed
+  __syncthreads();
+  quantize(0);
+
+  // One barrier per tile: tile j's MMAs and tile j + 1's quantization use
+  // different xq buffers, so the warps interleave them.
+  for (int j = 0; j < tiles; ++j) {
+    cp_async_wait<kGemvMmaStages - 3>();  // tile j + 1 landed
+    // xq[j & 1] is complete, and every warp is done with tile j - 1: its
+    // stage slot and xq[(j + 1) & 1] are free
+    __syncthreads();
+    load_tile(j + kGemvMmaStages - 1);
+    if (j + 1 < tiles) quantize(j + 1);
+    mma_tile(j);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the second K half's sums onto the first, then this part's raw sums to
+  // ws[part]: lane (g, t) holds columns 4g..4g+3 of its warp's 32 for rows
+  // 8 jt + 2t (+1)
+  int* red = reinterpret_cast<int*>(smem_f);  // [warp wc][c][jt][e][lane]
+  if (wk == 1) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) red[(((wc * 2 + c) * NT + j) * 4 + e) * 32 + lane] = acc[c][j][e];
+  }
+  __syncthreads();
+  if (wk == 0) {
+    const int nc = n0 + 32 * wc + 4 * g;
+    int* wp = ws + (size_t)part * M * N;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int m = 8 * j + 2 * t + u;
+        int v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = e >> 1, i = ((e & 1) << 1) + u;  // column 4g + e
+          v[e] = acc[c][j][i] + red[(((wc * 2 + c) * NT + j) * 4 + i) * 32 + lane];
+        }
+        if (m >= M) continue;
+        int* row = wp + (size_t)m * N;
+        if (N % 4 == 0 && nc < N) {
+          *reinterpret_cast<int4*>(row + nc) = make_int4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (nc + e < N) row[nc + e] = v[e];
+        }
+      }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(sem + 1 + strip, 1) == parts - 1;
+    if (last) atomicExch(sem + 1 + strip, 0);  // every part of the strip has counted
+  }
+  __syncthreads();
+  if (!last) return;
+
+  // The strip's last block. Thread i takes the groups of 4 columns i,
+  // i + 256, ... (row m, columns 4 (i % 32)..+3). B for a pass of
+  // kGemvMmaRanks ranks, scale and gamma of the strip are copied
+  // asynchronously while the parts' raw sums are added, exact integers
+  // (as many loads a thread in flight as dora_gemv_mma_kernel: more, up to
+  // 16 sums and 24 partials, were no faster at any M, and spilled from
+  // NT = 2 up; tools/gemv_costs.py); then, once every X @ A block has
+  // written, XA for those ranks: its chunk partials added in chunk order,
+  // times xs.
+  float* b_s = smem_f;                             // [kGemvMmaRanks][kGemvMmaN]
+  float* sg_s = b_s + kGemvMmaRanks * kGemvMmaN;   // scale[128], gamma[128]
+  float* xa_s = sg_s + 2 * kGemvMmaN;              // [M][kGemvMmaRanks]
+  constexpr int PB = NT < kGemvSumsInFlight ? kGemvSumsInFlight / NT : 1;
+  const bool v4 = N % 4 == 0;  // ws and out rows: 16-byte aligned groups
+  int seen = 0;
+  if (tid == 0) seen = *reinterpret_cast<volatile int*>(sem);
+  auto stage_b = [&](int r0) {
+#pragma unroll
+    for (int it = 0; it < kGemvMmaRanks * kGemvMmaN / kGemvThreads; ++it) {
+      const int p = tid + it * kGemvThreads;
+      const int r = r0 + p / kGemvMmaN, n = n0 + p % kGemvMmaN;
+      const bool in = r < R && n < N;
+      cp_async4(b_s + p, in ? b + (size_t)r * N + n : b, in);
+    }
+    cp_async_commit();
+  };
+  stage_b(0);
+  {
+    const int n = n0 + tid % kGemvMmaN;
+    const bool in = n < N;
+    cp_async4(sg_s + tid, in ? (tid < kGemvMmaN ? scale : gamma) + n : scale, in);
+    cp_async_commit();
+  }
+  int4 y[NT];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) y[i] = make_int4(0, 0, 0, 0);
+  for (int q0 = 0; q0 < parts; q0 += PB) {
+    int4 v[NT][PB];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int it = tid + i * kGemvThreads, m = it / 32, n = n0 + it % 32 * 4;
+#pragma unroll
+      for (int u = 0; u < PB; ++u)
+        v[i][u] = ldcg4i(ws + ((size_t)(q0 + u) * M + m) * N + n,
+                         m < M && q0 + u < parts ? N - n : 0, v4);
+    }
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int u = 0; u < PB; ++u)
+        if (q0 + u < parts)
+          y[i].x += v[i][u].x, y[i].y += v[i][u].y, y[i].z += v[i][u].z, y[i].w += v[i][u].w;
+  }
+  if (tid == 0 && seen < xa_blocks) {
+    const volatile int* count = sem;
+    while (*count < xa_blocks) __nanosleep(128);
+  }
+  __syncthreads();
+  __threadfence();
+  auto stage_xa = [&](int r0) {
+    for (int i = 0; i < NT; ++i) {  // M * kGemvMmaRanks <= NT * kGemvThreads
+      const int p = tid + i * kGemvThreads;
+      const int m = p / kGemvMmaRanks, r = r0 + p % kGemvMmaRanks;
+      float sum = 0.f;
+      for (int q0 = 0; q0 < G; q0 += kGemvXaInFlight) {
+        float v[kGemvXaInFlight];
+#pragma unroll
+        for (int q = 0; q < kGemvXaInFlight; ++q)
+          v[q] = m < M && r < R && q0 + q < G
+                     ? __ldcg(xa + ((size_t)(q0 + q) * M + m) * R + r) : 0.f;
+#pragma unroll
+        for (int q = 0; q < kGemvXaInFlight; ++q)
+          if (q0 + q < G) sum += v[q];
+      }
+      if (m < M) xa_s[p] = __fmul_rn(sum, xs_s[m]);
+    }
+  };
+  stage_xa(0);
+  float4 low[NT];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) low[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int r0 = 0; r0 < R; r0 += kGemvMmaRanks) {
+    if (r0 > 0) {
+      stage_b(r0);
+      stage_xa(r0);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    const int rs = min(kGemvMmaRanks, R - r0);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int it = tid + i * kGemvThreads, m = it / 32, c = it % 32 * 4;
+      if (m >= M) continue;
+      for (int r = 0; r < rs; ++r) {
+        const float xv = xa_s[m * kGemvMmaRanks + r];
+        const float4 bv = *reinterpret_cast<const float4*>(b_s + r * kGemvMmaN + c);
+        low[i].x = fmaf(xv, bv.x, low[i].x), low[i].y = fmaf(xv, bv.y, low[i].y);
+        low[i].z = fmaf(xv, bv.z, low[i].z), low[i].w = fmaf(xv, bv.w, low[i].w);
+      }
+    }
+    __syncthreads();  // b_s and xa_s are free for the next ranks
+  }
+  // gamma * (f32(acc) * xs * scale + low), each operation rounded alone
+  auto epilogue = [&](int sum, float s, int c, float lo) {
+    const float v = __fmul_rn(__fmul_rn((float)sum, s), sg_s[c]);
+    return __fmul_rn(__fadd_rn(v, lo), sg_s[kGemvMmaN + c]);
+  };
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int it = tid + i * kGemvThreads, m = it / 32, c = it % 32 * 4, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    const float s = xs_s[m];
+    const float o[4] = {epilogue(y[i].x, s, c, low[i].x), epilogue(y[i].y, s, c + 1, low[i].y),
+                        epilogue(y[i].z, s, c + 2, low[i].z),
+                        epilogue(y[i].w, s, c + 3, low[i].w)};
+    float* dst = out + (size_t)m * N + n;
+    if (v4 && n + 3 < N) {
+      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n + e < N) dst[e] = o[e];
+    }
+  }
+  // every XA read of this block is done: the last strip resets sem[0]
+  if (tid == 0 && atomicAdd(sem, 1) == xa_blocks + strips - 1) atomicExch(sem, 0);
+}
+
+// ---------------------------------------------------------------------------
 // host-side launch helpers
 // ---------------------------------------------------------------------------
 
@@ -1585,37 +2115,28 @@ bool aligned(const void* p, int bytes) {
 int prep_chunks(int K) { return (K + kPrepRows - 1) / kPrepRows; }
 
 // the operands of one call, as the main kernels take them: x the
-// activations (f32 body, tiled launcher) or xt the GEMV's transposed
-// operand (f32 X^T or int32 Xq^T), xq/xs the int8 prologue's outputs
+// activations, xt the SIMT GEMV's X^T, xq/xs the int8 body's s8 x (tiled
+// launcher) and row scales
 struct Ops {
   const void *x, *xt, *xq, *xs, *gp, *gn, *scale, *b, *gamma, *xa;
   void* out;
   int M, K, N, R;
 };
 
-// the prologue of the SIMT GEMV body (xt: X^T or Xq^T) or of the SIMT tiled
-// body (xt null, f32 only); the f32 body takes f32 x, the int8 body either
-cudaError_t launch_prep(const void* x, bool x_bf16, const void* a, void* xa, void* xt,
-                        void* xs, int M, int K, int R, int rows, bool int8, cudaStream_t s) {
+// the prologue of the SIMT bodies (f32 x, f32 body): the XA partials and,
+// for the GEMV (xt not null), X^T
+cudaError_t launch_prep(const void* x, const void* a, void* xa, void* xt, int M, int K, int R,
+                        int rows, cudaStream_t s) {
   const dim3 grid(xt != nullptr ? (M > rows ? M : rows) : M, prep_chunks(K));
-  if (!int8)
-    prep_kernel<<<grid, kPrepThreads, 0, s>>>((const float*)x, (const float*)a, (float*)xa,
-                                               (float*)xt, M, K, R, rows);
-  else if (x_bf16)
-    prep_int8_kernel<__nv_bfloat16><<<grid, kPrepThreads, 0, s>>>(
-        (const __nv_bfloat16*)x, (const float*)a, (float*)xa, (float*)xs, (int*)xt, M, K, R,
-        rows);
-  else
-    prep_int8_kernel<float><<<grid, kPrepThreads, 0, s>>>(
-        (const float*)x, (const float*)a, (float*)xa, (float*)xs, (int*)xt, M, K, R, rows);
+  prep_kernel<<<grid, kPrepThreads, 0, s>>>((const float*)x, (const float*)a, (float*)xa,
+                                             (float*)xt, M, K, R, rows);
   return cudaGetLastError();
 }
 
-template <int MT, int CPT, int COLS, int U, bool VEC, bool INT8>
+template <int MT, int CPT, int COLS, int U, bool VEC>
 cudaError_t launch_gemv_main(const Ops& o, cudaStream_t s) {
-  using T = typename Num<INT8>::T;
   const size_t smem = sizeof(float) * ((size_t)MT * COLS + (size_t)o.M * o.R);
-  auto kernel = dora_gemv_kernel<MT, CPT, COLS, U, VEC, INT8>;
+  auto kernel = dora_gemv_kernel<MT, CPT, COLS, U, VEC>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1623,9 +2144,9 @@ cudaError_t launch_gemv_main(const Ops& o, cudaStream_t s) {
   }
   const dim3 grid((o.N + COLS - 1) / COLS);
   kernel<<<grid, kGemvThreads, smem, s>>>(
-      (const T*)o.xt, (const float*)o.xs, (const uint8_t*)o.gp, (const uint8_t*)o.gn,
-      (const float*)o.scale, (const float*)o.b, (const float*)o.gamma,
-      (const float*)o.xa, (float*)o.out, o.M, o.K, o.N, o.R, prep_chunks(o.K));
+      (const float*)o.xt, (const uint8_t*)o.gp, (const uint8_t*)o.gn, (const float*)o.scale,
+      (const float*)o.b, (const float*)o.gamma, (const float*)o.xa, (float*)o.out, o.M, o.K,
+      o.N, o.R, prep_chunks(o.K));
   return cudaGetLastError();
 }
 
@@ -1634,25 +2155,24 @@ cudaError_t launch_gemv_main(const Ops& o, cudaStream_t s) {
 // (admission chunks) the work per code byte grows, so the strips narrow
 // to 16 columns (twice the blocks, more SMs busy) with 8 rows in flight
 // to keep the loads ahead of the arithmetic.
-template <int MT, int CPT, bool INT8>
+template <int MT, int CPT>
 cudaError_t gemv_vec(const Ops& o, cudaStream_t s) {
   constexpr int COLS = MT <= 4 ? 32 : 16;
   constexpr int U = MT <= 4 ? 4 : 8;
   const bool vec = o.N % CPT == 0 && aligned(o.gp, CPT) && aligned(o.gn, CPT);
-  return vec ? launch_gemv_main<MT, CPT, COLS, U, true, INT8>(o, s)
-             : launch_gemv_main<MT, CPT, COLS, U, false, INT8>(o, s);
+  return vec ? launch_gemv_main<MT, CPT, COLS, U, true>(o, s)
+             : launch_gemv_main<MT, CPT, COLS, U, false>(o, s);
 }
 
-template <bool INT8>
 cudaError_t gemv_rows(int rows, const Ops& o, cudaStream_t s) {
   switch (rows) {
-    case 1: return gemv_vec<1, 16, INT8>(o, s);
-    case 2: return gemv_vec<2, 16, INT8>(o, s);
-    case 4: return gemv_vec<4, 16, INT8>(o, s);
-    case 8: return gemv_vec<8, 8, INT8>(o, s);
-    case 16: return gemv_vec<16, 4, INT8>(o, s);
-    case 32: return gemv_vec<32, 2, INT8>(o, s);
-    case 64: return gemv_vec<64, 1, INT8>(o, s);
+    case 1: return gemv_vec<1, 16>(o, s);
+    case 2: return gemv_vec<2, 16>(o, s);
+    case 4: return gemv_vec<4, 16>(o, s);
+    case 8: return gemv_vec<8, 8>(o, s);
+    case 16: return gemv_vec<16, 4>(o, s);
+    case 32: return gemv_vec<32, 2>(o, s);
+    case 64: return gemv_vec<64, 1>(o, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1678,6 +2198,51 @@ cudaError_t launch_gemv_mma(const void* x, const void* a, const Ops& o, void* ws
       (const float*)o.scale, (const float*)o.b, (const float*)o.gamma, (float*)o.out,
       (float*)ws, (float*)o.xa, (int*)sem, o.M, o.K, o.N, o.R, parts, G, sub);
   return cudaGetLastError();
+}
+
+// the int8 tensor-core GEMV for x of type TX, NT tiles of 8 rows: one
+// launch (the X @ A blocks first, as launch_gemv_mma's), after the row
+// scales' own pass where `prescale`
+template <int NT, typename TX>
+cudaError_t launch_gemv_int8(const void* a, const Ops& o, void* ws, void* sem, int parts,
+                             bool prescale, cudaStream_t s) {
+  constexpr int smem = GemvInt8Smem<NT, TX>::BYTES;
+  const bool vec = o.N % 16 == 0 && aligned(o.gp, 16) && aligned(o.gn, 16) &&
+                   o.K % (16 / (int)sizeof(TX)) == 0 && aligned(o.x, 16);
+  auto kernel = vec ? dora_gemv_int8_kernel<NT, true, TX> : dora_gemv_int8_kernel<NT, false, TX>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  if (prescale) {
+    row_scale_kernel<TX><<<o.M, kPrepThreads, 0, s>>>((const TX*)o.x, (float*)o.xs, o.K);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  // at most kGemvXaChunks X @ A blocks in all (chunks of K times tiles of
+  // 16 rows of x), so that from 32 rows up they leave the wave to the codes
+  const int XT = (o.M + kPrepRowTile - 1) / kPrepRowTile;
+  const int slabs = prep_chunks(o.K), chunks = kGemvXaChunks / XT;
+  const int sub = (slabs + chunks - 1) / chunks;  // slabs per chunk
+  const int G = (slabs + sub - 1) / sub;
+  const int strips = (o.N + kGemvMmaN - 1) / kGemvMmaN;
+  kernel<<<XT * G + strips * parts, kGemvThreads, smem, s>>>(
+      (const TX*)o.x, prescale ? (const float*)o.xs : nullptr, (const float*)a,
+      (const uint8_t*)o.gp, (const uint8_t*)o.gn, (const float*)o.scale, (const float*)o.b,
+      (const float*)o.gamma, (float*)o.out, (int*)ws, (float*)o.xa, (int*)sem, o.M, o.K, o.N,
+      o.R, parts, G, sub);
+  return cudaGetLastError();
+}
+
+template <typename TX>
+cudaError_t gemv_int8_rows(int rows, const void* a, const Ops& o, void* ws, void* sem,
+                           int parts, bool prescale, cudaStream_t s) {
+  switch (rows) {
+    case 1: case 2: case 4: case 8:
+      return launch_gemv_int8<1, TX>(a, o, ws, sem, parts, prescale, s);
+    case 16: return launch_gemv_int8<2, TX>(a, o, ws, sem, parts, prescale, s);
+    case 32: return launch_gemv_int8<4, TX>(a, o, ws, sem, parts, prescale, s);
+    case 64: return launch_gemv_int8<8, TX>(a, o, ws, sem, parts, prescale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // the SIMT tiled body (f32 x, f32 body), after its prologue
@@ -1781,28 +2346,26 @@ extern "C" {
 
 // x: (M, K) f32 (x_bf16 == 0) or bf16; gp, gn: (K, N) u8; scale, gamma:
 // (N,) f32; a: (K, R) f32; b: (R, N) f32; out: (M, N) f32; xa: f32
-// scratch of rimc_xa_scratch(M, K, R) floats; int8: the int8 body, which
-// also takes xs, an (M,) f32 scratch for the row scales. All contiguous,
-// on the current device, 1 <= R <= 256.
+// scratch of rimc_xa_scratch(M, K, R) floats; the int8 body also takes xs,
+// an (M,) f32 scratch for the row scales. All contiguous, on the current
+// device, 1 <= R <= 256.
 
 // (the tensor-core body keeps XA itself after the partials)
 int rimc_xa_scratch(int M, int K, int R) { return (prep_chunks(K) + 1) * M * R; }
 
-// xt: (K, rows) scratch of 4-byte elements (f32 X^T, or int32 Xq^T for
-// the int8 body); rows: the row bucket, a power of two in [M, 64]
-int rimc_dora_linear_gemv(const void* x, int x_bf16, const void* gp,
-                          const void* gn, const void* scale, const void* a,
-                          const void* b, const void* gamma, void* out, void* xa,
-                          void* xt, void* xs, int M, int K, int N, int R, int rows,
-                          int int8, void* stream) {
-  if (M < 1 || M > rows || K < 1 || N < 1 || R < 1 || R > kPrepThreads ||
-      (int8 && xs == nullptr) || (x_bf16 && !int8))
+// The SIMT GEMV, f32 x with the f32 body: x (M, K) f32; xt: (K, rows) f32
+// scratch for X^T; rows: the row bucket, a power of two in [M, 64]
+int rimc_dora_linear_gemv(const void* x, const void* gp, const void* gn, const void* scale,
+                          const void* a, const void* b, const void* gamma, void* out,
+                          void* xa, void* xt, int M, int K, int N, int R, int rows,
+                          void* stream) {
+  if (M < 1 || M > rows || K < 1 || N < 1 || R < 1 || R > kPrepThreads)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = launch_prep(x, x_bf16, a, xa, xt, xs, M, K, R, rows, int8, s);
+  cudaError_t e = launch_prep(x, a, xa, xt, M, K, R, rows, s);
   if (e != cudaSuccess) return (int)e;
-  const Ops o{x, xt, nullptr, xs, gp, gn, scale, b, gamma, xa, out, M, K, N, R};
-  return (int)(int8 ? gemv_rows<true>(rows, o, s) : gemv_rows<false>(rows, o, s));
+  const Ops o{x, xt, nullptr, nullptr, gp, gn, scale, b, gamma, xa, out, M, K, N, R};
+  return (int)gemv_rows(rows, o, s);
 }
 
 // The f32 body with bf16 x: x (M, K) bf16; xa: rimc_xa_scratch(M, K, R)
@@ -1841,6 +2404,28 @@ int rimc_dora_linear_gemv_mma(const void* x, const void* gp, const void* gn,
   }
 }
 
+// The int8 body: x (M, K) f32 (x_bf16 == 0) or bf16; xa: rimc_xa_scratch(M,
+// K, R) floats (the Xq @ A partials); xs: (M,) f32 scratch for the row
+// scales, written only where prescale (a pass before the kernel, which
+// then reads them; else every block takes them itself); ws: a (parts, M, N)
+// int32 scratch; sem: rimc_gemv_mma_sems(N) ints, all zero, which the
+// launch leaves all zero (launches sharing sem must not overlap); rows and
+// parts as for rimc_dora_linear_gemv_mma (autotune.gemv_plan(m, n, k,
+// "int8")).
+int rimc_dora_linear_gemv_int8(const void* x, int x_bf16, const void* gp, const void* gn,
+                               const void* scale, const void* a, const void* b,
+                               const void* gamma, void* out, void* xa, void* xs, void* ws,
+                               void* sem, int M, int K, int N, int R, int rows, int parts,
+                               int prescale, void* stream) {
+  if (M < 1 || M > rows || K < 1 || N < 1 || R < 1 || R > kPrepThreads || parts < 1 ||
+      parts > (K + kGemvMmaK - 1) / kGemvMmaK || (prescale && xs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Ops o{x, nullptr, nullptr, xs, gp, gn, scale, b, gamma, xa, out, M, K, N, R};
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(x_bf16 ? gemv_int8_rows<__nv_bfloat16>(rows, a, o, ws, sem, parts, prescale, s)
+                      : gemv_int8_rows<float>(rows, a, o, ws, sem, parts, prescale, s));
+}
+
 // xq: (M, K) s8 scratch for the int8 body (null for f32). The int8 body,
 // and the f32 body with bf16 x, run a tensor-core body with bm x kMmaN
 // tiles (bm 64 or 128) and K split into parts of k_split
@@ -1859,7 +2444,7 @@ int rimc_dora_linear_tiled(const void* x, int x_bf16, const void* gp,
   cudaStream_t s = (cudaStream_t)stream;
   const Ops o{x, nullptr, xq, xs, gp, gn, scale, b, gamma, xa, out, M, K, N, R};
   if (int8 || x_bf16) return (int)launch_mma(o, a, x_bf16, int8, bm, k_split, ws, s);
-  cudaError_t e = launch_prep(x, false, a, xa, nullptr, nullptr, M, K, R, 0, false, s);
+  cudaError_t e = launch_prep(x, a, xa, nullptr, M, K, R, 0, s);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_tiled(o, s);
 }

@@ -8,9 +8,11 @@ Port of ``repro/kernels/dora_linear.py``: the source is
 ``csrc/dora_linear.cu``, its note says what bounds it on the card.
 
 * ``dora_linear_gemv`` — decode-shaped launcher, ``M <= GEMV_MAX_M``; the
-  f32 body with bf16 x runs on the tensor cores (``mma.sync`` bf16) in one
-  launch, with K split into the parts ``autotune.gemv_plan`` says; f32 x
-  and the int8 body run a SIMT body behind a prologue.
+  f32 body with bf16 x and the int8 body with any x run on the tensor
+  cores (``mma.sync`` bf16 or u8 x s8) in one launch each, with K split
+  into the parts ``autotune.gemv_plan`` says (the int8 body after a pass
+  for its row scales from ``GEMV_INT8_PRESCALE_ROWS`` rows); f32 x with
+  the f32 body runs a SIMT body behind a prologue.
 * ``dora_linear`` — prefill-shaped launcher, tiled over M and N; the
   int8 body, and the f32 body with bf16 x, run on the tensor cores
   (``mma.sync`` s8 x u8 or bf16), with tiles and K splits from
@@ -66,12 +68,14 @@ def reset_launch_counts() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     operands = [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
-    lib.rimc_dora_linear_gemv.argtypes = operands + [ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+    lib.rimc_dora_linear_gemv.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
     lib.rimc_dora_linear_gemv.restype = i32
     lib.rimc_dora_linear_tiled.argtypes = operands + [ptr, ptr, ptr] + [i32] * 7 + [ptr]
     lib.rimc_dora_linear_tiled.restype = i32
     lib.rimc_dora_linear_gemv_mma.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
     lib.rimc_dora_linear_gemv_mma.restype = i32
+    lib.rimc_dora_linear_gemv_int8.argtypes = operands + [ptr] * 3 + [i32] * 7 + [ptr]
+    lib.rimc_dora_linear_gemv_int8.restype = i32
     lib.rimc_xa_scratch.argtypes = [i32, i32, i32]
     lib.rimc_xa_scratch.restype = i32
     lib.rimc_gemv_mma_sems.argtypes = [i32]
@@ -84,7 +88,7 @@ LIB = CudaLibrary("dora_linear.cu", _bind)
 build = LIB.load
 build_info = LIB.info
 
-# the tensor-core GEMV's tickets (build.tickets), zeros that every launch
+# the tensor-core GEMVs' tickets (build.tickets), zeros that every launch
 # leaves as it found them: (capture id, tensor) per (device, stream)
 _SEMS: Dict[tuple, tuple] = {}
 
@@ -132,23 +136,30 @@ def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
     ptrs = [t.data_ptr() for t in (g_pos, g_neg, scale, a, b, gamma, out, xa)]
     head = [x.data_ptr(), int(x.dtype == torch.bfloat16)]
     xs_ptr = None if xs is None else xs.data_ptr()
-    if kind == "dora_linear_gemv" and not int8 and x.dtype == torch.bfloat16:
-        parts = autotune.gemv_plan(m, n, k)
-        # each K part's raw sums, added in part order by the strip's last block
-        ws = torch.empty((parts, m, n), **f32)
+    if kind == "dora_linear_gemv" and (int8 or x.dtype == torch.bfloat16):
+        parts = autotune.gemv_plan(m, n, k, accum)
+        # each K part's raw sums (f32, int32 for int8), added in part order
+        # by the strip's last block
+        ws = torch.empty((parts, m, n), dtype=torch.int32 if int8 else torch.float32,
+                         device=x.device)
         sem = tickets(_SEMS, lib.rimc_capture_id, x.device, stream,
                       lib.rimc_gemv_mma_sems(n))
-        err = lib.rimc_dora_linear_gemv_mma(
-            x.data_ptr(), *ptrs, ws.data_ptr(), sem.data_ptr(), m, k, n, r,
-            autotune.gemv_rows(m), parts, stream,
-        )
+        rows = autotune.gemv_rows(m)
+        if int8:
+            err = lib.rimc_dora_linear_gemv_int8(
+                *head, *ptrs, xs_ptr, ws.data_ptr(), sem.data_ptr(), m, k, n, r, rows,
+                parts, int(autotune.gemv_int8_prescale(m)), stream,
+            )
+        else:
+            err = lib.rimc_dora_linear_gemv_mma(
+                x.data_ptr(), *ptrs, ws.data_ptr(), sem.data_ptr(), m, k, n, r, rows, parts,
+                stream,
+            )
     elif kind == "dora_linear_gemv":
         rows = autotune.gemv_rows(m)
-        # X^T (f32) or Xq^T (int32), zero rows past M
-        xt = torch.empty((k, rows), dtype=torch.int32 if int8 else torch.float32,
-                         device=x.device)
+        xt = torch.empty((k, rows), **f32)  # X^T, zero rows past M
         err = lib.rimc_dora_linear_gemv(
-            *head, *ptrs, xt.data_ptr(), xs_ptr, m, k, n, r, rows, int(int8), stream
+            x.data_ptr(), *ptrs, xt.data_ptr(), m, k, n, r, rows, stream
         )
     else:
         xq = torch.empty((m, k), dtype=torch.int8, device=x.device) if int8 else None

@@ -9,7 +9,12 @@ full-width leaves and at ragged shapes:
 * its int8 body within 1e-4 of the output's absmax (the same row
   quantization and exact int32 sum; only f32 orders differ), bitwise on
   the exactness case (integer x with 127 in every row, scale = gamma = 1,
-  A = B = 0); the tiled launcher's int8 body (tensor cores, s8 x u8) at
+  A = B = 0); the GEMV launcher's int8 body (tensor cores, u8 x s8, one
+  launch with bf16 or f32 x at the decode tick) bitwise equal to itself
+  when launched twice, at the edges of its K split, under any plan (parts
+  of K, row scales in the launch or before it) and when replayed from
+  CUDA graphs, and bitwise on the exactness case where its plan splits K;
+  the tiled launcher's int8 body (tensor cores, s8 x u8) at
   the same tolerance for every tiled shape of the f32 one, bitwise equal
   to itself when launched twice, and bitwise on the exactness case where
   its plan splits K;
@@ -132,12 +137,16 @@ def _gemv_kernels(ops, accum):
 @pytest.mark.parametrize("dtype,accum,kernels", [
     (torch.bfloat16, "f32", ["dora_gemv_mma_kernel"]),
     (torch.float32, "f32", ["prep_kernel", "dora_gemv_kernel"]),
-    (torch.bfloat16, "int8", ["prep_int8_kernel", "dora_gemv_kernel"]),
+    (torch.bfloat16, "int8", ["dora_gemv_int8_kernel"]),
+    (torch.float32, "int8", ["dora_gemv_int8_kernel"]),
 ])
 def test_gemv_body_per_x_type(cuda, dtype, accum, kernels):
-    """bf16 x with the f32 body runs the tensor-core GEMV alone (one launch,
-    X @ A included); f32 x and the int8 body keep the SIMT body behind its
-    prologue; each call counts one launch."""
+    """At the decode tick (M = 4), bf16 x with the f32 body runs the
+    tensor-core GEMV alone (one launch, X @ A included), and so does the
+    int8 body with bf16 or f32 x (row scales in the launch too); f32 x
+    with the f32 body keeps the SIMT body behind its prologue; each call
+    counts one launch."""
+    assert not autotune.gemv_int8_prescale(4)
     ops = operands(4, 2048, 2048, 8, cuda, dtype=dtype)
     names = _gemv_kernels(ops, accum)
     if not names:
@@ -147,6 +156,109 @@ def test_gemv_body_per_x_type(cuda, dtype, accum, kernels):
     K.dora_linear_gemv(*ops, accum=accum)
     assert K.launch_counts()[K.counter("dora_linear_gemv", accum)] == 1
     assert sum(K.launch_counts().values()) == 1
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64])
+def test_int8_gemv_prescale_runs_its_pass_first(cuda, m):
+    """From GEMV_INT8_PRESCALE_ROWS rows the int8 GEMV runs the row-scale
+    pass, then its kernel; below, the kernel alone."""
+    names = _gemv_kernels(operands(m, 2048, 2048, 8, cuda), "int8")
+    if not names:
+        pytest.skip("the profiler recorded no device activity")
+    pre = ["row_scale_kernel"] if autotune.gemv_int8_prescale(m) else []
+    assert names == pre + ["dora_gemv_int8_kernel"]
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("leaf", LEAVES, ids=[lf[0] for lf in LEAVES])
+def test_int8_tensor_core_gemv_is_bitwise_repeatable(cuda, leaf, m):
+    _, k, n, r = leaf
+    ops = operands(m, k, n, r, cuda, seed=m + 1)
+    assert torch.equal(K.dora_linear_gemv(*ops, accum="int8"),
+                       K.dora_linear_gemv(*ops, accum="int8"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GEMV_EDGES)
+def test_int8_tensor_core_gemv_k_split_edges(cuda, shape, dtype):
+    m, k, n, r = shape
+    ops = operands(m, k, n, r, cuda, dtype=dtype, seed=k + n)
+    _check_int8(K.dora_linear_gemv, ops)
+    assert torch.equal(K.dora_linear_gemv(*ops, accum="int8"),
+                       K.dora_linear_gemv(*ops, accum="int8"))
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 6144, 2048), (32, 2048, 4096), (64, 512, 300)])
+def test_int8_gemv_exactness_with_split_k(cuda, m, k, n):
+    assert autotune.gemv_plan(m, n, k, "int8") > 1
+    ops = _exact_int8(m, k, n, cuda)
+    assert torch.equal(K.dora_linear_gemv(*ops, accum="int8"), ref.dora_linear_int8_ref(*ops))
+
+
+@pytest.mark.parametrize("shape", [(4, 2048, 4096, 24), (4, 6144, 2048, 8), (32, 2048, 2048, 8),
+                                   (17, 1000, 999, 3), (1, 300, 130, 1)])
+def test_int8_gemv_result_is_independent_of_the_plan(cuda, shape, monkeypatch):
+    """Parts of K, and row scales taken inside the launch or by a pass
+    before it, give the same bits: the int32 sums are exact and the row
+    scales the same in every block."""
+    m, k, n, r = shape
+    ops = operands(m, k, n, r, cuda, seed=k)
+    want = K.dora_linear_gemv(*ops, accum="int8")
+    stages = -(-k // autotune.GEMV_MMA_STAGE)
+    for parts in sorted({1, 2, min(3, stages), stages}):
+        for pre in (False, True):
+            monkeypatch.setattr(autotune, "gemv_plan", lambda *_, p=parts: p)
+            monkeypatch.setattr(autotune, "gemv_int8_prescale", lambda *_, q=pre: q)
+            assert torch.equal(K.dora_linear_gemv(*ops, accum="int8"), want), (parts, pre)
+
+
+def test_int8_gemv_leaves_its_tickets_zero_and_replays(cuda):
+    """The int8 GEMV's tickets are zero after every launch, so a CUDA graph
+    of the call replays to the eager result."""
+    ops = operands(4, 2048, 4096, 24, cuda, seed=3)
+    want = K.dora_linear_gemv(*ops, accum="int8")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        K.dora_linear_gemv(*ops, accum="int8")
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = K.dora_linear_gemv(*ops, accum="int8")
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert all(int(sem.abs().sum()) == 0 for _, sem in K._SEMS.values())
+
+
+def test_int8_gemv_graphs_hold_tickets_of_their_own(cuda):
+    """Two int8 GEMV graphs captured after a wider eager call replay at
+    once on two streams, each to its eager result."""
+    K.dora_linear_gemv(*operands(4, 2048, 12288, 16, cuda, seed=5), accum="int8")
+    leaves = [operands(4, 2048, 2048, 8, cuda, seed=6), operands(4, 6144, 2048, 8, cuda, seed=7)]
+    wants = [K.dora_linear_gemv(*ops, accum="int8") for ops in leaves]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for ops in leaves:
+            K.dora_linear_gemv(*ops, accum="int8")
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, gots = [], []
+    for ops in leaves:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            gots.append(K.dora_linear_gemv(*ops, accum="int8"))
+    K.dora_linear_gemv(*operands(4, 2048, 12288, 16, cuda, seed=8), accum="int8")
+    streams = [torch.cuda.Stream() for _ in graphs]
+    for _ in range(5):
+        for stream, graph in zip(streams, graphs):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(gots, wants):
+            assert torch.equal(got, want)
 
 
 def test_tensor_core_gemv_leaves_its_tickets_zero_and_replays(cuda):

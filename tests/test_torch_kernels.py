@@ -134,26 +134,40 @@ def test_tiled_tiles_cover_each_element_once(accum, m, k, n):
 
 @pytest.mark.parametrize("m", autotune.GEMV_ROW_BUCKETS)
 @pytest.mark.parametrize("leaf", sorted(LEAVES))
-def test_gemv_plan_fills_the_card(leaf, m):
-    """At every row bucket every full-width leaf launches at least one
-    block of column strip and K part per SM, and the whole launch (X @ A
-    blocks included) fits one wave, so its blocks run at once."""
+@pytest.mark.parametrize("accum", autotune.ACCUMS)
+def test_gemv_plan_fills_the_card(accum, leaf, m):
+    """At every row bucket, every full-width leaf's launch fits one wave,
+    so its blocks run at once. f32: at least one block of column strip and
+    K part per SM, the whole launch (X @ A blocks included) within two an
+    SM. int8: the whole launch within the blocks the SMs hold at once
+    (gemv_int8_wave), with the most parts that keep it there."""
     k, n = LEAVES[leaf]
-    parts = autotune.gemv_plan(m, n, k)
-    assert -(-n // autotune.GEMV_MMA_COLS) * parts >= autotune.SMS
-    assert autotune.gemv_blocks(m, n, k, parts) <= autotune.WAVE
+    parts = autotune.gemv_plan(m, n, k, accum)
+    blocks = autotune.gemv_blocks(m, n, k, parts, accum)
+    if accum == "f32":
+        assert -(-n // autotune.GEMV_MMA_COLS) * parts >= autotune.SMS
+        assert blocks <= autotune.WAVE
+    else:
+        wave = autotune.gemv_int8_wave(m)
+        assert blocks <= wave
+        assert autotune.gemv_blocks(m, n, k, 0, accum) <= autotune.GEMV_XA_CHUNKS
+        assert (parts == -(-k // autotune.GEMV_MMA_STAGE)
+                or autotune.gemv_blocks(m, n, k, parts + 1, accum) > wave)
+
 
 
 @pytest.mark.parametrize("m,k,n", [
     (4, 2048, 4096), (32, 6144, 2048), (1, 2048, 12288), (64, 2048, 2048),
     (4, 40, 4096), (5, 1000, 2048), (9, 2050, 999), (17, 6144, 2049), (1, 33, 4097),
+    (64, 6144, 20480),
 ])
-def test_gemv_plan_parts_partition_k(m, k, n):
-    """The K parts, bounded as the kernel bounds them (kb, ke of
-    dora_gemv_mma_kernel, checked in test_tile_constants_match_the_kernel),
-    are whole stages that partition [0, K) in order: consecutive, none
-    empty, none past K."""
-    parts = autotune.gemv_plan(m, n, k)
+@pytest.mark.parametrize("accum", autotune.ACCUMS)
+def test_gemv_plan_parts_partition_k(accum, m, k, n):
+    """The K parts of either tensor-core GEMV body, bounded as the kernels
+    bound them (kb, ke of dora_gemv_mma_kernel and dora_gemv_int8_kernel,
+    checked in test_tile_constants_match_the_kernel), are whole stages
+    that partition [0, K) in order: consecutive, none empty, none past K."""
+    parts = autotune.gemv_plan(m, n, k, accum)
     stages = -(-k // autotune.GEMV_MMA_STAGE)
     assert 1 <= parts <= stages
     ranges = [(p * stages // parts * autotune.GEMV_MMA_STAGE,
@@ -170,8 +184,9 @@ def test_tiled_binding_matches_the_c_signature():
     from types import SimpleNamespace
 
     src = tk.LIB.src.read_text()
-    names = ("rimc_dora_linear_gemv", "rimc_dora_linear_gemv_mma", "rimc_dora_linear_tiled",
-             "rimc_xa_scratch", "rimc_gemv_mma_sems", "rimc_capture_id")
+    names = ("rimc_dora_linear_gemv", "rimc_dora_linear_gemv_mma", "rimc_dora_linear_gemv_int8",
+             "rimc_dora_linear_tiled", "rimc_xa_scratch", "rimc_gemv_mma_sems",
+             "rimc_capture_id")
     lib = SimpleNamespace(**{nm: SimpleNamespace() for nm in names})
     tk._bind(lib)
     for nm in names:
@@ -181,8 +196,9 @@ def test_tiled_binding_matches_the_c_signature():
 
 def test_tile_constants_match_the_kernel():
     """The policy's stage depths and tile widths per tensor-core body, and
-    the GEMV's X @ A tiling that its plan counts, are the kernel's; the
-    kernel bounds its K parts as test_gemv_plan_parts_partition_k does."""
+    the GEMVs' X @ A tiling that their plans count, are the kernels'; both
+    tensor-core GEMVs (f32 and int8) take the same strip and stage and
+    bound their K parts as test_gemv_plan_parts_partition_k does."""
     import re
 
     src = tk.LIB.src.read_text()
@@ -195,5 +211,30 @@ def test_tile_constants_match_the_kernel():
                         ("kPrepRows", autotune.XA_SLAB),
                         ("kPrepRowTile", autotune.XA_ROW_TILE)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
-    assert "const int kb = part * stages / parts * kGemvMmaK;" in src
-    assert "const int ke = min(K, (part + 1) * stages / parts * kGemvMmaK);" in src
+    # the int8 GEMV's wave: two blocks an SM below 8 tiles of rows (64
+    # rows), one at 64, by its launch bounds, its shared memory held to
+    # that; and its X @ A blocks, at most kGemvXaChunks in all
+    assert "__launch_bounds__(kGemvThreads, NT < 8 ? 2 : 1)" in src
+    assert 'static_assert(NT == 8 || 2 * (BYTES + 1024 + 512) <= 233472' in src
+    assert [autotune.gemv_int8_wave(m) // autotune.SMS for m in autotune.GEMV_ROW_BUCKETS] == [
+        2, 2, 2, 2, 2, 2, 1]
+    assert "const int slabs = prep_chunks(o.K), chunks = kGemvXaChunks / XT;" in src
+    # each line twice: dora_gemv_mma_kernel and dora_gemv_int8_kernel, or
+    # the C entries of both, which refuse more parts than the plan gives
+    for line in ("const int stages = (K + kGemvMmaK - 1) / kGemvMmaK;",
+                 "const int kb = part * stages / parts * kGemvMmaK;",
+                 "const int ke = min(K, (part + 1) * stages / parts * kGemvMmaK);",
+                 "const int n0 = strip * kGemvMmaN;",
+                 "parts > (K + kGemvMmaK - 1) / kGemvMmaK"):
+        assert src.count(line) == 2, line
+
+
+@pytest.mark.parametrize("m", autotune.GEMV_ROW_BUCKETS)
+def test_int8_gemv_row_scales_in_the_launch_at_the_decode_tick(m):
+    """The int8 GEMV takes its row scales inside its one launch below
+    GEMV_INT8_PRESCALE_ROWS rows (every decode tick of up to 4 slots among
+    them), and in a pass of their own from there up."""
+    assert autotune.gemv_int8_prescale(m) == (autotune.gemv_rows(m)
+                                              >= autotune.GEMV_INT8_PRESCALE_ROWS)
+    if m <= 4:
+        assert not autotune.gemv_int8_prescale(m)

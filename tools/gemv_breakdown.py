@@ -1,8 +1,8 @@
 """The GEMV launcher (``dora_linear_gemv``) on the card, per qwen3-1.7b
 fused leaf and per layer (the four leaves summed):
 
-* the f32 body (bf16 x) at every row bucket and the int8 body
-  at the decode tick and a full admission chunk: CUDA events around
+* the f32 body (bf16 x) and the int8 body (bf16 x) at every row
+  bucket: CUDA events around
   CUDA-graph replays over operand copies rotated past the L2
   (``chip_smoke.time_ms``), beside the bound (``chip_smoke.linear_bound``)
   and, for f32, one ``torch.matmul`` of x by the pre-dequantized bf16
@@ -49,7 +49,7 @@ def main():
     device = torch.device("cuda")
     K.build()
     result = {"card": smi, "src": os.path.abspath(args.src), "layers": [], "breakdown": {}}
-    timed = [("f32", m) for m in S.DECODE_M] + [("int8", m) for m in BREAKDOWN_M]
+    timed = [(accum, m) for accum in ("f32", "int8") for m in S.DECODE_M]
     for accum, m in timed:
         layer = {"accum": accum, "m": m, "leaves": {}}
         for leaf, k, n, r in S.LEAVES:
