@@ -3,7 +3,9 @@ port's CUDA kernels from this checkout, holds each against its plain
 PyTorch version on the card, times them, then serves qwen3-1.7b at full
 width from resident RRAM codes three ways (f32 codes, int8 codes, the
 ADC-faithful ``codes_adc`` backend) and checks that each serving path
-went through its kernels.
+went through its kernels; last it calibrates the drifted deployment's
+DoRA side-cars (autograd under ``dequant``, no kernel) and serves the
+calibrated side-cars through the kernels again.
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
@@ -76,15 +78,32 @@ Phases (any failure exits non-zero; no failure is caught):
                 session;
   6. trace    — torch.profiler over a few steady decode ticks of each
                 session: device busy share, kernels per tick, the largest
-                kernels.
+                kernels;
+  7. calibrate — on phase 5's deployment (its sessions freed):
+                dep.calibrate(10, steps=20) (10 samples x 32 tokens, lr
+                1e-3) with the launch counters reset just before and read
+                just after (every one 0), the codes bitwise unchanged, every
+                loss finite and the last below the first; the logit MSE
+                drift gap recovered on the calibration batch and a held-out
+                one (reported, not gated: random weights); teacher-feature
+                seconds, step ms (synchronized), calibrate seconds, peak
+                memory; torch.profiler over two steady steps; then serve()
+                and serve(accum="int8") over phase 5's traffic with the
+                calibrated side-cars: exact launch counts, codes vs dequant
+                logits (prefill and one chunk per bucket 8, 16, 32) within
+                LOGITS_BOUND, int8 vs f32 within INT8_LOGITS_BOUND.
 The last line is the contract line; the line before it the kernel table.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -178,6 +197,9 @@ TIMED_M_INT8 = (1, SLOTS, 8, 16, 32, 64, PREFILL_ROWS, PREFILL_M)  # every GEMV 
 TIMED_M_ADC = (SLOTS, 32, PREFILL_ROWS, PREFILL_M)
 TIMED_M_TILED = (PREFILL_ROWS,)  # also timed for the tiled f32 body
 TIMED_M_GEMV = (8, 16, 64)       # also timed for the f32 GEMV: chunk buckets, 64
+# phase 7: the paper's calibration set (10 samples of 32 tokens) and the
+# reference's calibrate defaults (20 steps, lr 1e-3)
+CALIB_SAMPLES, CALIB_SEQ, CALIB_STEPS = 10, 32, 20
 
 
 def log(*args):
@@ -911,11 +933,41 @@ def compare_logits(label, a, b, bound=None):
     return {"max_abs_diff": err, "absmax": scale, "rel": err / scale, "top1_agree": top1}
 
 
-def phase_serving(device, seed):
+def codes_vs_dequant(session, logits, tokens, g, device):
+    """The session's fused-prefill ``logits`` (codes) against the same
+    prefill under ``dequant``, then one admission chunk per GEMV row bucket
+    the engine pads to (5, 9 and 17 valid tokens -> 8, 16 and 32 rows),
+    codes vs dequant, each within ``LOGITS_BOUND``."""
     from repro_torch import substrate
+    from repro_torch.models import transformer as T
+
+    cfg = session.cfg
+    with substrate.use_backend("dequant"), torch.no_grad():
+        ref_logits, _ = T.prefill(session.params, tokens, cfg, 48)
+    prefill = compare_logits("codes vs dequant prefill logits", logits, ref_logits,
+                             LOGITS_BOUND)
+    del ref_logits
+    chunk_errs = {}
+    for n in (5, 9, 17):
+        width = next(w for w in (8, 16, 32) if w >= n)
+        toks = torch.zeros((1, width), dtype=torch.int64, device=device)
+        toks[0, :n] = torch.randint(0, cfg.vocab, (n,), generator=g)
+        out = {}
+        for backend in ("codes", "dequant"):
+            cache = T.init_cache(cfg, 1, 48, device)
+            with substrate.use_backend(backend), torch.no_grad():
+                out[backend], _ = T.prefill_chunk(
+                    session.params, toks, cache, torch.tensor([0], device=device),
+                    torch.tensor([n], device=device), cfg, 48)
+        chunk_errs[width] = compare_logits(
+            f"codes vs dequant admission chunk of {n} tokens ({width} rows)",
+            out["codes"], out["dequant"], LOGITS_BOUND)["rel"]
+    return prefill, chunk_errs
+
+
+def phase_serving(device, seed):
     from repro_torch.configs import get_arch
     from repro_torch.deploy import Deployment
-    from repro_torch.models import transformer as T
 
     cfg = get_arch("qwen3-1.7b").full
     torch.cuda.reset_peak_memory_stats()
@@ -941,29 +993,8 @@ def phase_serving(device, seed):
                                        "dora_linear": n_leaves})
     peak_f32 = torch.cuda.max_memory_allocated()
 
-    with substrate.use_backend("dequant"), torch.no_grad():
-        ref_logits, _ = T.prefill(session.params, tokens, cfg, 48)
-    result["codes_vs_dequant"] = compare_logits(
-        "codes vs dequant prefill logits", logits, ref_logits, LOGITS_BOUND)
-    del ref_logits
-
-    # one admission chunk per GEMV row bucket the engine pads to (5, 9 and
-    # 17 valid tokens -> 8, 16 and 32 rows), codes vs dequant
-    chunk_errs = {}
-    for n in (5, 9, 17):
-        width = next(w for w in (8, 16, 32) if w >= n)
-        toks = torch.zeros((1, width), dtype=torch.int64, device=device)
-        toks[0, :n] = torch.randint(0, cfg.vocab, (n,), generator=g)
-        out = {}
-        for backend in ("codes", "dequant"):
-            cache = T.init_cache(cfg, 1, 48, device)
-            with substrate.use_backend(backend), torch.no_grad():
-                out[backend], _ = T.prefill_chunk(
-                    session.params, toks, cache, torch.tensor([0], device=device),
-                    torch.tensor([n], device=device), cfg, 48)
-        chunk_errs[width] = compare_logits(
-            f"codes vs dequant admission chunk of {n} tokens ({width} rows)",
-            out["codes"], out["dequant"], LOGITS_BOUND)["rel"]
+    result["codes_vs_dequant"], chunk_errs = codes_vs_dequant(session, logits, tokens, g,
+                                                              device)
     result.update(
         setup_seconds=t_setup, peak_mem_bytes=peak_f32, rram_bytes=dep.rram_bytes(),
         sram_bytes=dep.sram_bytes(), calibrated_fraction=dep.calibrated_fraction(),
@@ -1005,16 +1036,13 @@ def phase_serving(device, seed):
         for body, run in (("f32", result), ("int8", int8), ("codes_adc", adc))))
     result["peak_mem_bytes_all"] = torch.cuda.max_memory_allocated()
     del logits_adc
-    return result, {"f32": session, "int8": session8, "codes_adc": session_adc}
+    return result, {"f32": session, "int8": session8, "codes_adc": session_adc}, dep
 
 
 def phase_trace(session, ticks=4):
     """Profile a steady window of decode ticks (4 slots, full width):
     device busy share of the wall time, kernels launched per tick, and the
-    kernels that take the most device time. ``None`` where the profiler
-    records no device activity."""
-    from torch.profiler import ProfilerActivity, profile
-
+    kernels that take the most device time (``profile_window``)."""
     from repro_torch.deploy import ServeEngine
 
     g = torch.Generator().manual_seed(1)
@@ -1026,10 +1054,20 @@ def phase_trace(session, ticks=4):
         engine.step()
     engine.step()  # one untraced tick with every slot live
     torch.cuda.synchronize()
+    return profile_window("trace", "tick", ticks, engine.step)
+
+
+def profile_window(tag, unit, n, fn):
+    """torch.profiler over ``n`` calls of ``fn`` (each one ``unit``), ended
+    by a synchronize: wall and device-busy ms per unit, the busy share,
+    kernels per unit and the kernels that take the most device time.
+    ``None`` where the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(ticks):
-            engine.step()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -1039,21 +1077,195 @@ def phase_trace(session, ticks=4):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    per = unit.replace(" ", "_")
     result = {
-        "ticks": ticks, "wall_ms_per_tick": 1e3 * wall / ticks,
-        "device_busy_ms_per_tick": 1e3 * busy / ticks if kernels else None,
+        f"{per}s": n, f"wall_ms_per_{per}": 1e3 * wall / n,
+        f"device_busy_ms_per_{per}": 1e3 * busy / n if kernels else None,
         "device_busy_share": busy / wall if kernels else None,
-        "kernels_per_tick": len(kernels) / ticks if kernels else None,
-        "top_kernels_ms_per_tick": [(name[:80], ms / ticks) for name, ms in top],
+        f"kernels_per_{per}": len(kernels) / n if kernels else None,
+        f"top_kernels_ms_per_{per}": [(name[:80], ms / n) for name, ms in top],
     }
     if kernels:
-        log(f"[trace] {ticks} decode ticks: {result['wall_ms_per_tick']:.2f} ms per tick wall, "
-            f"{result['device_busy_ms_per_tick']:.3f} ms device busy "
-            f"({result['device_busy_share']:.1%}), {result['kernels_per_tick']:.0f} kernels per tick")
-        for name, ms in result["top_kernels_ms_per_tick"]:
-            log(f"[trace]   {ms:8.3f} ms/tick  {name}")
+        log(f"[{tag}] {n} {unit}s: {1e3 * wall / n:.2f} ms per {unit} wall, "
+            f"{1e3 * busy / n:.3f} ms device busy ({busy / wall:.1%}), "
+            f"{len(kernels) / n:.0f} kernels per {unit}")
+        for name, ms in top:
+            log(f"[{tag}]   {ms / n:8.3f} ms/{unit}  {name[:80]}")
     else:
-        log("[trace] the profiler recorded no device activity: busy share not measured")
+        log(f"[{tag}] the profiler recorded no device activity: busy share not measured")
+    return result
+
+
+@contextlib.contextmanager
+def timed_calibration(module):
+    """Time ``module.calibrate``'s phases from outside: its
+    ``teacher_features`` call (seconds) and each step of its cached
+    calibration step (ms), each closed by a synchronize. The program is not
+    changed; the wrappers are removed on exit."""
+    times = {"teacher_s": [], "step_ms": []}
+    feats_fn, step_maker = module.teacher_features, module.make_cached_calib_step
+
+    def timed(fn, key, unit):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[key].append(unit * (time.perf_counter() - t0))
+            return out
+        return run
+
+    module.teacher_features = timed(feats_fn, "teacher_s", 1.0)
+    module.make_cached_calib_step = lambda *a, **k: timed(step_maker(*a, **k), "step_ms", 1e3)
+    try:
+        yield times
+    finally:
+        module.teacher_features, module.make_cached_calib_step = feats_fn, step_maker
+
+
+def step_split(cfg, state, feats, batch, reps=3):
+    """One cached calibration step cut into its parts, each closed by a
+    synchronize (ms, the median of ``reps``): the loss's forward over the
+    28 blocks, ``torch.autograd.grad`` over the adapter leaves, and
+    ``adamw_update``. Run under ``dequant``; the results are discarded."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import calibrate as calib
+    from repro_torch.optim.adam import AdamW, adamw_update
+
+    loss_fn = calib.make_cached_calib_loss(cfg)
+    parts = {"forward": [], "backward": [], "adamw": []}
+    for _ in range(reps):
+        leaves = [t.detach().requires_grad_(True) for t in tree_lib.tensors(state.adapters)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(tree_lib.unflatten(state.adapters, leaves), state.student_base, feats,
+                       batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        adamw_update(tree_lib.unflatten(state.adapters, grads), state.opt_state,
+                     state.adapters, AdamW(lr=1e-3))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(1e3 * dt)
+        del loss, grads, leaves
+    out = {key: statistics.median(v) for key, v in parts.items()}
+    log("[calib] one step split (ms, median of %d): " % reps
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def phase_calibrate(dep, device, seed):
+    """Calibrate the phase-5 deployment (qwen3-1.7b FULL, codes, 24 h of
+    drift) at the paper's 10 samples x 32 tokens, 20 steps, then serve the
+    calibrated side-cars through the f32 and int8 bodies with phase 5's
+    traffic and checks. Gated: no kernel launch during calibrate, the codes
+    bitwise unchanged, every loss finite, the loss falling; serving's exact
+    launch counts, codes vs dequant within ``LOGITS_BOUND``, int8 vs f32
+    within ``INT8_LOGITS_BOUND``. Reported: the logit MSE gap recovered (on
+    the calibration batch and a held-out one), teacher-feature seconds,
+    step ms, calibrate seconds, peak memory, a profile of two steps."""
+    from repro_torch import substrate
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import calibrate as calib
+    from repro_torch.deploy import calibration_batch
+    from repro_torch.deploy import deployment as D
+    from repro_torch.optim.adam import AdamW
+
+    t_phase = time.perf_counter()
+    cfg = dep.cfg
+    codes = [t.clone() for t in tree_lib.tensors(dep.codes)]
+    batches = {"calibration": calibration_batch(cfg, CALIB_SAMPLES, CALIB_SEQ),
+               "held_out": {"tokens": torch.randint(
+                   0, cfg.vocab, (CALIB_SAMPLES, CALIB_SEQ),
+                   generator=torch.Generator().manual_seed(seed + 1))}}
+    gaps = {name: {"drift": dep.logit_mse(b, use_adapters=False), "before": dep.logit_mse(b)}
+            for name, b in batches.items()}
+
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_calibration(D) as times:
+        t0 = time.perf_counter()
+        report = dep.calibrate(CALIB_SAMPLES, steps=CALIB_STEPS)
+        torch.cuda.synchronize()
+        t_calibrate = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[calib] {report.summary()}")
+    log(f"[calib] losses {', '.join(f'{x:.6f}' for x in report.losses)}")
+    expect_counts(counts, {})
+    assert all(torch.equal(a, b) for a, b in zip(codes, tree_lib.tensors(dep.codes))), \
+        "calibrate changed the codes"
+    del codes
+    assert all(math.isfinite(x) for x in report.losses), report.losses
+    assert report.final_loss < report.initial_loss, report.losses
+    assert not any(t.requires_grad for t in tree_lib.tensors(dep.adapters))
+    steps_ms = times["step_ms"][1:]  # steps 2-20
+    result = {
+        "report": report.to_dict(), "launches": counts, "calibrate_seconds": t_calibrate,
+        "teacher_features_seconds": times["teacher_s"][0], "step_ms": times["step_ms"],
+        "step_ms_median_2_on": statistics.median(steps_ms), "peak_mem_bytes": peak,
+    }
+    log(f"[calib] {cfg.name}, {CALIB_SAMPLES} samples x {CALIB_SEQ} tokens, "
+        f"{CALIB_STEPS} steps: calibrate {t_calibrate:.3f} s, teacher features "
+        f"{result['teacher_features_seconds']:.3f} s, step median (steps 2-{CALIB_STEPS}) "
+        f"{result['step_ms_median_2_on']:.2f} ms (min {min(steps_ms):.2f}, max "
+        f"{max(steps_ms):.2f}), peak mem {peak / 2**30:.2f} GiB, launches {counts}")
+    for name, b in batches.items():
+        gap = gaps[name]
+        gap["after"] = dep.logit_mse(b)
+        gap["recovered"] = 1.0 - gap["after"] / gap["drift"]
+        log(f"[calib] logit MSE on the {name} batch: drift gap {gap['drift']:.5f}, "
+            f"fresh side-cars {gap['before']:.5f}, calibrated {gap['after']:.5f} "
+            f"({gap['recovered']:.1%} of the drift gap recovered; not gated)")
+    result["logit_mse"] = gaps
+
+    # where a step's time goes: two steady steps from the calibrated state,
+    # under dequant as calibrate runs them (the result is discarded)
+    batch = D._device_batch(batches["calibration"], device)
+    feats = calib.teacher_features(dep.teacher_base, batch, cfg)
+    step = calib.make_cached_calib_step(cfg, AdamW(lr=1e-3))
+    state = [dep.calib_state()]
+
+    def one_step():
+        state[0], metrics = step(state[0], feats, batch)
+        float(metrics["loss"])
+
+    with substrate.use_backend("dequant"):
+        one_step()
+        result["trace"] = profile_window("calib", "step", 2, one_step)
+        result["step_split_ms"] = step_split(cfg, state[0], feats, batch)
+    del state, feats, batch
+
+    # serve the calibrated side-cars through the kernels: phase 5's traffic
+    # and checks, the f32 body then the int8 body
+    prompts, tokens, g = serving_inputs(cfg.vocab, seed, device)
+    n_leaves = 4 * cfg.n_layers
+    session = dep.serve()
+    f32, logits = drive(session, prompts, tokens, MAX_NEW)
+    steps = f32["prefill_chunks"] + f32["decode_steps"]
+    expect_counts(f32["launches_engine"], {"dora_linear_gemv": n_leaves * steps})
+    expect_counts(f32["launches"], {"dora_linear_gemv": n_leaves * steps,
+                                    "dora_linear": n_leaves})
+    f32["codes_vs_dequant"], f32["chunk_logits_rel_diff"] = codes_vs_dequant(
+        session, logits, tokens, g, device)
+    del session
+    session8 = dep.serve(accum="int8")
+    int8, logits8 = drive(session8, prompts, tokens, MAX_NEW)
+    steps = int8["prefill_chunks"] + int8["decode_steps"]
+    expect_counts(int8["launches_engine"], {"dora_linear_gemv/int8": n_leaves * steps})
+    expect_counts(int8["launches"], {"dora_linear_gemv/int8": n_leaves * steps,
+                                     "dora_linear/int8": n_leaves})
+    int8["int8_vs_f32"] = compare_logits("calibrated int8 vs f32 codes prefill logits",
+                                         logits8, logits, INT8_LOGITS_BOUND)
+    del session8, logits8, logits
+    result.update(serving_f32=f32, serving_int8=int8,
+                  phase_seconds=time.perf_counter() - t_phase)
+    log(f"[calib] phase 7 took {result['phase_seconds']:.2f} s")
     return result
 
 
@@ -1070,11 +1282,15 @@ def main():
     worst = phase_kernels(device)
     rows = phase_timing(device)
     breakdown = phase_breakdown(device)
-    serving, sessions = phase_serving(device, args.seed)
+    serving, sessions, dep = phase_serving(device, args.seed)
     for body, run in (("f32", serving), ("int8", serving["int8"]),
                       ("codes_adc", serving["codes_adc"])):
         log(f"[trace] {body}")
         run["trace"] = phase_trace(sessions.pop(body))
+    gc.collect()
+    torch.cuda.empty_cache()
+    calibration = phase_calibrate(dep, device, args.seed)
+    del dep
 
     # one transformer layer: the four fused leaves at the decode tick (GEMV)
     # or the fused prefill (tiled), the seven unfused leaves at the decode
@@ -1110,7 +1326,8 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": smi, "timing": rows, "breakdown": breakdown,
-                       "serving": serving, "kernels": kernels}, f, indent=1)
+                       "serving": serving, "calibration": calibration,
+                       "kernels": kernels}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,14 @@
-"""Programming, drift and serve-time merging over whole model trees.
-Port of the serving half of ``repro/core/calibrate.py``; feature-KD
-calibration with autograd is the next slice.
+"""Programming, drift, feature-KD calibration (paper Algorithm 1 + 2) and
+serve-time merging over whole model trees. Port of
+``repro/core/calibrate.py``.
+
+Calibration is autograd over plain PyTorch ops: it runs under the
+``dequant`` backend (the kernels have no backward), and only the adapter
+tree receives gradients. ``make_cached_calib_step`` matches each student
+block against cached teacher features; ``make_calib_step`` runs the
+teacher beside the student (``transformer.feature_calibration_loss``).
+Both losses have the same terms and divisor, so the two follow one
+trajectory.
 
 Per-leaf streams: leaf ``path`` of a deployment with seed ``s`` draws its
 programming noise from ``make_generator(s, crc32(path), 0)`` and drift
@@ -9,8 +17,9 @@ per leaf and per event, replayable from the seed alone.
 """
 from __future__ import annotations
 
+import dataclasses
 import zlib
-from typing import Any, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -18,6 +27,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.core import dora as dora_lib
 from repro_torch.core import rram
 from repro_torch.core.rram import RramConfig
+from repro_torch.optim.adam import AdamW, AdamState, adamw_init, adamw_update
 
 Pytree = Any
 
@@ -170,3 +180,183 @@ def merge_adapters_for_serve(base: Pytree, adapters: Pytree) -> Pytree:
         return a
 
     return walk(base, adapters)
+
+
+# ---------------------------------------------------------------------------
+# autograd over an adapter tree
+# ---------------------------------------------------------------------------
+
+
+def value_and_grad(loss_fn: Callable[[Pytree], torch.Tensor], adapters: Pytree):
+    """``(loss, grads)`` of ``loss_fn(adapters)`` w.r.t. every tensor of the
+    adapter tree (``jax.value_and_grad``'s counterpart): the grads tree has
+    the adapters' structure, zeros where a leaf takes no part. The caller's
+    tensors are not modified; ``loss`` is detached."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_lib.tensors(adapters)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_lib.unflatten(adapters, leaves))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+    return loss.detach(), tree_lib.unflatten(adapters, grads)
+
+
+# ---------------------------------------------------------------------------
+# literal per-layer calibration loop (Algorithm 1)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LayerCalibResult:
+    losses: list
+    epochs_run: int
+
+
+def calibrate_layer(
+    layer_fn: Callable[[Pytree, Pytree, torch.Tensor], torch.Tensor],
+    student_layer_base: Pytree,
+    adapter: Pytree,
+    teacher_in: torch.Tensor,
+    teacher_out: torch.Tensor,
+    *,
+    opt: AdamW = AdamW(lr=1e-3),
+    max_epochs: int = 20,
+    loss_threshold: float = 0.0,
+    batch_size: Optional[int] = None,
+) -> Tuple[Pytree, LayerCalibResult]:
+    """Algorithm 1 lines 5-10 for one layer: ``layer_fn(base, adapter, x)
+    -> y`` against cached teacher features ``teacher_in/out`` (N leading);
+    ``max_epochs`` epochs of full-batch Adam (``batch_size`` restores
+    per-sample updates), stopping once an epoch's loss is at most
+    ``loss_threshold``."""
+    opt_state = adamw_init(adapter)
+
+    def loss_fn(ad, x, y):
+        d = layer_fn(student_layer_base, ad, x).to(torch.float32) - y.to(torch.float32)
+        return torch.mean(d * d)
+
+    n = teacher_in.shape[0]
+    bs = batch_size or n
+    losses = []
+    epochs_run = 0
+    for epoch in range(max_epochs):
+        epoch_loss = 0.0
+        for i in range(0, n, bs):
+            x, y = teacher_in[i:i + bs], teacher_out[i:i + bs]
+            loss, grads = value_and_grad(lambda ad: loss_fn(ad, x, y), adapter)
+            adapter, opt_state = adamw_update(grads, opt_state, adapter, opt)
+            epoch_loss += float(loss) * min(bs, n - i)
+        epoch_loss /= n
+        losses.append(epoch_loss)
+        epochs_run = epoch + 1
+        if epoch_loss <= loss_threshold:
+            break
+    return adapter, LayerCalibResult(losses=losses, epochs_run=epochs_run)
+
+
+# ---------------------------------------------------------------------------
+# whole-model calibration (LM stacks)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CalibState:
+    """(teacher_base, student_base, adapters, opt_state, step): what one
+    calibration step reads and returns."""
+
+    teacher_base: Pytree
+    student_base: Pytree
+    adapters: Pytree
+    opt_state: AdamState
+    step: int
+
+
+@torch.no_grad()
+def teacher_features(teacher_base: Pytree, batch: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """Algorithm 1 line 3: run the frozen teacher once over the
+    calibration batch and keep every block's input and the last block's
+    output: ``"dec"`` (L+1, B, S, d) in the config's dtype; for an untied
+    head also ``"head_in"`` (the final norm's output) and ``"head_out"``
+    (the teacher logits)."""
+    from repro_torch.models import transformer as T
+
+    h = T.L.embed(batch["tokens"], teacher_base["embed"],
+                  scale_by_sqrt_dim=cfg.embed_scale)
+    positions = torch.arange(h.shape[1], device=h.device)[None]
+    feats = [h]
+    for _, b, _, (mixer, ffn) in T._layers(teacher_base, T._empty_adapters(teacher_base),
+                                           cfg):
+        h = T.block_forward(h, b, {}, cfg, mixer, ffn, positions=positions)
+        feats.append(h)
+    out = {"dec": torch.stack(feats)}
+    if not cfg.tie_lm_head:
+        hn = T._norm(h, teacher_base["final_norm"], cfg)
+        out["head_in"] = hn
+        out["head_out"] = T.L.linear(hn, teacher_base["lm_head"], {}, cfg.adapter)
+    return out
+
+
+def make_cached_calib_loss(cfg):
+    """The cached-teacher loss ``loss_fn(adapters, student_base, feats,
+    batch)``: student block ``l`` sees ``feats["dec"][l]`` and matches
+    ``feats["dec"][l + 1]``. It mirrors ``feature_calibration_loss`` term
+    for term (every block, then the untied lm_head's logits), averaged
+    over the same ``n_terms``. ``batch`` is unused by dense stacks; it is
+    kept for the reference's signature."""
+    from repro_torch.models import transformer as T
+
+    def loss_fn(adapters, sbase, feats, batch):
+        dec = feats["dec"]
+        positions = torch.arange(dec.shape[2], device=dec.device)[None]
+        loss = torch.zeros((), dtype=torch.float32, device=dec.device)
+        n_terms = 0
+        for i, b, a_, (mixer, ffn) in T._layers(sbase, adapters, cfg):
+            s_out = T.block_forward(dec[i], b, a_, cfg, mixer, ffn, positions=positions)
+            loss = loss + T._mse(dec[i + 1], s_out)
+            n_terms += 1
+        if not cfg.tie_lm_head:
+            s_logits = T.L.linear(feats["head_in"], sbase["lm_head"],
+                                  adapters.get("lm_head"), cfg.adapter)
+            loss = loss + T._mse(feats["head_out"], s_logits)
+            n_terms += 1
+        return loss / n_terms
+
+    return loss_fn
+
+
+def _advance(state: CalibState, grads: Pytree, opt: AdamW) -> CalibState:
+    adapters, opt_state = adamw_update(grads, state.opt_state, state.adapters, opt)
+    return CalibState(state.teacher_base, state.student_base, adapters, opt_state,
+                      state.step + 1)
+
+
+def make_cached_calib_step(cfg, opt: AdamW = AdamW(lr=1e-3)):
+    """One step against cached teacher features: loss, gradients over the
+    adapter leaves, ``adamw_update``. Teacher forward cost: 0."""
+    loss_fn = make_cached_calib_loss(cfg)
+
+    def step(state: CalibState, feats, batch):
+        loss, grads = value_and_grad(
+            lambda ad: loss_fn(ad, state.student_base, feats, batch), state.adapters)
+        return _advance(state, grads, opt), {"loss": loss}
+
+    return step
+
+
+def make_calib_step(cfg, opt: AdamW = AdamW(lr=1e-3)):
+    """One step of the fused loss (teacher and student blocks interleaved)."""
+    from repro_torch.models import transformer as T
+
+    def step(state: CalibState, batch: Dict):
+        metrics = {}
+
+        def loss_fn(adapters):
+            loss, aux = T.feature_calibration_loss(
+                state.teacher_base, state.student_base, adapters, batch, cfg)
+            metrics.update({k: v.detach() for k, v in aux.items()})
+            return loss
+
+        loss, grads = value_and_grad(loss_fn, state.adapters)
+        metrics["loss"] = loss
+        return _advance(state, grads, opt), metrics
+
+    return step

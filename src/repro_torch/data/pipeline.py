@@ -1,0 +1,47 @@
+"""Deterministic, stateless calibration data. Port of
+``repro/data/pipeline.py``, tokens only: the reference's encoder and
+vision inputs wait with the configs that take them
+(``transformer._check_supported`` raises for those).
+
+``step -> batch`` is a pure function of ``(seed, step)``: row ``i`` of
+step ``s`` is calibration sample ``(s * global_batch + i) %
+n_calibration_samples``, and each sample draws its tokens from a
+``torch.Generator`` of its own, seeded from ``(seed, sample)``. So a
+sample is the same whatever batch it lands in, and there is no loader
+state to checkpoint. The bits are the port's own: the reference's
+threefry stream cannot be reproduced, so parity tests pass the
+reference's batch in.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from repro_torch.core.rram import make_generator
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    # calibration set size: batches cycle over this many distinct samples
+    # (paper: 10). 0 -> unlimited fresh stream.
+    n_calibration_samples: int = 10
+
+
+def sample_tokens(cfg: DataConfig, sample: int) -> torch.Tensor:
+    """The ``(seq_len,)`` int64 tokens of calibration sample ``sample``."""
+    g = make_generator("cpu", cfg.seed, sample)
+    return torch.randint(0, cfg.vocab, (cfg.seq_len,), generator=g)
+
+
+def global_batch_at_step(cfg: DataConfig, step: int) -> Dict[str, torch.Tensor]:
+    """The whole global batch for ``step``, on the CPU:
+    ``{"tokens": (global_batch, seq_len) int64}``."""
+    n = cfg.n_calibration_samples or (1 << 31)
+    rows = range(step * cfg.global_batch, (step + 1) * cfg.global_batch)
+    return {"tokens": torch.stack([sample_tokens(cfg, r % n) for r in rows])}

@@ -4,10 +4,15 @@
 
     dep = Deployment.program(cfg, seed, backend="codes")  # on the card
     dep.advance(hours=24)          # drift clock: field time passes
+    report = dep.calibrate(10)     # feature-KD DoRA, codes never written
     session = dep.serve()          # merged adapters + backend scope
     toks, dt = session.generate(prompt)
 """
-from repro_torch.deploy.deployment import Deployment  # noqa: F401
+from repro_torch.deploy.deployment import (  # noqa: F401
+    CalibrationReport,
+    Deployment,
+    calibration_batch,
+)
 from repro_torch.deploy.engine import Request, ServeEngine  # noqa: F401
 from repro_torch.deploy.serving import (  # noqa: F401
     BACKENDS,

@@ -1,6 +1,6 @@
 """``Deployment`` — the lifecycle object from programming to serving.
 Port of ``repro/deploy/deployment.py`` (healthy path: no fault map;
-calibration, snapshot and restore wait).
+snapshot, restore and the calibration registry wait).
 
 * ``Deployment.program(cfg, seed, backend=..., device=...)`` — init the
   teacher from the seed and program every RRAM leaf (programming-time
@@ -10,6 +10,13 @@ calibration, snapshot and restore wait).
   continues from those codes.
 * ``dep.advance(hours)`` — the drift clock; event ``i`` of leaf ``path``
   draws from its own generator, so any history replays from the seed.
+* ``dep.calibrate(batch_or_samples)`` — feature-KD calibration of the
+  SRAM side-cars (cached teacher features, AdamW over the adapter tree);
+  returns a ``CalibrationReport``. It runs under the ``dequant`` backend
+  whatever the deployment's (the kernels have no backward), so it
+  launches no kernel, and the codes are never written.
+* ``dep.logit_mse(batch)`` — teacher/student logit MSE, the drift gap
+  and what calibration recovers of it.
 * ``dep.serve(accum=...)`` — merged DoRA magnitudes and, under
   ``codes``, the prepared (fused) serving tree run by the f32 or the
   int8 body; under ``codes_adc`` the raw codes through the ADC kernel.
@@ -19,23 +26,33 @@ when no card is present; the CPU runs only when asked for.
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence
+import contextlib
+import dataclasses
+import json
+import math
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
 
 from repro_torch import substrate
 from repro_torch.core import rram
 from repro_torch.core.calibrate import (
+    CalibState,
     calibrated_fraction,
     drift_model,
+    make_cached_calib_step,
+    make_calib_step,
     merge_adapters_for_serve,
     program_model,
     rram_bytes,
     sram_bytes,
+    teacher_features,
 )
+from repro_torch.data.pipeline import DataConfig, global_batch_at_step
 from repro_torch.deploy import serving
 from repro_torch.interop import from_reference
 from repro_torch.models import transformer as T
+from repro_torch.optim.adam import AdamW, adamw_init
 
 Pytree = Any
 
@@ -68,6 +85,76 @@ def _dequant_like(codes: Pytree, like: Pytree) -> Pytree:
     return walk(codes, like)
 
 
+def calibration_batch(cfg, batch_or_samples, seq_len: int) -> Dict:
+    """The deterministic calibration batch for ``cfg``: a batch dict passes
+    through as it is; an int is a calibration-set size (paper: 10
+    samples), drawn by the data pipeline at step 0 on the CPU. The same
+    arguments always give the same batch."""
+    if isinstance(batch_or_samples, dict):
+        return batch_or_samples
+    n = int(batch_or_samples)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=n,
+                      n_calibration_samples=n)
+    return global_batch_at_step(dcfg, 0)
+
+
+def _device_batch(batch: Dict, device) -> Dict:
+    """A batch of tensors or numpy arrays on ``device``; tokens as int64."""
+    out = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    out["tokens"] = out["tokens"].long()
+    return out
+
+
+@dataclasses.dataclass
+class CalibrationReport:
+    """Outcome of one ``Deployment.calibrate`` call; ``to_json`` and
+    ``from_json`` round-trip it exactly. ``warm_started``/``warm_source``
+    stay at their defaults until the calibration registry is ported."""
+
+    losses: List[float]          # per-step feature MSE (Algorithm 1 loss)
+    epochs_run: int
+    sram_bytes: int              # resident side-car bytes (digital SRAM)
+    rram_bytes: int              # resident base bytes (analog array)
+    base_params: int
+    adapter_params: int
+    calibrated_fraction: float   # paper's 2.34% headline
+    backend: str
+    drift_events: int            # drift-clock ticks seen before this calib
+    initial_loss: float = float("nan")
+    final_loss: float = float("nan")
+    warm_started: bool = False   # adapters seeded from a registry reference
+    warm_source: Optional[str] = None  # the seeding artifact ("key@vN")
+
+    def __post_init__(self):
+        if self.losses and math.isnan(self.initial_loss):
+            self.initial_loss = float(self.losses[0])
+        if self.losses and math.isnan(self.final_loss):
+            self.final_loss = float(self.losses[-1])
+
+    def to_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "CalibrationReport":
+        return cls(**d)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, payload: str) -> "CalibrationReport":
+        return cls.from_dict(json.loads(payload))
+
+    def summary(self) -> str:
+        return (
+            f"calibrated {self.epochs_run} epochs: feature MSE "
+            f"{self.initial_loss:.6f} -> {self.final_loss:.6f} | "
+            f"sram_bytes={self.sram_bytes} "
+            f"({self.calibrated_fraction:.2%} of params) "
+            f"rram_bytes={self.rram_bytes} backend={self.backend}"
+        )
+
+
 class Deployment:
     """One RRAM deployment over its lifetime. ``self.codes`` (uint8) is
     the ground truth; ``self.base`` is what forwards consume — the codes
@@ -88,6 +175,9 @@ class Deployment:
         self.teacher_seed = int(teacher_seed)
         self.program_seed = int(program_seed)
         self.drift_hours: List[float] = [float(h) for h in drift_hours]
+        self.opt_state = None
+        self.step: int = 0
+        self._teacher_logits_cache = None
         self._refresh_base()
 
     @property
@@ -149,6 +239,111 @@ class Deployment:
         self.drift_hours.append(hours)
         self._refresh_base()
         return self
+
+    # -- calibration ----------------------------------------------------------
+
+    def calib_state(self) -> CalibState:
+        """The whole-model calibration state over this deployment's
+        resident base; ``adopt`` syncs a result back."""
+        if self.opt_state is None:
+            self.opt_state = adamw_init(self.adapters)
+        return CalibState(self.teacher_base, self.base, self.adapters,
+                          self.opt_state, self.step)
+
+    def adopt(self, state: CalibState) -> "Deployment":
+        """Take adapters, optimizer state and step from a ``CalibState``."""
+        self.adapters = state.adapters
+        self.opt_state = state.opt_state
+        self.step = int(state.step)
+        return self
+
+    def calibrate(
+        self, batch_or_samples: Union[Dict, int] = 10, *,
+        steps: int = 20, lr: float = 1e-3, opt: Optional[AdamW] = None,
+        seq_len: int = 32, cached_teacher: Optional[bool] = None,
+        loss_threshold: float = 0.0,
+    ) -> CalibrationReport:
+        """Algorithm 1 over the whole model: train only the SRAM side-cars
+        against the frozen teacher, on the current (drifted) base.
+        ``batch_or_samples`` is a batch dict or a calibration-set size
+        (paper: 10 samples of ``seq_len`` tokens). Teacher features are
+        cached once per call unless ``cached_teacher=False``. A
+        codes-resident base runs under the differentiable ``dequant``
+        backend, so no kernel launches and the codes stay as they are. The
+        optimizer state carries over to the next call; the adapters left
+        on the deployment require no grad."""
+        cfg = self.cfg
+        opt = opt if opt is not None else AdamW(lr=lr)
+        batch = _device_batch(calibration_batch(cfg, batch_or_samples, seq_len),
+                              self.device)
+        use_cached = True if cached_teacher is None else bool(cached_teacher)
+        state = self.calib_state()
+        backend_ctx = (substrate.use_backend("dequant") if self.backend != "dequant"
+                       else contextlib.nullcontext())
+        losses: List[float] = []
+        with backend_ctx:
+            if use_cached:
+                feats = teacher_features(self.teacher_base, batch, cfg)
+                step_fn = make_cached_calib_step(cfg, opt)
+                run = lambda s: step_fn(s, feats, batch)  # noqa: E731
+            else:
+                step_fn = make_calib_step(cfg, opt)
+                run = lambda s: step_fn(s, batch)  # noqa: E731
+            for _ in range(steps):
+                state, metrics = run(state)
+                losses.append(float(metrics["loss"]))
+                if loss_threshold and losses[-1] <= loss_threshold:
+                    break
+        self.adopt(state)
+        n_base, n_adapters = T.count_params({"base": self.base, "adapters": self.adapters})
+        return CalibrationReport(
+            losses=losses, epochs_run=len(losses),
+            sram_bytes=sram_bytes(self.adapters), rram_bytes=rram_bytes(self.base),
+            base_params=n_base, adapter_params=n_adapters,
+            calibrated_fraction=n_adapters / max(n_base, 1),
+            backend=self.backend, drift_events=len(self.drift_hours),
+        )
+
+    def reset_adapters(self) -> "Deployment":
+        """Discard the side-cars back to the fresh (output-preserving)
+        init that ``program`` made from the teacher seed, and clear the
+        optimizer. The codes and the drift clock are untouched."""
+        params = T.init_params(rram.make_generator(self.device, self.teacher_seed),
+                               self.cfg)
+        self.adapters = params["adapters"]
+        self.opt_state = None
+        self.step = 0
+        return self
+
+    def _teacher_logits(self, batch: Dict) -> torch.Tensor:
+        # The teacher is frozen: repeated logit_mse calls on one batch reuse
+        # one forward. The cache holds the batch's values, so identity is a
+        # sound key.
+        leaves = tuple(batch[k] for k in sorted(batch))
+        cached = self._teacher_logits_cache
+        if cached is not None and len(cached[0]) == len(leaves) and all(
+                a is b for a, b in zip(cached[0], leaves)):
+            return cached[1]
+        with torch.no_grad():
+            t = T.forward({"base": self.teacher_base, "adapters": {}},
+                          _device_batch(batch, self.device), self.cfg,
+                          use_adapters=False).to(torch.float32)
+        self._teacher_logits_cache = (leaves, t)
+        return t
+
+    def logit_mse(self, batch: Dict, *, use_adapters: bool = True) -> float:
+        """Teacher/student logit MSE on ``batch`` under this deployment's
+        backend: the drift gap (``use_adapters=False``) and what the
+        side-cars recover of it."""
+        t = self._teacher_logits(batch)
+        with serving.backend_scope(self.backend, self.cfg), torch.no_grad():
+            s = T.forward({"base": self.base,
+                           "adapters": self.adapters if use_adapters else {}},
+                          _device_batch(batch, self.device), self.cfg,
+                          use_adapters=use_adapters).to(torch.float32)
+        return float(torch.mean((t - s) ** 2))
+
+    # -- serving --------------------------------------------------------------
 
     def serve(self, *, accum: str = "f32") -> serving.ServeSession:
         """Merge the DoRA magnitudes (Algorithm 2 line 12) and bind a

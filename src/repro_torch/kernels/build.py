@@ -90,6 +90,21 @@ def device_of(*tensors):
     return devices.pop()
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when autograd would record a call of kernel ``name``: the
+    kernels have no backward, and on the card they return a tensor with no
+    ``grad_fn``, so a loss through them would train nothing without a
+    word. The CPU's plain version is refused alike, so that a test on the
+    CPU sees what the card would do. Calibration reads the codes back
+    under the ``dequant`` backend (``Deployment.calibrate`` does)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: an operand requires grad under grad mode; "
+            "calibrate under the 'dequant' backend (Deployment.calibrate does), "
+            "or call it under torch.no_grad()"
+        )
+
+
 def tickets(held: Dict[tuple, tuple], capture_id, device, stream: int,
             count: int) -> torch.Tensor:
     """``count`` int32 tickets for a launch on ``stream``: zeros that every

@@ -17,6 +17,8 @@ its tensor-core body in one launch, K split into the ordered parts of
 
 A tensor on the CPU takes the plain version (``ref.crossbar_mvm_ref``);
 a CUDA tensor launches the kernel or raises — there is no fallback.
+It has no backward: an operand that requires grad under grad mode
+raises on every device (``build.refuse_autograd``).
 ``launch_counts`` counts the calls that launch (one each, whatever the
 body).
 """
@@ -28,7 +30,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import autotune
-from repro_torch.kernels.build import CudaLibrary, device_of, tickets
+from repro_torch.kernels.build import CudaLibrary, device_of, refuse_autograd, tickets
 from repro_torch.kernels.ref import crossbar_mvm_ref
 
 _LAUNCHES: Dict[str, int] = {"crossbar_mvm": 0}
@@ -130,6 +132,7 @@ def crossbar_mvm(x, g_pos, g_neg, scale, *, code_max: int = 255,
                  adc_bits: int = 8) -> torch.Tensor:
     """x (M, K) f32|bf16; g_pos/g_neg (K, N) u8; scale (1, N) f32 ->
     (M, N) f32. ``code_max``/``adc_bits`` come from the ``RramConfig``."""
+    refuse_autograd("crossbar_mvm", x, g_pos, g_neg, scale)
     device = device_of(x, g_pos, g_neg, scale)
     if device.type == "cpu":
         return crossbar_mvm_ref(

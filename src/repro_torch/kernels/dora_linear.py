@@ -25,7 +25,9 @@ body reads the uint8 codes themselves: no s8 recode is stored.
 
 A tensor on the CPU takes the plain version (``ref.dora_linear_ref``,
 ``ref.dora_linear_int8_ref``); a CUDA tensor launches the kernel or
-raises — there is no fallback. Each launcher counts its launches per
+raises — there is no fallback. Neither has a backward: an operand
+that requires grad under grad mode raises on every device
+(``build.refuse_autograd``). Each launcher counts its launches per
 body (``launch_counts``: ``"dora_linear_gemv"``, ``"dora_linear"`` for
 f32, with a ``"/int8"`` suffix for int8), so a run can show which kernel
 its main path went through. The library is built at first use
@@ -39,7 +41,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import autotune
-from repro_torch.kernels.build import CudaLibrary, device_of, tickets
+from repro_torch.kernels.build import CudaLibrary, device_of, refuse_autograd, tickets
 from repro_torch.kernels.ref import dora_linear_int8_ref, dora_linear_ref
 
 MAX_RANK = 256  # the X @ A prologue gives each rank at least one thread
@@ -185,6 +187,7 @@ def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
 def _dispatch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
     if accum not in autotune.ACCUMS:
         raise ValueError(f"accum must be one of {autotune.ACCUMS}, got {accum!r}")
+    refuse_autograd(kind, x, g_pos, g_neg, scale, a, b, gamma)
     device = device_of(x, g_pos, g_neg, scale, a, b, gamma)
     if device.type == "cpu":
         ref = dora_linear_ref if accum == "f32" else dora_linear_int8_ref

@@ -1,5 +1,6 @@
 """Model assembly, dense decoder path. Port of ``repro/models/
-transformer.py`` (attention mixers and gated-MLP FFNs; MoE, SSM, RG-LRU,
+transformer.py`` (attention mixers and gated-MLP FFNs, the forward, the
+feature-KD calibration loss and the serving steps; MoE, SSM, RG-LRU,
 encoder-decoder and vision prefix wait).
 
 The parameter layout is the reference's: ``prologue`` (list) + ``body``
@@ -197,10 +198,13 @@ def block_forward(h, base, adapters, cfg: ModelConfig, mixer: str, ffn: str, *,
     return h
 
 
-def forward(params: Dict, batch: Dict, cfg: ModelConfig) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, vocab)."""
+def forward(params: Dict, batch: Dict, cfg: ModelConfig, *,
+            use_adapters: bool = True) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, vocab); ``use_adapters=False``
+    runs the base alone (the teacher, or the drifted array without its
+    side-cars)."""
     base = params["base"]
-    adapters = _adapters_or_empty(params)
+    adapters = _adapters_or_empty(params) if use_adapters else _empty_adapters(base)
     h = L.embed(batch["tokens"], base["embed"], scale_by_sqrt_dim=cfg.embed_scale)
     positions = torch.arange(h.shape[1], device=h.device)[None]
     for _, b, a_, (mixer, ffn) in _layers(base, adapters, cfg):
@@ -213,6 +217,53 @@ def _lm_head(h, base, adapters, cfg: ModelConfig):
     if cfg.tie_lm_head:
         return h @ base["embed"]["embedding"].to(h.dtype).T
     return L.linear(h, base["lm_head"], adapters.get("lm_head"), cfg.adapter)
+
+
+# ---------------------------------------------------------------------------
+# feature-based layer-wise calibration loss (paper Algorithm 1 + 2)
+# ---------------------------------------------------------------------------
+#
+# The student block receives the *teacher's* block input, so gradients
+# w.r.t. a block's DoRA parameters never cross a block boundary —
+# "layer-wise, no backpropagation" (§III-B) as one loss. Summing the
+# per-block MSEs gives exactly the per-layer gradients of Algorithm 1's
+# inner loop. The teacher side runs under ``torch.no_grad()``.
+
+
+def feature_calibration_loss(teacher_base: Dict, student_base: Dict, adapters: Dict,
+                             batch: Dict, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+    """Mean over blocks (and the untied lm_head's logits) of the
+    teacher/student MSE; returns ``(loss, {"feature_mse": loss})``."""
+    with torch.no_grad():
+        h = L.embed(batch["tokens"], teacher_base["embed"],
+                    scale_by_sqrt_dim=cfg.embed_scale)
+    positions = torch.arange(h.shape[1], device=h.device)[None]
+    loss = torch.zeros((), dtype=torch.float32, device=h.device)
+    n_terms = 0
+    teacher = _layers(teacher_base, _empty_adapters(teacher_base), cfg)
+    for (_, tb, _, (mixer, ffn)), (_, sb, sa, _) in zip(
+            teacher, _layers(student_base, adapters, cfg)):
+        with torch.no_grad():
+            t_out = block_forward(h, tb, {}, cfg, mixer, ffn, positions=positions)
+        s_out = block_forward(h, sb, sa, cfg, mixer, ffn, positions=positions)
+        loss = loss + _mse(t_out, s_out)
+        n_terms += 1
+        h = t_out
+    if not cfg.tie_lm_head:  # untied heads live in RRAM: align the logits too
+        with torch.no_grad():
+            hn = _norm(h, teacher_base["final_norm"], cfg)
+            t_logits = L.linear(hn, teacher_base["lm_head"], {}, cfg.adapter)
+        s_logits = L.linear(hn, student_base["lm_head"], adapters.get("lm_head"),
+                            cfg.adapter)
+        loss = loss + _mse(t_logits, s_logits)
+        n_terms += 1
+    loss = loss / n_terms
+    return loss, {"feature_mse": loss}
+
+
+def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    d = a.to(torch.float32) - b.to(torch.float32)
+    return torch.mean(d * d)
 
 
 # ---------------------------------------------------------------------------

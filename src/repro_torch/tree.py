@@ -48,6 +48,23 @@ def map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], tree):
     return tree
 
 
+def zip_map(fn: Callable, tree, *others):
+    """``fn(t, *o)`` over the tensors of same-structured trees of nested
+    dicts and lists (the adapter, gradient and optimizer trees)."""
+    if isinstance(tree, dict):
+        return {k: zip_map(fn, v, *(o[k] for o in others)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [zip_map(fn, v, *(o[i] for o in others)) for i, v in enumerate(tree)]
+    return fn(tree, *others)
+
+
+def unflatten(like, leaves: Sequence[torch.Tensor]):
+    """The tree of ``like``'s structure whose tensors are ``leaves``, in
+    the walk order of ``tensors(like)``."""
+    it = iter(leaves)
+    return map_tensors(lambda _: next(it), like)
+
+
 def tensors(tree) -> List[torch.Tensor]:
     """Every tensor of ``tree`` in walk order."""
     out: List[torch.Tensor] = []

@@ -218,6 +218,40 @@ def test_cpu_path_launches_no_kernel():
     assert tc.launch_counts() == {"crossbar_mvm": 0}
 
 
+@pytest.mark.parametrize("grad_of", ["x", "scale"])
+def test_wrapper_refuses_autograd(grad_of):
+    """No backward: an operand that requires grad under grad mode raises on
+    every device; under ``torch.no_grad()`` the plain result comes back."""
+    ops = [torch.from_numpy(a) for a in _operands(3, 300, 8, seed=2)]
+    want = tc.crossbar_mvm(*ops)
+    ops[("x", "g_pos", "g_neg", "scale").index(grad_of)].requires_grad_(True)
+    tc.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="crossbar_mvm has no backward.*dequant"):
+        tc.crossbar_mvm(*ops)
+    with torch.no_grad():
+        got = tc.crossbar_mvm(*ops)
+    assert torch.equal(got, want)
+    assert tc.launch_counts() == {"crossbar_mvm": 0}
+
+
+def test_codes_adc_forward_with_trainable_adapters_raises():
+    """A loss through ``codes_adc`` would reach the ADC kernel with an
+    input that requires grad: refused, so that calibration runs under
+    ``dequant`` (as ``Deployment.calibrate`` does)."""
+    x, gp, gn, scale = [torch.from_numpy(a) for a in _operands(4, 64, 8, seed=3)]
+    xw = tsub.CrossbarWeight(g_pos=gp, g_neg=gn, scale=scale)
+    acfg = tdora.AdapterConfig(rank=2)
+    adapter = {"lora_a": torch.full((64, 2), 0.1, requires_grad=True),
+               "lora_b": torch.zeros((2, 8), requires_grad=True),
+               "dora_m": torch.ones((8,), requires_grad=True)}
+    h = x @ adapter["lora_a"] @ torch.ones((2, 64))  # an input that requires grad
+    with pytest.raises(RuntimeError, match="no backward"):
+        tsub.crossbar_linear(h, xw, adapter, acfg, backend="codes_adc")
+    y = tsub.crossbar_linear(h, xw, adapter, acfg, backend="dequant")
+    y.sum().backward()
+    assert adapter["lora_b"].grad is not None
+
+
 # -- the tensor-core body's plan (autotune.adc_plan) ---------------------------
 
 # qwen3-1.7b unfused leaves, what codes_adc runs: (K, N); the serving row

@@ -640,3 +640,79 @@ def test_int8_and_adc_serving_on_card(cuda):
         counts = {**K.launch_counts(), **C.launch_counts()}
         assert all(len(r.tokens) == 6 for r in reqs)
         assert counts[key] > 0 and sum(counts.values()) == counts[key], counts
+
+
+# -- calibration on the card (autograd under dequant, then serving) ------------
+
+# per-step calibration losses, card vs CPU, relative: the bf16 config as
+# shipped; cuBLAS and the CPU round bf16 matmuls differently (the port vs
+# the reference on the CPU: up to 1.2e-3, tests/test_torch_calibrate.py)
+CALIB_LOSS_RTOL = 1e-2
+# calibrated logits through the kernels (card) vs dequant (CPU), of the
+# absmax: bf16 activations over 4 layers (tests/test_torch_model.py's bound)
+CALIB_LOGITS_BOUND = 3e-2
+
+
+def _twin_deployments(cuda):
+    """The same smoke deployment (codes, 24 h of drift) on the CPU and on
+    the card."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+
+    cfg = get_arch("qwen3_1_7b").smoke
+    cpu = Deployment.program(cfg, 0, backend="codes", device="cpu").advance(24)
+    on = lambda t: tree_lib.map_tensors(lambda v: v.to(cuda), t)  # noqa: E731
+    card = Deployment(cfg, "codes", on(cpu.teacher_base), on(cpu.codes), on(cpu.adapters),
+                      cpu.teacher_seed, cpu.program_seed, cpu.drift_hours)
+    return cfg, cpu, card
+
+
+def test_calibrate_on_card_matches_cpu_and_launches_nothing(cuda):
+    from repro_torch import tree as tree_lib
+    from repro_torch.deploy import calibration_batch
+
+    cfg, cpu, card = _twin_deployments(cuda)
+    batch = calibration_batch(cfg, 4, 16)
+    codes = [t.clone() for t in tree_lib.tensors(card.codes)]
+    K.reset_launch_counts()
+    C.reset_launch_counts()
+    got = card.calibrate(batch, steps=5)
+    torch.cuda.synchronize()
+    assert set(K.launch_counts().values()) == {0}
+    assert C.launch_counts() == {"crossbar_mvm": 0}
+    assert all(torch.equal(a, b) for a, b in zip(codes, tree_lib.tensors(card.codes)))
+    assert all(t.device.type == "cuda" and not t.requires_grad
+               for t in tree_lib.tensors(card.adapters))
+    want = cpu.calibrate(batch, steps=5)
+    assert got.final_loss < got.initial_loss
+    torch.testing.assert_close(torch.tensor(got.losses), torch.tensor(want.losses),
+                               rtol=CALIB_LOSS_RTOL, atol=0)
+
+
+def test_calibrated_deployment_served_through_kernels_matches_dequant(cuda):
+    """After calibration on the card, the side-cars (trained B, gamma off
+    the clean norm) served through the kernels, f32 and int8 bodies, GEMV
+    and tiled launchers, against dequant on the CPU over the same codes
+    and adapters."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.deploy import Deployment, calibration_batch
+
+    cfg, cpu, card = _twin_deployments(cuda)
+    card.calibrate(calibration_batch(cfg, 4, 16), steps=5)
+    ref = Deployment(cfg, "dequant", cpu.teacher_base, cpu.codes,
+                     tree_lib.map_tensors(lambda t: t.cpu(), card.adapters),
+                     cpu.teacher_seed, cpu.program_seed, cpu.drift_hours).serve()
+    g = torch.Generator().manual_seed(3)
+    for rows, launcher in ((3, "dora_linear_gemv"), (30, "dora_linear")):
+        tokens = torch.randint(0, cfg.vocab, (3, rows), generator=g)
+        want, _ = ref.prefill(tokens, rows + 8)
+        for accum in ("f32", "int8"):
+            K.reset_launch_counts()
+            got, _ = card.serve(accum=accum).prefill(tokens.to(cuda), rows + 8)
+            torch.cuda.synchronize()
+            key = launcher if accum == "f32" else f"{launcher}/int8"
+            assert K.launch_counts()[key] > 0, (accum, K.launch_counts())
+            err = float((got.float().cpu() - want.float()).abs().max())
+            bound = CALIB_LOGITS_BOUND if accum == "f32" else 0.25  # int8: chip_smoke's bound
+            assert err <= bound * float(want.float().abs().max()), (rows, accum, err)

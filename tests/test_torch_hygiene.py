@@ -3,7 +3,9 @@
 imports with jax made unimportable, and nothing falls back silently —
 the entry points raise without a card, the CUDA wrappers (both bodies of
 the fused linear, and the ADC kernel) raise without ``nvcc`` and for any
-non-CPU device they have no kernel for."""
+non-CPU device they have no kernel for, and calibration, which the
+wrappers refuse (they have no backward), runs under ``dequant`` whatever
+the deployment's backend."""
 import os
 import pathlib
 import re
@@ -13,6 +15,7 @@ import sys
 import pytest
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs import get_arch
 from repro_torch.deploy import Deployment
 from repro_torch.kernels import build as B
@@ -144,3 +147,20 @@ def test_adc_wrapper_has_no_fallback_for_non_cpu_tensors():
     with pytest.raises(ValueError, match="several devices"):
         C.crossbar_mvm(torch.zeros((4, 8)), *ops[1:])
     assert C.launch_counts() == {"crossbar_mvm": 0}
+
+
+@pytest.mark.parametrize("backend", ["codes", "codes_adc"])
+def test_calibrating_a_kernel_backed_deployment_does_not_raise(backend):
+    """The kernel wrappers refuse autograd; ``calibrate`` runs under the
+    ``dequant`` backend, so a ``codes`` or ``codes_adc`` deployment
+    calibrates on the CPU as it would on the card, with no kernel counted,
+    and its side-cars come back free of autograd."""
+    cfg = get_arch("qwen3_1_7b").smoke
+    dep = Deployment.program(cfg, 0, backend=backend, device="cpu").advance(24)
+    K.reset_launch_counts()
+    C.reset_launch_counts()
+    report = dep.calibrate(2, steps=2, seq_len=8)
+    assert report.backend == backend and len(report.losses) == 2
+    assert set(K.launch_counts().values()) == {0}
+    assert C.launch_counts() == {"crossbar_mvm": 0}
+    assert not any(t.requires_grad for t in tree_lib.tensors(dep.adapters))

@@ -87,6 +87,27 @@ def test_cpu_path_launches_no_kernel():
                                   "dora_linear_gemv/int8": 0, "dora_linear/int8": 0}
 
 
+@pytest.mark.parametrize("grad_of", ["x", "scale", "a", "b", "gamma"])
+@pytest.mark.parametrize("accum", autotune.ACCUMS)
+@pytest.mark.parametrize("launcher", [tk.dora_linear, tk.dora_linear_gemv],
+                         ids=["dora_linear", "dora_linear_gemv"])
+def test_wrappers_refuse_autograd(launcher, accum, grad_of):
+    """The kernels have no backward: an operand that requires grad under
+    grad mode raises, on the CPU as on the card; under ``torch.no_grad()``
+    the same call returns the plain result, and nothing counts a launch."""
+    names = ("x", "g_pos", "g_neg", "scale", "a", "b", "gamma")
+    ops = [torch.from_numpy(o) for o in _operands(5, 24, 16, 3, seed=1)]
+    want = launcher(*ops, accum=accum)
+    ops[names.index(grad_of)].requires_grad_(True)
+    tk.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward.*dequant"):
+        launcher(*ops, accum=accum)
+    with torch.no_grad():
+        got = launcher(*ops, accum=accum)
+    assert torch.equal(got, want) and not got.requires_grad
+    assert set(tk.launch_counts().values()) == {0}
+
+
 @pytest.mark.parametrize("m,expect", [(1, 1), (3, 4), (33, 64), (64, 64)])
 def test_gemv_row_bucket(m, expect):
     assert autotune.use_gemv(m)
