@@ -70,14 +70,26 @@ Phases (any failure exits non-zero; no failure is caught):
                 codes and adapters. Each runs the same traffic through
                 ServeEngine (ragged greedy requests, one chunked) and one
                 fused prefill with B*S > 64, with the launch counters reset
-                just before and read just after (asserted exactly); then
-                codes vs dequant logits (prefill and one admission chunk per
-                row bucket 8, 16, 32), int8 vs f32 logits (gated), and ADC
-                vs f32 logits (reported: the fidelity of the ADC model);
-                the fused prefill's wall time from CUDA events, per
-                session;
+                just before and read just after (asserted exactly; the
+                engine's decode tick and admission chunks are the session's
+                compiled steps, CUDA graphs whose replays count the launches
+                their capture recorded); then codes vs dequant logits
+                (prefill and one admission chunk per row bucket 8, 16, 32),
+                int8 vs f32 logits (gated), and ADC vs f32 logits
+                (reported: the fidelity of the ADC model); the fused
+                prefill's wall time from CUDA events, per session. Per
+                session also: ``compile_count`` (4: the decode tick, chunk
+                buckets 8, 16, 32) flat over a second identical drive
+                through the warm graphs, and a third drive with every step
+                issued eagerly, both with the first drive's exact launches
+                and streams; each graph's replay bitwise equal to its step
+                run eagerly from a copy of the same cache (logits and
+                cache); the decode tick captured vs eager (the same static
+                inputs, alternated in one call), decode tok/s and TTFT
+                captured vs eager; the memory the registry holds;
   6. trace    — torch.profiler over a few steady decode ticks of each
-                session: device busy share, kernels per tick, the largest
+                session, through the graphs and then issued eagerly: device
+                busy share, kernels and graph launches per tick, the largest
                 kernels;
   7. calibrate — on phase 5's deployment (its sessions freed):
                 dep.calibrate(10, steps=20) (10 samples x 32 tokens, lr
@@ -89,7 +101,8 @@ Phases (any failure exits non-zero; no failure is caught):
                 seconds, step ms (synchronized), calibrate seconds, peak
                 memory; torch.profiler over two steady steps; then serve()
                 and serve(accum="int8") over phase 5's traffic with the
-                calibrated side-cars: exact launch counts, codes vs dequant
+                calibrated side-cars, through the compiled steps with phase
+                5's per-session checks: exact launch counts, codes vs dequant
                 logits (prefill and one chunk per bucket 8, 16, 32) within
                 LOGITS_BOUND, int8 vs f32 within INT8_LOGITS_BOUND.
 The last line is the contract line; the line before it the kernel table.
@@ -190,6 +203,9 @@ SLOTS = 4                   # engine slots: the decode batch of phase 5
 PREFILL_ROWS = 96           # phase 5's fused prefill: 3 x 32 tokens
 PROMPT_LENS = (5, 40, 17, 9)  # phase 5's ragged engine requests
 MAX_NEW = 16                # greedy tokens per request
+# the steps phase 5's traffic compiles per session: the decode tick and the
+# admission chunk buckets 8 (5 and 40 - 32 tokens), 16 (9) and 32 (17, 40)
+COMPILED_STEPS = 4
 # timed row counts: a single stream, the phase-5 decode tick, a full
 # 32-token admission chunk, phase 5's fused prefill and a larger one
 TIMED_M = (1, SLOTS, 32, PREFILL_M)
@@ -860,10 +876,31 @@ def time_prefill(session, tokens, reps=1):
     return times, logits
 
 
-def drive(session, prompts, tokens, max_new):
-    """The phase-5 traffic on one session: ragged greedy requests through
-    ServeEngine (submitted one per tick), then one fused prefill. The
-    launch counters are reset just before and read after each part."""
+@contextlib.contextmanager
+def eager_steps():
+    """Issue every compiled step eagerly (its function on its static
+    buffers, no graph) while inside: the eager side of phase 5's and phase
+    6's captured-vs-eager comparisons. The program is not changed; the
+    patch is removed on exit."""
+    from repro_torch.deploy import serving
+
+    call = serving.CompiledStep.__call__
+
+    def eager(self, host):
+        self.inputs.copy_(host)
+        return self.fn()
+
+    serving.CompiledStep.__call__ = eager
+    try:
+        yield
+    finally:
+        serving.CompiledStep.__call__ = call
+
+
+def engine_run(session, prompts, max_new):
+    """Phase 5's engine traffic once: ragged greedy requests through a
+    4-slot ServeEngine (submitted one per tick), the launch counters reset
+    just before and read just after."""
     from repro_torch.deploy import ServeEngine
 
     engine = ServeEngine(session, max_slots=SLOTS, max_len=128)
@@ -877,38 +914,166 @@ def drive(session, prompts, tokens, max_new):
     engine.run()
     torch.cuda.synchronize()
     t_engine = time.perf_counter() - t0
-    after_engine = read_counts()
-    (prefill_ms,), logits = time_prefill(session, tokens)
     counts = read_counts()
-    # again, uncounted, now that every shape has been seen once
-    warm, _ = time_prefill(session, tokens, reps=3)
     vocab = session.cfg.vocab
     for r in reqs:
         assert r.done and len(r.tokens) == max_new, r
         assert all(0 <= t < vocab for t in r.tokens), r.tokens
-    assert torch.isfinite(logits.float()).all()
     stats = engine.stats()
     assert stats["generated_tokens"] == stats["first_tokens"] + stats["decode_tokens"]
-    ttft = [r.ttft_seconds for r in reqs]
-    result = {
+    return {
         "engine_seconds": t_engine, "ticks": engine.tick,
         "decode_steps": stats["decode_steps"], "prefill_chunks": stats["prefill_chunks"],
         "decode_tok_per_s": stats["decode_tok_per_s"],
         "decode_tokens": stats["decode_tokens"], "decode_seconds": stats["decode_seconds"],
         "tick_ms": 1e3 * stats["decode_seconds"] / stats["decode_steps"],
-        "ttft_s": ttft, "launches_engine": after_engine, "launches": counts,
-        "streams": [list(r.tokens) for r in reqs],
-        "prefill_rows": int(tokens.numel()), "prefill_ms": prefill_ms,
-        "prefill_ms_warm": warm,
+        "ttft_s": [r.ttft_seconds for r in reqs], "launches": counts,
+        "streams": [list(r.tokens) for r in reqs], "compile_count": stats["compile_count"],
     }
-    log(f"[serve] {session.describe()} {session.options}: decode {stats['decode_tokens']} tok in "
-        f"{stats['decode_seconds']:.3f} s = {stats['decode_tok_per_s']:.1f} tok/s ({SLOTS} slots, "
-        f"{result['tick_ms']:.2f} ms per tick, {stats['decode_steps']} ticks, "
-        f"{stats['prefill_chunks']} admission chunks) | TTFT min {min(ttft):.3f} s "
-        f"max {max(ttft):.3f} s")
+
+
+def replay_vs_eager(session, seed=3):
+    """Every captured step of the session (the decode tick, the chunk
+    buckets 8, 16 and 32) replayed on fresh inputs, then its function run
+    eagerly from a copy of the same cache: logits and cache bitwise equal.
+    The decode tick at clocks 40-70; each chunk with a bucket that runs
+    past max_len (pos0 + width > 128, pos0 + n_valid = 128)."""
+    g = torch.Generator().manual_seed(seed)
+    vocab = session.cfg.vocab
+    out = {}
+    for step in session.steps:
+        kind, _, batch, width, max_len = step.key
+        assert step.graph is not None, step.key
+        if kind == "decode":
+            host = torch.stack([torch.randint(0, vocab, (batch,), generator=g),
+                                torch.arange(batch) * 10 + 40])
+        else:
+            host = torch.cat([torch.randint(0, vocab, (width,), generator=g),
+                              torch.tensor([max_len - width // 2 - 1, width // 2 + 1])])
+        saved = step.flat.clone()
+        got = step(host).clone()
+        got_cache = step.flat.clone()
+        step.flat.copy_(saved)
+        want = step.fn()
+        torch.cuda.synchronize()
+        label = f"{kind}/{width}"
+        out[label] = {"logits_equal": torch.equal(got, want),
+                      "cache_equal": torch.equal(got_cache, step.flat),
+                      "max_abs_diff": float((got.float() - want.float()).abs().max()),
+                      "greedy_equal": torch.equal(got.argmax(-1), want.argmax(-1))}
+        step.flat.copy_(saved)
+        del saved, got, got_cache, want
+    log(f"[serve] replay vs eager, {session.options or 'f32'} {session.backend}: " + ", ".join(
+        f"{k} logits {'bitwise' if v['logits_equal'] else v['max_abs_diff']} cache "
+        f"{'bitwise' if v['cache_equal'] else 'DIFFERS'}" for k, v in out.items()))
+    assert all(v["logits_equal"] and v["cache_equal"] for v in out.values()), out
+    return out
+
+
+def tick_times(session, ticks=20, rounds=2):
+    """The decode tick at 4 live slots, captured (a replay) and eager
+    (``transformer.decode_step`` on the same static inputs), each ending
+    in the greedy argmax's copy to the host as the engine's tick does: ms
+    per tick on the host clock, in the order captured, eager, eager,
+    captured per round (both medians over the rounds)."""
+    from repro_torch.deploy import ServeEngine
+
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=128)  # leases the warm step
+    step = engine._decode
+    g = torch.Generator().manual_seed(2)
+    host = torch.stack([torch.randint(0, session.cfg.vocab, (SLOTS,), generator=g),
+                        torch.arange(SLOTS) * 10 + 40])
+
+    def captured():
+        torch.argmax(step(host)[:, -1], dim=-1).cpu()
+
+    def eager():
+        step.inputs.copy_(host)
+        torch.argmax(step.fn()[:, -1], dim=-1).cpu()
+
+    times = {"captured": [], "eager": []}
+    captured()
+    eager()
+    for _ in range(rounds):
+        for name, fn in (("captured", captured), ("eager", eager), ("eager", eager),
+                         ("captured", captured)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                fn()
+            times[name].append(1e3 * (time.perf_counter() - t0) / ticks)
+    out = {name: statistics.median(v) for name, v in times.items()}
+    out["all"] = times
+    log(f"[serve] decode tick ({SLOTS} slots), captured {out['captured']:.3f} ms vs eager "
+        f"{out['eager']:.3f} ms ({out['eager'] / out['captured']:.2f}x; medians of "
+        f"{2 * rounds} x {ticks} ticks: captured "
+        f"{', '.join(f'{t:.3f}' for t in times['captured'])}, eager "
+        f"{', '.join(f'{t:.3f}' for t in times['eager'])})")
+    return out
+
+
+def memory():
+    """(allocated, reserved) device bytes once the allocator's free cached
+    blocks are released: what live tensors and the graphs' private pools
+    hold."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def drive(session, prompts, tokens, max_new):
+    """The phase-5 traffic on one session: the engine traffic through the
+    compiled steps (the first call of each step eager, then captured), then
+    one fused prefill (eager), the launch counters reset before and read
+    after each part; then the engine traffic again through the warm graphs
+    (``compile_count`` flat, the same launches and streams) and issued
+    eagerly (the same launches and streams), each step's replay vs eager,
+    the decode tick captured vs eager, and the fused prefill again."""
+    mem0 = memory()
+    cold = engine_run(session, prompts, max_new)
+    mem1 = memory()
+    reset_counts()
+    (prefill_ms,), logits = time_prefill(session, tokens)
+    prefill_counts = read_counts()
+    counts = {k: cold["launches"][k] + n for k, n in prefill_counts.items()}
+    # again, uncounted, now that every shape has been seen once
+    warm_prefill, _ = time_prefill(session, tokens, reps=3)
+    assert torch.isfinite(logits.float()).all()
+    assert cold["compile_count"] == session.compile_count() == COMPILED_STEPS
+
+    warm = engine_run(session, prompts, max_new)
+    with eager_steps():
+        eager = engine_run(session, prompts, max_new)
+    for name, run in (("warm", warm), ("eager", eager)):
+        assert run["launches"] == cold["launches"], (name, run["launches"], cold["launches"])
+        assert run["streams"] == cold["streams"], name
+    assert warm["compile_count"] == eager["compile_count"] == cold["compile_count"]
+    result = {
+        **cold, "launches_engine": cold["launches"], "launches": counts,
+        "warm": warm, "eager": eager,
+        "registry_allocated_bytes": mem1[0] - mem0[0],
+        "registry_reserved_bytes": mem1[1] - mem0[1],
+        "replay_vs_eager": replay_vs_eager(session), "tick": tick_times(session),
+        "prefill_rows": int(tokens.numel()), "prefill_ms": prefill_ms,
+        "prefill_ms_warm": warm_prefill,
+    }
+    log(f"[serve] {session.describe()} {session.options}: compile_count "
+        f"{cold['compile_count']} after the first drive, {warm['compile_count']} after the "
+        f"second; the first drive left +{result['registry_allocated_bytes'] / 2**20:.1f} MiB "
+        f"allocated (static caches, outputs) and +{result['registry_reserved_bytes'] / 2**20:.1f}"
+        f" MiB reserved (those and the graphs' pool)")
+    for name, run in (("first drive (captures)", cold), ("captured", warm),
+                      ("eager", eager)):
+        ttft = run["ttft_s"]
+        log(f"[serve]   {name}: decode {run['decode_tokens']} tok in "
+            f"{run['decode_seconds']:.3f} s = {run['decode_tok_per_s']:.1f} tok/s ({SLOTS} slots, "
+            f"{run['tick_ms']:.2f} ms per tick, {run['decode_steps']} ticks, "
+            f"{run['prefill_chunks']} admission chunks) | TTFT "
+            f"{', '.join(f'{t:.4f}' for t in ttft)} s")
     log(f"[serve] fused prefill ({tokens.shape[0]} x {tokens.shape[1]} tokens) wall "
         f"{prefill_ms:.3f} ms (CUDA events; counted run), warm repeats "
-        f"{', '.join(f'{t:.3f}' for t in warm)} ms")
+        f"{', '.join(f'{t:.3f}' for t in warm_prefill)} ms")
     log(f"[serve] launches {counts}")
     return result, logits
 
@@ -1034,34 +1199,53 @@ def phase_serving(device, seed):
     log("[serve] fused prefill wall (CUDA events, counted run | warm best): " + ", ".join(
         f"{body} {run['prefill_ms']:.3f} | {min(run['prefill_ms_warm']):.3f} ms"
         for body, run in (("f32", result), ("int8", int8), ("codes_adc", adc))))
+    for body, run in (("f32", result), ("int8", int8), ("codes_adc", adc)):
+        log(f"[serve] {body}: decode tick captured {run['warm']['tick_ms']:.3f} ms "
+            f"({run['warm']['decode_tok_per_s']:.1f} tok/s) vs eager "
+            f"{run['eager']['tick_ms']:.3f} ms ({run['eager']['decode_tok_per_s']:.1f} tok/s) in "
+            f"the engine; {run['tick']['captured']:.3f} vs {run['tick']['eager']:.3f} ms alone; "
+            f"TTFT max captured {max(run['warm']['ttft_s']):.4f} s vs eager "
+            f"{max(run['eager']['ttft_s']):.4f} s; compile_count {run['compile_count']}")
     result["peak_mem_bytes_all"] = torch.cuda.max_memory_allocated()
     del logits_adc
     return result, {"f32": session, "int8": session8, "codes_adc": session_adc}, dep
 
 
 def phase_trace(session, ticks=4):
-    """Profile a steady window of decode ticks (4 slots, full width):
-    device busy share of the wall time, kernels launched per tick, and the
-    kernels that take the most device time (``profile_window``)."""
+    """Profile a steady window of decode ticks (4 slots, full width), first
+    through the captured graphs, then issued eagerly: device busy share of
+    the wall time, kernels and graph launches per tick, and the kernels
+    that take the most device time (``profile_window``). The engine leases
+    the session's warm decode step and its prompts fill warm buckets:
+    nothing is captured here."""
     from repro_torch.deploy import ServeEngine
 
     g = torch.Generator().manual_seed(1)
+    warm = session.compile_count()
     engine = ServeEngine(session, max_slots=SLOTS, max_len=128)
     for _ in range(SLOTS):
         engine.submit(torch.randint(0, session.cfg.vocab, (8,), generator=g).numpy(),
-                      max_new=ticks + 4)
+                      max_new=2 * ticks + 6)
     while not engine.active.all():
         engine.step()
     engine.step()  # one untraced tick with every slot live
     torch.cuda.synchronize()
-    return profile_window("trace", "tick", ticks, engine.step)
+    out = {"captured": profile_window("trace", "tick", ticks, engine.step)}
+    with eager_steps():
+        engine.step()
+        torch.cuda.synchronize()
+        log("[trace] the same engine, every step issued eagerly:")
+        out["eager"] = profile_window("trace", "tick", ticks, engine.step)
+    assert engine.active.all() and session.compile_count() == warm
+    return out
 
 
 def profile_window(tag, unit, n, fn):
     """torch.profiler over ``n`` calls of ``fn`` (each one ``unit``), ended
     by a synchronize: wall and device-busy ms per unit, the busy share,
-    kernels per unit and the kernels that take the most device time.
-    ``None`` where the profiler records no device activity."""
+    kernels and CUDA-graph launches per unit and the kernels that take the
+    most device time. ``None`` where the profiler records no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1070,8 +1254,10 @@ def profile_window(tag, unit, n, fn):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    graphs = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                 and e.name.startswith("cudaGraphLaunch"))
     busy = sum(e.device_time_total for e in kernels) / 1e6  # us -> s
     by_name = {}
     for e in kernels:
@@ -1083,16 +1269,18 @@ def profile_window(tag, unit, n, fn):
         f"device_busy_ms_per_{per}": 1e3 * busy / n if kernels else None,
         "device_busy_share": busy / wall if kernels else None,
         f"kernels_per_{per}": len(kernels) / n if kernels else None,
+        f"graph_launches_per_{per}": graphs / n,
         f"top_kernels_ms_per_{per}": [(name[:80], ms / n) for name, ms in top],
     }
     if kernels:
         log(f"[{tag}] {n} {unit}s: {1e3 * wall / n:.2f} ms per {unit} wall, "
             f"{1e3 * busy / n:.3f} ms device busy ({busy / wall:.1%}), "
-            f"{len(kernels) / n:.0f} kernels per {unit}")
+            f"{len(kernels) / n:.0f} kernels and {graphs / n:g} graph launches per {unit}")
         for name, ms in top:
             log(f"[{tag}]   {ms / n:8.3f} ms/{unit}  {name[:80]}")
     else:
-        log(f"[{tag}] the profiler recorded no device activity: busy share not measured")
+        log(f"[{tag}] the profiler recorded no device activity: busy share not measured "
+            f"({graphs / n:g} graph launches per {unit})")
     return result
 
 
@@ -1241,8 +1429,8 @@ def phase_calibrate(dep, device, seed):
         result["step_split_ms"] = step_split(cfg, state[0], feats, batch)
     del state, feats, batch
 
-    # serve the calibrated side-cars through the kernels: phase 5's traffic
-    # and checks, the f32 body then the int8 body
+    # serve the calibrated side-cars through the kernels and the compiled
+    # steps: phase 5's traffic and checks, the f32 body then the int8 body
     prompts, tokens, g = serving_inputs(cfg.vocab, seed, device)
     n_leaves = 4 * cfg.n_layers
     session = dep.serve()
@@ -1286,7 +1474,15 @@ def main():
     for body, run in (("f32", serving), ("int8", serving["int8"]),
                       ("codes_adc", serving["codes_adc"])):
         log(f"[trace] {body}")
-        run["trace"] = phase_trace(sessions.pop(body))
+        run["trace"] = trace = phase_trace(sessions.pop(body))
+        # the profiler slows the captured tick's wall down about 2x: the
+        # busy share against phase 5's unprofiled captured tick
+        busy = trace["captured"]["device_busy_ms_per_tick"]
+        if busy is not None:
+            trace["captured"]["device_busy_share_of_unprofiled_tick"] = (
+                busy / run["tick"]["captured"])
+            log(f"[trace] {body}: device busy {busy:.3f} ms of the unprofiled captured tick's "
+                f"{run['tick']['captured']:.3f} ms ({busy / run['tick']['captured']:.1%})")
     gc.collect()
     torch.cuda.empty_cache()
     calibration = phase_calibrate(dep, device, args.seed)

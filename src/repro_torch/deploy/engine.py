@@ -13,6 +13,14 @@ shared prefix cache, ``remesh`` and encoder/vision slots wait).
 * **One decode step for everyone.** ``step()`` advances every active
   slot with one ``decode_step``; idle rows ride along and their writes
   stay masked.
+* **Compiled steps.** The decode tick and each chunk bucket are the
+  session's registry entries (``ServeSession.decode_step_fn`` /
+  ``prefill_chunk_fn``): CUDA graphs on the card, replayed on the
+  current stream. The engine leases a decode step of its own (its cache
+  is the slots' cache); every chunk advances the session's batch-1
+  staging cache, and a prompt of several chunks keeps its cache between
+  them in ``Request._cache`` (one flat buffer, one copy each way).
+  Greedy argmax, sampling and the token's copy to the host stay outside.
 * **Unified retirement.** Every exit goes through ``_finish``, so
   ``generated_tokens == first_tokens + decode_tokens`` always.
 """
@@ -47,7 +55,7 @@ class Request:
     admitted_tick: Optional[int] = None
     submitted_at: Optional[float] = None
     ttft_seconds: Optional[float] = None   # submit -> first token
-    _cache: Optional[dict] = dataclasses.field(default=None, repr=False)
+    _cache: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
     _logits: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
     _spans: List[Tuple[int, int]] = dataclasses.field(default_factory=list, repr=False)
 
@@ -70,8 +78,6 @@ class ServeEngine:
 
     def __init__(self, session, *, max_slots: int = 4, max_len: int = 128,
                  prefill_chunk: int = 32, min_bucket: int = 8):
-        from repro_torch.models import transformer as T
-
         self.session = session
         self.cfg = session.cfg
         if not all(m in _CHUNKABLE for m in self.cfg.mixer_pattern):
@@ -81,7 +87,9 @@ class ServeEngine:
         self.max_len = int(max_len)
         self.prefill_chunk = _pow2_ceil(int(prefill_chunk))
         self.min_bucket = min(_pow2_ceil(int(min_bucket)), self.prefill_chunk)
-        self.cache = T.init_cache(self.cfg, self.max_slots, self.max_len, self.device)
+        self._decode = session.decode_step_fn(self.max_slots, self.max_len, owner=self)
+        self.cache = self._decode.cache
+        self._staging = session.staging_cache(self.max_len)[1]
         self.pos = np.zeros(self.max_slots, np.int64)
         self.active = np.zeros(self.max_slots, bool)
         self.last_tok = np.zeros((self.max_slots, 1), np.int64)
@@ -152,11 +160,8 @@ class ServeEngine:
                 for a in range(start, n, self.prefill_chunk)]
 
     def _start_admission(self, req: Request, slot: int) -> None:
-        from repro_torch.models import transformer as T
-
         req.slot = slot
         self.slot_req[slot] = req
-        req._cache = T.init_cache(self.cfg, 1, self.max_len, self.device)
         req._spans = self._spans(0, req.prompt_len)
 
     def _advance_admission(self, slot: int) -> None:
@@ -165,26 +170,34 @@ class ServeEngine:
         if req is None or self.active[slot] or req.done:
             return
         a, b_ = req._spans.pop(0)
-        with self.session.scope():
-            req._logits, req._cache = self._chunk_call(req._cache, req.prompt, a, b_)
+        req._logits = self._chunk_call(req, a, b_)
         self.prefill_chunks += 1
         if not req._spans:
             self._finalize_admission(slot, req)
 
     @torch.no_grad()
-    def _chunk_call(self, cache, prompt, a, b_):
-        """Tokens [a, b_) at positions [a, b_), zero-padded to the bucket."""
-        from repro_torch.models import transformer as T
-
+    def _chunk_call(self, req: Request, a: int, b_: int) -> torch.Tensor:
+        """Tokens [a, b_) at positions [a, b_), zero-padded to the bucket,
+        through the bucket's step on the staging cache: zeroed for a first
+        chunk, else loaded from ``req._cache``; saved back there unless
+        this is the last chunk (the staging cache then holds the prompt
+        until ``_finalize_admission`` copies it into the slot)."""
         n = b_ - a
-        toks = np.zeros((1, self._bucket(n)), np.int64)
-        toks[0, :n] = prompt[a:b_]
-        dev = self.device
-        return T.prefill_chunk(
-            self.session.params, torch.as_tensor(toks, device=dev), cache,
-            torch.tensor([a], device=dev), torch.tensor([n], device=dev),
-            self.cfg, self.max_len,
-        )
+        width = self._bucket(n)
+        step = self.session.prefill_chunk_fn(width, self.max_len)
+        host = np.zeros(width + 2, np.int64)
+        host[:n] = req.prompt[a:b_]
+        host[width:] = (a, n)
+        if a == 0:
+            step.flat.zero_()
+        else:
+            step.flat.copy_(req._cache)
+        logits = step(torch.from_numpy(host))
+        if req._spans:
+            if req._cache is None:
+                req._cache = torch.empty_like(step.flat)
+            req._cache.copy_(step.flat)
+        return logits
 
     @torch.no_grad()
     def _finalize_admission(self, slot: int, req: Request) -> None:
@@ -197,13 +210,12 @@ class ServeEngine:
         req.tokens.append(first)
         req.admitted_tick = self.tick
         self.first_tokens += 1
-        one = req._cache
         req._cache = None
         req._logits = None
         if req.max_new <= 1 or (req.eos_id is not None and first == req.eos_id):
             self._finish(req, slot)
             return
-        T.write_cache_slot(self.cache, one, slot)
+        T.write_cache_slot(self.cache, self._staging, slot)
         self.active[slot] = True
         self.pos[slot] = req.prompt_len
         self.last_tok[slot, 0] = first
@@ -213,9 +225,8 @@ class ServeEngine:
     @torch.no_grad()
     def step(self) -> bool:
         """Admit what fits, advance every admitting slot by one chunk,
-        then every active slot by one token. False when idle."""
-        from repro_torch.models import transformer as T
-
+        then every active slot by one token (one call of the leased decode
+        step). False when idle."""
         self._admit_pending()
         for slot in range(self.max_slots):
             req = self.slot_req[slot]
@@ -228,12 +239,7 @@ class ServeEngine:
                 self.tick += 1
             return busy
         t0 = time.perf_counter()
-        dev = self.device
-        with self.session.scope():
-            logits, self.cache = T.decode_step(
-                self.session.params, self.cache,
-                torch.as_tensor(self.last_tok, device=dev),
-                torch.as_tensor(self.pos, device=dev), self.cfg)
+        logits = self._decode(torch.from_numpy(np.stack([self.last_tok[:, 0], self.pos])))
         greedy = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
         n_live = int(self.active.sum())
         for slot in np.flatnonzero(self.active):
@@ -275,6 +281,11 @@ class ServeEngine:
     def num_active(self) -> int:
         return int(self.active.sum())
 
+    def compile_count(self) -> int:
+        """The session's compiled steps (``ServeSession.compile_count``):
+        flat across requests once every shape has been seen."""
+        return self.session.compile_count()
+
     def stats(self) -> dict:
         return {
             "ticks": self.tick,
@@ -287,4 +298,5 @@ class ServeEngine:
             "prefill_chunks": self.prefill_chunks,
             "decode_tok_per_s": (self.decode_tokens / self.decode_seconds
                                  if self.decode_seconds > 0 else float("nan")),
+            "compile_count": self.compile_count(),
         }

@@ -1,21 +1,24 @@
 """Serving half of the deployment lifecycle: backend scoping, fused
-prefill, the reference generation loop and ``ServeSession``. Port of
-``repro/deploy/serving.py``.
+prefill, the reference generation loop, the compiled-step registry and
+``ServeSession``. Port of ``repro/deploy/serving.py``.
 
-PyTorch runs eagerly, so the reference's compiled-step registry has no
-counterpart here; the engine still buckets chunk widths to powers of two
-so that a later CUDA-graph slice captures a bounded set of shapes.
-Everything runs under ``torch.no_grad()``.
+The registry's twin of the reference's jitted steps is a CUDA graph: a
+session builds its decode tick and its admission chunk once per
+``(kind, active_backend_key(), batch, width, max_len)`` (``StepRegistry``,
+``CompiledStep``) and replays them. The fused prefill and the module-level
+``generate`` loop stay eager. Everything runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+import weakref
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import substrate
+from repro_torch import tree as tree_lib
 
 BACKENDS = ("dequant", "codes", "codes_adc")
 
@@ -68,7 +71,9 @@ def generate(params, prompt: torch.Tensor, cfg, *, gen_len: int = 16,
              ) -> Tuple[np.ndarray, float]:
     """Reference single-stream loop: fused prefill, then ``gen_len - 1``
     decode steps. Returns ``(tokens (B, gen_len), dt)``; ``dt`` covers
-    the decode steps only (each ends in a device-to-host token copy)."""
+    the decode steps only (each ends in a device-to-host token copy).
+    The plain parity loop over bare params: it stays eager (no registry,
+    no graph)."""
     from repro_torch.models import transformer as T
 
     _check_sampling_args(temperature, key)
@@ -86,6 +91,178 @@ def generate(params, prompt: torch.Tensor, cfg, *, gen_len: int = 16,
         out.append(tok.cpu().numpy())
     dt = time.perf_counter() - t0
     return np.concatenate(out, axis=1).astype(np.int32), dt
+
+
+# ---------------------------------------------------------------------------
+# compiled-step registry (CUDA graphs)
+# ---------------------------------------------------------------------------
+#
+# A graph bakes in the addresses of the params it read and of the buffers
+# it advances, so the registry lives on the session, not in a module-level
+# dict: a session's ``params`` must stay in place once a step is captured
+# (``Deployment.serve`` builds a fresh tree and a fresh session; calibrate,
+# then serve again). The registry records the params' addresses at its
+# first lookup and raises at any later lookup or capture that finds them
+# moved. Graphs of one session share one memory pool, so they must not
+# replay at once on two streams: the engine issues every step on the
+# current stream, one after another.
+
+
+def _launch_counts() -> Dict[str, int]:
+    from repro_torch.kernels import crossbar_mvm, dora_linear
+
+    return {**dora_linear.launch_counts(), **crossbar_mvm.launch_counts()}
+
+
+def _add_launch_counts(counts: Dict[str, int]) -> None:
+    from repro_torch.kernels import crossbar_mvm, dora_linear
+
+    for module in (dora_linear, crossbar_mvm):
+        mine = {k: n for k, n in counts.items() if k in module.launch_counts()}
+        module.add_launch_counts(mine)
+
+
+class CompiledStep:
+    """One registry entry: a step function over static buffers.
+
+    ``inputs`` is one int64 tensor on the step's device whose views are
+    the step's arguments; ``fn()`` runs the step on them, advances
+    ``cache`` (views of ``flat``) in place and returns the logits.
+    ``step(host)`` copies ``host`` (the layout of ``inputs``) in and runs
+    the step. On the CPU every call runs ``fn``. On the card the first
+    call runs ``fn`` eagerly on the registry's capture stream (the warm-up,
+    and this call's result), then captures it into a CUDA graph of the
+    registry's pool; every later call replays the graph and returns its
+    static logits, valid until the next call. Capturing launches nothing:
+    the kernels' launch counters are restored after it, and each replay
+    adds the launches its capture recorded. An error in warm-up or capture
+    propagates, and a step whose capture failed raises on every later
+    call: nothing runs on eagerly."""
+
+    def __init__(self, registry: "StepRegistry", key: tuple, fn: Callable[[], torch.Tensor],
+                 inputs: torch.Tensor, flat: Optional[torch.Tensor] = None,
+                 cache: Optional[dict] = None):
+        self.registry = registry
+        self.key = key
+        self.fn = fn
+        self.inputs = inputs
+        self.flat, self.cache = flat, cache
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[torch.Tensor] = None
+        self.launches: Dict[str, int] = {}   # kernel launches per replay
+        self._owner = None                   # weakref of the leasing engine
+        self._failed = False
+
+    @property
+    def compiled(self) -> bool:
+        """Captured (card), or built (CPU: the step has no graph there)."""
+        return self.graph is not None or self.inputs.device.type != "cuda"
+
+    def lease(self, owner) -> bool:
+        """Hand the step to ``owner`` unless a live owner holds it; the
+        cache is zeroed, as ``init_cache`` would give it. The lease ends
+        when ``owner`` is collected."""
+        if self._owner is not None and self._owner() is not None:
+            return False
+        self._owner = weakref.ref(owner)
+        if self.flat is not None:
+            self.flat.zero_()
+        return True
+
+    def __call__(self, host: torch.Tensor) -> torch.Tensor:
+        if self._failed:
+            raise RuntimeError(f"step {self.key} failed to capture; it does not run eagerly")
+        self.inputs.copy_(host)
+        if self.inputs.device.type != "cuda":
+            return self.fn()
+        if self.graph is None:
+            return self._warm_up_and_capture()
+        self.graph.replay()
+        _add_launch_counts(self.launches)
+        return self.out
+
+    def _warm_up_and_capture(self) -> torch.Tensor:
+        reg = self.registry
+        stream = reg.capture_stream()
+        current = torch.cuda.current_stream(self.inputs.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            out = self.fn()
+        reg.check_params()
+        self._failed = True
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=reg.pool(), stream=stream):
+                self.out = self.fn()
+        finally:
+            after = _launch_counts()
+            captured = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            _add_launch_counts({k: -n for k, n in captured.items()})
+        self.launches, self.graph, self._failed = captured, graph, False
+        current.wait_stream(stream)
+        return out
+
+
+class StepRegistry:
+    """A session's compiled steps: ``key -> [CompiledStep, ...]`` (several
+    when engines alive at once lease steps of one key), the graphs' memory
+    pool and capture stream, and the addresses of the params the graphs
+    read (checked on the CPU too, so that a test there sees what the card
+    would refuse). ``params`` returns the session's params tree."""
+
+    def __init__(self, device, params: Callable[[], dict]):
+        self.device = torch.device(device)
+        self._params = params
+        self._ptrs: Optional[Tuple[int, ...]] = None
+        self._steps: Dict[tuple, List[CompiledStep]] = {}
+        self._pool = None
+        self._stream = None
+
+    def pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def capture_stream(self) -> torch.cuda.Stream:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def check_params(self) -> None:
+        """Record the params' addresses at the first check (the first
+        lookup); raise when a later one (every lookup and capture) finds
+        them moved: captured graphs would read stale operands."""
+        ptrs = tuple(t.data_ptr() for t in tree_lib.tensors(self._params()))
+        if self._ptrs is None:
+            self._ptrs = ptrs
+        elif ptrs != self._ptrs:
+            raise RuntimeError(
+                "the session's params moved after its steps were captured; "
+                "serve a new session (Deployment.serve) instead of rebinding params")
+
+    def get(self, key: tuple, build: Callable[[], CompiledStep], owner=None) -> CompiledStep:
+        """The step of ``key``: shared when ``owner`` is None, else a step
+        leased to ``owner`` (built when every step of the key is held)."""
+        steps = self._steps.setdefault(key, [])
+        self.check_params()
+        if owner is None and steps:
+            return steps[0]
+        for step in steps:
+            if step.lease(owner):
+                return step
+        step = build()
+        steps.append(step)
+        if owner is not None:
+            step.lease(owner)
+        return step
+
+    def __iter__(self):
+        return (s for steps in self._steps.values() for s in steps)
+
+    def compile_count(self) -> int:
+        """Graphs captured on the card; steps built on the CPU."""
+        return sum(s.compiled for s in self)
 
 
 def _fold(generator: torch.Generator, i: int) -> torch.Generator:
@@ -106,6 +283,8 @@ class ServeSession:
         self.params = params
         self.options = dict(options or {})
         self._auto_key_calls = 0
+        self.steps = StepRegistry(deployment.device, lambda: self.params)
+        self._staging: Dict[int, Tuple[torch.Tensor, dict]] = {}
 
     @property
     def cfg(self):
@@ -135,6 +314,68 @@ class ServeSession:
                                  self._auto_key_calls)
         _check_sampling_args(temperature, key)
         return key
+
+    # -- compiled steps (the reference's decode_step_fn / prefill_chunk_fn) --
+
+    def _key(self, kind: str, batch: int, width: int, max_len: int) -> tuple:
+        with self.scope():
+            return (kind, substrate.active_backend_key(), batch, width, max_len)
+
+    def decode_step_fn(self, batch: int, max_len: int, *, owner) -> CompiledStep:
+        """The decode tick over a ``(batch, max_len)`` cache of its own,
+        leased to ``owner`` (an engine). Inputs: row 0 the (B, 1) tokens,
+        row 1 the (B,) per-slot clocks."""
+        from repro_torch.models import transformer as T
+
+        def build():
+            flat, cache = T.init_flat_cache(self.cfg, batch, max_len, self.device)
+            inputs = torch.zeros((2, batch), dtype=torch.int64, device=self.device)
+            tokens, pos = inputs[0].view(batch, 1), inputs[1]
+
+            @torch.no_grad()
+            def fn():
+                with self.scope():
+                    return T.decode_step(self.params, cache, tokens, pos, self.cfg)[0]
+            return CompiledStep(self.steps, key, fn, inputs, flat, cache)
+
+        key = self._key("decode", batch, 1, max_len)
+        return self.steps.get(key, build, owner=owner)
+
+    def staging_cache(self, max_len: int) -> Tuple[torch.Tensor, dict]:
+        """The batch-1 cache (flat buffer, tree of views) that every
+        admission chunk of ``max_len`` advances."""
+        from repro_torch.models import transformer as T
+
+        if max_len not in self._staging:
+            self._staging[max_len] = T.init_flat_cache(self.cfg, 1, max_len, self.device)
+        return self._staging[max_len]
+
+    def prefill_chunk_fn(self, width: int, max_len: int) -> CompiledStep:
+        """The admission chunk of bucket ``width``: advances
+        ``staging_cache(max_len)`` by tokens at ``pos0 .. pos0 + n_valid``.
+        Inputs: the (1, width) tokens, then ``pos0`` and ``n_valid``."""
+        from repro_torch.models import transformer as T
+
+        def build():
+            flat, cache = self.staging_cache(max_len)
+            inputs = torch.zeros((width + 2,), dtype=torch.int64, device=self.device)
+            tokens = inputs[:width].view(1, width)
+            pos0, n_valid = inputs[width:width + 1], inputs[width + 1:]
+
+            @torch.no_grad()
+            def fn():
+                with self.scope():
+                    return T.prefill_chunk(self.params, tokens, cache, pos0, n_valid,
+                                           self.cfg, max_len)[0]
+            return CompiledStep(self.steps, key, fn, inputs, flat, cache)
+
+        key = self._key("prefill_chunk", 1, width, max_len)
+        return self.steps.get(key, build)
+
+    def compile_count(self) -> int:
+        """Steps compiled so far: CUDA graphs captured on the card, steps
+        built on the CPU. Flat across repeated same-shape requests."""
+        return self.steps.compile_count()
 
     def prefill(self, tokens, max_len: int):
         with self.scope():

@@ -45,6 +45,14 @@ def reset_launch_counts() -> None:
     _LAUNCHES["crossbar_mvm"] = 0
 
 
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (keys of ``launch_counts``) to the counters: a CUDA
+    graph's replay adds the launches its capture recorded, since a replay
+    runs no wrapper."""
+    for name, n in counts.items():
+        _LAUNCHES[name] += n
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rimc_crossbar_mvm.argtypes = [ptr] * 7 + [i32] * 3 + [f32] * 3 + [ptr]

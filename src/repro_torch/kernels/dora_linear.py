@@ -67,6 +67,14 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (keys of ``launch_counts``) to the counters: a CUDA
+    graph's replay adds the launches its capture recorded, since a replay
+    runs no wrapper."""
+    for name, n in counts.items():
+        _LAUNCHES[name] += n
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     operands = [ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]

@@ -208,6 +208,25 @@ def decode_attention(x, cache: Dict, pos, base, adapters, cfg: AttentionConfig,
     return y, {"k": k_buf, "v": v_buf}
 
 
+def _chunk_write(cache: Dict, k: torch.Tensor, v: torch.Tensor, pos0: torch.Tensor,
+                 n_valid: torch.Tensor) -> None:
+    """Write rows ``i < n_valid[b]`` of the chunk's K/V (B, C, KVH, hd) at
+    positions ``pos0[b] + i`` of the cache (in place); the padded tail is
+    dropped. A dense blend over the cache length: every shape is fixed and
+    nothing is read on the host, so a CUDA graph can hold it, and a bucket
+    that runs past the cache's end writes nothing out of range."""
+    b_, c = k.shape[:2]
+    length = cache["k"].shape[1]
+    t = torch.arange(length, device=k.device)[None, :]            # (1, T)
+    write = (t >= pos0[:, None]) & (t < (pos0 + n_valid)[:, None])  # (B, T)
+    i = (t - pos0[:, None]).clamp(0, c - 1)                        # (B, T)
+    i = i[:, :, None, None].expand(b_, length, *k.shape[2:])
+    write = write[:, :, None, None]
+    for name, val in (("k", k), ("v", v)):
+        buf = cache[name]
+        buf.copy_(torch.where(write, val.gather(1, i).to(buf.dtype), buf))
+
+
 def chunk_attention(x, cache: Dict, pos0, n_valid, base, adapters,
                     cfg: AttentionConfig, acfg: AdapterConfig, *,
                     max_len: int) -> Tuple[torch.Tensor, Dict]:
@@ -226,10 +245,7 @@ def chunk_attention(x, cache: Dict, pos0, n_valid, base, adapters,
     i = torch.arange(c, device=x.device)[None, :]
     positions = pos0[:, None] + i                      # (B, C)
     q, k, v = _project(x, base, a, cfg, acfg, positions)
-    live = i < n_valid[:, None]                        # padded tail is dropped
-    rows = torch.arange(b_, device=x.device)[:, None].expand(b_, c)
-    cache["k"][rows[live], positions[live]] = k[live].to(cache["k"].dtype)
-    cache["v"][rows[live], positions[live]] = v[live].to(cache["v"].dtype)
+    _chunk_write(cache, k, v, pos0, n_valid)
     j = torch.arange(length, device=x.device)[None, None, :]
     allow = j <= positions[:, :, None]                 # (B, C, T)
     if cfg.window is not None:

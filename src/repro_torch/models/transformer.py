@@ -290,6 +290,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
     return cache
 
 
+def init_flat_cache(cfg: ModelConfig, batch: int, max_len: int,
+                    device) -> Tuple[torch.Tensor, Dict]:
+    """``init_cache``'s tree as views of ONE zeroed buffer, returned with
+    it: a whole cache is then zeroed, saved or restored by one op."""
+    like = init_cache(cfg, batch, max_len, "meta")
+    leaves = tree_lib.tensors(like)
+    flat = torch.zeros(sum(t.numel() for t in leaves), dtype=cfg.dtype, device=device)
+    views, off = [], 0
+    for t in leaves:
+        views.append(flat[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+    return flat, tree_lib.unflatten(like, views)
+
+
 def _cache_layers(cache: Dict, cfg: ModelConfig):
     """Per-layer views into ``cache``, in layer order (writes land in
     the stacked buffers)."""

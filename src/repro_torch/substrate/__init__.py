@@ -5,6 +5,7 @@ from repro_torch.core.rram import CrossbarWeight, dequantize, program  # noqa: F
 from repro_torch.substrate.backends import (  # noqa: F401
     Backend,
     DEFAULT_BACKEND,
+    active_backend_key,
     active_backend_name,
     active_options,
     available_backends,

@@ -92,6 +92,16 @@ def active_options() -> dict:
     return dict(val[1]) if val else {}
 
 
+def active_backend_key() -> tuple:
+    """Hashable ``(name, sorted options)`` identity of the ambient
+    backend: what the serving step registry keys on, since the options
+    change what a step computes as the name does (``accum="int8"`` against
+    the f32 body)."""
+    val = getattr(_ACTIVE, "val", None)
+    name, options = val if val else (DEFAULT_BACKEND, {})
+    return (name, tuple(sorted(options.items())))
+
+
 def crossbar_linear(x, xw, adapter: Optional[dict], acfg: AdapterConfig, *,
                     backend: Optional[str] = None):
     """Execute one RimcLinear over resident codes through the selected

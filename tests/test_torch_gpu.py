@@ -23,7 +23,13 @@ full-width leaves and at ragged shapes:
   127 in every (128-row, 256-row) block, so the step is 4080) with f32 and
   with bf16 x; its tensor-core body (bf16 x) bitwise equal to itself when
   launched twice, under any plan (splits of K, strips, stages) and when
-  replayed from CUDA graphs; f32 x still runs the SIMT body.
+  replayed from CUDA graphs; f32 x still runs the SIMT body;
+* the serving step registry (``deploy/serving.py``): for the f32, int8 and
+  codes_adc sessions, the decode graph and the chunk graphs (8, 16, 32
+  rows) replay bitwise equal to the eager step, logits and cache;
+  ``compile_count`` flat on a second drive; launch counters after a run
+  through the graphs equal to an eager run's; errors in warm-up or
+  capture propagate; replays right with the rope cache cleared first.
 
 This file imports no jax, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -716,3 +722,176 @@ def test_calibrated_deployment_served_through_kernels_matches_dequant(cuda):
             err = float((got.float().cpu() - want.float()).abs().max())
             bound = CALIB_LOGITS_BOUND if accum == "f32" else 0.25  # int8: chip_smoke's bound
             assert err <= bound * float(want.float().abs().max()), (rows, accum, err)
+
+
+# -- the compiled-step registry: CUDA graphs of the decode tick and chunks ----
+
+
+def _smoke_sessions(cuda):
+    """f32 codes, int8 codes and codes_adc over one smoke deployment (24 h
+    of drift) on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+
+    cfg = get_arch("qwen3_1_7b").smoke
+    dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24)
+    adc = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
+                     dep.teacher_seed, dep.program_seed, dep.drift_hours)
+    return {"f32": dep.serve(), "int8": dep.serve(accum="int8"), "codes_adc": adc.serve()}
+
+
+# ragged prompts whose chunks fill every bucket: 5 -> 8, 9 -> 16, 17 -> 32
+# and 40 -> 32 + 8 rows (two chunks)
+STEP_PROMPTS = (5, 9, 17, 40)
+
+
+def _drive(session, max_new=6):
+    """STEP_PROMPTS through a 4-slot engine, one submit a tick; the
+    requests and the kernels' launch counts of the run."""
+    from repro_torch.deploy import ServeEngine
+
+    engine = ServeEngine(session, max_slots=4, max_len=64)
+    K.reset_launch_counts()
+    C.reset_launch_counts()
+    reqs = []
+    for n in STEP_PROMPTS:
+        reqs.append(engine.submit(torch.arange(n) % session.cfg.vocab, max_new=max_new))
+        engine.step()
+    engine.run()
+    torch.cuda.synchronize()
+    assert all(r.done and len(r.tokens) == max_new for r in reqs)
+    return [list(r.tokens) for r in reqs], {**K.launch_counts(), **C.launch_counts()}, engine
+
+
+def _replay_equals_eager(step, host):
+    """Replay the captured ``step`` on ``host`` inputs, then run its
+    function eagerly from a copy of the same cache: (logits equal, cache
+    equal), bitwise."""
+    assert step.graph is not None
+    saved = step.flat.clone()
+    got = step(host).clone()
+    got_cache = step.flat.clone()
+    step.flat.copy_(saved)
+    want = step.fn()
+    torch.cuda.synchronize()
+    return torch.equal(got, want), torch.equal(got_cache, step.flat)
+
+
+def _steps_by_kind(session):
+    return {(s.key[0], s.key[3]): s for s in session.steps}
+
+
+def _check_replays(session, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    steps = _steps_by_kind(session)
+    assert set(steps) == {("decode", 1), ("prefill_chunk", 8), ("prefill_chunk", 16),
+                          ("prefill_chunk", 32)}, set(steps)
+    vocab = session.cfg.vocab
+    for (kind, width), step in steps.items():
+        if kind == "decode":
+            host = torch.stack([torch.randint(0, vocab, (4,), generator=g),
+                                torch.tensor([3, 17, 40, 62])])
+        else:
+            host = torch.cat([torch.randint(0, vocab, (width,), generator=g),
+                              torch.tensor([64 - width // 2 - 1, width // 2 + 1])])
+        assert _replay_equals_eager(step, host) == (True, True), (kind, width)
+
+
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_step_replays_are_bitwise_the_eager_step(cuda, body):
+    """The decode graph and the chunk graphs (8, 16, 32 rows) replay
+    bitwise equal to the eager step, logits and cache, on copies of the
+    same cache and inputs (a chunk bucket that overruns the cache too)."""
+    session = _smoke_sessions(cuda)[body]
+    _drive(session)
+    _check_replays(session)
+
+
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_compile_count_is_flat_on_a_second_drive(cuda, body):
+    session = _smoke_sessions(cuda)[body]
+    streams, counts, engine = _drive(session)
+    warm = session.compile_count()
+    assert warm == 4  # the decode tick and the buckets 8, 16, 32
+    del engine
+    again, counts_again, engine = _drive(session)
+    assert session.compile_count() == engine.stats()["compile_count"] == warm
+    assert again == streams and counts_again == counts
+
+
+@pytest.mark.parametrize("body,key", [("f32", "dora_linear_gemv"),
+                                      ("int8", "dora_linear_gemv/int8"),
+                                      ("codes_adc", "crossbar_mvm")])
+def test_graph_launch_counts_equal_the_eager_run(cuda, body, key, monkeypatch):
+    """The launch counters after a run through the graphs (the first call
+    of each step eager, replays counted) equal a run that issues every step
+    eagerly, and the streams agree."""
+    from repro_torch.deploy import serving
+
+    session = _smoke_sessions(cuda)[body]
+    streams, counts, engine = _drive(session)
+    steps = engine.stats()["prefill_chunks"] + engine.stats()["decode_steps"]
+    per_step = session.cfg.n_layers * (7 if body == "codes_adc" else 4)
+    assert counts[key] == per_step * steps and sum(counts.values()) == counts[key], counts
+
+    def eager(self, host):
+        self.inputs.copy_(host)
+        return self.fn()
+
+    monkeypatch.setattr(serving.CompiledStep, "__call__", eager)
+    eager_streams, eager_counts, _ = _drive(session)
+    assert eager_counts == counts and eager_streams == streams
+
+
+def test_error_inside_a_captured_function_propagates(cuda):
+    """An error in the eager first call or in the capture propagates; a
+    step whose capture failed raises on every later call (nothing runs on
+    eagerly) and counts as no compilation; a sync inside a capture is the
+    card's error, raised too."""
+    from repro_torch.deploy.serving import CompiledStep, StepRegistry
+
+    reg = StepRegistry(cuda, lambda: {})
+    x = torch.ones(8, device=cuda)
+    calls = []
+
+    def fn():
+        calls.append(len(calls))
+        if len(calls) in (1, 3):
+            raise ValueError(f"call {len(calls)}")
+        return x * 2
+
+    inputs = torch.zeros(1, dtype=torch.int64, device=cuda)
+    step = reg.get(("boom",), lambda: CompiledStep(reg, ("boom",), fn, inputs))
+    host = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="call 1"):  # the eager first call
+        step(host)
+    with pytest.raises(ValueError, match="call 3"):  # warm-up (2) passed, capture (3) raised
+        step(host)
+    with pytest.raises(RuntimeError, match="failed to capture"):
+        step(host)
+    assert len(calls) == 3 and reg.compile_count() == 0 and step.graph is None
+
+    def sync():
+        return x * float(x.sum())  # reads the card on the host: not capturable
+
+    bad = reg.get(("sync",), lambda: CompiledStep(reg, ("sync",), sync, inputs.clone()))
+    with pytest.raises(RuntimeError):
+        bad(host)
+    assert reg.compile_count() == 0
+    torch.cuda.synchronize()
+    assert float((x * 3).sum()) == 24.0  # the card still works
+
+
+def test_replays_equal_eager_with_rope_cache_cleared_first(cuda):
+    """``rope_frequencies`` is cached per device: cleared before the
+    session's first step, it is filled by the eager first call, never
+    inside a capture, and the replays still equal the eager step."""
+    from repro_torch.models import layers as L
+
+    session = _smoke_sessions(cuda)["f32"]
+    L.rope_frequencies.cache_clear()
+    streams, _, _ = _drive(session)
+    assert L.rope_frequencies.cache_info().currsize > 0
+    _check_replays(session, seed=1)
+    again, _, _ = _drive(session)
+    assert again == streams
