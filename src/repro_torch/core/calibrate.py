@@ -8,7 +8,8 @@ tree receives gradients. ``make_cached_calib_step`` matches each student
 block against cached teacher features; ``make_calib_step`` runs the
 teacher beside the student (``transformer.feature_calibration_loss``).
 Both losses have the same terms and divisor, so the two follow one
-trajectory.
+trajectory. ``CompiledCalibStep`` runs either step over static buffers,
+as one CUDA graph on the card (the reference jits them).
 
 Per-leaf streams: leaf ``path`` of a deployment with seed ``s`` draws its
 programming noise from ``make_generator(s, crc32(path), 0)`` and drift
@@ -27,7 +28,14 @@ from repro_torch import tree as tree_lib
 from repro_torch.core import dora as dora_lib
 from repro_torch.core import rram
 from repro_torch.core.rram import RramConfig
-from repro_torch.optim.adam import AdamW, AdamState, adamw_init, adamw_update
+from repro_torch.optim.adam import (
+    AdamW,
+    AdamState,
+    adam_betas,
+    adamw_init,
+    adamw_update,
+    adamw_update_,
+)
 
 Pytree = Any
 
@@ -360,3 +368,149 @@ def make_calib_step(cfg, opt: AdamW = AdamW(lr=1e-3)):
         return _advance(state, grads, opt), metrics
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# the compiled calibration step (the reference's jitted step)
+# ---------------------------------------------------------------------------
+
+
+class CompiledCalibStep:
+    """One calibration step over static buffers: the counterpart of
+    ``jax.jit(make_cached_calib_step(cfg, opt))`` (``feats`` given) and of
+    ``jax.jit(make_calib_step(cfg, opt))`` (``feats=None``) in the
+    reference's ``Deployment.calibrate``, with the same arithmetic.
+
+    It owns its adapter leaves (copies of ``state.adapters`` in the tree's
+    layout, scan-group stacking included, that require grad) and its AdamW
+    state (copies of ``state.opt_state``, the count on the device). It
+    reads the frozen inputs in place: the student base, ``batch``, and
+    ``feats`` (cached) or the teacher base (fused); their addresses and
+    the substrate's backend key are recorded when it is built and checked
+    at every call, since a graph would read stale operands. A call is the
+    loss over the static leaves under grad mode, ``torch.autograd.grad``
+    (zeros, made once, for a leaf that takes no part), then
+    ``adamw_update_`` into the static state; it returns the static metrics
+    (``"loss"``, and ``"feature_mse"`` for the fused loss), valid until the
+    next call.
+
+    On the CPU every call runs the step. On the card the first call runs
+    it eagerly on ``stream``, after the current stream's work: the real
+    first step, which also fills lazily made caches (``rope_frequencies``,
+    cuBLAS's workspace for the stream) outside any capture; autograd runs
+    the backward on the forward's stream. The second call captures the
+    step on ``stream`` into a CUDA graph with a private memory pool, then
+    replays it on the current stream, as every later call does; so a run
+    of one step captures nothing. An error in the warm-up or the capture
+    propagates, and after a failed capture every call raises: nothing
+    runs eagerly instead. Capturing launches no kernel and counts none
+    (``graphs.capture``); calibration runs under ``dequant``, so a step
+    launches none. ``state()`` returns detached copies of the trained
+    adapters and AdamW state; ``release()`` drops the graph and its pool.
+    """
+
+    def __init__(self, cfg, opt: AdamW, state: CalibState, batch: Dict,
+                 feats: Optional[Dict[str, torch.Tensor]] = None, *,
+                 stream: Optional["torch.cuda.Stream"] = None):
+        from repro_torch import substrate
+        from repro_torch.models import transformer as T
+
+        self.opt = opt
+        tbase, sbase = state.teacher_base, state.student_base
+        self.teacher_base, self.student_base = tbase, sbase
+        self.batch, self.feats = batch, feats
+        self.leaves = [t.detach().clone().requires_grad_(True)
+                       for t in tree_lib.tensors(state.adapters)]
+        self.adapters = tree_lib.unflatten(state.adapters, self.leaves)
+        self.opt_state = AdamState(*(tree_lib.map_tensors(torch.clone, s)
+                                     for s in state.opt_state))
+        self.device = self.opt_state.step.device
+        self.betas = adam_betas(opt, self.device)
+        self.start, self.calls = state.step, 0
+        if feats is not None:
+            cached = make_cached_calib_loss(cfg)
+            self._loss = lambda ad: (cached(ad, sbase, feats, batch), {})
+            keys = ("loss",)
+        else:
+            self._loss = lambda ad: T.feature_calibration_loss(tbase, sbase, ad, batch, cfg)
+            keys = ("feature_mse", "loss")
+        self.metrics = {k: torch.zeros((), dtype=torch.float32, device=self.device)
+                        for k in keys}
+        self._zeros: Dict[int, torch.Tensor] = {}
+        self.backend_key = substrate.active_backend_key()
+        self._ptrs = self._input_ptrs()
+        self.stream = stream
+        if self.device.type == "cuda" and stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: Dict[str, int] = {}   # kernel launches per replay
+        self._failed = False
+
+    def _input_ptrs(self) -> Tuple[int, ...]:
+        frozen = [self.student_base, self.batch,
+                  self.teacher_base if self.feats is None else self.feats]
+        return tuple(t.data_ptr() for t in tree_lib.tensors(frozen))
+
+    def _check_inputs(self) -> None:
+        from repro_torch import substrate
+
+        if substrate.active_backend_key() != self.backend_key:
+            raise RuntimeError(
+                f"the calibration step was built under {self.backend_key}, called under "
+                f"{substrate.active_backend_key()}: build a step under the backend it runs in")
+        if self._input_ptrs() != self._ptrs:
+            raise RuntimeError(
+                "the calibration step's frozen inputs (bases, batch, teacher features) "
+                "moved after it was built; build a new step")
+
+    def _run(self) -> None:
+        with torch.enable_grad():
+            loss, aux = self._loss(self.adapters)
+            grads = torch.autograd.grad(loss, self.leaves, allow_unused=True)
+        for i, g in enumerate(grads):
+            if g is None and i not in self._zeros:
+                self._zeros[i] = torch.zeros_like(self.leaves[i])
+        grads = [self._zeros[i] if g is None else g for i, g in enumerate(grads)]
+        for k, v in {**aux, "loss": loss}.items():
+            self.metrics[k].copy_(v.detach())
+        adamw_update_(tree_lib.unflatten(self.adapters, grads), self.opt_state,
+                      self.adapters, self.opt, self.betas)
+
+    def __call__(self) -> Dict[str, torch.Tensor]:
+        from repro_torch import graphs
+
+        if self._failed:
+            raise RuntimeError("the calibration step failed to capture; it does not "
+                               "run eagerly")
+        self._check_inputs()
+        if self.device.type != "cuda":
+            self._run()
+        elif self.calls == 0:
+            current = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                self._run()
+            current.wait_stream(self.stream)
+        else:
+            if self.graph is None:
+                self._failed = True
+                self.graph, _, self.launches = graphs.capture(self._run, self.stream)
+                self._failed = False
+            self.graph.replay()
+            graphs.add_launch_counts(self.launches)
+        self.calls += 1
+        return self.metrics
+
+    def state(self) -> CalibState:
+        """Detached copies of the adapters and the AdamW state after the
+        calls so far (they alias neither the static leaves nor the pool)."""
+        def copy(tree):
+            return tree_lib.map_tensors(lambda t: t.detach().clone(), tree)
+
+        return CalibState(self.teacher_base, self.student_base, copy(self.adapters),
+                          AdamState(*(copy(s) for s in self.opt_state)),
+                          self.start + self.calls)
+
+    def release(self) -> None:
+        """Drop the graph: its private pool returns to the allocator."""
+        self.graph = None

@@ -14,7 +14,9 @@ snapshot, restore and the calibration registry wait).
   SRAM side-cars (cached teacher features, AdamW over the adapter tree);
   returns a ``CalibrationReport``. It runs under the ``dequant`` backend
   whatever the deployment's (the kernels have no backward), so it
-  launches no kernel, and the codes are never written.
+  launches no kernel, and the codes are never written. On the card its
+  step is one CUDA graph per call (``CompiledCalibStep``: step 1 eager,
+  then a capture, then replays), as the reference jits it once per call.
 * ``dep.logit_mse(batch)`` — teacher/student logit MSE, the drift gap
   and what calibration recovers of it.
 * ``dep.serve(accum=...)`` — merged DoRA magnitudes and, under
@@ -38,10 +40,9 @@ from repro_torch import substrate
 from repro_torch.core import rram
 from repro_torch.core.calibrate import (
     CalibState,
+    CompiledCalibStep,
     calibrated_fraction,
     drift_model,
-    make_cached_calib_step,
-    make_calib_step,
     merge_adapters_for_serve,
     program_model,
     rram_bytes,
@@ -178,6 +179,7 @@ class Deployment:
         self.opt_state = None
         self.step: int = 0
         self._teacher_logits_cache = None
+        self._stream = None
         self._refresh_base()
 
     @property
@@ -257,6 +259,13 @@ class Deployment:
         self.step = int(state.step)
         return self
 
+    def _calib_stream(self):
+        """The card's stream for calibration warm-ups and captures, one per
+        deployment (cuBLAS keeps a workspace per stream); None on the CPU."""
+        if self.device.type == "cuda" and self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
     def calibrate(
         self, batch_or_samples: Union[Dict, int] = 10, *,
         steps: int = 20, lr: float = 1e-3, opt: Optional[AdamW] = None,
@@ -269,9 +278,13 @@ class Deployment:
         (paper: 10 samples of ``seq_len`` tokens). Teacher features are
         cached once per call unless ``cached_teacher=False``. A
         codes-resident base runs under the differentiable ``dequant``
-        backend, so no kernel launches and the codes stay as they are. The
-        optimizer state carries over to the next call; the adapters left
-        on the deployment require no grad."""
+        backend, so no kernel launches and the codes stay as they are.
+        Every step goes through one ``CompiledCalibStep``: on the card its
+        first step runs eagerly, the second captures it into a CUDA graph,
+        the rest replay it; the graph and its pool are released before the
+        call returns. The optimizer state carries over to the next call;
+        the adapters left on the deployment are copies that require no
+        grad."""
         cfg = self.cfg
         opt = opt if opt is not None else AdamW(lr=lr)
         batch = _device_batch(calibration_batch(cfg, batch_or_samples, seq_len),
@@ -282,18 +295,17 @@ class Deployment:
                        else contextlib.nullcontext())
         losses: List[float] = []
         with backend_ctx:
-            if use_cached:
-                feats = teacher_features(self.teacher_base, batch, cfg)
-                step_fn = make_cached_calib_step(cfg, opt)
-                run = lambda s: step_fn(s, feats, batch)  # noqa: E731
-            else:
-                step_fn = make_calib_step(cfg, opt)
-                run = lambda s: step_fn(s, batch)  # noqa: E731
-            for _ in range(steps):
-                state, metrics = run(state)
-                losses.append(float(metrics["loss"]))
-                if loss_threshold and losses[-1] <= loss_threshold:
-                    break
+            feats = teacher_features(self.teacher_base, batch, cfg) if use_cached else None
+            step = CompiledCalibStep(cfg, opt, state, batch, feats,
+                                     stream=self._calib_stream())
+            try:
+                for _ in range(steps):
+                    losses.append(float(step()["loss"]))
+                    if loss_threshold and losses[-1] <= loss_threshold:
+                        break
+                state = step.state()
+            finally:
+                step.release()
         self.adopt(state)
         n_base, n_adapters = T.count_params({"base": self.base, "adapters": self.adapters})
         return CalibrationReport(

@@ -17,7 +17,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import substrate
+from repro_torch import graphs, substrate
 from repro_torch import tree as tree_lib
 
 BACKENDS = ("dequant", "codes", "codes_adc")
@@ -108,20 +108,6 @@ def generate(params, prompt: torch.Tensor, cfg, *, gen_len: int = 16,
 # current stream, one after another.
 
 
-def _launch_counts() -> Dict[str, int]:
-    from repro_torch.kernels import crossbar_mvm, dora_linear
-
-    return {**dora_linear.launch_counts(), **crossbar_mvm.launch_counts()}
-
-
-def _add_launch_counts(counts: Dict[str, int]) -> None:
-    from repro_torch.kernels import crossbar_mvm, dora_linear
-
-    for module in (dora_linear, crossbar_mvm):
-        mine = {k: n for k, n in counts.items() if k in module.launch_counts()}
-        module.add_launch_counts(mine)
-
-
 class CompiledStep:
     """One registry entry: a step function over static buffers.
 
@@ -178,7 +164,7 @@ class CompiledStep:
         if self.graph is None:
             return self._warm_up_and_capture()
         self.graph.replay()
-        _add_launch_counts(self.launches)
+        graphs.add_launch_counts(self.launches)
         return self.out
 
     def _warm_up_and_capture(self) -> torch.Tensor:
@@ -190,16 +176,8 @@ class CompiledStep:
             out = self.fn()
         reg.check_params()
         self._failed = True
-        before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=reg.pool(), stream=stream):
-                self.out = self.fn()
-        finally:
-            after = _launch_counts()
-            captured = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-            _add_launch_counts({k: -n for k, n in captured.items()})
-        self.launches, self.graph, self._failed = captured, graph, False
+        self.graph, self.out, self.launches = graphs.capture(self.fn, stream, reg.pool())
+        self._failed = False
         current.wait_stream(stream)
         return out
 

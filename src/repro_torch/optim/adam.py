@@ -6,7 +6,9 @@ the parameter dtype. The arithmetic is the reference's, operation for
 operation (``torch.optim.AdamW`` orders it otherwise): clipping by the
 global norm with a ``max(gnorm, 1e-9)`` floor, bias corrections
 ``1 - b**t`` in f32, weight decay added to the update, and the step
-written as ``(p.f32 - lr * update).to(p.dtype)``.
+written as ``(p.f32 - lr * update).to(p.dtype)``. ``adamw_update``
+returns new trees; ``adamw_update_`` writes the same values into the
+given ones, which is what a CUDA graph of the calibration step replays.
 """
 from __future__ import annotations
 
@@ -55,10 +57,17 @@ def global_norm(tree: Pytree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-@torch.no_grad()
-def adamw_update(grads: Pytree, state: AdamState, params: Pytree, cfg: AdamW):
-    """Returns ``(new_params, new_state)``; the inputs are not written."""
-    step = state.step + 1
+def adam_betas(cfg: AdamW, device) -> tuple:
+    """``(b1, b2)`` as f32 scalars on ``device``: the bases of the bias
+    corrections ``1 - b**t``."""
+    return tuple(torch.tensor(b, dtype=torch.float32, device=device)
+                 for b in (cfg.b1, cfg.b2))
+
+
+def _adamw(grads: Pytree, step: torch.Tensor, mu: Pytree, nu: Pytree, params: Pytree,
+           cfg: AdamW, b1: torch.Tensor, b2: torch.Tensor):
+    """The update's arithmetic at the (already advanced) ``step``: returns
+    new ``(params, mu, nu)`` trees; nothing is written."""
     if cfg.grad_clip is not None:
         denom = torch.clamp_min(global_norm(grads), 1e-9)
         # a tensor numerator: the division stays IEEE on the card too
@@ -66,11 +75,11 @@ def adamw_update(grads: Pytree, state: AdamState, params: Pytree, cfg: AdamW):
         grads = tree_lib.map_tensors(lambda g: g.to(torch.float32) * scale, grads)
     else:
         grads = tree_lib.map_tensors(lambda g: g.to(torch.float32), grads)
-    mu = tree_lib.zip_map(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g, state.mu, grads)
-    nu = tree_lib.zip_map(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g, state.nu, grads)
+    mu = tree_lib.zip_map(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g, mu, grads)
+    nu = tree_lib.zip_map(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g, nu, grads)
     t = step.to(torch.float32)
-    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=t.device), t)
-    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=t.device), t)
+    bc1 = 1 - torch.pow(b1, t)
+    bc2 = 1 - torch.pow(b2, t)
 
     def upd(p, m, v):
         update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
@@ -78,5 +87,28 @@ def adamw_update(grads: Pytree, state: AdamState, params: Pytree, cfg: AdamW):
             update = update + cfg.weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - cfg.lr * update).to(p.dtype)
 
-    new_params = tree_lib.zip_map(upd, params, mu, nu)
+    return tree_lib.zip_map(upd, params, mu, nu), mu, nu
+
+
+@torch.no_grad()
+def adamw_update(grads: Pytree, state: AdamState, params: Pytree, cfg: AdamW):
+    """Returns ``(new_params, new_state)``; the inputs are not written."""
+    step = state.step + 1
+    new_params, mu, nu = _adamw(grads, step, state.mu, state.nu, params, cfg,
+                                *adam_betas(cfg, step.device))
     return new_params, AdamState(step=step, mu=mu, nu=nu)
+
+
+@torch.no_grad()
+def adamw_update_(grads: Pytree, state: AdamState, params: Pytree, cfg: AdamW,
+                  betas: tuple) -> None:
+    """``adamw_update`` written in place: ``state.step`` advances by one,
+    and the new values are copied into ``params``, ``state.mu`` and
+    ``state.nu``. ``betas`` is ``adam_betas(cfg, device)``, made once by
+    the caller: the step then copies nothing from the host, so a CUDA
+    graph can hold it, and reads its count from the device."""
+    state.step.add_(1)
+    new_params, mu, nu = _adamw(grads, state.step, state.mu, state.nu, params, cfg, *betas)
+    for old, new in ((params, new_params), (state.mu, mu), (state.nu, nu)):
+        for dst, src in zip(tree_lib.tensors(old), tree_lib.tensors(new)):
+            dst.copy_(src)

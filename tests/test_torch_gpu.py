@@ -24,6 +24,10 @@ full-width leaves and at ragged shapes:
   with bf16 x; its tensor-core body (bf16 x) bitwise equal to itself when
   launched twice, under any plan (splits of K, strips, stages) and when
   replayed from CUDA graphs; f32 x still runs the SIMT body;
+* calibration's compiled step (``CompiledCalibStep``): ``calibrate``
+  through its CUDA graph bitwise the eager step functions on the same
+  stream, cached and fused, with no launch and one capture a call; a
+  second call after ``advance`` captures anew, and memory returns;
 * the serving step registry (``deploy/serving.py``): for the f32, int8 and
   codes_adc sessions, the decode graph and the chunk graphs (8, 16, 32
   rows) replay bitwise equal to the eager step, logits and cache;
@@ -34,6 +38,8 @@ full-width leaves and at ragged shapes:
 This file imports no jax, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
+import math
+
 import pytest
 import torch
 
@@ -722,6 +728,115 @@ def test_calibrated_deployment_served_through_kernels_matches_dequant(cuda):
             err = float((got.float().cpu() - want.float()).abs().max())
             bound = CALIB_LOGITS_BOUND if accum == "f32" else 0.25  # int8: chip_smoke's bound
             assert err <= bound * float(want.float().abs().max()), (rows, accum, err)
+
+
+def _eager_calibration(dep, start, batch, steps, cached, stream):
+    """``steps`` eager steps (``make_cached_calib_step`` or ``make_calib_step``)
+    from the ``(adapters, opt_state)`` copies ``start`` on ``stream``, under
+    dequant: (losses, final CalibState)."""
+    from repro_torch import substrate
+    from repro_torch.core import calibrate as calib
+    from repro_torch.optim.adam import AdamW
+
+    cfg, opt = dep.cfg, AdamW(lr=1e-3)
+    state = calib.CalibState(dep.teacher_base, dep.base, *start, 0)
+    stream.wait_stream(torch.cuda.current_stream())
+    losses = []
+    with torch.cuda.stream(stream), substrate.use_backend("dequant"):
+        if cached:
+            feats = calib.teacher_features(dep.teacher_base, batch, cfg)
+            step = calib.make_cached_calib_step(cfg, opt)
+            run = lambda s: step(s, feats, batch)  # noqa: E731
+        else:
+            step = calib.make_calib_step(cfg, opt)
+            run = lambda s: step(s, batch)  # noqa: E731
+        for _ in range(steps):
+            state, metrics = run(state)
+            losses.append(float(metrics["loss"]))
+    torch.cuda.current_stream().wait_stream(stream)
+    return losses, state
+
+
+def _count_captures(monkeypatch):
+    from repro_torch import graphs
+
+    captures = []
+    capture = graphs.capture
+
+    def counted(*args, **kwargs):
+        captures.append(1)
+        return capture(*args, **kwargs)
+
+    monkeypatch.setattr(graphs, "capture", counted)
+    return captures
+
+
+def _allocated():
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+@pytest.mark.parametrize("cached", [True, False], ids=["cached", "fused"])
+def test_calibrate_graph_is_bitwise_the_eager_steps(cuda, cached, monkeypatch):
+    """``calibrate`` through its CUDA graph (step 1 eager, one capture, then
+    replays) against the eager step functions run on the same stream from
+    the same start: losses, adapters and AdamW state bitwise; no kernel
+    launch; one capture."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment, calibration_batch
+    from repro_torch.deploy import deployment as D
+    from repro_torch.optim.adam import adamw_init
+
+    cfg = get_arch("qwen3_1_7b").smoke
+    dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24)
+    batch = calibration_batch(cfg, 4, 16)
+    start = tree_lib.map_tensors(torch.clone, dep.adapters)
+    start = (start, adamw_init(start))
+    captures = _count_captures(monkeypatch)
+    K.reset_launch_counts()
+    C.reset_launch_counts()
+    report = dep.calibrate(batch, steps=6, cached_teacher=cached)
+    torch.cuda.synchronize()
+    assert set(K.launch_counts().values()) == {0} and C.launch_counts() == {"crossbar_mvm": 0}
+    assert len(captures) == 1
+    losses, state = _eager_calibration(dep, start, D._device_batch(batch, cuda), 6, cached,
+                                       dep._calib_stream())
+    assert report.losses == losses, (report.losses, losses)
+    for want, got in ((state.adapters, dep.adapters), ([*state.opt_state], [*dep.opt_state])):
+        assert all(torch.equal(a, b) for a, b in zip(tree_lib.tensors(want),
+                                                     tree_lib.tensors(got)))
+    assert not any(t.requires_grad for t in tree_lib.tensors(dep.adapters))
+
+
+def test_second_calibrate_after_advance_captures_anew(cuda, monkeypatch):
+    """After ``advance`` the codes are new tensors: the next call captures a
+    graph of its own and continues the optimizer; the memory allocated
+    after a call is back within the adapters' and the AdamW state's bytes
+    (the graph's pool released)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment, calibration_batch
+
+    cfg = get_arch("qwen3_1_7b").smoke
+    dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24)
+    batch = calibration_batch(cfg, 4, 16)
+    captures = _count_captures(monkeypatch)
+    first = dep.calibrate(batch, steps=4)
+    dep.advance(24)
+    before = _allocated()
+    second = dep.calibrate(batch, steps=4)
+    after = _allocated()
+    assert len(captures) == 2
+    assert dep.step == 8 and int(dep.opt_state.step) == 8
+    assert second.drift_events == 2 and all(map(math.isfinite, first.losses + second.losses))
+    held = sum(t.numel() * t.element_size()
+               for t in tree_lib.tensors([dep.adapters, *dep.opt_state]))
+    assert abs(after - before) <= held, (before, after, held)
 
 
 # -- the compiled-step registry: CUDA graphs of the decode tick and chunks ----
