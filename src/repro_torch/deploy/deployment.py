@@ -1,6 +1,7 @@
 """``Deployment`` — the lifecycle object from programming to serving.
-Port of ``repro/deploy/deployment.py`` (healthy path: no fault map;
-snapshot, restore and the calibration registry wait).
+Port of ``repro/deploy/deployment.py`` (snapshot, restore with its
+fault-event replay, and the calibration registry with
+``drift_signature`` wait).
 
 * ``Deployment.program(cfg, seed, backend=..., device=...)`` — init the
   teacher from the seed and program every RRAM leaf (programming-time
@@ -10,6 +11,11 @@ snapshot, restore and the calibration registry wait).
   continues from those codes.
 * ``dep.advance(hours)`` — the drift clock; event ``i`` of leaf ``path``
   draws from its own generator, so any history replays from the seed.
+* ``dep.inject(faults)`` — device faults (``repro_torch.faults``), a
+  lifecycle event like drift: the pristine codes stay as they are and
+  every consumer reads ``dep.codes_view``, the codes read back through
+  the composite ``FaultMap``, re-derived after every event, so stuck
+  cells stay pinned through drift.
 * ``dep.calibrate(batch_or_samples)`` — feature-KD calibration of the
   SRAM side-cars (cached teacher features, AdamW over the adapter tree);
   returns a ``CalibrationReport``. It runs under the ``dequant`` backend
@@ -51,6 +57,8 @@ from repro_torch.core.calibrate import (
 )
 from repro_torch.data.pipeline import DataConfig, global_batch_at_step
 from repro_torch.deploy import serving
+from repro_torch.faults.generators import FaultSpec, build_map
+from repro_torch.faults.map import FaultMap, compose_maps
 from repro_torch.interop import from_reference
 from repro_torch.models import transformer as T
 from repro_torch.optim.adam import AdamW, adamw_init
@@ -157,10 +165,11 @@ class CalibrationReport:
 
 
 class Deployment:
-    """One RRAM deployment over its lifetime. ``self.codes`` (uint8) is
-    the ground truth; ``self.base`` is what forwards consume — the codes
-    under ``codes`` and ``codes_adc``, their float read-back under
-    ``dequant``."""
+    """One RRAM deployment over its lifetime. ``self.codes`` (uint8,
+    pristine) is the drift clock's ground truth; ``self.codes_view`` is
+    them read back through the fault map; ``self.base`` is what forwards
+    consume — the view under ``codes`` and ``codes_adc``, its float
+    read-back under ``dequant``."""
 
     def __init__(self, cfg, backend: str, teacher_base: Pytree, codes: Pytree,
                  adapters: Pytree, teacher_seed: int, program_seed: int,
@@ -178,6 +187,8 @@ class Deployment:
         self.drift_hours: List[float] = [float(h) for h in drift_hours]
         self.opt_state = None
         self.step: int = 0
+        self.fault_specs: List[FaultSpec] = []
+        self._fault_map: Optional[FaultMap] = None
         self._teacher_logits_cache = None
         self._stream = None
         self._refresh_base()
@@ -216,10 +227,15 @@ class Deployment:
                    drift_hours=drift_hours)
 
     def _refresh_base(self):
+        # self.codes stays pristine; consumers read the faulty view,
+        # derived anew after every programming, drift or injection event.
+        # New tensors every time: a session made before keeps its params.
+        self.codes_view = substrate.faulted_codes(self.codes, self._fault_map,
+                                                  self.cfg.rram)
         if self.backend == "dequant":
-            self.base = _dequant_like(self.codes, self.teacher_base)
+            self.base = _dequant_like(self.codes_view, self.teacher_base)
         else:
-            self.base = self.codes
+            self.base = self.codes_view
 
     @property
     def field_hours(self) -> float:
@@ -239,6 +255,31 @@ class Deployment:
             event_index=len(self.drift_hours), clock_offset=self.field_hours,
         )
         self.drift_hours.append(hours)
+        self._refresh_base()
+        return self
+
+    # -- fault injection ------------------------------------------------------
+
+    def inject(self, faults: Union[FaultSpec, Sequence[FaultSpec]], *,
+               draws=None) -> "Deployment":
+        """Inject device faults (a ``FaultSpec`` or a sequence), recorded
+        in ``fault_specs``. The new specs' maps are composed into the
+        current one: the join is associative, commutative and idempotent,
+        so this is bitwise the reference's rebuild from every recorded
+        spec, and re-injecting a spec changes nothing. ``draws`` gives one
+        spec's per-leaf uniforms ``{path: (up, un)}`` (a sequence of them,
+        or ``None`` entries, for a sequence of specs); without them each
+        leaf draws from its spec's stream. The pristine codes are not
+        touched."""
+        one = isinstance(faults, FaultSpec)
+        specs = [faults] if one else list(faults)
+        per = [None] * len(specs) if draws is None else ([draws] if one else list(draws))
+        if len(per) != len(specs):
+            raise ValueError(f"{len(per)} draws for {len(specs)} fault specs")
+        new = compose_maps(build_map(self.codes, s, self.cfg.rram, draws=d)
+                           for s, d in zip(specs, per))
+        self.fault_specs.extend(specs)
+        self._fault_map = compose_maps([self._fault_map, new])
         self._refresh_base()
         return self
 

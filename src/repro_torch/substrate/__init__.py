@@ -18,6 +18,8 @@ from repro_torch.substrate.backends import (  # noqa: F401
 from repro_torch.substrate.exec import (  # noqa: F401
     code_column_norms,
     dora_gamma,
+    faulted_codes,
+    faulted_view,
     rimc_linear,
     rimc_mvm_adc,
 )

@@ -26,6 +26,28 @@ def code_column_norms(xw: CrossbarWeight) -> torch.Tensor:
     return torch.sqrt(torch.sum(w * w, dim=-2))
 
 
+def faulted_view(xw: CrossbarWeight, leaf_faults, cfg) -> CrossbarWeight:
+    """The faulty read-back view of one leaf's codes (retention, I-V bend,
+    caps, stuck pins; ``faults/map.py``), the scale untouched. The
+    resident codes are never written: drift keeps acting on them, and
+    every consumer reads this view. ``leaf_faults=None`` is healthy."""
+    if leaf_faults is None:
+        return xw
+    return leaf_faults.apply(xw, cfg)
+
+
+def faulted_codes(tree, fault_map, cfg):
+    """``faulted_view`` over a whole codes tree through a composed
+    ``FaultMap`` (``None``: the tree itself). ``Deployment._refresh_base``
+    calls it after every programming, drift or injection event, and
+    ``prepare_base_for_serve(faults=...)`` derives its view the same way."""
+    if fault_map is None:
+        return tree
+    from repro_torch.faults.map import apply_fault_map
+
+    return apply_fault_map(tree, fault_map, cfg)
+
+
 def dora_gamma(xw: CrossbarWeight, adapter: dict) -> torch.Tensor:
     """Merged DoRA scale M/||W_r + A@B|| (Algorithm 2 line 12), (1, N)."""
     w = dequantize(xw)

@@ -169,12 +169,15 @@ def _fusable(b: dict, keys: Tuple[str, ...]) -> bool:
     return len(lead_k) == 1
 
 
-def prepare_base_for_serve(base, adapters, cfg):
+def prepare_base_for_serve(base, adapters, cfg, *, faults=None):
     """Swap every servable RRAM leaf of ``base`` for its
     ``PreparedCrossbar``, fusing same-input siblings. ``adapters`` must be
     the merged tree (``merge_adapters_for_serve``). Inputs are not
-    mutated."""
+    mutated. ``faults`` (a composed ``FaultMap``) derives the faulty view
+    of ``base`` before fusion, for a caller that prepares pristine codes;
+    ``Deployment.serve`` passes its view, already faulted."""
     acfg = cfg.adapter
+    base = X.faulted_codes(base, faults, cfg.rram)
 
     def walk(b, a, cross=False):
         if _servable(b):

@@ -1010,3 +1010,73 @@ def test_replays_equal_eager_with_rope_cache_cleared_first(cuda):
     _check_replays(session, seed=1)
     again, _, _ = _drive(session)
     assert again == streams
+
+
+# -- device faults: the card's view and draws ----------------------------------
+
+FAULT_CASES = ("stuck_at", "saturated", "retention", "iv_nonlinearity", "composite")
+
+
+def _faulted_smoke(cuda, kinds):
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+    from repro_torch.faults import default_spec
+
+    cfg = get_arch("qwen3_1_7b").smoke
+    specs = [default_spec(k, 1) for k in kinds]
+    return Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24), specs
+
+
+@pytest.mark.parametrize("case", FAULT_CASES)
+def test_card_fault_view_is_the_cpu_view_from_the_same_draws(cuda, case):
+    """Each leaf's uniforms drawn from its stream on the card and moved to
+    the host: the CPU's map and view from those draws equal the card's,
+    field by field and code by code."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.faults import FAULT_CLASSES, compose_maps
+    from repro_torch.faults import generators as G
+    from repro_torch.faults.map import apply_fault_map
+
+    dep, specs = _faulted_smoke(cuda, FAULT_CLASSES if case == "composite" else (case,))
+    dep.inject(specs)
+    cpu_codes = tree_lib.map_tensors(lambda t: t.cpu(), dep.codes)
+    draws = [None if s.key_data is None else {
+        path: tuple(t.cpu() for t in G.leaf_draws(s, path, xw.g_pos.shape, cuda))
+        for path, xw in G.rram_leaves(dep.codes)} for s in specs]
+    cpu_map = compose_maps(G.build_map(cpu_codes, s, dep.cfg.rram, draws=d)
+                           for s, d in zip(specs, draws))
+    for path, lf in cpu_map.leaves.items():
+        card = dep._fault_map.leaves[path].fields()
+        assert set(card) == set(lf.fields()), path
+        assert all(torch.equal(card[f].cpu(), t) for f, t in lf.fields().items()), path
+    cpu_view = apply_fault_map(cpu_codes, cpu_map, dep.cfg.rram)
+    got = [t.cpu() for t in tree_lib.tensors(dep.codes_view)]
+    assert all(torch.equal(a, b) for a, b in zip(got, tree_lib.tensors(cpu_view)))
+    assert any(not torch.equal(a.cpu(), b) for a, b in
+               zip(tree_lib.tensors(dep.codes), got))
+
+
+def test_card_fault_draws_replay_from_the_spec(cuda):
+    """The card's draws replay from the spec alone: the same uniforms on a
+    second call, the same map and view on a second deployment whatever
+    the order of injection; stuck cells stay pinned through drift."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.faults import FAULT_CLASSES
+    from repro_torch.faults import generators as G
+
+    a, specs = _faulted_smoke(cuda, FAULT_CLASSES)
+    b, _ = _faulted_smoke(cuda, FAULT_CLASSES)
+    path, xw = G.rram_leaves(a.codes)[0]
+    first = G.leaf_draws(specs[0], path, xw.g_pos.shape, cuda)
+    again = G.leaf_draws(specs[0], path, xw.g_pos.shape, cuda)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    a.inject(specs)
+    for s in reversed(specs):
+        b.inject(s)
+    views = [tree_lib.tensors(d.codes_view) for d in (a, b)]
+    assert all(torch.equal(x, y) for x, y in zip(*views))
+    lf = a._fault_map.leaves[path]
+    a.advance(300)
+    view = dict(G.rram_leaves(a.codes_view))[path]
+    mask = lf.stuck_mask_pos
+    assert mask.any() and torch.equal(view.g_pos[mask], lf.stuck_val_pos[mask])
