@@ -119,19 +119,21 @@ Phases (any failure exits non-zero; no failure is caught):
                 within LOGITS_BOUND, int8 vs f32 within INT8_LOGITS_BOUND.
   8. faults   — on phase 7's calibrated deployment: the logit MSE on the
                 calibration batch healthy, then inject the study's four
-                default_spec(kind, seed + 1) at once (inject seconds, the
-                map's bytes, peak memory): the pristine codes bitwise
-                unchanged, a re-injected spec leaves the view bitwise as it
-                was, the card's view bitwise the CPU's from the same draws
-                (each leaf's uniforms regenerated from its stream on the card
-                and moved to the host; first and last layer of each stacked
-                leaf); the faulted logit MSE above the healthy one; then
-                serve() and serve(accum="int8") and a codes_adc deployment
-                given the same specs (its view bitwise dep.codes_view) over
-                phase 5's traffic with phase 5's per-session checks (exact
-                launch counts, graph replays bitwise eager, compile_count 4
-                and flat, codes vs dequant within LOGITS_BOUND, int8 vs f32
-                within INT8_LOGITS_BOUND, ADC vs f32 reported), the f32
+                classes at once, each default_spec(kind, seed + 1 + i) with
+                a key of its own (inject seconds, the map's bytes, peak
+                memory): the pristine codes bitwise unchanged, a re-injected
+                spec leaves the view bitwise as it was, the card's view
+                bitwise the CPU's from the same draws (each leaf's uniforms
+                regenerated from its stream on the card and moved to the
+                host; first and last layer of each stacked leaf), the
+                saturation caps clamping cells the other classes left above
+                the cap; the faulted logit MSE above the healthy one; then
+                serve_checked (phase 5's per-session checks: exact launch
+                counts, graph replays bitwise eager, compile_count 4 and
+                flat, codes vs dequant within LOGITS_BOUND, int8 vs f32
+                within INT8_LOGITS_BOUND, ADC vs f32 reported) over serve(),
+                serve(accum="int8") and a codes_adc deployment given the
+                same specs (its view bitwise dep.codes_view), the f32
                 session's prepared tree bitwise prepare_base_for_serve(
                 dep.codes, merged, cfg, faults=dep._fault_map), the captured
                 tick beside phase 5's healthy one (reported); advance(300):
@@ -139,9 +141,12 @@ Phases (any failure exits non-zero; no failure is caught):
                 calibrate(10, steps=20) on the faulted base: no launch, one
                 capture, the faulted logit MSE reduced; last, with that
                 deployment freed, fault_recovery_study at full width (10
-                samples x 32 tokens, 20 steps, 300 h): per class the
-                faulted MSE not the clean one and calibrated below faulted
-                (gated), faulted above clean (reported).
+                samples x 32 tokens, 20 steps) after 0, 24 and 300 h, with
+                the weights' squared error against the teacher's, clean and
+                faulted, per class: calibrated below faulted and faulted
+                above clean exactly where the fault raised the weights'
+                error, for every class and age; at 0 and 24 h faulted above
+                clean for every class.
 The last line is the contract line; the line before it the kernel table.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -149,6 +154,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -260,6 +266,7 @@ CALIB_LOSS_RTOL = 1e-2
 # phase 8: the study's four fault classes at their default severities,
 # keyed as the study keys them (seed + 1), and the study's field hours
 FAULT_HOURS = 300.0
+STUDY_HOURS = (0.0, 24.0, FAULT_HOURS)
 
 
 def log(*args):
@@ -1174,6 +1181,78 @@ def codes_vs_dequant(session, logits, tokens, g, device):
     return prefill, chunk_errs
 
 
+def serve_checked(dep, seed, label, *, session=None, make_adc=None, check_session=None,
+                  keep=False):
+    """Phase 5's traffic and per-session checks on ``dep``: ``serve()``
+    (exact launch counts; codes vs dequant within ``LOGITS_BOUND``), then
+    ``serve(accum="int8")`` (exact counts; int8 vs f32 within
+    ``INT8_LOGITS_BOUND``), then, when ``make_adc`` gives a codes_adc
+    deployment, its session (exact counts; ADC vs f32 and its greedy
+    tokens equal to f32's reported). ``session`` is the f32 session, if
+    made already; ``check_session`` sees it before it serves; ``label``
+    prefixes the logit comparisons.
+    Each session is freed after its body unless ``keep``. Returns
+    ``(runs, sessions)`` keyed by body; ``drive`` holds the graphs."""
+    cfg, device = dep.cfg, dep.device
+    prompts, tokens, g = serving_inputs(cfg.vocab, seed, device)
+    n_leaves = 4 * cfg.n_layers  # fused qkv, o, gate_up, down per layer
+    n_adc = 7 * cfg.n_layers     # q, k, v, o, gate, up, down per layer
+    sessions = {}
+
+    # f32 codes: every admission chunk (<= 32 rows) and every decode tick
+    # (4 rows) runs each fused leaf once through the GEMV launcher
+    session = dep.serve() if session is None else session
+    if check_session is not None:
+        check_session(session)
+    f32, logits = drive(session, prompts, tokens, MAX_NEW)
+    f32["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    steps = f32["prefill_chunks"] + f32["decode_steps"]
+    expect_counts(f32["launches_engine"], {"dora_linear_gemv": n_leaves * steps})
+    expect_counts(f32["launches"], {"dora_linear_gemv": n_leaves * steps,
+                                    "dora_linear": n_leaves})
+    f32["codes_vs_dequant"], f32["chunk_logits_rel_diff"] = codes_vs_dequant(
+        session, logits, tokens, g, device)
+    if keep:
+        sessions["f32"] = session
+    del session
+
+    # int8 codes: the same codes and traffic through the int8 body
+    session = dep.serve(accum="int8")
+    int8, logits8 = drive(session, prompts, tokens, MAX_NEW)
+    steps = int8["prefill_chunks"] + int8["decode_steps"]
+    expect_counts(int8["launches_engine"], {"dora_linear_gemv/int8": n_leaves * steps})
+    expect_counts(int8["launches"], {"dora_linear_gemv/int8": n_leaves * steps,
+                                     "dora_linear/int8": n_leaves})
+    int8["int8_vs_f32"] = compare_logits(f"{label}int8 vs f32 codes prefill logits",
+                                         logits8, logits, INT8_LOGITS_BOUND)
+    if keep:
+        sessions["int8"] = session
+    del session, logits8
+    runs = {"f32": f32, "int8": int8}
+    if make_adc is None:
+        return runs, sessions
+
+    # codes_adc: every unfused leaf of every forward runs the ADC kernel
+    memory()
+    session = make_adc().serve()
+    adc, logits_adc = drive(session, prompts, tokens, MAX_NEW)
+    steps = adc["prefill_chunks"] + adc["decode_steps"]
+    expect_counts(adc["launches_engine"], {"crossbar_mvm": n_adc * steps})
+    expect_counts(adc["launches"], {"crossbar_mvm": n_adc * (steps + 1)})
+    adc["adc_vs_f32"] = compare_logits(f"{label}codes_adc vs f32 codes prefill logits",
+                                       logits_adc, logits)
+    same = sum(a == b for ra, rb in zip(adc["streams"], f32["streams"])
+               for a, b in zip(ra, rb))
+    adc["greedy_tokens_equal_f32"] = same / sum(len(r) for r in f32["streams"])
+    log(f"[serve] {label}codes_adc greedy tokens equal to f32 codes: "
+        f"{adc['greedy_tokens_equal_f32']:.3f}")
+    if keep:
+        sessions["codes_adc"] = session
+    del session, logits_adc, logits
+    runs["codes_adc"] = adc
+    return runs, sessions
+
+
 def phase_serving(device, seed):
     from repro_torch.configs import get_arch
     from repro_torch.deploy import Deployment
@@ -1189,56 +1268,24 @@ def phase_serving(device, seed):
     log(f"[serve] {session.describe()}")
     log(f"[serve] program + advance(24) + serve: {t_setup:.2f} s")
 
-    prompts, tokens, g = serving_inputs(cfg.vocab, seed, device)
     n_leaves = 4 * cfg.n_layers  # fused qkv, o, gate_up, down per layer
-    n_adc = 7 * cfg.n_layers     # q, k, v, o, gate, up, down per layer
-
-    # f32 codes: every admission chunk (<= 32 rows) and every decode tick
-    # (4 rows) runs each fused leaf once through the GEMV launcher
-    result, logits = drive(session, prompts, tokens, MAX_NEW)
-    steps = result["prefill_chunks"] + result["decode_steps"]
-    expect_counts(result["launches_engine"], {"dora_linear_gemv": n_leaves * steps})
-    expect_counts(result["launches"], {"dora_linear_gemv": n_leaves * steps,
-                                       "dora_linear": n_leaves})
-    peak_f32 = torch.cuda.max_memory_allocated()
-
-    result["codes_vs_dequant"], chunk_errs = codes_vs_dequant(session, logits, tokens, g,
-                                                              device)
+    runs, sessions = serve_checked(
+        dep, seed, "", session=session, keep=True,
+        # a second deployment over the same teacher, codes and adapters
+        make_adc=lambda: Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes,
+                                    dep.adapters, dep.teacher_seed, dep.program_seed,
+                                    dep.drift_hours))
+    del session
+    result, int8, adc = runs["f32"], runs["int8"], runs["codes_adc"]
+    peak_f32 = result["peak_mem_bytes"]
     result.update(
-        setup_seconds=t_setup, peak_mem_bytes=peak_f32, rram_bytes=dep.rram_bytes(),
+        setup_seconds=t_setup, rram_bytes=dep.rram_bytes(),
         sram_bytes=dep.sram_bytes(), calibrated_fraction=dep.calibrated_fraction(),
-        gemv_launches_per_tick=n_leaves, chunk_logits_rel_diff=chunk_errs,
+        gemv_launches_per_tick=n_leaves,
     )
     log(f"[serve] f32 codes: peak mem {peak_f32 / 2**30:.2f} GiB | rram_bytes "
         f"{result['rram_bytes']} sram_bytes {result['sram_bytes']} calibrated "
         f"{result['calibrated_fraction']:.2%} ({n_leaves} GEMV launches per decode tick)")
-
-    # int8 codes: the same codes and traffic through the int8 body
-    session8 = dep.serve(accum="int8")
-    int8, logits8 = drive(session8, prompts, tokens, MAX_NEW)
-    steps = int8["prefill_chunks"] + int8["decode_steps"]
-    expect_counts(int8["launches_engine"], {"dora_linear_gemv/int8": n_leaves * steps})
-    expect_counts(int8["launches"], {"dora_linear_gemv/int8": n_leaves * steps,
-                                     "dora_linear/int8": n_leaves})
-    int8["int8_vs_f32"] = compare_logits(
-        "int8 vs f32 codes prefill logits", logits8, logits, INT8_LOGITS_BOUND)
-    del logits8
-
-    # codes_adc: a second deployment over the same teacher, codes and
-    # adapters; every unfused leaf of every forward runs the ADC kernel
-    dep_adc = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
-                         dep.teacher_seed, dep.program_seed, dep.drift_hours)
-    session_adc = dep_adc.serve()
-    adc, logits_adc = drive(session_adc, prompts, tokens, MAX_NEW)
-    steps = adc["prefill_chunks"] + adc["decode_steps"]
-    expect_counts(adc["launches_engine"], {"crossbar_mvm": n_adc * steps})
-    expect_counts(adc["launches"], {"crossbar_mvm": n_adc * (steps + 1)})
-    adc["adc_vs_f32"] = compare_logits("codes_adc vs f32 codes prefill logits",
-                                       logits_adc, logits)
-    same = sum(a == b for ra, rb in zip(adc["streams"], result["streams"])
-               for a, b in zip(ra, rb))
-    adc["greedy_tokens_equal_f32"] = same / sum(len(r) for r in result["streams"])
-    log(f"[serve] codes_adc greedy tokens equal to f32 codes: {adc['greedy_tokens_equal_f32']:.3f}")
     result["int8"], result["codes_adc"] = int8, adc
     log("[serve] fused prefill wall (CUDA events, counted run | warm best): " + ", ".join(
         f"{body} {run['prefill_ms']:.3f} | {min(run['prefill_ms_warm']):.3f} ms"
@@ -1251,8 +1298,7 @@ def phase_serving(device, seed):
             f"TTFT max captured {max(run['warm']['ttft_s']):.4f} s vs eager "
             f"{max(run['eager']['ttft_s']):.4f} s; compile_count {run['compile_count']}")
     result["peak_mem_bytes_all"] = torch.cuda.max_memory_allocated()
-    del logits_adc
-    return result, {"f32": session, "int8": session8, "codes_adc": session_adc}, dep
+    return result, sessions, dep
 
 
 def phase_trace(session, ticks=4):
@@ -1681,26 +1727,8 @@ def phase_calibrate(dep, device, seed):
 
     # serve the calibrated side-cars through the kernels and the compiled
     # steps: phase 5's traffic and checks, the f32 body then the int8 body
-    prompts, tokens, g = serving_inputs(cfg.vocab, seed, device)
-    n_leaves = 4 * cfg.n_layers
-    session = dep.serve()
-    f32, logits = drive(session, prompts, tokens, MAX_NEW)
-    steps = f32["prefill_chunks"] + f32["decode_steps"]
-    expect_counts(f32["launches_engine"], {"dora_linear_gemv": n_leaves * steps})
-    expect_counts(f32["launches"], {"dora_linear_gemv": n_leaves * steps,
-                                    "dora_linear": n_leaves})
-    f32["codes_vs_dequant"], f32["chunk_logits_rel_diff"] = codes_vs_dequant(
-        session, logits, tokens, g, device)
-    del session
-    session8 = dep.serve(accum="int8")
-    int8, logits8 = drive(session8, prompts, tokens, MAX_NEW)
-    steps = int8["prefill_chunks"] + int8["decode_steps"]
-    expect_counts(int8["launches_engine"], {"dora_linear_gemv/int8": n_leaves * steps})
-    expect_counts(int8["launches"], {"dora_linear_gemv/int8": n_leaves * steps,
-                                     "dora_linear/int8": n_leaves})
-    int8["int8_vs_f32"] = compare_logits("calibrated int8 vs f32 codes prefill logits",
-                                         logits8, logits, INT8_LOGITS_BOUND)
-    del session8, logits8, logits
+    runs, _ = serve_checked(dep, seed, "calibrated ")
+    f32, int8 = runs["f32"], runs["int8"]
     result.update(serving_f32=f32, serving_int8=int8,
                   phase_seconds=time.perf_counter() - t_phase)
     log(f"[calib] phase 7 took {result['phase_seconds']:.2f} s")
@@ -1752,59 +1780,58 @@ def cpu_view_matches(dep, specs):
     return cells
 
 
-def serve_faulted(dep, device, seed, healthy):
-    """Phase 5's traffic and per-session checks on the faulted deployment:
-    f32 and int8 codes, then a codes_adc deployment given the same specs.
-    ``healthy`` is phase 5's result, whose captured ticks are reported
-    beside these."""
+def cap_clamps(dep):
+    """How many cells of ``dep``'s view the saturation caps change: each
+    leaf's composite record applied with and without its caps (the
+    capped cells: those whose cap is below ``code_max``)."""
+    from repro_torch.faults.generators import rram_leaves
+
+    views, cm = dict(rram_leaves(dep.codes_view)), dep.cfg.rram.code_max
+    clamped = capped = 0
+    for path, xw in rram_leaves(dep.codes):
+        lf = dep._fault_map.leaves[path]
+        if lf.cap_pos is None:
+            continue
+        free = dataclasses.replace(lf, cap_pos=None, cap_neg=None).apply(xw, dep.cfg.rram)
+        for got, want, cap in ((views[path].g_pos, free.g_pos, lf.cap_pos),
+                               (views[path].g_neg, free.g_neg, lf.cap_neg)):
+            clamped += int((got != want).sum())
+            capped += int((cap < cm).sum())
+        del free
+    return {"clamped_cells": clamped, "capped_cells": capped}
+
+
+def serve_faulted(dep, seed, healthy):
+    """``serve_checked`` on the faulted deployment: the f32 session's
+    prepared tree held against ``prepare_base_for_serve(faults=)``, and a
+    codes_adc deployment given the same specs, its view bitwise
+    ``dep.codes_view``. ``healthy`` is phase 5's result, whose captured
+    ticks are reported beside these."""
     from repro_torch import substrate
     from repro_torch.deploy import Deployment
 
     cfg = dep.cfg
-    prompts, tokens, g = serving_inputs(cfg.vocab, seed, device)
-    n_leaves, n_adc = 4 * cfg.n_layers, 7 * cfg.n_layers
-    session = dep.serve()
-    routed = substrate.prepare_base_for_serve(dep.codes, session.params["adapters"], cfg,
-                                              faults=dep._fault_map)
-    assert trees_equal(session.params["base"], routed), \
-        "the served tree differs from prepare_base_for_serve(faults=)"
-    del routed
-    log("[faults] the f32 session's prepared tree is bitwise "
-        "prepare_base_for_serve(dep.codes, merged, cfg, faults=dep._fault_map)")
-    f32, logits = drive(session, prompts, tokens, MAX_NEW)
-    steps = f32["prefill_chunks"] + f32["decode_steps"]
-    expect_counts(f32["launches_engine"], {"dora_linear_gemv": n_leaves * steps})
-    expect_counts(f32["launches"], {"dora_linear_gemv": n_leaves * steps,
-                                    "dora_linear": n_leaves})
-    f32["codes_vs_dequant"], f32["chunk_logits_rel_diff"] = codes_vs_dequant(
-        session, logits, tokens, g, device)
-    del session
-    session8 = dep.serve(accum="int8")
-    int8, logits8 = drive(session8, prompts, tokens, MAX_NEW)
-    steps = int8["prefill_chunks"] + int8["decode_steps"]
-    expect_counts(int8["launches_engine"], {"dora_linear_gemv/int8": n_leaves * steps})
-    expect_counts(int8["launches"], {"dora_linear_gemv/int8": n_leaves * steps,
-                                     "dora_linear/int8": n_leaves})
-    int8["int8_vs_f32"] = compare_logits("faulted int8 vs f32 codes prefill logits",
-                                         logits8, logits, INT8_LOGITS_BOUND)
-    del session8, logits8
-    memory()
-    dep_adc = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
-                         dep.teacher_seed, dep.program_seed, dep.drift_hours)
-    dep_adc.inject(dep.fault_specs)
-    assert trees_equal(dep_adc.codes_view, dep.codes_view), "codes_adc's view differs"
-    log(f"[faults] codes_adc deployment: the same {len(dep.fault_specs)} specs injected, its "
-        f"view bitwise dep.codes_view; two maps resident, allocated "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    session_adc = dep_adc.serve()
-    adc, logits_adc = drive(session_adc, prompts, tokens, MAX_NEW)
-    steps = adc["prefill_chunks"] + adc["decode_steps"]
-    expect_counts(adc["launches_engine"], {"crossbar_mvm": n_adc * steps})
-    expect_counts(adc["launches"], {"crossbar_mvm": n_adc * (steps + 1)})
-    adc["adc_vs_f32"] = compare_logits("faulted codes_adc vs f32 codes prefill logits",
-                                       logits_adc, logits)
-    del session_adc, dep_adc, logits_adc, logits
-    out = {"f32": f32, "int8": int8, "codes_adc": adc}
+
+    def check_session(session):
+        routed = substrate.prepare_base_for_serve(dep.codes, session.params["adapters"],
+                                                  cfg, faults=dep._fault_map)
+        assert trees_equal(session.params["base"], routed), \
+            "the served tree differs from prepare_base_for_serve(faults=)"
+        log("[faults] the f32 session's prepared tree is bitwise "
+            "prepare_base_for_serve(dep.codes, merged, cfg, faults=dep._fault_map)")
+
+    def make_adc():
+        dep_adc = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
+                             dep.teacher_seed, dep.program_seed, dep.drift_hours)
+        dep_adc.inject(dep.fault_specs)
+        assert trees_equal(dep_adc.codes_view, dep.codes_view), "codes_adc's view differs"
+        log(f"[faults] codes_adc deployment: the same {len(dep.fault_specs)} specs injected, "
+            f"its view bitwise dep.codes_view; two maps resident, allocated "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        return dep_adc
+
+    out, _ = serve_checked(dep, seed, "faulted ", make_adc=make_adc,
+                           check_session=check_session)
     for body, run in out.items():
         was = (healthy if body == "f32" else healthy[body])["tick"]["captured"]
         run["tick_ms_healthy"] = was
@@ -1817,11 +1844,12 @@ def serve_faulted(dep, device, seed, healthy):
 
 def phase_faults(dep, device, seed, healthy):
     """Phase 8 on phase 7's calibrated deployment (qwen3-1.7b FULL, codes,
-    24 h): inject the study's four fault classes at once and hold the view
-    (pristine codes, re-injection, the CPU's view from the same draws),
-    serve it through all three bodies with phase 5's checks, let 300 h
-    pass (stuck cells stay pinned) and calibrate on the faulted base.
-    Gated: every check named in the module's docstring."""
+    24 h): inject the study's four fault classes at once, each with a key
+    of its own, and hold the view (pristine codes, re-injection, the CPU's
+    view from the same draws, the caps clamping), serve it through all
+    three bodies with phase 5's checks, let 300 h pass (stuck cells stay
+    pinned) and calibrate on the faulted base. Gated: every check named
+    in the module's docstring."""
     from repro_torch import tree as tree_lib
     from repro_torch.deploy import calibration_batch
     from repro_torch.faults import FAULT_CLASSES, default_spec
@@ -1832,7 +1860,10 @@ def phase_faults(dep, device, seed, healthy):
     batch = calibration_batch(cfg, CALIB_SAMPLES, CALIB_SEQ)
     result = {"healthy_mse": dep.logit_mse(batch)}
     pristine = [t.clone() for t in tree_lib.tensors(dep.codes)]
-    specs = [default_spec(kind, seed + 1) for kind in FAULT_CLASSES]
+    # a key of its own for each class: the draws depend on the key and the
+    # leaf path only, so one key would put the saturation caps on the very
+    # cells retention has already brought down to the cap
+    specs = [default_spec(kind, seed + 1 + i) for i, kind in enumerate(FAULT_CLASSES)]
     allocated0 = memory()[0]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1870,12 +1901,16 @@ def phase_faults(dep, device, seed, healthy):
         f"({result['reinject_seconds']:.3f} s) left the view bitwise as it was; the card's "
         f"view bitwise the CPU's from the same draws over {result['cpu_cells_compared']} "
         f"cells (first and last layer of every leaf, {time.perf_counter() - t0:.1f} s)")
+    result["cap"] = cap_clamps(dep)
+    assert result["cap"]["clamped_cells"] > 0, result["cap"]
+    log(f"[faults] the saturation caps clamp {result['cap']['clamped_cells']} cells of "
+        f"{result['cap']['capped_cells']} capped (the view without the caps differs there)")
     result["faulted_mse"] = dep.logit_mse(batch)
     log(f"[faults] logit MSE on the calibration batch: healthy {result['healthy_mse']:.5f}, "
         f"faulted {result['faulted_mse']:.5f}")
     assert result["faulted_mse"] > result["healthy_mse"], result
 
-    result["serving"] = serve_faulted(dep, device, seed, healthy)
+    result["serving"] = serve_faulted(dep, seed, healthy)
 
     # the drift clock runs on the pristine codes; the view re-pins
     stuck = {path: ((lf.stuck_mask_pos, lf.stuck_val_pos),
@@ -1925,35 +1960,80 @@ def phase_faults(dep, device, seed, healthy):
     return result
 
 
-def phase_study(device, seed):
-    """The fault-recovery study at full width and the paper's scale, one
-    fresh deployment per class. Gated per class: the fault reached the
-    forward (faulted MSE not the clean one) and calibration recovered
-    (calibrated below faulted: the reference bench's gate). Faulted above
-    clean is reported, not gated: after 300 h of drift a saturation cap
-    also clips the drift noise of the largest codes, which can lower the
-    MSE (1619.67 vs 1626.04 for ``saturated`` in PR 22's first run)."""
-    from repro_torch.faults import FAULT_CLASSES, fault_recovery_study
+def weight_sq_err(dep):
+    """Sum over the RRAM leaves of the squared difference between the read
+    back of ``dep``'s view and the teacher's weights (f64, one matrix at a
+    time), and the cells where the view differs from the pristine codes."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import rram
+    from repro_torch.faults.generators import rram_leaves
 
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    study = fault_recovery_study("qwen3_1_7b", smoke=False, seed=seed, device=device)
-    seconds = time.perf_counter() - t0
-    for kind in FAULT_CLASSES:
-        r = study[kind]
-        r["faulted_above_clean"] = r["faulted_mse"] > r["clean_mse"]
-        log(f"[study] {kind:>16}: clean {r['clean_mse']:.5f} faulted {r['faulted_mse']:.5f} "
-            f"({'above' if r['faulted_above_clean'] else 'NOT above'} clean; reported) "
-            f"calibrated {r['calibrated_mse']:.5f} (recovered {r['recovered_fraction']:.1%}; "
-            f"{r['seconds']:.2f} s)")
-    for kind in FAULT_CLASSES:
-        r = study[kind]
-        assert r["faulted_mse"] != r["clean_mse"], (kind, r)
-        assert r["calibrated_mse"] < r["faulted_mse"], (kind, r)
-    peak = torch.cuda.max_memory_allocated()
-    log(f"[study] qwen3-1.7b FULL, 10 samples x 32 tokens, 20 steps, {FAULT_HOURS:g} h: "
-        f"{seconds:.2f} s, peak {peak / 2**30:.2f} GiB")
-    return {"classes": study, "seconds": seconds, "peak_mem_bytes": peak}
+    teacher = {}
+    tree_lib.map_with_path(lambda path, x: teacher.setdefault(tree_lib.path_str(path), x),
+                           dep.teacher_base)
+    codes = dict(rram_leaves(dep.codes))
+    err, changed = 0.0, 0
+    for path, xw in rram_leaves(dep.codes_view):
+        w = teacher[path]
+        changed += int((xw.g_pos != codes[path].g_pos).sum())
+        changed += int((xw.g_neg != codes[path].g_neg).sum())
+        for i in range(w.shape[0]) if w.dim() == 3 else (Ellipsis,):
+            r = rram.dequantize(rram.CrossbarWeight(xw.g_pos[i], xw.g_neg[i], xw.scale[i]))
+            err += float(((r - w[i].float()).double() ** 2).sum())
+    return err, changed
+
+
+def phase_study(device, seed):
+    """The fault-recovery study at full width and the paper's scale (10
+    samples x 32 tokens, 20 steps), one fresh deployment per class, after
+    0, 24 and 300 h of drift. Beside it, per class and age, the squared
+    error of the weights read back against the teacher's, clean and
+    faulted, on a deployment programmed, aged and faulted as the study's.
+    Gated per class at every age: calibrated below faulted (the reference
+    bench's gate), and faulted above clean exactly where the fault raised
+    the weights' error. At 0 and 24 h, faulted above clean for every
+    class. At 300 h a saturation cap also clips drift: at full column
+    height it lowers the weights' error (``tools/fault_regimes.py``), and
+    its logit MSE must then fall with it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+    from repro_torch.faults import FAULT_CLASSES, default_spec, fault_recovery_study
+
+    cfg = get_arch("qwen3_1_7b").full
+    out = {}
+    for hours in STUDY_HOURS:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        study = fault_recovery_study("qwen3_1_7b", smoke=False, seed=seed, hours=hours,
+                                     device=device)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        for kind in FAULT_CLASSES:
+            r = study[kind]
+            dep = Deployment.program(cfg, seed, backend="codes", device=device)
+            dep.advance(hours)
+            r["clean_weight_sq_err"], _ = weight_sq_err(dep)
+            dep.inject(default_spec(kind, seed + 1))
+            r["faulted_weight_sq_err"], r["cells_changed"] = weight_sq_err(dep)
+            del dep
+            r["faulted_above_clean"] = r["faulted_mse"] > r["clean_mse"]
+            r["weights_worse"] = r["faulted_weight_sq_err"] > r["clean_weight_sq_err"]
+            log(f"[study] {hours:g} h {kind:>16}: clean {r['clean_mse']:.5f} faulted "
+                f"{r['faulted_mse']:.5f} calibrated {r['calibrated_mse']:.5f} (recovered "
+                f"{r['recovered_fraction']:.1%}; {r['seconds']:.2f} s) | weights' squared "
+                f"error clean {r['clean_weight_sq_err']:.6e} faulted "
+                f"{r['faulted_weight_sq_err']:.6e} (x{r['faulted_weight_sq_err'] / r['clean_weight_sq_err']:.5f}"
+                f"), {r['cells_changed']} cells changed")
+        log(f"[study] qwen3-1.7b FULL, 10 samples x 32 tokens, 20 steps, {hours:g} h: "
+            f"{seconds:.2f} s, peak {peak / 2**30:.2f} GiB")
+        for kind in FAULT_CLASSES:
+            r = study[kind]
+            assert r["calibrated_mse"] < r["faulted_mse"], (hours, kind, r)
+            assert r["faulted_above_clean"] == r["weights_worse"], (hours, kind, r)
+            if hours < FAULT_HOURS:
+                assert r["faulted_above_clean"], (hours, kind, r)
+        out[f"{hours:g}h"] = {"classes": study, "seconds": seconds, "peak_mem_bytes": peak}
+    return out
 
 
 def main():

@@ -427,3 +427,57 @@ def test_fault_recovery_study_at_smoke():
     assert res["faulted_mse"] > res["clean_mse"]
     assert res["calibrated_mse"] < res["faulted_mse"]
     assert res["recovered_fraction"] > 0
+
+
+# -- a saturation cap against drift ---------------------------------------------
+
+
+@pytest.mark.parametrize("rows,hours", [(64, 24.0), (64, 300.0), (2048, 24.0), (2048, 300.0)])
+def test_saturation_cap_against_drift_is_the_reference(rows, hours):
+    """The study's saturation fault on a drifted Gaussian matrix, the port
+    given the reference's normals and uniforms: the faulty view bitwise
+    the reference's. Drift is multiplicative, so the cap at 153 also clips
+    the drift of codes programmed near it; in both packages the weights'
+    squared error rises with the cap except at full column height (2048
+    rows, the full model's) after 300 h, where it falls."""
+    import repro.core.rram as jr
+
+    w = np.random.default_rng(rows).standard_normal((rows, 256)).astype(np.float32)
+    cj, ct = jr.RramConfig(relative_drift=0.10), tr.RramConfig(relative_drift=0.10)
+    spec_j = JG.saturated(2, rate=0.10, cap_fraction=0.6)
+    key_d, key_f = jax.random.PRNGKey(11), jax.random.PRNGKey(7)
+    dj = jr.apply_drift(jr.program(jnp.asarray(w), cj), cj, key_d, hours=hours)
+    fj = JG._leaf_fault(spec_j, key_f, w.shape, cj).apply(dj, cj)
+    noise = tuple(torch.from_numpy(np.array(jax.random.normal(k, w.shape)))
+                  for k in jax.random.split(key_d))
+    draws = tuple(np.asarray(jax.random.uniform(k, w.shape)) for k in jax.random.split(key_f))
+    dt = tr.apply_drift(tr.program(torch.from_numpy(w), ct), ct, hours=hours, noise=noise)
+    ft = TG.leaf_fault(make_spec(TG, "saturated", 2), draws, w.shape, ct, "cpu").apply(dt, ct)
+    for a, b in ((dj, dt), (fj, ft)):
+        np.testing.assert_array_equal(np.asarray(a.g_pos), np_t(b.g_pos))
+        np.testing.assert_array_equal(np.asarray(a.g_neg), np_t(b.g_neg))
+    assert int((ft.g_pos != dt.g_pos).sum() + (ft.g_neg != dt.g_neg).sum()) > 0
+
+    def sq_err(read_back):
+        return float(np.sum((np.asarray(read_back, np.float64) - w) ** 2))
+
+    clean_j, faulted_j = sq_err(jr.dequantize(dj)), sq_err(jr.dequantize(fj))
+    clean_t, faulted_t = sq_err(np_t(tr.dequantize(dt))), sq_err(np_t(tr.dequantize(ft)))
+    worse = not (rows == 2048 and hours == 300.0)
+    assert (faulted_j > clean_j) == (faulted_t > clean_t) == worse, (
+        clean_j, faulted_j, clean_t, faulted_t)
+
+
+@pytest.mark.parametrize("kind", KINDS + ("healthy",))
+def test_faulted_view_is_the_reference(world, kind):
+    import repro.substrate as JS
+
+    path, xj = JG._rram_leaves(world["dep_j"].codes)[0]
+    xt = dict(TG.rram_leaves(port_codes(world)))[path]
+    lj = None if kind == "healthy" else world["maps_j"][kind].leaves[path]
+    lt = None if kind == "healthy" else port_map(world, kind).leaves[path]
+    want = JS.faulted_view(xj, lj, world["cfg_j"].rram)
+    got = tsub.faulted_view(xt, lt, world["cfg_t"].rram)
+    for k in ("g_pos", "g_neg", "scale"):
+        np.testing.assert_array_equal(np.asarray(getattr(want, k)), np_t(getattr(got, k)))
+    assert (got is xt) == (kind == "healthy")
