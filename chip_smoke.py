@@ -3,9 +3,11 @@ port's CUDA kernels from this checkout, holds each against its plain
 PyTorch version on the card, times them, then serves qwen3-1.7b at full
 width from resident RRAM codes three ways (f32 codes, int8 codes, the
 ADC-faithful ``codes_adc`` backend) and checks that each serving path
-went through its kernels; last it calibrates the drifted deployment's
+went through its kernels; then it calibrates the drifted deployment's
 DoRA side-cars (autograd under ``dequant``, no kernel) and serves the
-calibrated side-cars through the kernels again.
+calibrated side-cars through the kernels again, faults it, and last
+snapshots it, restores it bitwise and serves the restored deployment
+with the engine's shared prefix cache.
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
@@ -146,7 +148,30 @@ Phases (any failure exits non-zero; no failure is caught):
                 faulted, per class: calibrated below faulted and faulted
                 above clean exactly where the fault raised the weights'
                 error, for every class and age; at 0 and 24 h faulted above
-                clean for every class.
+                clean for every class (the study runs after phase 9).
+  9. persist  — on phase 8's deployment (programmed, 24 h, calibrated, four
+                fault classes, 300 h, calibrated again): snapshot (seconds,
+                bytes on disk beside 3 f32 trees of the adapter count),
+                Deployment.restore on the card (seconds: program, drift
+                replay, inject), bitwise the original in pristine codes,
+                codes_view, adapters, AdamW state, step, drift history,
+                fault specs and backend, its logit MSE on the calibration
+                batch ==; refusals: a restore onto the CPU (before any work)
+                and, with the original freed, a second snapshot whose codes
+                digest is tampered with (after its replay); then the
+                restored deployment through serve_faulted (phase 5's checks,
+                all three bodies) and, on each body's warm session, prefix
+                traffic (a 32-token shared prompt S and a 17-token P: S+8,
+                S+8 again, S+17, P, P+23) through an engine with the prefix
+                cache and one without it: counters, reused tokens, exact
+                launch counts, compile_count 4 and flat, the full hit and
+                the hit at 32 bitwise the cold admission (staged cache,
+                admission logits, slot row after the run, tokens), the hit
+                at 17 with equal tokens and logits within 1e-2 of their
+                absmax (bitwise or not, reported; codes_adc admits P+23
+                cold: it resumes only at chunk boundaries); TTFT with and without a
+                hit, the cache's bytes, peak memory. Phase 5's engines see
+                distinct random prompts, so they run the cache and never hit.
 The last line is the contract line; the line before it the kernel table.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -159,9 +184,11 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -267,6 +294,19 @@ CALIB_LOSS_RTOL = 1e-2
 # keyed as the study keys them (seed + 1), and the study's field hours
 FAULT_HOURS = 300.0
 STUDY_HOURS = (0.0, 24.0, FAULT_HOURS)
+# phase 9: a 32-token shared prompt S (one chunk at the engine's 32-token
+# chunks) and a 17-token prompt P: S+8 cold, S+8 again (a full hit), S+17
+# (a partial hit at 32, a chunk boundary), P cold, P+23 (a partial hit at
+# 17, off the boundary), each run to its end before the next
+PREFIX_SHARED, PREFIX_OFF = 32, 17
+PREFIX_TRAFFIC = (("S+8", "S", 8), ("S+8", "S", 8), ("S+17", "S", 17), ("P", "P", 0),
+                  ("P+23", "P", 23))
+PREFIX_HIT_TOKENS = [0, 40, 32, 0, 17]   # what each request reuses (codes_adc: 0 for P+23)
+PREFIX_NEW = 8                           # greedy tokens per prefix request
+# a partial hit off a chunk boundary vs cold admission: admission logits
+# within this share of their absmax (other chunk widths: other GEMV K
+# plans and cuBLAS choices); greedy tokens equal
+OFF_BOUNDARY_BOUND = 1e-2
 
 
 def log(*args):
@@ -1182,7 +1222,7 @@ def codes_vs_dequant(session, logits, tokens, g, device):
 
 
 def serve_checked(dep, seed, label, *, session=None, make_adc=None, check_session=None,
-                  keep=False):
+                  keep=False, also=None):
     """Phase 5's traffic and per-session checks on ``dep``: ``serve()``
     (exact launch counts; codes vs dequant within ``LOGITS_BOUND``), then
     ``serve(accum="int8")`` (exact counts; int8 vs f32 within
@@ -1190,7 +1230,9 @@ def serve_checked(dep, seed, label, *, session=None, make_adc=None, check_sessio
     deployment, its session (exact counts; ADC vs f32 and its greedy
     tokens equal to f32's reported). ``session`` is the f32 session, if
     made already; ``check_session`` sees it before it serves; ``label``
-    prefixes the logit comparisons.
+    prefixes the logit comparisons; ``also(body, session)``, when given,
+    runs on each session after its checks, its result under the run's
+    ``"also"`` key.
     Each session is freed after its body unless ``keep``. Returns
     ``(runs, sessions)`` keyed by body; ``drive`` holds the graphs."""
     cfg, device = dep.cfg, dep.device
@@ -1212,6 +1254,8 @@ def serve_checked(dep, seed, label, *, session=None, make_adc=None, check_sessio
                                     "dora_linear": n_leaves})
     f32["codes_vs_dequant"], f32["chunk_logits_rel_diff"] = codes_vs_dequant(
         session, logits, tokens, g, device)
+    if also is not None:
+        f32["also"] = also("f32", session)
     if keep:
         sessions["f32"] = session
     del session
@@ -1225,6 +1269,8 @@ def serve_checked(dep, seed, label, *, session=None, make_adc=None, check_sessio
                                      "dora_linear/int8": n_leaves})
     int8["int8_vs_f32"] = compare_logits(f"{label}int8 vs f32 codes prefill logits",
                                          logits8, logits, INT8_LOGITS_BOUND)
+    if also is not None:
+        int8["also"] = also("int8", session)
     if keep:
         sessions["int8"] = session
     del session, logits8
@@ -1246,6 +1292,8 @@ def serve_checked(dep, seed, label, *, session=None, make_adc=None, check_sessio
     adc["greedy_tokens_equal_f32"] = same / sum(len(r) for r in f32["streams"])
     log(f"[serve] {label}codes_adc greedy tokens equal to f32 codes: "
         f"{adc['greedy_tokens_equal_f32']:.3f}")
+    if also is not None:
+        adc["also"] = also("codes_adc", session)
     if keep:
         sessions["codes_adc"] = session
     del session, logits_adc, logits
@@ -1801,12 +1849,13 @@ def cap_clamps(dep):
     return {"clamped_cells": clamped, "capped_cells": capped}
 
 
-def serve_faulted(dep, seed, healthy):
+def serve_faulted(dep, seed, healthy, label="faulted", also=None):
     """``serve_checked`` on the faulted deployment: the f32 session's
     prepared tree held against ``prepare_base_for_serve(faults=)``, and a
     codes_adc deployment given the same specs, its view bitwise
     ``dep.codes_view``. ``healthy`` is phase 5's result, whose captured
-    ticks are reported beside these."""
+    ticks are reported beside these; ``label`` names the deployment in the
+    log, ``also`` is ``serve_checked``'s."""
     from repro_torch import substrate
     from repro_torch.deploy import Deployment
 
@@ -1830,12 +1879,12 @@ def serve_faulted(dep, seed, healthy):
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
         return dep_adc
 
-    out, _ = serve_checked(dep, seed, "faulted ", make_adc=make_adc,
-                           check_session=check_session)
+    out, _ = serve_checked(dep, seed, f"{label} ", make_adc=make_adc,
+                           check_session=check_session, also=also)
     for body, run in out.items():
         was = (healthy if body == "f32" else healthy[body])["tick"]["captured"]
         run["tick_ms_healthy"] = was
-        log(f"[faults] {body}: captured tick {run['tick']['captured']:.3f} ms faulted vs "
+        log(f"[faults] {body}: captured tick {run['tick']['captured']:.3f} ms {label} vs "
             f"{was:.3f} ms healthy (phase 5; reported, not gated), engine "
             f"{run['warm']['decode_tok_per_s']:.1f} tok/s, compile_count "
             f"{run['compile_count']}")
@@ -1960,6 +2009,277 @@ def phase_faults(dep, device, seed, healthy):
     return result
 
 
+@contextlib.contextmanager
+def timed_restore():
+    """Time ``Deployment.restore``'s parts from outside: the programming
+    event, the drift replay's ticks and the injection (seconds), each
+    closed by a synchronize. The program is not changed; the wrappers are
+    removed on exit."""
+    from repro_torch.deploy import deployment as D
+
+    times = {"program": 0.0, "drift": 0.0, "inject": 0.0}
+    originals = (D._program_trees, D.Deployment.advance, D.Deployment.inject)
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    D._program_trees = timed(originals[0], "program")
+    D.Deployment.advance = timed(originals[1], "drift")
+    D.Deployment.inject = timed(originals[2], "inject")
+    try:
+        yield times
+    finally:
+        D._program_trees, D.Deployment.advance, D.Deployment.inject = originals
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def restored_equal(dep, restored):
+    """What restore must give back bitwise, each named."""
+    from repro_torch import tree as tree_lib
+
+    opt = lambda d: [d.opt_state.step, *tree_lib.tensors(d.opt_state.mu),  # noqa: E731
+                     *tree_lib.tensors(d.opt_state.nu)]
+    return {
+        "codes": trees_equal(dep.codes, restored.codes),
+        "codes_view": trees_equal(dep.codes_view, restored.codes_view),
+        "adapters": trees_equal(dep.adapters, restored.adapters),
+        "opt_state": all(a.dtype == b.dtype and torch.equal(a, b)
+                         for a, b in zip(opt(dep), opt(restored))),
+        "step": dep.step == restored.step,
+        "drift_hours": dep.drift_hours == restored.drift_hours,
+        "fault_specs": ([s.to_dict() for s in dep.fault_specs]
+                        == [s.to_dict() for s in restored.fault_specs]),
+        "backend": dep.backend == restored.backend,
+    }
+
+
+def phase_persist(dep, device, workdir):
+    """Phase 9's first half on phase 8's deployment (programmed, 24 h,
+    calibrated, four fault classes, 300 h, calibrated again): snapshot it
+    (seconds, bytes on disk beside 3 f32 trees of the adapter count),
+    restore it on the card (seconds: program, drift replay, inject), and
+    hold the restored deployment bitwise against it (codes, view,
+    adapters, AdamW state, step, drift history, fault specs, backend) and
+    its logit MSE on the calibration batch ``==``; then a second snapshot
+    for the tampered-digest refusal and the refusal of a restore onto the
+    CPU. Returns the result and the restored deployment."""
+    from repro_torch.deploy import Deployment, calibration_batch
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = dep.cfg
+    batch = calibration_batch(cfg, CALIB_SAMPLES, CALIB_SEQ)
+    adapter_params = T.count_params({"base": dep.base, "adapters": dep.adapters})[1]
+    result = {"adapter_params": adapter_params, "mse": dep.logit_mse(batch)}
+    snap = os.path.join(workdir, "snapshot")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result["step"] = dep.snapshot(snap)
+    result["snapshot_seconds"] = time.perf_counter() - t0
+    result["snapshot_bytes"] = dir_bytes(snap)
+    log(f"[persist] snapshot of step {result['step']}: {result['snapshot_seconds']:.3f} s, "
+        f"{result['snapshot_bytes']} bytes on disk ({adapter_params} adapter params x 3 f32 "
+        f"trees = {12 * adapter_params} bytes)")
+    allocated0 = memory()[0]
+    torch.cuda.reset_peak_memory_stats()
+    with timed_restore() as parts:
+        t0 = time.perf_counter()
+        restored = Deployment.restore(cfg, snap, device=device)
+        torch.cuda.synchronize()
+        result["restore_seconds"] = time.perf_counter() - t0
+    result["restore_parts"] = parts
+    result["restore_peak_bytes"] = torch.cuda.max_memory_allocated()
+    result["restored_bytes"] = memory()[0] - allocated0
+    log(f"[persist] restore on {torch.cuda.get_device_name(0)}: "
+        f"{result['restore_seconds']:.3f} s (program {parts['program']:.3f}, drift replay "
+        f"{parts['drift']:.3f} over {len(restored.drift_hours)} ticks, inject "
+        f"{parts['inject']:.3f} of {len(restored.fault_specs)} specs; the rest the digests "
+        f"and the load); the restored deployment holds "
+        f"{result['restored_bytes'] / 2**30:.2f} GiB, peak "
+        f"{result['restore_peak_bytes'] / 2**30:.2f} GiB")
+    result["equal"] = restored_equal(dep, restored)
+    assert all(result["equal"].values()), result["equal"]
+    result["restored_mse"] = restored.logit_mse(batch)
+    assert result["restored_mse"] == result["mse"], (result["restored_mse"], result["mse"])
+    log(f"[persist] bitwise the original: {', '.join(result['equal'])}; logit MSE "
+        f"{result['restored_mse']:.5f} == {result['mse']:.5f}")
+
+    # the refusals: a second snapshot whose digest is tampered with is
+    # restored after the original is freed (phase_persist_serve); a restore
+    # onto the CPU is refused before any work
+    tampered = os.path.join(workdir, "tampered")
+    dep.snapshot(tampered)
+    meta_path = os.path.join(tampered, "deployment.json")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    meta["codes_digest"] = ("0" if meta["codes_digest"][0] != "0" else "1") + \
+        meta["codes_digest"][1:]
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    result["tampered_dir"] = tampered
+    t0 = time.perf_counter()
+    try:
+        Deployment.restore(cfg, snap, device="cpu")
+    except ValueError as e:
+        result["refused_cpu"] = str(e)
+    assert "refused_cpu" in result, "a restore onto the CPU was not refused"
+    log(f"[persist] restore onto the CPU refused in {time.perf_counter() - t0:.3f} s: "
+        f"{result['refused_cpu']}")
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    return result, restored
+
+
+def prefix_run(session, prompts, entries):
+    """``prompts`` one after another through a 4-slot engine of
+    ``max_len`` 128 (phase 5's decode step, leased) with
+    ``prefix_cache_entries=entries``, each run to its end: per request the
+    tokens, TTFT, reused tokens, the staged cache and logits at admission
+    (taken inside ``_finalize_admission``, patched on the instance) and
+    the slot's cache row after the run; the launch counts, stats, the
+    bytes the prefix cache holds and the peak memory."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.deploy import ServeEngine
+
+    gc.collect()
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=128, prefix_cache_entries=entries)
+    admitted = {}
+    finalize = engine._finalize_admission
+
+    def record(slot, req):
+        admitted[req.rid] = (engine._staging_flat.clone(), req._logits.clone())
+        finalize(slot, req)
+
+    engine._finalize_admission = record
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = []
+    for prompt in prompts:
+        req = engine.submit(prompt, max_new=PREFIX_NEW)
+        engine.run()
+        row = [t[:, 0].clone() if key == "body" else t[0].clone()
+               for key, v in engine.cache.items() for t in tree_lib.tensors(v)]
+        out.append({"tokens": list(req.tokens), "ttft_s": req.ttft_seconds,
+                    "hit": req.prefix_hit_tokens, "admitted": admitted.pop(req.rid),
+                    "row": row})
+    torch.cuda.synchronize()
+    run = {"requests": out, "launches": read_counts(), "stats": engine.stats(),
+           "cache_bytes": engine.prefix_cache_bytes(),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del engine._finalize_admission, engine, record
+    gc.collect()
+    return run
+
+
+def prefix_traffic(body, session, seed):
+    """Phase 9's prefix traffic on one session, through its warm graphs:
+    ``PREFIX_TRAFFIC`` with the prefix cache on, then the same prompts
+    with it off (every admission cold). Gated: the counters (5 lookups, 1
+    full hit, 2 partial; 1 under codes_adc, which resumes only at chunk
+    boundaries), the reused tokens, exact launch counts, the full
+    hit and the chunk-boundary hit bitwise the cold admission (staged
+    cache, admission logits, slot row after the run, tokens), the
+    off-boundary hit's tokens equal and its logits within
+    ``OFF_BOUNDARY_BOUND`` of their absmax, ``compile_count`` flat."""
+    per_step = session.cfg.n_layers * (7 if body == "codes_adc" else 4)
+    key = {"f32": "dora_linear_gemv", "int8": "dora_linear_gemv/int8",
+           "codes_adc": "crossbar_mvm"}[body]
+    g = torch.Generator().manual_seed(seed + 9)
+    draw = lambda n: torch.randint(0, session.cfg.vocab, (n,), generator=g)  # noqa: E731
+    heads = {"S": draw(PREFIX_SHARED), "P": draw(PREFIX_OFF)}
+    tails = {n: draw(n) for n in sorted({t for _, _, t in PREFIX_TRAFFIC if t})}
+    prompts = [torch.cat([heads[h]] + ([tails[t]] if t else [])).numpy()
+               for _, h, t in PREFIX_TRAFFIC]
+    compiled = session.compile_count()
+    hit = prefix_run(session, prompts, 16)
+    cold = prefix_run(session, prompts, 0)
+    assert session.compile_count() == compiled == COMPILED_STEPS, session.compile_count()
+    for run in (hit, cold):
+        st = run["stats"]
+        expect_counts(run["launches"], {key: per_step * (st["prefill_chunks"]
+                                                         + st["decode_steps"])})
+    st = hit["stats"]
+    counters = (st["prefix_lookups"], st["prefix_hits"], st["prefix_partial_hits"],
+                st["prefill_chunks"], cold["stats"]["prefill_chunks"])
+    # codes_adc resumes only at chunk boundaries: P+23 is admitted cold
+    reused = PREFIX_HIT_TOKENS[:-1] + [0 if body == "codes_adc" else PREFIX_HIT_TOKENS[-1]]
+    chunks = lambda n, k: -(-(n - k) // PREFIX_SHARED)  # noqa: E731
+    want = (len(prompts), sum(k == len(p) for k, p in zip(reused, prompts)),
+            sum(0 < k < len(p) for k, p in zip(reused, prompts)),
+            sum(chunks(len(p), k) for k, p in zip(reused, prompts)),
+            sum(chunks(len(p), 0) for p in prompts))
+    assert counters == want, (counters, want)
+    assert [r["hit"] for r in hit["requests"]] == reused
+    rows = []
+    for i, ((name, _, _), h, c) in enumerate(zip(PREFIX_TRAFFIC, hit["requests"],
+                                               cold["requests"])):
+        (hc, hl), (cc, cl) = h["admitted"], c["admitted"]
+        bitwise = (h["tokens"] == c["tokens"] and torch.equal(hc, cc) and torch.equal(hl, cl)
+                   and all(torch.equal(a, b) for a, b in zip(h["row"], c["row"])))
+        diff = float((hl.float() - cl.float()).abs().max())
+        scale = float(cl.float().abs().max())
+        rows.append({"request": name, "reused": h["hit"], "bitwise": bitwise,
+                     "tokens_equal": h["tokens"] == c["tokens"],
+                     "logits_max_abs_diff": diff, "logits_absmax": scale,
+                     "ttft_s": h["ttft_s"], "cold_ttft_s": c["ttft_s"]})
+        if h["hit"] in (0, len(prompts[i])) or h["hit"] % PREFIX_SHARED == 0:
+            assert bitwise, rows[-1]  # cold, a full hit, or a chunk-boundary hit
+        else:
+            assert h["tokens"] == c["tokens"] and diff <= OFF_BOUNDARY_BOUND * scale, rows[-1]
+    log(f"[persist] {body} prefix traffic: lookups {counters[0]}, full hits {counters[1]}, "
+        f"partial {counters[2]}; chunks {counters[3]} with the cache vs {counters[4]} cold; "
+        f"the cache holds {hit['cache_bytes']} bytes ({len(prompts)} requests), peak "
+        f"{hit['peak_mem_bytes'] / 2**30:.2f} GiB vs {cold['peak_mem_bytes'] / 2**30:.2f} "
+        f"cold; compile_count {session.compile_count()}")
+    for r in rows:
+        log(f"[persist]   {r['request']:>5} reuses {r['reused']:>2}: "
+            f"{'bitwise the cold admission' if r['bitwise'] else 'NOT bitwise'} (logits "
+            f"max|diff| {r['logits_max_abs_diff']:.3g} of {r['logits_absmax']:.3g}, tokens "
+            f"{'equal' if r['tokens_equal'] else 'DIFFER'}); TTFT {1e3 * r['ttft_s']:.3f} ms "
+            f"vs {1e3 * r['cold_ttft_s']:.3f} ms cold")
+    return {"requests": rows, "counters": dict(zip(
+        ("lookups", "hits", "partial_hits", "chunks", "cold_chunks"), counters)),
+        "cache_bytes": hit["cache_bytes"], "peak_mem_bytes": hit["peak_mem_bytes"],
+        "cold_peak_mem_bytes": cold["peak_mem_bytes"],
+        "launches": hit["launches"], "cold_launches": cold["launches"]}
+
+
+def phase_persist_serve(restored, device, seed, healthy, result):
+    """Phase 9's second half, with the original freed: the tampered
+    snapshot's restore raises after its replay; then the restored
+    deployment served through all three bodies with phase 5's checks
+    (``serve_faulted``), and on each body's session the prefix traffic."""
+    from repro_torch.deploy import Deployment
+
+    t_phase = time.perf_counter()
+    try:
+        Deployment.restore(restored.cfg, result["tampered_dir"], device=device)
+    except ValueError as e:
+        result["refused_digest"] = str(e)
+    assert "refused_digest" in result, "a tampered digest was not refused"
+    log(f"[persist] the tampered snapshot refused after its replay in "
+        f"{time.perf_counter() - t_phase:.3f} s: {result['refused_digest']}")
+    memory()
+    result["serving"] = serve_faulted(
+        restored, seed, healthy, label="restored",
+        also=lambda body, session: prefix_traffic(body, session, seed))
+    result["serve_seconds"] = time.perf_counter() - t_phase
+    result["phase_seconds"] += result["serve_seconds"]
+    log(f"[persist] phase 9 took {result['phase_seconds']:.2f} s")
+    return result
+
+
 def weight_sq_err(dep):
     """Sum over the RRAM leaves of the squared difference between the read
     back of ``dep``'s view and the teacher's weights (f64, one matrix at a
@@ -2066,7 +2386,15 @@ def main():
     torch.cuda.empty_cache()
     calibration = phase_calibrate(dep, device, args.seed)
     faults = phase_faults(dep, device, args.seed, serving)
-    del dep
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+    try:
+        persist, restored = phase_persist(dep, device, workdir)
+        del dep
+        memory()
+        persist = phase_persist_serve(restored, device, args.seed, serving, persist)
+        del restored
+    finally:
+        shutil.rmtree(workdir)
     memory()
     faults["study"] = phase_study(device, args.seed)
 
@@ -2105,7 +2433,7 @@ def main():
         with open(args.out, "w") as f:
             json.dump({"card": smi, "timing": rows, "breakdown": breakdown,
                        "serving": serving, "calibration": calibration, "faults": faults,
-                       "kernels": kernels}, f, indent=1)
+                       "persist": persist, "kernels": kernels}, f, indent=1, default=str)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,6 @@
 """``Deployment`` — the lifecycle object from programming to serving.
-Port of ``repro/deploy/deployment.py`` (snapshot, restore with its
-fault-event replay, and the calibration registry with
-``drift_signature`` wait).
+Port of ``repro/deploy/deployment.py`` (the calibration registry with
+``drift_signature`` waits).
 
 * ``Deployment.program(cfg, seed, backend=..., device=...)`` — init the
   teacher from the seed and program every RRAM leaf (programming-time
@@ -28,6 +27,13 @@ fault-event replay, and the calibration registry with
 * ``dep.serve(accum=...)`` — merged DoRA magnitudes and, under
   ``codes``, the prepared (fused) serving tree run by the f32 or the
   int8 body; under ``codes_adc`` the raw codes through the ADC kernel.
+* ``dep.snapshot(dir)`` / ``Deployment.restore(cfg, dir)`` — adapters,
+  AdamW state and the lifecycle record through ``CheckpointManager``;
+  the base is never stored: restore re-programs from the seeds, replays
+  every drift tick, then re-injects every fault spec. The replay is
+  bitwise only where the same generators draw again (the same device
+  type and card model), so the snapshot records both and a digest of
+  the codes, and restore refuses what it cannot reproduce.
 
 The port runs on the card: ``device`` defaults to ``"cuda"`` and raises
 when no card is present; the CPU runs only when asked for.
@@ -36,13 +42,18 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
+import os
 from typing import Any, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from repro_torch import substrate
+from repro_torch import tree as tree_lib
+from repro_torch.checkpoint import as_manager
 from repro_torch.core import rram
 from repro_torch.core.calibrate import (
     CalibState,
@@ -76,6 +87,53 @@ def resolve_device(device) -> torch.device:
             "port's plain PyTorch path on the CPU"
         )
     return device
+
+
+_DEPLOYMENT_META = "deployment.json"
+# the golden-ratio multiplier 0x9E3779B97F4A7C15 as a signed int64
+_MIX = 0x9E3779B97F4A7C15 - (1 << 64)
+_DIGEST_CHUNK = 1 << 24
+
+
+def _weighted_sum(t: torch.Tensor, salt: int) -> int:
+    """``sum_i byte_i * w_i`` mod 2**64 over the bytes of ``t``, each
+    ``w_i`` odd and mixed from ``(salt, i)``: a changed byte changes the
+    sum. On ``t``'s device, a chunk at a time."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    total = torch.zeros((), dtype=torch.int64, device=b.device)
+    for a in range(0, b.numel(), _DIGEST_CHUNK):
+        part = b[a:a + _DIGEST_CHUNK]
+        w = torch.arange(a, a + part.numel(), dtype=torch.int64, device=b.device)
+        w.add_(salt).mul_(_MIX).bitwise_or_(1)
+        total += (w * part).sum()
+    return int(total)
+
+
+def code_digest(tree: Pytree) -> str:
+    """A digest of every tensor of ``tree`` (a codes tree: the uint8
+    codes, their scales and the leaves that pass through): sha1 over each
+    tensor's dtype, shape and weighted byte sum, so any changed code
+    changes it."""
+    h = hashlib.sha1()
+    for i, t in enumerate(tree_lib.tensors(tree)):
+        s = _weighted_sum(t, (i + 1) << 40)
+        h.update(f"{i}:{t.dtype}:{tuple(t.shape)}:{s};".encode())
+    return h.hexdigest()
+
+
+def device_name(device: torch.device) -> str:
+    """The card's model for a CUDA device (its draws are bound to it),
+    else the device type."""
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+
+
+def _program_trees(cfg, teacher_seed: int, program_seed: int, device):
+    """The programming event: the teacher's params from generator
+    ``teacher_seed``, their codes from ``program_seed`` (per-leaf
+    streams). Returns ``(params, codes)``."""
+    params = T.init_params(rram.make_generator(device, teacher_seed), cfg)
+    return params, program_model(params["base"], cfg.rram, program_seed, mode="codes")
 
 
 def _dequant_like(codes: Pytree, like: Pytree) -> Pytree:
@@ -189,6 +247,8 @@ class Deployment:
         self.step: int = 0
         self.fault_specs: List[FaultSpec] = []
         self._fault_map: Optional[FaultMap] = None
+        # the first event whose draws no seed replays (snapshot refuses)
+        self._unreplayable: Optional[str] = None
         self._teacher_logits_cache = None
         self._stream = None
         self._refresh_base()
@@ -203,9 +263,7 @@ class Deployment:
                 device="cuda") -> "Deployment":
         """The programming event: the teacher from generator ``seed``,
         the codes from ``seed + 1`` (per-leaf streams)."""
-        device = resolve_device(device)
-        params = T.init_params(rram.make_generator(device, seed), cfg)
-        codes = program_model(params["base"], cfg.rram, seed + 1, mode="codes")
+        params, codes = _program_trees(cfg, seed, seed + 1, resolve_device(device))
         return cls(cfg, backend, params["base"], codes,
                    params["adapters"] if adapters is None else adapters,
                    teacher_seed=seed, program_seed=seed + 1)
@@ -219,12 +277,15 @@ class Deployment:
         the reference layout (``interop.from_reference``). ``drift_hours``
         is the drift history those codes already carry, so the field
         clock continues from it; later drift events draw from the port's
-        streams for ``seed``."""
+        streams for ``seed``. No seed replays those codes, so such a
+        deployment cannot be snapshotted."""
         device = resolve_device(device)
-        return cls(cfg, backend, from_reference(teacher_base, device),
-                   from_reference(codes, device), from_reference(adapters, device),
-                   teacher_seed=seed, program_seed=seed + 1,
-                   drift_hours=drift_hours)
+        dep = cls(cfg, backend, from_reference(teacher_base, device),
+                  from_reference(codes, device), from_reference(adapters, device),
+                  teacher_seed=seed, program_seed=seed + 1,
+                  drift_hours=drift_hours)
+        dep._unreplayable = "Deployment.from_arrays (codes made elsewhere)"
+        return dep
 
     def _refresh_base(self):
         # self.codes stays pristine; consumers read the faulty view,
@@ -270,7 +331,8 @@ class Deployment:
         spec's per-leaf uniforms ``{path: (up, un)}`` (a sequence of them,
         or ``None`` entries, for a sequence of specs); without them each
         leaf draws from its spec's stream. The pristine codes are not
-        touched."""
+        touched. Draws passed in are replayed by no seed, so a deployment
+        given them cannot be snapshotted."""
         one = isinstance(faults, FaultSpec)
         specs = [faults] if one else list(faults)
         per = [None] * len(specs) if draws is None else ([draws] if one else list(draws))
@@ -279,6 +341,8 @@ class Deployment:
         new = compose_maps(build_map(self.codes, s, self.cfg.rram, draws=d)
                            for s, d in zip(specs, per))
         self.fault_specs.extend(specs)
+        if self._unreplayable is None and any(d is not None for d in per):
+            self._unreplayable = "Deployment.inject(draws=...) (draws passed in)"
         self._fault_map = compose_maps([self._fault_map, new])
         self._refresh_base()
         return self
@@ -395,6 +459,114 @@ class Deployment:
                           _device_batch(batch, self.device), self.cfg,
                           use_adapters=use_adapters).to(torch.float32)
         return float(torch.mean((t - s) ** 2))
+
+    # -- persistence ----------------------------------------------------------
+
+    def snapshot(self, directory_or_manager, *, blocking: bool = True) -> int:
+        """Checkpoint the mutable lifecycle state through
+        ``CheckpointManager`` (atomic, retained, optionally async):
+        ``adapters``, ``opt`` (initialised if None) and ``lifecycle``
+        (``teacher_seed``, ``program_seed``, ``drift_hours`` f64) at
+        ``step``, and ``deployment.json`` beside the steps: the
+        reference's keys (``format``, ``backend``, ``arch``,
+        ``drift_events``, ``fault_events``) and what a bitwise replay
+        needs: the device type, the card's model, and a digest of the
+        pristine codes and of ``codes_view``. The base is not stored.
+        Raises ``ValueError`` on a deployment holding draws no seed
+        replays (``from_arrays``, ``inject(draws=...)``)."""
+        if self._unreplayable is not None:
+            raise ValueError(
+                f"cannot snapshot this deployment: {self._unreplayable} holds draws "
+                "that no seed replays, so restore could not re-derive its codes")
+        manager = as_manager(directory_or_manager)
+        if self.opt_state is None:
+            self.opt_state = adamw_init(self.adapters)
+        step = int(self.step)
+        lifecycle = {
+            "teacher_seed": np.asarray(self.teacher_seed, np.int64),
+            "program_seed": np.asarray(self.program_seed, np.int64),
+            "drift_hours": np.asarray(self.drift_hours, np.float64),
+        }
+        manager.save(step, {"adapters": self.adapters, "opt": self.opt_state,
+                            "lifecycle": lifecycle}, blocking=blocking)
+        meta = {
+            "format": 1, "backend": self.backend,
+            "arch": getattr(self.cfg, "name", None),
+            "drift_events": len(self.drift_hours),
+            "fault_events": [spec.to_dict() for spec in self.fault_specs],
+            "device_type": self.device.type,
+            "device_name": device_name(self.device),
+            "codes_digest": code_digest(self.codes),
+            "view_digest": code_digest(self.codes_view),
+        }
+        with open(os.path.join(manager.directory, _DEPLOYMENT_META), "w") as f:
+            json.dump(meta, f)
+        return step
+
+    @classmethod
+    def restore(cls, cfg, directory, *, step: Optional[int] = None,
+                backend: Optional[str] = None, device="cuda") -> "Deployment":
+        """Rebuild a deployment from a snapshot: re-program from the
+        recorded seeds on ``device``, replay the drift history tick by
+        tick (a 0.0 entry appends without drawing, so later ticks keep
+        their event index), re-inject the recorded fault specs after it
+        (a map reads shapes only, so faults commute with drift), then load
+        adapters, AdamW state and ``step``. ``backend`` overrides the
+        recorded binding. Raises ``ValueError`` before any work on a
+        snapshot written by the reference (its lifecycle holds JAX keys)
+        or on another device type or card model, and after the replay when
+        the codes or the view differ from the snapshot's digest."""
+        device = resolve_device(device)
+        manager = as_manager(directory)
+        if step is None:
+            step = manager.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no snapshots in {directory}")
+        if "teacher_key" in manager.leaf_names(step, "lifecycle"):
+            raise ValueError("this snapshot was written by the reference package: its "
+                             "lifecycle holds JAX keys, which the port does not replay")
+        meta_path = os.path.join(manager.directory, _DEPLOYMENT_META)
+        meta = {}
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+        if "codes_digest" not in meta:
+            raise ValueError(f"{meta_path} records no device or digest; the port "
+                             "restores only snapshots it wrote")
+        where = (meta["device_type"], meta["device_name"])
+        if where != (device.type, device_name(device)):
+            raise ValueError(
+                f"the snapshot was taken on {where[1]} ({where[0]}); its generators do "
+                f"not replay bitwise on {device_name(device)} ({device.type})")
+        backend = backend or meta.get("backend", "dequant")
+        life = manager.restore(step, {"lifecycle": {
+            "teacher_seed": np.zeros((), np.int64),
+            "program_seed": np.zeros((), np.int64),
+            "drift_hours": np.zeros((meta["drift_events"],), np.float64),
+        }}, device="cpu")["lifecycle"]
+        teacher_seed, program_seed = int(life["teacher_seed"]), int(life["program_seed"])
+        params, codes = _program_trees(cfg, teacher_seed, program_seed, device)
+        dep = cls(cfg, backend, params["base"], codes, params["adapters"],
+                  teacher_seed=teacher_seed, program_seed=program_seed)
+        for hours in life["drift_hours"].tolist():
+            if hours == 0.0:
+                dep.drift_hours.append(0.0)
+            else:
+                dep.advance(hours)
+        if meta["fault_events"]:
+            dep.inject([FaultSpec.from_dict(d) for d in meta["fault_events"]])
+        for what, tree, key in (("codes", dep.codes, "codes_digest"),
+                                ("codes_view", dep.codes_view, "view_digest")):
+            got = code_digest(tree)
+            if got != meta[key]:
+                raise ValueError(f"the replayed {what} differ from the snapshot's "
+                                 f"(digest {got}, recorded {meta[key]})")
+        restored = manager.restore(step, {"adapters": dep.adapters,
+                                          "opt": adamw_init(dep.adapters)}, device=device)
+        dep.adapters = restored["adapters"]
+        dep.opt_state = restored["opt"]
+        dep.step = int(step)
+        return dep
 
     # -- serving --------------------------------------------------------------
 

@@ -1,6 +1,6 @@
 """Continuous-batching serve engine over the batched decode step. Port
-of ``repro/deploy/engine.py`` for decoder-only attention stacks (the
-shared prefix cache, ``remesh`` and encoder/vision slots wait).
+of ``repro/deploy/engine.py`` for decoder-only attention stacks
+(``remesh`` and the encoder and vision slots wait).
 
 * **Slots.** A fixed ``(max_slots, max_len)`` decode cache; each
   in-flight request owns one row, finished rows are recycled.
@@ -10,6 +10,22 @@ shared prefix cache, ``remesh`` and encoder/vision slots wait).
   chunks (pow-2 bucketed width, masked tail), one chunk per engine tick
   interleaved with decode ticks; the first token comes from the last
   chunk's logits and the batch-1 cache is copied into the slot's row.
+* **Shared prefix cache.** After every admission chunk the staging
+  cache and the chunk's logits are cloned under a token-hash chain key
+  (the reference's chain, byte for byte), LRU-capped at
+  ``prefix_cache_entries``. A request whose prompt starts with a stored
+  prefix resumes from it: a full hit copies the snapshot into the
+  staging cache and runs no chunk; a partial hit at ``k`` loads a fresh
+  copy of it into ``Request._cache`` and runs the chunks from ``k``.
+  Every snapshot is a copy, since the staging cache, ``Request._cache``
+  and a graph's logits are written in place. A full hit, or a partial hit
+  at a multiple of ``prefill_chunk``, runs the chunks a cold admission
+  runs and is bitwise equal to it; a partial hit elsewhere runs other
+  chunk widths, which may change the last bits of the logits. Under
+  ``codes_adc`` a chunk's rows share each tile's ADC step (it tracks the
+  tile's max |x|), so which rows a chunk holds changes its result: there
+  the engine resumes only at multiples of ``prefill_chunk`` (the
+  reference resumes anywhere).
 * **One decode step for everyone.** ``step()`` advances every active
   slot with one ``decode_step``; idle rows ride along and their writes
   stay masked.
@@ -27,8 +43,9 @@ shared prefix cache, ``remesh`` and encoder/vision slots wait).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Deque, List, Optional, Tuple
 
 import numpy as np
@@ -55,8 +72,10 @@ class Request:
     admitted_tick: Optional[int] = None
     submitted_at: Optional[float] = None
     ttft_seconds: Optional[float] = None   # submit -> first token
+    prefix_hit_tokens: int = 0       # prompt tokens reused from the prefix cache
     _cache: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
     _logits: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
+    _chain: Optional[List[bytes]] = dataclasses.field(default=None, repr=False)
     _spans: List[Tuple[int, int]] = dataclasses.field(default_factory=list, repr=False)
 
     @property
@@ -77,7 +96,8 @@ class ServeEngine:
     """Slot-based continuous-batching scheduler over a ``ServeSession``."""
 
     def __init__(self, session, *, max_slots: int = 4, max_len: int = 128,
-                 prefill_chunk: int = 32, min_bucket: int = 8):
+                 prefill_chunk: int = 32, min_bucket: int = 8,
+                 prefix_cache_entries: int = 16):
         self.session = session
         self.cfg = session.cfg
         if not all(m in _CHUNKABLE for m in self.cfg.mixer_pattern):
@@ -89,7 +109,13 @@ class ServeEngine:
         self.min_bucket = min(_pow2_ceil(int(min_bucket)), self.prefill_chunk)
         self._decode = session.decode_step_fn(self.max_slots, self.max_len, owner=self)
         self.cache = self._decode.cache
-        self._staging = session.staging_cache(self.max_len)[1]
+        self._staging_flat, self._staging = session.staging_cache(self.max_len)
+        self.prefix_cache_entries = int(prefix_cache_entries)
+        # hash-chain digest -> (tokens, staging-cache clone, logits clone)
+        self._prefix_cache: "OrderedDict[bytes, tuple]" = OrderedDict()
+        # codes_adc digitizes each tile of rows at a step from its max |x|:
+        # a resumed chunk must hold the rows a cold admission's chunk holds
+        self._resume_off_boundary = session.backend != "codes_adc"
         self.pos = np.zeros(self.max_slots, np.int64)
         self.active = np.zeros(self.max_slots, bool)
         self.last_tok = np.zeros((self.max_slots, 1), np.int64)
@@ -102,6 +128,9 @@ class ServeEngine:
         self.first_tokens = 0       # tokens sampled from admission logits
         self.completed = 0
         self.prefill_chunks = 0
+        self.prefix_lookups = 0
+        self.prefix_hits = 0          # full-prompt snapshot hits
+        self.prefix_partial_hits = 0  # shared-prefix (partial) hits
         self._next_rid = 0
 
     @property
@@ -160,20 +189,27 @@ class ServeEngine:
                 for a in range(start, n, self.prefill_chunk)]
 
     def _start_admission(self, req: Request, slot: int) -> None:
+        """Bind ``req`` to ``slot``, look its prompt up in the prefix cache
+        and plan the chunks from the tokens it covers."""
         req.slot = slot
         self.slot_req[slot] = req
-        req._spans = self._spans(0, req.prompt_len)
+        req._chain = self._hash_chain(req)
+        req._spans = self._spans(self._prefix_lookup(req), req.prompt_len)
 
     def _advance_admission(self, slot: int) -> None:
-        """Run one prompt chunk for the slot; finalize after the last."""
+        """Run one prompt chunk for the slot, snapshot the result, and
+        finalize after the last (at once after a full prefix hit)."""
         req = self.slot_req[slot]
         if req is None or self.active[slot] or req.done:
             return
-        a, b_ = req._spans.pop(0)
-        req._logits = self._chunk_call(req, a, b_)
-        self.prefill_chunks += 1
-        if not req._spans:
-            self._finalize_admission(slot, req)
+        if req._spans:
+            a, b_ = req._spans.pop(0)
+            req._logits = self._chunk_call(req, a, b_)
+            self.prefill_chunks += 1
+            self._store_prefix(req, b_)
+            if req._spans:
+                return
+        self._finalize_admission(slot, req)
 
     @torch.no_grad()
     def _chunk_call(self, req: Request, a: int, b_: int) -> torch.Tensor:
@@ -212,6 +248,7 @@ class ServeEngine:
         self.first_tokens += 1
         req._cache = None
         req._logits = None
+        req._chain = None
         if req.max_new <= 1 or (req.eos_id is not None and first == req.eos_id):
             self._finish(req, slot)
             return
@@ -219,6 +256,73 @@ class ServeEngine:
         self.active[slot] = True
         self.pos[slot] = req.prompt_len
         self.last_tok[slot, 0] = first
+
+    # -- prefix cache --------------------------------------------------------
+
+    @staticmethod
+    def _hash_chain(req: Request) -> List[bytes]:
+        """``chain[k]`` names the request's first ``k`` prompt tokens: the
+        key of a snapshot with exactly ``k`` tokens admitted (the
+        reference's chain, byte for byte)."""
+        chain = [hashlib.sha1(b"rimc-prefix-v1").digest()]
+        for t in req.prompt:
+            h = hashlib.sha1(chain[-1])
+            h.update(int(t).to_bytes(8, "little", signed=True))
+            chain.append(h.digest())
+        return chain
+
+    def _prefix_lookup(self, req: Request) -> int:
+        """The longest stored prefix of the request's prompt (under
+        ``codes_adc`` the whole prompt or a multiple of ``prefill_chunk``):
+        the number of prompt tokens it covers (0 when cold). A full hit
+        copies the snapshot into the staging cache, which
+        ``_finalize_admission`` copies into the slot next; a partial hit
+        stages a fresh copy in ``req._cache``, which the next chunk loads.
+        The stored tensors are never handed out to be written."""
+        if self.prefix_cache_entries <= 0:
+            return 0
+        self.prefix_lookups += 1
+        n = req.prompt_len
+        for k in range(n, 0, -1):
+            if k < n and k % self.prefill_chunk and not self._resume_off_boundary:
+                continue
+            entry = self._prefix_cache.get(req._chain[k])
+            if entry is None:
+                continue
+            toks, cache, logits = entry
+            if toks.shape[0] != k or not np.array_equal(toks, req.prompt[:k]):
+                continue  # a hash collision: a miss
+            self._prefix_cache.move_to_end(req._chain[k])
+            req._logits = logits
+            req.prefix_hit_tokens = k
+            if k == n:
+                self._staging_flat.copy_(cache)
+                self.prefix_hits += 1
+            else:
+                req._cache = cache.clone()
+                self.prefix_partial_hits += 1
+            return k
+        return 0
+
+    def _store_prefix(self, req: Request, k: int) -> None:
+        """Snapshot the admission after ``k`` prompt tokens: clones of the
+        staging cache and of the chunk's logits (both are written again by
+        the next chunk)."""
+        if self.prefix_cache_entries <= 0:
+            return
+        key = req._chain[k]
+        if key in self._prefix_cache:
+            self._prefix_cache.move_to_end(key)
+            return
+        self._prefix_cache[key] = (req.prompt[:k].copy(), self._staging_flat.clone(),
+                                   req._logits.clone())
+        while len(self._prefix_cache) > self.prefix_cache_entries:
+            self._prefix_cache.popitem(last=False)
+
+    def prefix_cache_bytes(self) -> int:
+        """Device bytes the stored snapshots hold."""
+        return sum(c.numel() * c.element_size() + lg.numel() * lg.element_size()
+                   for _, c, lg in self._prefix_cache.values())
 
     # -- decode tick ---------------------------------------------------------
 
@@ -296,6 +400,9 @@ class ServeEngine:
             "generated_tokens": self.generated_tokens,
             "completed": self.completed,
             "prefill_chunks": self.prefill_chunks,
+            "prefix_lookups": self.prefix_lookups,
+            "prefix_hits": self.prefix_hits,
+            "prefix_partial_hits": self.prefix_partial_hits,
             "decode_tok_per_s": (self.decode_tokens / self.decode_seconds
                                  if self.decode_seconds > 0 else float("nan")),
             "compile_count": self.compile_count(),

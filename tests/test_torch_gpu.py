@@ -33,7 +33,13 @@ full-width leaves and at ragged shapes:
   rows) replay bitwise equal to the eager step, logits and cache;
   ``compile_count`` flat on a second drive; launch counters after a run
   through the graphs equal to an eager run's; errors in warm-up or
-  capture propagate; replays right with the rope cache cleared first.
+  capture propagate; replays right with the rope cache cleared first;
+* lifecycle persistence: a smoke deployment (drift, calibration, two fault
+  classes, drift) snapshotted and restored bitwise on the card, a restore
+  onto the CPU refused, an asynchronous save taken at the call;
+* the shared prefix cache through the graphs, for each body: full and
+  chunk-boundary hits bitwise the cold admission, an off-boundary hit
+  within 1e-2 of the logits' absmax with equal tokens.
 
 This file imports no jax, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -397,7 +403,7 @@ def test_serving_on_card_runs_both_launchers(cuda):
     cfg = get_arch("qwen3_1_7b").smoke
     session = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24).serve()
     K.reset_launch_counts()
-    engine = ServeEngine(session, max_slots=2, max_len=64)
+    engine = ServeEngine(session, max_slots=2, max_len=64, prefix_cache_entries=0)
     reqs = [engine.submit(torch.arange(n) % cfg.vocab, max_new=6) for n in (3, 40)]
     engine.run()
     logits, _ = session.prefill(torch.randint(0, cfg.vocab, (3, 30), device=cuda), 40)
@@ -646,7 +652,7 @@ def test_int8_and_adc_serving_on_card(cuda):
                          (adc.serve(), "crossbar_mvm")):
         K.reset_launch_counts()
         C.reset_launch_counts()
-        engine = ServeEngine(session, max_slots=2, max_len=64)
+        engine = ServeEngine(session, max_slots=2, max_len=64, prefix_cache_entries=0)
         reqs = [engine.submit(torch.arange(n) % cfg.vocab, max_new=6) for n in (3, 40)]
         engine.run()
         counts = {**K.launch_counts(), **C.launch_counts()}
@@ -862,10 +868,12 @@ STEP_PROMPTS = (5, 9, 17, 40)
 
 def _drive(session, max_new=6):
     """STEP_PROMPTS through a 4-slot engine, one submit a tick; the
-    requests and the kernels' launch counts of the run."""
+    requests and the kernels' launch counts of the run. The prompts share
+    prefixes (``arange``), so the prefix cache is off: every admission is
+    cold and fills its bucket."""
     from repro_torch.deploy import ServeEngine
 
-    engine = ServeEngine(session, max_slots=4, max_len=64)
+    engine = ServeEngine(session, max_slots=4, max_len=64, prefix_cache_entries=0)
     K.reset_launch_counts()
     C.reset_launch_counts()
     reqs = []
@@ -1080,3 +1088,106 @@ def test_card_fault_draws_replay_from_the_spec(cuda):
     view = dict(G.rram_leaves(a.codes_view))[path]
     mask = lf.stuck_mask_pos
     assert mask.any() and torch.equal(view.g_pos[mask], lf.stuck_val_pos[mask])
+
+
+# -- lifecycle persistence and the shared prefix cache on the card ------------
+
+
+def test_snapshot_restore_on_card_is_bitwise(cuda, tmp_path):
+    """Twin of ``test_torch_persist.py::test_snapshot_restore_is_bitwise``
+    on the card: the replay is bitwise on the card it was taken on, and a
+    restore onto the CPU is refused before any work."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment, calibration_batch
+    from repro_torch.faults import default_spec
+
+    cfg = get_arch("qwen3_1_7b").smoke
+    dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24.0)
+    dep.calibrate(2, steps=2, seq_len=8)
+    dep.inject([default_spec("stuck_at", 1), default_spec("retention", 11)])
+    dep.advance(12.0)
+    step = dep.snapshot(str(tmp_path))
+    restored = Deployment.restore(cfg, str(tmp_path), device=cuda)
+    assert restored.step == step and restored.drift_hours == dep.drift_hours
+    for a, b in ((dep.codes, restored.codes), (dep.codes_view, restored.codes_view),
+                 (dep.adapters, restored.adapters), (list(dep.opt_state), list(restored.opt_state))):
+        ta, tb = tree_lib.tensors(a), tree_lib.tensors(b)
+        assert len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb))
+    batch = calibration_batch(cfg, 2, 8)
+    assert restored.logit_mse(batch) == dep.logit_mse(batch)
+    with pytest.raises(ValueError, match="do not replay bitwise on cpu"):
+        Deployment.restore(cfg, str(tmp_path), device="cpu")
+
+
+def test_async_save_on_card_is_taken_at_the_call(cuda, tmp_path):
+    """The host copy is made before ``save(blocking=False)`` returns: an
+    in-place AdamW update on the card right after it does not reach the
+    file."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim.adam import AdamW, adam_betas, adamw_init, adamw_update_
+
+    params = {"w": torch.ones(4096, device=cuda), "v": torch.arange(3.0, device=cuda)}
+    state = adamw_init(params)
+    cfg = AdamW(lr=0.1)
+    betas = adam_betas(cfg, cuda)
+    grads = {k: torch.full_like(v, 0.5) for k, v in params.items()}
+    adamw_update_(grads, state, params, cfg, betas)
+    want = [state.step.clone(), *(t.clone() for t in state.mu.values()),
+            *(t.clone() for t in params.values())]
+    m = CheckpointManager(str(tmp_path))
+    m.save(1, {"opt": state, "params": params}, blocking=False)
+    adamw_update_(grads, state, params, cfg, betas)
+    m.wait()
+    back = m.restore(1, {"opt": adamw_init(params), "params": params}, device=cuda)
+    got = [back["opt"].step, *back["opt"].mu.values(), *back["params"].values()]
+    assert all(a.device.type == "cuda" and torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_prefix_hits_on_card_equal_cold_admission(cuda, body):
+    """Through the graphs: a full hit and a partial hit at the 4-token
+    chunk boundary give the cold admission's staged cache, admission
+    logits and tokens bitwise; a hit off the boundary gives its tokens,
+    and logits within 1e-2 of their absmax."""
+    import numpy as np
+
+    from repro_torch.deploy import ServeEngine
+
+    session = _smoke_sessions(cuda)[body]
+    g = torch.Generator().manual_seed(7)
+    shared, tail, p, more = (torch.randint(0, session.cfg.vocab, (n,), generator=g).numpy()
+                             for n in (8, 5, 5, 3))
+    prompts = [shared, shared, np.concatenate([shared, tail]), p, np.concatenate([p, more])]
+
+    def run(entries):
+        engine = ServeEngine(session, max_slots=1, max_len=32, prefill_chunk=4,
+                             min_bucket=4, prefix_cache_entries=entries)
+        admitted = []
+        finalize = engine._finalize_admission
+
+        def record(slot, req):
+            admitted.append((req.prefix_hit_tokens, engine._staging_flat.clone(),
+                             req._logits.clone()))
+            finalize(slot, req)
+
+        engine._finalize_admission = record
+        reqs = []
+        for prompt in prompts:
+            reqs.append(engine.submit(prompt, max_new=4))
+            engine.run()
+        torch.cuda.synchronize()
+        return admitted, [list(r.tokens) for r in reqs], engine.stats()
+
+    hit, hit_tokens, st = run(16)
+    cold, cold_tokens, _ = run(0)
+    # codes_adc resumes P + 3 at the chunk boundary 4, not at 5
+    assert [h[0] for h in hit] == [0, 8, 8, 0, 4 if body == "codes_adc" else 5]
+    assert (st["prefix_lookups"], st["prefix_hits"], st["prefix_partial_hits"]) == (5, 1, 2)
+    assert hit_tokens == cold_tokens
+    for i, ((reused, cache, logits), (_, cold_cache, cold_logits)) in enumerate(zip(hit, cold)):
+        if reused % 4 == 0:  # cold, the full hit of 8 tokens, the hit at 8
+            assert torch.equal(cache, cold_cache) and torch.equal(logits, cold_logits), i
+        else:
+            diff = float((logits.float() - cold_logits.float()).abs().max())
+            assert diff <= 1e-2 * float(cold_logits.float().abs().max()), (i, diff)
