@@ -5,9 +5,10 @@ width from resident RRAM codes three ways (f32 codes, int8 codes, the
 ADC-faithful ``codes_adc`` backend) and checks that each serving path
 went through its kernels; then it calibrates the drifted deployment's
 DoRA side-cars (autograd under ``dequant``, no kernel) and serves the
-calibrated side-cars through the kernels again, faults it, and last
-snapshots it, restores it bitwise and serves the restored deployment
-with the engine's shared prefix cache.
+calibrated side-cars through the kernels again, faults it, snapshots
+it, restores it bitwise and serves the restored deployment
+with the engine's shared prefix cache; last it runs the paper's own CNN
+experiment (ResNet-20, drift, DoRA / LoRA / backprop calibration).
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
@@ -172,6 +173,28 @@ Phases (any failure exits non-zero; no failure is caught):
                 cold: it resumes only at chunk boundaries); TTFT with and without a
                 hit, the cache's bytes, peak memory. Phase 5's engines see
                 distinct random prompts, so they run the cache and never hit.
+  10. paper  — the paper's own experiment (ResNet-20, 100 classes, 32x32,
+                DoRA rank 2; ``core/resnet.py``, ``core/repro_experiments.py``)
+                on the card with TF32 off: 2048 / 1024 procedural images, a
+                teacher from ``train_teacher``'s defaults (12 epochs, batch
+                128, lr 1e-3), then ``resnet_cell`` at drift 0.20 with 10
+                calibration samples and 20 epochs at batch 1 for DoRA r=2,
+                LoRA r=2 and backprop on that teacher. Gated: teacher above
+                0.5, drifted at least 0.05 below it, each adapter cell's last
+                loss below its first, DoRA calibrated above drifted, the
+                teacher and the student (its RRAM leaves and every BN tensor)
+                bitwise unchanged by DoRA and LoRA calibration, 200 backprop
+                updates, no kernel launch over the phase (no TPU kernel lies
+                on this path: the convs are cuDNN's), 14,162 / 279,792
+                trainable, Table I at 41,666.67, 5e13 and 1250x, the card
+                within 1e-4 of absmax of the port's CPU path on the same
+                parameters (the forward's features and logits; the
+                calibration loss and its gradients). Reported: the accuracies
+                and recovered fraction per cell beside the reference's own
+                (``examples/calibrate_resnet.py`` on a CPU), seconds of data, teacher
+                training, each calibration and each evaluation, the median
+                step, peak memory; torch.profiler over three DoRA steps
+                (device busy share, kernels a step, the largest kernels).
 The last line is the contract line; the line before it the kernel table.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -307,6 +330,21 @@ PREFIX_NEW = 8                           # greedy tokens per prefix request
 # within this share of their absmax (other chunk widths: other GEMV K
 # plans and cuBLAS choices); greedy tokens equal
 OFF_BOUNDARY_BOUND = 1e-2
+# phase 10: the paper's experiment at ResnetConfig() (ResNet-20, 100
+# classes, DoRA rank 2) with run_cell's protocol: 2048 / 1024 procedural
+# images, the teacher from train_teacher's defaults, drift 0.20, 10
+# calibration samples, 20 epochs at batch 1; three cells
+PAPER_DRIFT, PAPER_SAMPLES, PAPER_EPOCHS = 0.20, 10, 20
+PAPER_METHODS = ("dora", "lora", "backprop")
+PAPER_FRACTION = (14_162, 279_792)   # adapter / teacher elements, DoRA rank 2
+# the card against the port's CPU path on the same parameters, of absmax:
+# f32 on both (TF32 off), only the summation orders of cuDNN and the CPU
+PAPER_CARD_VS_CPU = 1e-4
+PAPER_PROBE_IMAGES = 8   # test images of the forward compared card vs CPU
+# the reference's own at this config and seed 0, on a CPU: the teacher's
+# and the drifted student's test accuracy that examples/calibrate_resnet.py
+# prints (its run_cell trains the teacher and drifts it as phase 10 does)
+PAPER_REFERENCE_ACC = {"teacher": 1.0, "drifted": 0.3759765625}
 
 
 def log(*args):
@@ -2356,6 +2394,245 @@ def phase_study(device, seed):
     return out
 
 
+@contextlib.contextmanager
+def paper_probes():
+    """Watch phase 10's cells from outside: every ``feature_calibrate`` and
+    ``backprop_calibrate`` call (seconds, the teacher and student trees
+    cloned before and compared after, the losses or update count, the
+    returned adapters and the calibration images), every step of each
+    (ms, closed by a synchronize) and every ``accuracy`` call (seconds).
+    The program is not changed; the wrappers are removed on exit."""
+    from repro_torch.core import repro_experiments as rx
+    from repro_torch.core import resnet
+
+    calls = []
+    step_ms = []
+    eval_s = []
+    saved = {name: getattr(rx, name) for name in
+             ("feature_calibrate", "backprop_calibrate", "_feature_step", "_backprop_step")}
+    accuracy = resnet.accuracy
+
+    def leaves(tree):
+        from repro_torch import tree as tree_lib
+
+        out = {}
+        tree_lib.map_with_path(lambda p, x: out.setdefault(tree_lib.path_str(p), x), tree)
+        return out
+
+    def unchanged(before, tree):
+        now = leaves(tree)
+        return before.keys() == now.keys() and all(torch.equal(before[p], now[p])
+                                                   for p in before)
+
+    def calibration(name, trees):
+        fn = saved[name]
+
+        def run(*args, **kwargs):
+            kept = [{p: x.clone() for p, x in leaves(args[i]).items()} for i in trees]
+            step_ms.append([])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append({"fn": name, "seconds": time.perf_counter() - t0, "out": out,
+                          "images": args[3] if name == "feature_calibrate" else args[1],
+                          "trees": [args[i] for i in trees],
+                          "unchanged": [unchanged(k, args[i]) for k, i in zip(kept, trees)],
+                          "step_ms": step_ms[-1]})
+            return out
+        return run
+
+    def step(name):
+        fn = saved[name]
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            step_ms[-1].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    def timed_accuracy(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = accuracy(*args, **kwargs)
+        eval_s.append(time.perf_counter() - t0)
+        return out
+
+    rx.feature_calibrate = calibration("feature_calibrate", (0, 1))   # teacher, student
+    rx.backprop_calibrate = calibration("backprop_calibrate", ())
+    rx._feature_step, rx._backprop_step = step("_feature_step"), step("_backprop_step")
+    resnet.accuracy = timed_accuracy
+    try:
+        yield {"calls": calls, "eval_s": eval_s}
+    finally:
+        for name, fn in saved.items():
+            setattr(rx, name, fn)
+        resnet.accuracy = accuracy
+
+
+def card_vs_cpu(label, got, want):
+    """``got`` (card) within PAPER_CARD_VS_CPU of ``want``'s (CPU) absmax."""
+    got, want = got.detach().cpu().float(), want.detach().float()
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    assert got.shape == want.shape and diff <= PAPER_CARD_VS_CPU * max(scale, 1e-30), (
+        label, diff, scale)
+    return diff / max(scale, 1e-30)
+
+
+def paper_card_vs_cpu(teacher, student, adapters, cfg, probe, cal_x):
+    """The port on the card against its own CPU path on the same
+    parameters: the forward's features and logits on ``probe`` (with the
+    calibrated adapters), and the calibration loss and its gradients on
+    one calibration image. Returns the worst share of absmax of each."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import repro_experiments as rx
+    from repro_torch.core import resnet
+
+    cpu = lambda tree: tree_lib.map_tensors(lambda x: x.detach().cpu(), tree)  # noqa: E731
+    worst = {}
+    with torch.no_grad():
+        logits, aux = resnet.forward(student, probe, cfg, adapters=adapters,
+                                     collect_features=True)
+        c_logits, c_aux = resnet.forward(cpu(student), probe.cpu(), cfg,
+                                         adapters=cpu(adapters), collect_features=True)
+    worst["forward"] = max(card_vs_cpu(f"feature {i}", a, b) for i, (a, b) in
+                           enumerate(zip(aux["features"] + [logits],
+                                         c_aux["features"] + [c_logits])))
+
+    def loss_and_grads(t, s, a, x):
+        loss, _, grads = rx._value_and_grad(
+            lambda ad: (rx.calibration_loss_resnet(t, s, ad, x, cfg), None), a)
+        return [loss] + tree_lib.tensors(grads)
+
+    card = loss_and_grads(teacher, student, adapters, cal_x)
+    host = loss_and_grads(cpu(teacher), cpu(student), cpu(adapters), cal_x.cpu())
+    worst["loss"] = card_vs_cpu("calibration loss", card[0], host[0])
+    worst["grads"] = max(card_vs_cpu(f"gradient {i}", a, b)
+                         for i, (a, b) in enumerate(zip(card[1:], host[1:])))
+    return worst
+
+
+def phase_paper(device, seed):
+    """Phase 10, the paper's own experiment on the card at ResnetConfig():
+    procedural data (``cell_data``), a teacher from ``train_teacher``'s
+    defaults, then ``resnet_cell`` for DoRA r=2, LoRA r=2 and backprop on
+    that teacher at drift 0.20 (10 samples, 20 epochs at batch 1), TF32
+    off. Gated: teacher above 0.5, drifted at least 0.05 below it, each
+    adapter cell's last loss below its first, DoRA calibrated above
+    drifted, the teacher and student bitwise unchanged by DoRA and LoRA
+    calibration, 200 backprop updates, no kernel launch over the phase,
+    the trainable fraction 14,162 / 279,792, Table I at the paper's
+    numbers, the card within 1e-4 of absmax of the CPU path (forward
+    features and logits; the calibration loss and its gradients)."""
+    from repro_torch.core import repro_experiments as rx
+    from repro_torch.core import resnet, rram
+    from repro_torch.deploy import resnet_cell
+    from repro_torch.optim.adam import AdamW, adamw_init
+
+    memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_phase = time.perf_counter()
+    cfg = resnet.ResnetConfig()
+    result = {"config": dataclasses.asdict(cfg), "cells": {}}
+    with resnet.f32_convs():
+        t0 = time.perf_counter()
+        data = rx.cell_data(seed, cfg, device)
+        torch.cuda.synchronize()
+        result["data_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        teacher = rx.train_teacher(rram.make_generator(device, seed, rx.TEACHER), cfg,
+                                   *data[:2])
+        torch.cuda.synchronize()
+        result["teacher_seconds"] = time.perf_counter() - t0
+        log(f"[paper] ResNet-{cfg.depth} ({cfg.classes} classes, {cfg.image_size}x"
+            f"{cfg.image_size}), {data[0].shape[0]} / {data[2].shape[0]} "
+            f"images in {result['data_seconds']:.3f} s; teacher: 12 epochs x "
+            f"{data[0].shape[0] // 128} steps of 128 in {result['teacher_seconds']:.2f} s")
+        with paper_probes() as probes:
+            for method in PAPER_METHODS:
+                t0 = time.perf_counter()
+                r = resnet_cell(method=method, rank=2, drift=PAPER_DRIFT, samples=PAPER_SAMPLES,
+                                calib_epochs=PAPER_EPOCHS, cfg=cfg, teacher=teacher, data=data,
+                                seed=seed, device=device)
+                call = probes["calls"][-1]
+                evals = probes["eval_s"][-3:]
+                gap = r.teacher_acc - r.drifted_acc
+                cell = dict(dataclasses.asdict(r), seconds=time.perf_counter() - t0,
+                            calibrate_seconds=call["seconds"], eval_seconds=evals,
+                            recovered=(r.calibrated_acc - r.drifted_acc) / gap if gap else None,
+                            step_ms_median=statistics.median(call["step_ms"]),
+                            steps=len(call["step_ms"]))
+                if method == "backprop":
+                    cell["updates"] = call["out"][1]
+                else:
+                    cell["losses"] = call["out"][1]
+                    cell["teacher_unchanged"], cell["student_unchanged"] = call["unchanged"]
+                result["cells"][method] = cell
+                log(f"[paper] {method:>8}: teacher {r.teacher_acc:.4f} drifted "
+                    f"{r.drifted_acc:.4f} calibrated {r.calibrated_acc:.4f} (recovered "
+                    f"{cell['recovered']:.1%}); trainable {r.trainable_fraction:.4%}; "
+                    f"calibration {call['seconds']:.2f} s, {cell['steps']} steps, median "
+                    f"{cell['step_ms_median']:.2f} ms; evaluation "
+                    f"{', '.join(f'{e:.3f}' for e in evals)} s; cell {cell['seconds']:.2f} s")
+            dora_call = next(c for c in probes["calls"] if c["fn"] == "feature_calibrate")
+        adapters = dora_call["out"][0]
+        _, student = dora_call["trees"]
+        probe = data[2][:PAPER_PROBE_IMAGES]
+        result["card_vs_cpu"] = paper_card_vs_cpu(teacher, student, adapters, cfg, probe,
+                                                  dora_call["images"][:1])
+        # where a DoRA step's time goes: a warm step, then three profiled
+        opt = AdamW(lr=2e-3)
+        state = adamw_init(adapters)
+        one = lambda: rx._feature_step(teacher, student, adapters, state,  # noqa: E731
+                                       dora_call["images"][:1], cfg, opt)
+        one()
+        result["dora_step_trace"] = profile_window("paper", "DoRA step", 3, one)
+    torch.cuda.synchronize()
+    result["launches"] = read_counts()
+    result["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    n_ad, n_total = (resnet.param_count(adapters), resnet.param_count(teacher))
+    result["trainable"] = (n_ad, n_total)
+    result["table1"] = {
+        "backprop_lifespan": rram.lifespan_calibrations(samples=120, epochs=20, batch=1,
+                                                        on_rram=True),
+        "dora_lifespan": rram.lifespan_calibrations(samples=10, epochs=20, batch=1,
+                                                    on_rram=False),
+        "speedup": rram.calibration_speedup(base_samples=125, dora_samples=10)}
+    result["reference_cpu"] = PAPER_REFERENCE_ACC
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    cells = result["cells"]
+    ref = PAPER_REFERENCE_ACC
+    log(f"[paper] beside the reference's own at this config, seed {seed}, on a CPU: teacher "
+        f"{ref['teacher']} drifted {ref['drifted']} (examples/calibrate_resnet.py)")
+    log(f"[paper] card vs CPU (of absmax): forward {result['card_vs_cpu']['forward']:.3g}, "
+        f"loss {result['card_vs_cpu']['loss']:.3g}, gradients "
+        f"{result['card_vs_cpu']['grads']:.3g}; trainable {n_ad} / {n_total}; launches "
+        f"{result['launches']}; Table I {result['table1']}; peak "
+        f"{result['peak_mem_bytes'] / 2**30:.3f} GiB; phase 10 took "
+        f"{result['phase_seconds']:.2f} s")
+    dora = cells["dora"]
+    assert dora["teacher_acc"] > 0.5, dora
+    assert dora["drifted_acc"] <= dora["teacher_acc"] - 0.05, dora
+    assert dora["calibrated_acc"] > dora["drifted_acc"], dora
+    for method in ("dora", "lora"):
+        c = cells[method]
+        assert c["losses"][-1] < c["losses"][0], (method, c["losses"])
+        assert c["teacher_unchanged"] and c["student_unchanged"], method
+    assert cells["backprop"]["updates"] == PAPER_EPOCHS * PAPER_SAMPLES, cells["backprop"]
+    assert set(result["launches"].values()) == {0}, result["launches"]
+    assert (n_ad, n_total) == PAPER_FRACTION, (n_ad, n_total)
+    assert dora["trainable_fraction"] == PAPER_FRACTION[0] / PAPER_FRACTION[1], dora
+    t1 = result["table1"]
+    assert math.isclose(t1["backprop_lifespan"], 41666.67, rel_tol=1e-3), t1
+    assert math.isclose(t1["dora_lifespan"], 5e13, rel_tol=1e-6), t1
+    assert math.isclose(t1["speedup"], 1250.0, rel_tol=1e-6), t1
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2397,6 +2674,8 @@ def main():
         shutil.rmtree(workdir)
     memory()
     faults["study"] = phase_study(device, args.seed)
+    memory()
+    paper = phase_paper(device, args.seed)
 
     # one transformer layer: the four fused leaves at the decode tick (GEMV)
     # or the fused prefill (tiled), the seven unfused leaves at the decode
@@ -2433,7 +2712,8 @@ def main():
         with open(args.out, "w") as f:
             json.dump({"card": smi, "timing": rows, "breakdown": breakdown,
                        "serving": serving, "calibration": calibration, "faults": faults,
-                       "persist": persist, "kernels": kernels}, f, indent=1, default=str)
+                       "persist": persist, "paper": paper, "kernels": kernels}, f,
+                      indent=1, default=str)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,29 +52,35 @@ def _crc(path) -> int:
 
 
 def program_model(base: Pytree, cfg: RramConfig, seed: int, *,
-                  mode: str = "codes") -> Pytree:
+                  mode: str = "codes",
+                  noise: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+                  ) -> Pytree:
     """Program + drift every RRAM-resident leaf; returns the student base.
     ``mode="codes"`` keeps uint8 ``CrossbarWeight`` leaves (stacked
     scan-group leaves included); ``"dequant"`` reads them back to the
-    leaf's float dtype."""
+    leaf's float dtype. ``noise`` maps each leaf's path to its drift
+    normals ``(n_pos, n_neg)``, in place of its stream."""
     if mode not in ("dequant", "codes"):
         raise ValueError(f"mode must be 'dequant' or 'codes', got {mode!r}")
 
     def leaf(path, x):
         if not _is_rram_leaf(path):
             return x
+        if noise is not None:
+            return program_leaf(x, cfg, None, mode=mode, noise=noise[tree_lib.path_str(path)])
         g = rram.make_generator(x.device, seed, _crc(path), 0)
         return program_leaf(x, cfg, g, mode=mode)
 
     return tree_lib.map_with_path(leaf, base)
 
 
-def program_leaf(w: torch.Tensor, cfg: RramConfig, generator: torch.Generator,
-                 *, mode: str = "codes"):
-    """Program ONE RRAM leaf. Stacked leaves (G, d, k) program per matrix
-    (the absmax is per column of each matrix) with one draw for the
-    stack."""
-    xw = rram.programmed_codes(w, cfg, generator)
+def program_leaf(w: torch.Tensor, cfg: RramConfig, generator: Optional[torch.Generator],
+                 *, mode: str = "codes",
+                 noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Program ONE RRAM leaf. Stacked leaves (G, d, k), and conv leaves
+    (kh, kw, cin, cout), program per matrix (the absmax is per column of
+    each matrix) with one draw for the stack."""
+    xw = rram.programmed_codes(w, cfg, generator, noise=noise)
     if mode == "codes":
         return xw
     return rram.dequantize(xw, dtype=w.dtype)

@@ -1,5 +1,6 @@
-"""RRAM crossbar compact model: conductance mapping, programming, drift.
-Port of ``repro/core/rram.py`` (paper Section II).
+"""RRAM crossbar compact model: conductance mapping, programming, drift,
+the reference crossbar MVM with its ADC, and the lifespan and speed
+model of Table I. Port of ``repro/core/rram.py`` (paper Section II).
 
 Weights are scaled per column onto the conductance range and programmed
 as a differential pair ``(G+, G-)`` of uint8 codes (eq. 2); conductance
@@ -19,6 +20,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ref import _div
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,3 +176,68 @@ def programmed_codes(
     """W -> program -> drift (programming-time drift at
     ``relative_drift``), keeping the uint8 codes resident."""
     return apply_drift(program(w, cfg), cfg, generator, noise=noise)
+
+
+def drifted_weights(
+    w: torch.Tensor,
+    cfg: RramConfig,
+    generator: Optional[torch.Generator] = None,
+    dtype=torch.bfloat16,
+    *,
+    noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """W -> program -> drift -> dequantize; the drifted float weights."""
+    return dequantize(programmed_codes(w, cfg, generator, noise=noise), dtype=dtype)
+
+
+def mvm_reference(x: torch.Tensor, xw: CrossbarWeight, cfg: RramConfig) -> torch.Tensor:
+    """Simulated analog MVM: the array activates ``cfg.array_rows`` rows at
+    a time, each block's differential column current is digitized by a
+    saturating ``adc_bits`` ADC, and the blocks add digitally. Without ADC
+    simulation this is ``x @ dequantize(xw)``. The DAC range is max|x|
+    over every row of a block (the kernels take it per 128-row tile, so
+    the two agree only up to 128 rows)."""
+    if not cfg.simulate_adc:
+        return x @ dequantize(xw)
+    d = x.shape[-1]
+    rows = cfg.array_rows
+    n_blocks = (d + rows - 1) // rows
+    pad = n_blocks * rows - d
+    xp = F.pad(x, (0, pad))
+    gp = F.pad(xw.g_pos.to(torch.float32), (0, 0, 0, pad))
+    gn = F.pad(xw.g_neg.to(torch.float32), (0, 0, 0, pad))
+    adc_max = 2.0 ** (cfg.adc_bits - 1) - 1.0
+    out = x.new_zeros(x.shape[:-1] + (xw.g_pos.shape[-1],), dtype=torch.float32)
+    for b in range(n_blocks):
+        xs = xp[..., b * rows:(b + 1) * rows]
+        cur = xs @ (gp[b * rows:(b + 1) * rows] - gn[b * rows:(b + 1) * rows])
+        x_absmax = torch.clamp_min(xs.abs().amax(), 1e-8)
+        step = _div(rows * cfg.code_max * x_absmax, adc_max * 16.0)
+        cur = torch.clamp(torch.round(cur / step), -adc_max, adc_max) * step
+        out = out + cur
+    return out * xw.scale.reshape((1,) * (out.ndim - 1) + (-1,))
+
+
+# Table I: lifespan and speed of calibration, backprop on RRAM against
+# DoRA side-cars in SRAM
+RRAM_ENDURANCE = 1e8    # write cycles
+SRAM_ENDURANCE = 1e16
+RRAM_WRITE_NS = 100.0   # write-and-verify per cell
+SRAM_WRITE_NS = 1.0
+
+
+def lifespan_calibrations(*, samples: int, epochs: int = 20, batch: int = 1,
+                          on_rram: bool) -> float:
+    """Calibrations before the storage wears out: ``epochs * samples /
+    batch`` updates each, against the RRAM's or the SRAM's endurance."""
+    updates = epochs * (samples / batch)
+    endurance = RRAM_ENDURANCE if on_rram else SRAM_ENDURANCE
+    return endurance / updates
+
+
+def calibration_speedup(*, base_samples: int = 125, dora_samples: int = 10,
+                        rram_write_ns: float = RRAM_WRITE_NS,
+                        sram_write_ns: float = SRAM_WRITE_NS) -> float:
+    """Weight-update-bound speedup of DoRA on SRAM over backprop on RRAM
+    (paper §IV-E): the sample ratio times the write-time ratio, 1250x."""
+    return (base_samples / dora_samples) * (rram_write_ns / sram_write_ns)

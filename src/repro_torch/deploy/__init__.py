@@ -7,6 +7,10 @@
     report = dep.calibrate(10)     # feature-KD DoRA, codes never written
     session = dep.serve()          # merged adapters + backend scope
     toks, dt = session.generate(prompt)
+
+and the paper's CNN experiment, one cell at a time:
+
+    r = resnet_cell(method="dora", rank=2, drift=0.20, samples=10)
 """
 from repro_torch.deploy.deployment import (  # noqa: F401
     CalibrationReport,
@@ -21,3 +25,13 @@ from repro_torch.deploy.serving import (  # noqa: F401
     generate,
     prefill_and_cache,
 )
+
+
+def resnet_cell(**kwargs):
+    """CNN-lifecycle entry (paper §IV, the Fig. 4/6 protocol): teacher ->
+    drift -> calibrate -> evaluate for the ResNet reproduction, on the
+    card unless ``device=`` says otherwise; see
+    ``core/repro_experiments.run_cell``."""
+    from repro_torch.core.repro_experiments import run_cell
+
+    return run_cell(**kwargs)

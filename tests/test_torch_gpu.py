@@ -40,6 +40,12 @@ full-width leaves and at ragged shapes:
 * the shared prefix cache through the graphs, for each body: full and
   chunk-boundary hits bitwise the cold admission, an off-boundary hit
   within 1e-2 of the logits' absmax with equal tokens.
+* the paper's CNN experiment (``core/resnet.py``, no kernel of the
+  port): the ResNet-20 forward on the card, with calibrated-looking
+  adapters, within 1e-4 of absmax of the CPU's on the same parameters
+  (TF32 off); the adapters' int8 PTQ bitwise the CPU's; ``run_cell`` on
+  the card at the CI config with no kernel launch and the teacher and
+  student unchanged by calibration.
 
 This file imports no jax, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -1191,3 +1197,95 @@ def test_prefix_hits_on_card_equal_cold_admission(cuda, body):
         else:
             diff = float((logits.float() - cold_logits.float()).abs().max())
             assert diff <= 1e-2 * float(cold_logits.float().abs().max()), (i, diff)
+
+
+# ---------------------------------------------------------------------------
+# the paper's CNN experiment (core/resnet.py, core/repro_experiments.py)
+# ---------------------------------------------------------------------------
+
+RESNET_CARD_VS_CPU = 1e-4   # of absmax: f32 on both, TF32 off; summation orders differ
+
+
+def _resnet_trees(cfg, seed=0):
+    """A teacher with trained-looking BN statistics, its drifted student
+    and adapters with a nonzero B, on the CPU."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import repro_experiments as rx
+    from repro_torch.core import resnet
+
+    g = torch.Generator().manual_seed(seed)
+
+    def perturb(path, x):
+        if path[-1] == "var":
+            return torch.rand(x.shape, generator=g) + 0.5
+        if path[-1] in ("mean", "bias", "lora_b"):
+            return 0.1 * torch.randn(x.shape, generator=g)
+        return x
+
+    teacher = tree_lib.map_with_path(perturb, resnet.init_resnet(g, cfg))
+    student = rx.make_student(teacher, 0.2, seed)
+    adapters = tree_lib.map_with_path(perturb, resnet.init_adapters(g, student, cfg))
+    return teacher, student, adapters
+
+
+@pytest.mark.parametrize("kind", ["dora", "lora"])
+def test_resnet_forward_on_card_is_the_cpu_s(cuda, kind):
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import resnet
+    from repro_torch.core.dora import AdapterConfig
+
+    cfg = resnet.ResnetConfig(adapter=AdapterConfig(rank=2, kind=kind))
+    _, student, adapters = _resnet_trees(cfg)
+    x = torch.randn((8, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    on = lambda tree: tree_lib.map_tensors(lambda t: t.to(cuda), tree)  # noqa: E731
+    with resnet.f32_convs():
+        _, host = resnet.forward(student, x, cfg, adapters=adapters, collect_features=True)
+        _, card = resnet.forward(on(student), x.to(cuda), cfg, adapters=on(adapters),
+                                 collect_features=True)
+    assert len(card["features"]) == len(host["features"]) == 3 * 3 * 2 + 2
+    for i, (a, b) in enumerate(zip(card["features"], host["features"])):
+        diff = float((a.cpu() - b).abs().max())
+        assert diff <= RESNET_CARD_VS_CPU * float(b.abs().max()), (i, diff)
+
+
+def test_adapter_int8_ptq_on_card_is_bitwise_the_cpu_s(cuda):
+    from repro_torch.core import dora
+
+    g = torch.Generator().manual_seed(2)
+    ad = {"lora_a": torch.randn((144, 2), generator=g) * 0.07,
+          "lora_b": torch.randn((2, 16), generator=g) * 1e-3,
+          "dora_m": torch.rand((16,), generator=g) * 3 + 0.5}
+    host = dora.quantize_adapter_int8(ad)
+    card = dora.quantize_adapter_int8({k: v.to(cuda) for k, v in ad.items()})
+    for name in ad:
+        assert torch.equal(card[name][0].cpu(), host[name][0]), name
+        assert torch.equal(card[name][1].cpu(), host[name][1]), name
+
+
+def test_run_cell_on_card_launches_no_kernel_and_writes_no_weight(cuda, monkeypatch):
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import repro_experiments as rx
+    from repro_torch.core import resnet
+
+    cfg = resnet.ResnetConfig(depth=8, width=8, classes=8, image_size=16)
+    seen = []
+    real = rx.feature_calibrate
+
+    def snap(tree):
+        return [t.clone() for t in tree_lib.tensors(tree)]
+
+    def recording(teacher, student, adapters, images, cfg_, **kw):
+        before = snap(teacher) + snap(student)
+        out = real(teacher, student, adapters, images, cfg_, **kw)
+        after = tree_lib.tensors(teacher) + tree_lib.tensors(student)
+        seen.append(all(torch.equal(a, b) for a, b in zip(before, after)))
+        return out
+
+    monkeypatch.setattr(rx, "feature_calibrate", recording)
+    K.reset_launch_counts()
+    C.reset_launch_counts()
+    data = rx.cell_data(0, cfg, cuda, n_train=512, n_test=512)
+    r = rx.run_cell(seed=0, cfg=cfg, drift=0.25, data=data, device=cuda)
+    assert set(K.launch_counts().values()) == {0} and C.launch_counts() == {"crossbar_mvm": 0}
+    assert seen == [True]
+    assert all(0 <= a <= 1 for a in (r.teacher_acc, r.drifted_acc, r.calibrated_acc))

@@ -85,6 +85,17 @@ def test_serve_cli_without_device_raises_when_no_card(monkeypatch):
         serve.main(["--arch", "qwen3-1.7b", "--smoke", "--backend", "codes"])
 
 
+def test_paper_entry_points_without_device_raise_when_no_card(monkeypatch):
+    from repro_torch.deploy import resnet_cell
+    from repro_torch.launch import paper_tables
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resnet_cell(method="dora")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paper_tables.main(["--only", "fig2_drift_sweep"])
+
+
 def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(K.LIB, "_lib", None)
     monkeypatch.setattr(B, "find_nvcc", lambda: None)
