@@ -7,8 +7,10 @@ went through its kernels; then it calibrates the drifted deployment's
 DoRA side-cars (autograd under ``dequant``, no kernel) and serves the
 calibrated side-cars through the kernels again, faults it, snapshots
 it, restores it bitwise and serves the restored deployment
-with the engine's shared prefix cache; last it runs the paper's own CNN
-experiment (ResNet-20, drift, DoRA / LoRA / backprop calibration).
+with the engine's shared prefix cache; then it runs the paper's own CNN
+experiment (ResNet-20, drift, DoRA / LoRA / backprop calibration); last
+it programs, drifts, calibrates and serves mixtral-8x22b (mixture of
+experts, sliding window) at its full widths and 2 layers.
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
@@ -195,6 +197,37 @@ Phases (any failure exits non-zero; no failure is caught):
                 training, each calibration and each evaluation, the median
                 step, peak memory; torch.profiler over three DoRA steps
                 (device busy share, kernels a step, the largest kernels).
+  11. moe    — mixtral-8x22b at its published widths (d 6144, 48 / 8 KV
+                heads of 128, 8 experts top-2 of d_ff 16384, window 4096,
+                vocab 32768, untied head, DoRA rank 8), 2 of its 56 layers:
+                Deployment.program(codes) -> advance(24) -> calibrate(10,
+                steps=20) through its graph (no launch, one capture, the
+                codes' digest unchanged, the loss falling, bitwise the eager
+                step functions) -> serve(), serve(accum="int8") and a
+                codes_adc deployment, each through phase 5's drive with 4
+                greedy requests of 5, 40, 17 and 4160 tokens in a 4224-token
+                cache (the long prompt in 130 chunks of 32 through the rolling
+                canvas, its generation across position 4096): exact launch
+                counts with the router's f32-x launches apart (``/f32x``),
+                compile_count 3 (decode, chunks 8 and 32) and flat, every
+                replay bitwise its eager step (logits and the rolling buffer,
+                the decode tick at clocks across the wrap), codes vs dequant
+                within LOGITS_BOUND, int8 vs f32 within INT8_LOGITS_BOUND;
+                one layer's dispatch path against the dense oracle
+                (capacity_factor = E / top_k) within MOE_ORACLE_BOUND; on a
+                copy with capacity_factor = E / top_k, the long prompt's
+                engine tokens the greedy tokens of a token-by-token
+                decode_step loop (or, where they differ, at a near-tie of
+                the loop's logits within LOGITS_BOUND of absmax) and its
+                admission logits within LOGITS_BOUND. Reported: the
+                tick captured vs eager and tok/s per session, the long
+                prompt's TTFT, a profile of the captured tick by class
+                (router, tensor-core GEMVs, expert products, expert
+                read-back) and the read-back timed alone, calibrate seconds
+                and step ms captured vs eager, peak and retained memory.
+                Phase 3 holds the router's f32-x launches at N = 8 (every
+                body, M in {1, 4, 32, 96}) against their plain versions and
+                phase 4 times them.
 The last line is the contract line; the line before it the kernel table.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -296,6 +329,8 @@ SLOTS = 4                   # engine slots: the decode batch of phase 5
 PREFILL_ROWS = 96           # phase 5's fused prefill: 3 x 32 tokens
 PROMPT_LENS = (5, 40, 17, 9)  # phase 5's ragged engine requests
 MAX_NEW = 16                # greedy tokens per request
+ENGINE_MAX_LEN = 128        # phase 5's engine cache length
+PREFILL_MAX_LEN = 48        # the fused prefill's and the single chunks' cache length
 # the steps phase 5's traffic compiles per session: the decode tick and the
 # admission chunk buckets 8 (5 and 40 - 32 tokens), 16 (9) and 32 (17, 40)
 COMPILED_STEPS = 4
@@ -306,6 +341,33 @@ TIMED_M_INT8 = (1, SLOTS, 8, 16, 32, 64, PREFILL_ROWS, PREFILL_M)  # every GEMV 
 TIMED_M_ADC = (SLOTS, 32, PREFILL_ROWS, PREFILL_M)
 TIMED_M_TILED = (PREFILL_ROWS,)  # also timed for the tiled f32 body
 TIMED_M_GEMV = (8, 16, 64)       # also timed for the f32 GEMV: chunk buckets, 64
+# the MoE router of phase 11 (mixtral-8x22b): f32 x at K = 6144 and N = 8,
+# one column per expert, narrower than one 128-column strip; DoRA rank 8.
+# Its rows: a single stream, the decode tick, a full admission chunk, and
+# the fused prefill (tiled)
+ROUTER_K, ROUTER_N, ROUTER_R = 6144, 8, 8
+ROUTER_M = (1, SLOTS, 32, PREFILL_ROWS)
+# f32 arithmetic outside the tensor cores (data sheet): the f32 body and
+# the ADC multiply f32 x exactly
+F32_FLOP_PER_S = 67e12
+# phase 11: mixtral-8x22b at its published widths, the depth cut from 56
+# layers to 2 (one scan group stack of 2, so each expert leaf is a (2, 8,
+# d, ff) stack); 4 greedy requests on 4 slots in a cache of 4224 > the
+# 4096 window, so every layer's cache rolls: the long prompt is admitted
+# in 130 chunks of 32 and its generation crosses position 4096
+MOE_LAYERS = 2
+MOE_MAX_LEN = 4224
+MOE_PROMPT_LENS = (5, 40, 17, 4160)
+# the steps phase 11's traffic compiles per session: the decode tick and
+# the admission chunk buckets 8 (5, and 40 - 32) and 32 (17, 40, 4160)
+MOE_COMPILED_STEPS = 3
+# the decode graph's replay vs eager at clocks on both sides of the wrap
+MOE_DECODE_POS = (4090, 4095, 4100, 4200)
+# one layer's dispatch path vs the dense gate-weighted sum over all
+# experts (capacity_factor = E / top_k: nothing dropped), of absmax:
+# bf16 expert products at M = C rows vs M = 1 row (other cuBLAS tilings)
+MOE_ORACLE_BOUND = 1e-2
+MOE_ORACLE_TOKENS = 64
 # phase 7: the paper's calibration set (10 samples of 32 tokens) and the
 # reference's calibrate defaults (20 steps, lr 1e-3)
 CALIB_SAMPLES, CALIB_SEQ, CALIB_STEPS = 10, 32, 20
@@ -742,7 +804,43 @@ def phase_kernels(device):
         if not ok:
             _fail(f"crossbar_mvm (f32 x, SIMT) at {(SLOTS, k, n)}", f"{bad} off, {flips} flips")
         worst["crossbar_mvm"] = max(worst["crossbar_mvm"], err)
+
+    # the MoE router's launches (phase 11): f32 x at N = 8, every body
+    for m in ROUTER_M:
+        ops = router_operands(m, device, seed=m + 7)
+        kind = "dora_linear_gemv" if autotune.use_gemv(m) else "dora_linear"
+        for accum in autotune.ACCUMS:
+            got = getattr(K, kind)(*ops, accum=accum)
+            torch.cuda.synchronize()
+            err, ok, note = _vs_plain(got, ops, accum)
+            key = K.counter(kind, accum)
+            log(f"[kernels] {key + ' f32 x':22s} router   M={m:4d} K={ROUTER_K:5d} "
+                f"N={ROUTER_N:5d} r={ROUTER_R:2d} max|err|={err:.3e}{note} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"{key} (f32 x, router) at {(m, ROUTER_K, ROUTER_N)}", f"max|err| {err}")
+            worst[key] = max(worst[key], err)
+        x, gp, gn, scale = ops[:4]
+        got = C.crossbar_mvm(x, gp, gn, scale)
+        torch.cuda.synchronize()
+        want = ref.crossbar_mvm_ref(x, gp, gn, scale)
+        err = float((got - want).abs().max())
+        bad, flips = ref.adc_disagreement(got, want, x, scale, rtol=ADC_RTOL, atol=ADC_ATOL)
+        ok = bad == 0 and flips <= ADC_FLIP_SHARE * got.numel()
+        log(f"[kernels] crossbar_mvm f32 x     router   M={m:4d} K={ROUTER_K:5d} "
+            f"N={ROUTER_N:5d} max|err|={err:.3e} one-step flips {flips}/{got.numel()} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"crossbar_mvm (f32 x, router) at {(m, ROUTER_K, ROUTER_N)}",
+                  f"{bad} off, {flips} flips")
+        worst["crossbar_mvm"] = max(worst["crossbar_mvm"], err)
     return worst
+
+
+def router_operands(m, device, seed=0):
+    """The router's operands: f32 x (M, 6144), codes (6144, 8), rank 8."""
+    x, *rest = operands(m, ROUTER_K, ROUTER_N, ROUTER_R, device, seed=seed)
+    return (x.float(), *rest)
 
 
 def bound(nbytes, ops, rate):
@@ -863,7 +961,41 @@ def phase_timing(device):
             _timed_row(rows, "crossbar_mvm", name, (m, k, n), ops, C.crossbar_mvm,
                        ref.crossbar_mvm_ref, None, adc_bound(m, k, n))
             del ops
+    # the MoE router (phase 11): f32 x at N = 8 through every body; the
+    # library call is torch.matmul of f32 x by the pre-dequantized f32
+    # weight (TF32 off)
+    k, n, r = ROUTER_K, ROUTER_N, ROUTER_R
+    for m in ROUTER_M:
+        ops = [router_operands(m, device, seed=i)
+               for i in range(_copies(2 * k * n + 4 * m * k + 4 * m * n))]
+        kind = "dora_linear_gemv" if m <= 64 else "dora_linear"
+        fn = getattr(K, kind)
+        w32 = [(o[1].float() - o[2].float()) * o[3] for o in ops]
+        _timed_row(rows, kind, "router", (m, k, n), ops, fn, ref.dora_linear_ref,
+                   [lambda o=o, w=w: torch.matmul(o[0], w) for o, w in zip(ops, w32)],
+                   router_bound(m, k, n, r, F32_FLOP_PER_S))
+        library = None
+        if int_mm_takes(m, k, n):
+            s8 = [(ref.quantize_rows(o[0])[0], ref.recode_s8(o[1]), ref.recode_s8(o[2]))
+                  for o in ops]
+            library = [lambda q=q: (torch._int_mm(q[0], q[1]), torch._int_mm(q[0], q[2]))
+                       for q in s8]
+        _timed_row(rows, K.counter(kind, "int8"), "router", (m, k, n), ops,
+                   lambda *o, fn=fn: fn(*o, accum="int8"), ref.dora_linear_int8_ref,
+                   library, router_bound(m, k, n, r, INT8_OP_PER_S))
+        _timed_row(rows, "crossbar_mvm", "router", (m, k, n), [o[:4] for o in ops],
+                   C.crossbar_mvm, ref.crossbar_mvm_ref, None,
+                   bound(2 * k * n + 4 * m * k + 4 * n + 4 * m * n, 2 * m * k * n,
+                         F32_FLOP_PER_S))
+        del ops, w32, library
     return rows
+
+
+def router_bound(m, k, n, r, rate):
+    """The fused linear with f32 x: x (4 bytes an element), both code
+    arrays, the f32 side operands and the f32 output, each moved once."""
+    nbytes = 2 * k * n + 4 * m * k + 4 * (k * r + r * n + 2 * n) + 4 * m * n
+    return bound(nbytes, 2 * m * k * n + 2 * m * k * r + 2 * m * r * n, rate)
 
 
 def kernel_breakdown(device, fn, leaves, m):
@@ -974,10 +1106,10 @@ def reset_counts():
 
 
 def read_counts():
-    from repro_torch.kernels import crossbar_mvm as C
-    from repro_torch.kernels import dora_linear as K
+    """Every kernel's launch counter and its f32-x tally (``/f32x``)."""
+    from repro_torch import graphs
 
-    return {**K.launch_counts(), **C.launch_counts()}
+    return graphs.launch_counts()
 
 
 def serving_inputs(vocab, seed, device):
@@ -998,7 +1130,7 @@ def time_prefill(session, tokens, reps=1):
     times = []
     for _ in range(reps):
         start.record()
-        logits, _ = session.prefill(tokens, 48)
+        logits, _ = session.prefill(tokens, PREFILL_MAX_LEN)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
@@ -1026,13 +1158,13 @@ def eager_steps():
         serving.CompiledStep.__call__ = call
 
 
-def engine_run(session, prompts, max_new):
+def engine_run(session, prompts, max_new, max_len=ENGINE_MAX_LEN):
     """Phase 5's engine traffic once: ragged greedy requests through a
     4-slot ServeEngine (submitted one per tick), the launch counters reset
     just before and read just after."""
     from repro_torch.deploy import ServeEngine
 
-    engine = ServeEngine(session, max_slots=SLOTS, max_len=128)
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=max_len)
     reqs = []
     torch.cuda.synchronize()
     reset_counts()
@@ -1061,12 +1193,13 @@ def engine_run(session, prompts, max_new):
     }
 
 
-def replay_vs_eager(session, seed=3):
+def replay_vs_eager(session, seed=3, decode_pos=None):
     """Every captured step of the session (the decode tick, the chunk
     buckets 8, 16 and 32) replayed on fresh inputs, then its function run
     eagerly from a copy of the same cache: logits and cache bitwise equal.
-    The decode tick at clocks 40-70; each chunk with a bucket that runs
-    past max_len (pos0 + width > 128, pos0 + n_valid = 128)."""
+    The decode tick at clocks 40-70 (or ``decode_pos``); each chunk with a
+    bucket that runs past max_len (pos0 + width > max_len, pos0 + n_valid
+    = max_len)."""
     g = torch.Generator().manual_seed(seed)
     vocab = session.cfg.vocab
     out = {}
@@ -1074,8 +1207,8 @@ def replay_vs_eager(session, seed=3):
         kind, _, batch, width, max_len = step.key
         assert step.graph is not None, step.key
         if kind == "decode":
-            host = torch.stack([torch.randint(0, vocab, (batch,), generator=g),
-                                torch.arange(batch) * 10 + 40])
+            pos = torch.arange(batch) * 10 + 40 if decode_pos is None else decode_pos
+            host = torch.stack([torch.randint(0, vocab, (batch,), generator=g), pos])
         else:
             host = torch.cat([torch.randint(0, vocab, (width,), generator=g),
                               torch.tensor([max_len - width // 2 - 1, width // 2 + 1])])
@@ -1099,7 +1232,7 @@ def replay_vs_eager(session, seed=3):
     return out
 
 
-def tick_times(session, ticks=20, rounds=2):
+def tick_times(session, ticks=20, rounds=2, max_len=ENGINE_MAX_LEN):
     """The decode tick at 4 live slots, captured (a replay) and eager
     (``transformer.decode_step`` on the same static inputs), each ending
     in the greedy argmax's copy to the host as the engine's tick does: ms
@@ -1107,7 +1240,7 @@ def tick_times(session, ticks=20, rounds=2):
     captured per round (both medians over the rounds)."""
     from repro_torch.deploy import ServeEngine
 
-    engine = ServeEngine(session, max_slots=SLOTS, max_len=128)  # leases the warm step
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=max_len)  # leases the warm step
     step = engine._decode
     g = torch.Generator().manual_seed(2)
     host = torch.stack([torch.randint(0, session.cfg.vocab, (SLOTS,), generator=g),
@@ -1151,16 +1284,20 @@ def memory():
     return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
 
 
-def drive(session, prompts, tokens, max_new):
+def drive(session, prompts, tokens, max_new, max_len=ENGINE_MAX_LEN, compiled=None,
+          decode_pos=None):
     """The phase-5 traffic on one session: the engine traffic through the
     compiled steps (the first call of each step eager, then captured), then
     one fused prefill (eager), the launch counters reset before and read
     after each part; then the engine traffic again through the warm graphs
     (``compile_count`` flat, the same launches and streams) and issued
     eagerly (the same launches and streams), each step's replay vs eager,
-    the decode tick captured vs eager, and the fused prefill again."""
+    the decode tick captured vs eager, and the fused prefill again.
+    ``max_len`` is the engines' cache length; ``compiled`` the steps the
+    traffic compiles (phase 5's ``COMPILED_STEPS`` by default)."""
+    compiled = COMPILED_STEPS if compiled is None else compiled
     mem0 = memory()
-    cold = engine_run(session, prompts, max_new)
+    cold = engine_run(session, prompts, max_new, max_len)
     mem1 = memory()
     reset_counts()
     (prefill_ms,), logits = time_prefill(session, tokens)
@@ -1169,11 +1306,11 @@ def drive(session, prompts, tokens, max_new):
     # again, uncounted, now that every shape has been seen once
     warm_prefill, _ = time_prefill(session, tokens, reps=3)
     assert torch.isfinite(logits.float()).all()
-    assert cold["compile_count"] == session.compile_count() == COMPILED_STEPS
+    assert cold["compile_count"] == session.compile_count() == compiled
 
-    warm = engine_run(session, prompts, max_new)
+    warm = engine_run(session, prompts, max_new, max_len)
     with eager_steps():
-        eager = engine_run(session, prompts, max_new)
+        eager = engine_run(session, prompts, max_new, max_len)
     for name, run in (("warm", warm), ("eager", eager)):
         assert run["launches"] == cold["launches"], (name, run["launches"], cold["launches"])
         assert run["streams"] == cold["streams"], name
@@ -1183,7 +1320,8 @@ def drive(session, prompts, tokens, max_new):
         "warm": warm, "eager": eager,
         "registry_allocated_bytes": mem1[0] - mem0[0],
         "registry_reserved_bytes": mem1[1] - mem0[1],
-        "replay_vs_eager": replay_vs_eager(session), "tick": tick_times(session),
+        "replay_vs_eager": replay_vs_eager(session, decode_pos=decode_pos),
+        "tick": tick_times(session, max_len=max_len),
         "prefill_rows": int(tokens.numel()), "prefill_ms": prefill_ms,
         "prefill_ms_warm": warm_prefill,
     }
@@ -1237,7 +1375,7 @@ def codes_vs_dequant(session, logits, tokens, g, device):
 
     cfg = session.cfg
     with substrate.use_backend("dequant"), torch.no_grad():
-        ref_logits, _ = T.prefill(session.params, tokens, cfg, 48)
+        ref_logits, _ = T.prefill(session.params, tokens, cfg, PREFILL_MAX_LEN)
     prefill = compare_logits("codes vs dequant prefill logits", logits, ref_logits,
                              LOGITS_BOUND)
     del ref_logits
@@ -1248,11 +1386,11 @@ def codes_vs_dequant(session, logits, tokens, g, device):
         toks[0, :n] = torch.randint(0, cfg.vocab, (n,), generator=g)
         out = {}
         for backend in ("codes", "dequant"):
-            cache = T.init_cache(cfg, 1, 48, device)
+            cache = T.init_cache(cfg, 1, PREFILL_MAX_LEN, device)
             with substrate.use_backend(backend), torch.no_grad():
                 out[backend], _ = T.prefill_chunk(
                     session.params, toks, cache, torch.tensor([0], device=device),
-                    torch.tensor([n], device=device), cfg, 48)
+                    torch.tensor([n], device=device), cfg, PREFILL_MAX_LEN)
         chunk_errs[width] = compare_logits(
             f"codes vs dequant admission chunk of {n} tokens ({width} rows)",
             out["codes"], out["dequant"], LOGITS_BOUND)["rel"]
@@ -1416,11 +1554,13 @@ def phase_trace(session, ticks=4):
     return out
 
 
-def profile_window(tag, unit, n, fn):
+def profile_window(tag, unit, n, fn, classes=None):
     """torch.profiler over ``n`` calls of ``fn`` (each one ``unit``), ended
     by a synchronize: wall and device-busy ms per unit, the busy share,
     kernels and CUDA-graph launches per unit and the kernels that take the
-    most device time. ``None`` where the profiler records no device
+    most device time; with ``classes`` (name -> regex over kernel names)
+    also the device ms per unit of each class, a kernel counted in the
+    first class it matches. ``None`` where the profiler records no device
     activity."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1448,6 +1588,17 @@ def profile_window(tag, unit, n, fn):
         f"graph_launches_per_{per}": graphs / n,
         f"top_kernels_ms_per_{per}": [(name[:80], ms / n) for name, ms in top],
     }
+    if classes:
+        import re
+
+        split = dict.fromkeys([*classes, "other"], 0.0)
+        for name, ms in by_name.items():
+            cls = next((c for c, rx in classes.items() if re.search(rx, name)), "other")
+            split[cls] += ms / n
+        result[f"class_ms_per_{per}"] = split if kernels else None
+        if kernels:
+            log(f"[{tag}] device ms per {unit} by class: " + ", ".join(
+                f"{c} {ms:.3f} ({ms / (1e3 * busy / n):.1%})" for c, ms in split.items()))
     if kernels:
         log(f"[{tag}] {n} {unit}s: {1e3 * wall / n:.2f} ms per {unit} wall, "
             f"{1e3 * busy / n:.3f} ms device busy ({busy / wall:.1%}), "
@@ -2632,6 +2783,429 @@ def phase_paper(device, seed):
     assert math.isclose(t1["speedup"], 1250.0, rel_tol=1e-6), t1
     return result
 
+# ---------------------------------------------------------------------------
+# phase 11: mixture-of-experts, mixtral-8x22b at full width
+# ---------------------------------------------------------------------------
+
+# kernel classes of a decode tick's profile (first match wins): the router's
+# f32-x bodies (SIMT GEMV and tiled, the ADC's SIMT body), the tensor-core
+# bodies (attention and the head), the expert products (cuBLAS), and the
+# experts' read-back: (G+ - G-) in int16, then one multiply into bf16
+MOE_TICK_CLASSES = {
+    "router_f32x": r"prep_kernel|dora_gemv_kernel|dora_tiled_kernel|adc_step_kernel"
+                   r"|adc_tile_kernel|adc_sum_kernel",
+    "gemv_tensor_core": r"dora_gemv_mma_kernel|dora_gemv_int8_kernel|row_scale_kernel"
+                        r"|adc_mma_kernel",
+    # u8 -> int16, the int16 difference, and the int16 x f32 -> bf16 multiply
+    # (mixed types: PyTorch's generic, unvectorized elementwise kernel)
+    "expert_readback": r"<short>|\(short\)|gpu_kernel_impl<at::native::BinaryFunctor<float, "
+                       r"float, float, at::native::binary_internal::MulFunctor",
+    "expert_products": r"gemm|Gemm|xmma|cutlass|nvjet|sm90_",
+}
+
+
+def moe_counts(cfg, steps, prefill, body):
+    """The exact launches of ``steps`` engine steps (decode ticks and
+    admission chunks, each at most 32 rows) and, with ``prefill``, one fused
+    prefill of 96 rows, for mixtral's layers: per layer the fused qkv, o and
+    the router (f32 x, counted apart in the ``/f32x`` tally), plus the untied
+    head once per step; codes_adc runs q, k, v, o and the router per layer."""
+    n_layers = cfg.n_layers
+    if body == "codes_adc":
+        n = (steps + prefill) * (5 * n_layers + 1)
+        return {"crossbar_mvm": n, "crossbar_mvm/f32x": (steps + prefill) * n_layers}
+    sfx = "" if body == "f32" else "/int8"
+    want = {f"dora_linear_gemv{sfx}": steps * (3 * n_layers + 1) + prefill,
+            f"dora_linear_gemv{sfx}/f32x": steps * n_layers}
+    if prefill:  # the 96-row prefill: tiled qkv, o and router; its head at 3 rows
+        want.update({f"dora_linear{sfx}": 3 * n_layers, f"dora_linear{sfx}/f32x": n_layers})
+    return want
+
+
+def moe_calibrate(dep):
+    """Phase 7's calibration on the mixtral deployment: ``calibrate(10,
+    steps=20)`` through its CUDA graph; gated: no launch, one capture, the
+    codes unchanged (their digest), the last feature MSE below the first,
+    the graph's losses, adapters and AdamW state bitwise the eager step
+    functions' from the same start. Reported: seconds, step ms captured vs
+    eager, peak memory."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.deploy import calibration_batch
+    from repro_torch.deploy.deployment import code_digest
+    from repro_torch.optim.adam import adamw_init
+
+    digest = code_digest(dep.codes)
+    start = tree_lib.map_tensors(torch.clone, dep.adapters)
+    start = (start, adamw_init(start))
+    memory()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_calibration() as times:
+        t0 = time.perf_counter()
+        report = dep.calibrate(CALIB_SAMPLES, steps=CALIB_STEPS, seq_len=CALIB_SEQ)
+        torch.cuda.synchronize()
+        t_calibrate = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[moe] {report.summary()}")
+    log(f"[moe] losses {', '.join(f'{x:.6f}' for x in report.losses)}")
+    expect_counts(counts, {})
+    assert code_digest(dep.codes) == digest, "calibrate changed the codes"
+    assert all(math.isfinite(x) for x in report.losses), report.losses
+    assert report.final_loss < report.initial_loss, report.losses
+    assert len(times["capture_s"]) == 1 and len(times["step_ms"]) == CALIB_STEPS, times
+    (built,) = times["steps"]
+    memory()
+    torch.cuda.reset_peak_memory_stats()
+    eager_losses, eager_state, eager_ms = eager_calibration(
+        dep, start, calibration_batch(dep.cfg, CALIB_SAMPLES, CALIB_SEQ), True,
+        built["stream"], CALIB_STEPS)
+    eager_peak = torch.cuda.max_memory_allocated()
+    versus = graph_vs_eager("mixtral cached step", report, dep, eager_state, eager_losses)
+    assert versus["bitwise"], versus
+    del eager_state, start
+    steps_ms = times["step_ms"]
+    result = {
+        "report": report.to_dict(), "launches": counts, "calibrate_seconds": t_calibrate,
+        "teacher_features_seconds": times["teacher_s"][0], "step_ms": steps_ms,
+        "step_ms_median_2_on": statistics.median(steps_ms[1:]),
+        "step_ms_median_3_on": statistics.median(steps_ms[2:]),
+        "capture_seconds": times["capture_s"][0], "eager_step_ms": eager_ms,
+        "eager_step_ms_median_2_on": statistics.median(eager_ms[1:]),
+        "peak_mem_bytes": peak, "eager_peak_mem_bytes": eager_peak, "graph_vs_eager": versus,
+    }
+    log(f"[moe] calibrate {t_calibrate:.3f} s (teacher features "
+        f"{result['teacher_features_seconds']:.3f} s, the capture "
+        f"{result['capture_seconds']:.3f} s); step captured vs eager (median of steps "
+        f"2-{CALIB_STEPS}) {result['step_ms_median_2_on']:.2f} vs "
+        f"{result['eager_step_ms_median_2_on']:.2f} ms; step 1 {steps_ms[0]:.2f} ms, step 2 "
+        f"{steps_ms[1]:.2f} ms; peak {peak / 2**30:.2f} GiB (eager steps "
+        f"{eager_peak / 2**30:.2f} GiB)")
+    return result
+
+
+def moe_dense_oracle(session, device, seed):
+    """One layer's ``moe_block`` on the card (layer 0 of the f32 session's
+    params: codes-resident stacks, the prepared router through the f32-x
+    GEMV, merged side-cars) with capacity_factor = E / top_k, so no token
+    is dropped: the dispatch path over ``MOE_ORACLE_TOKENS`` tokens against
+    the dense path (every expert on every token, gate-weighted) on the same
+    tokens as rows of one, within ``MOE_ORACLE_BOUND`` of absmax."""
+    from repro_torch import substrate
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import moe as M
+
+    cfg = session.cfg
+    mcfg = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    assert not M.can_drop(mcfg)
+    base = tree_lib.index(session.params["base"]["body"], 0)[0]["ffn"]
+    adapters = tree_lib.index(session.params["adapters"]["body"], 0)[0]["ffn"]
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((1, MOE_ORACLE_TOKENS, cfg.d_model), generator=g, device=device)
+    x = x.to(torch.bfloat16)
+    with substrate.use_backend("codes"), torch.no_grad():
+        y = M.moe_block(x, base, adapters, mcfg, cfg.adapter)
+        dense = M.moe_block(x.reshape(MOE_ORACLE_TOKENS, 1, cfg.d_model), base, adapters, mcfg,
+                            cfg.adapter).reshape(y.shape)
+    out = compare_logits("moe dispatch vs dense oracle, one layer", y, dense, MOE_ORACLE_BOUND)
+    log(f"[moe] dispatch path ({MOE_ORACLE_TOKENS} tokens, capacity "
+        f"{M.capacity_of(MOE_ORACLE_TOKENS, mcfg)} an expert) vs dense over all "
+        f"{cfg.moe.n_experts} experts: max|diff| {out['max_abs_diff']:.4e} of absmax "
+        f"{out['absmax']:.4f} (bound {MOE_ORACLE_BOUND:g})")
+    return out
+
+
+def moe_tick_profile(session, label):
+    """The captured decode tick (4 live slots, clocks across the wrap)
+    profiled over a few replays: device time by class (router, tensor-core
+    GEMVs, expert products, expert read-back), and the experts' read-back
+    timed alone (the dequantize of every expert stack, CUDA events)."""
+    from repro_torch.core.rram import CrossbarWeight, dequantize
+    from repro_torch.deploy import ServeEngine
+
+    gc.collect()  # the drive's engines hand their lease back
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=MOE_MAX_LEN)  # the warm step
+    step = engine._decode
+    host = torch.stack([torch.arange(SLOTS) + 7, torch.tensor(MOE_DECODE_POS)])
+    for _ in range(2):
+        step(host)
+    torch.cuda.synchronize()
+    log(f"[moe] {label}: profile of 4 captured decode ticks")
+    trace = profile_window("moe", "tick", 4, lambda: torch.argmax(step(host)[:, -1], -1).cpu(),
+                           classes=MOE_TICK_CLASSES)
+    stacks = [leaf for lay in session.params["base"]["body"] for leaf in
+              (lay["ffn"][name] for name in ("gate_w", "up_w", "down_w"))
+              if isinstance(leaf, CrossbarWeight)]
+    per_layer = [CrossbarWeight(*(t[i] for t in (w.g_pos, w.g_neg, w.scale)))
+                 for w in stacks for i in range(w.g_pos.shape[0])]
+    readback = time_ms([lambda: [dequantize(w, torch.bfloat16) for w in per_layer]], reps=2)
+    trace["expert_readback_ms_per_tick"] = readback
+    log(f"[moe] {label}: the experts' read-back alone ({len(per_layer)} stacks of "
+        f"{tuple(per_layer[0].g_pos.shape)}) {readback:.3f} ms a tick")
+    del engine
+    return trace
+
+
+def moe_serve_checked(dep, seed, calibrated):
+    """Phase 5's per-session checks on the mixtral deployment: ``serve()``,
+    ``serve(accum="int8")`` and a codes_adc deployment over the same
+    teacher, codes and side-cars, each through ``drive`` with
+    ``MOE_PROMPT_LENS`` in a 4224-token cache (first drive captures, a warm
+    drive and an eager one with the same launches and streams,
+    ``compile_count`` 3 and flat, every graph's replay bitwise its eager
+    step with the rolling buffer, the tick captured vs eager), exact launch
+    counts with the router's apart, codes vs dequant within ``LOGITS_BOUND``
+    (the fused prefill and one chunk per bucket), int8 vs f32 within
+    ``INT8_LOGITS_BOUND``, ADC vs f32 reported; a profile of each session's
+    captured tick; the dense oracle on the f32 session's first layer."""
+    from repro_torch.deploy import Deployment
+
+    cfg, device = dep.cfg, dep.device
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in MOE_PROMPT_LENS]
+    tokens = torch.randint(0, cfg.vocab, (3, PREFILL_ROWS // 3), generator=g).to(device)
+    runs, logits = {}, {}
+    makers = (("f32", lambda: dep.serve()), ("int8", lambda: dep.serve(accum="int8")),
+              ("codes_adc", lambda: Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes,
+                                               dep.adapters, dep.teacher_seed,
+                                               dep.program_seed, dep.drift_hours).serve()))
+    for body, make in makers:
+        memory()
+        torch.cuda.reset_peak_memory_stats()
+        session = make()
+        run, logits[body] = drive(session, prompts, tokens, MAX_NEW, max_len=MOE_MAX_LEN,
+                                  compiled=MOE_COMPILED_STEPS,
+                                  decode_pos=torch.tensor(MOE_DECODE_POS))
+        steps = run["prefill_chunks"] + run["decode_steps"]
+        expect_counts(run["launches_engine"], moe_counts(cfg, steps, 0, body))
+        expect_counts(run["launches"], moe_counts(cfg, steps, 1, body))
+        assert run["prefill_chunks"] == 1 + 2 + 1 + MOE_PROMPT_LENS[-1] // 32, run
+        run["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        run["memory_after_first_drive"] = {
+            "allocated": run["registry_allocated_bytes"], "reserved": run["registry_reserved_bytes"]}
+        if body == "f32":
+            run["codes_vs_dequant"], run["chunk_logits_rel_diff"] = codes_vs_dequant(
+                session, logits["f32"], tokens, g, device)
+            run["dense_oracle"] = moe_dense_oracle(session, device, seed)
+        elif body == "int8":
+            run["int8_vs_f32"] = compare_logits(f"mixtral {calibrated}int8 vs f32 codes prefill "
+                                                "logits", logits["int8"], logits["f32"],
+                                                INT8_LOGITS_BOUND)
+        else:
+            run["adc_vs_f32"] = compare_logits(f"mixtral {calibrated}codes_adc vs f32 codes "
+                                               "prefill logits", logits["codes_adc"],
+                                               logits["f32"])
+            same = sum(a == b for ra, rb in zip(run["streams"], runs["f32"]["streams"])
+                       for a, b in zip(ra, rb))
+            run["greedy_tokens_equal_f32"] = same / sum(len(r) for r in run["streams"])
+        long = run["ttft_s"][-1]
+        run["long_prompt_ttft_s"] = {"first": long, "warm": run["warm"]["ttft_s"][-1],
+                                     "eager": run["eager"]["ttft_s"][-1]}
+        run["trace"] = moe_tick_profile(session, body)
+        busy = run["trace"]["device_busy_ms_per_tick"]
+        if busy is not None:
+            run["trace"]["device_busy_share_of_unprofiled_tick"] = busy / run["tick"]["captured"]
+        log(f"[moe] {body}: tick captured {run['tick']['captured']:.3f} ms vs eager "
+            f"{run['tick']['eager']:.3f} ms; engine {run['warm']['decode_tok_per_s']:.1f} tok/s "
+            f"captured vs {run['eager']['decode_tok_per_s']:.1f} eager; TTFT of the "
+            f"{MOE_PROMPT_LENS[-1]}-token prompt {run['long_prompt_ttft_s']['warm']:.3f} s warm, "
+            f"{run['long_prompt_ttft_s']['eager']:.3f} s eager, {long:.3f} s in the first drive; "
+            f"peak {run['peak_mem_bytes'] / 2**30:.2f} GiB; launches {run['launches']}")
+        runs[body] = run
+        del session
+    return runs
+
+
+def moe_rolling(dep, seed):
+    """The rolling path at full width, on a copy of the config with
+    capacity_factor = E / top_k (no path drops a token): the long prompt
+    through an engine of one slot (130 chunks through the rolling canvas,
+    then 16 greedy tokens across position 4096), against a token-by-token
+    ``decode_step`` loop through the session's batch-1 decode graph (the
+    engine's, leased again with a zeroed cache): the admission logits
+    within ``LOGITS_BOUND`` of absmax of the loop's at the prompt's last
+    position, and the engine's tokens the loop's greedy ones. The two
+    compute the cache in other orders (chunk rows vs single rows: other
+    GEMV plans and cuBLAS tilings, bf16 K/V that differ in their last
+    bits), so where the loop's argmax differs from the engine's token, the
+    engine's token must lie within ``LOGITS_BOUND`` of absmax below the
+    loop's top logit (a near-tie), and the loop then follows the engine's
+    token; the flips are reported."""
+    from repro_torch.deploy import Deployment, ServeEngine
+    from repro_torch.models import moe as M
+
+    cfg = dep.cfg
+    cfg4 = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    assert not M.can_drop(cfg4.moe)
+    session = Deployment(cfg4, "codes", dep.teacher_base, dep.codes, dep.adapters,
+                         dep.teacher_seed, dep.program_seed, dep.drift_hours).serve()
+    g = torch.Generator().manual_seed(seed + 11)
+    prompt = torch.randint(0, cfg.vocab, (MOE_PROMPT_LENS[-1],), generator=g).numpy()
+    engine = ServeEngine(session, max_slots=1, max_len=MOE_MAX_LEN)
+    admitted = []
+    finalize = engine._finalize_admission
+
+    def record(slot, req):
+        admitted.append((req._logits.clone(), engine._staging_flat.clone()))
+        finalize(slot, req)
+
+    engine._finalize_admission = record
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    req = engine.submit(prompt, max_new=MAX_NEW)
+    engine.run()
+    torch.cuda.synchronize()
+    t_engine = time.perf_counter() - t0
+    assert req.done and len(req.tokens) == MAX_NEW
+    del engine, record, finalize
+    gc.collect()
+
+    class Loop:
+        pass
+
+    owner = Loop()
+    step = session.decode_step_fn(1, MOE_MAX_LEN, owner=owner)  # zeroed cache
+    assert step.graph is not None  # the engine's tick, captured
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = torch.zeros((2, 1), dtype=torch.int64)
+    for i, tok in enumerate(prompt):
+        host[0, 0], host[1, 0] = int(tok), i
+        logits = step(host)
+    loop_admission = logits.clone()
+    cache = rolling_caches_agree(cfg4, admitted[0][1], step.flat)
+    tokens, flips = [], []
+    for i, want in enumerate(req.tokens):
+        row = logits[0, -1].float()
+        tok = int(torch.argmax(row))
+        tokens.append(tok)
+        if tok != want:
+            gap = float(row[tok] - row[want])
+            flips.append({"index": i, "loop": tok, "engine": want, "gap": gap,
+                          "absmax": float(row.abs().max())})
+            assert gap <= LOGITS_BOUND * float(row.abs().max()), flips[-1]
+        if i + 1 < MAX_NEW:
+            host[0, 0], host[1, 0] = want, len(prompt) + i
+            logits = step(host)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    versus = compare_logits("rolling: engine admission vs the token-by-token loop, "
+                            f"{len(prompt)}-token prompt", admitted[0][0], loop_admission,
+                            LOGITS_BOUND)
+    log(f"[moe] rolling path: engine tokens {req.tokens}; loop's argmax {tokens} "
+        f"({MAX_NEW - len(flips)} of {MAX_NEW} equal; near-ties {flips}); engine "
+        f"{t_engine:.2f} s ({MOE_PROMPT_LENS[-1] // 32} chunks + {MAX_NEW - 1} ticks), "
+        f"token-by-token loop {t_loop:.2f} s ({len(prompt) + MAX_NEW - 1} replays, "
+        f"{1e3 * t_loop / (len(prompt) + MAX_NEW - 1):.2f} ms each)")
+    return {"engine_tokens": list(req.tokens), "loop_argmax": tokens, "near_tie_flips": flips,
+            "admission_logits": versus, "cache_after_prompt": cache,
+            "engine_seconds": t_engine, "loop_seconds": t_loop,
+            "ttft_s": req.ttft_seconds}
+
+
+def rolling_caches_agree(cfg, staged, looped):
+    """The rolling buffers after the long prompt: the engine's staged cache
+    (each chunk's canvas gathered back) against the loop's (one write a
+    token), layer by layer. Layer 0's K/V come from the tokens alone, so a
+    slot holding another position would differ by the order of absmax:
+    gated within ``LOGITS_BOUND`` of absmax. Layer 1's depend on layer 0's
+    MoE, where a token whose router has a near-tie may go to another expert
+    in one of the two (their router GEMVs sum in other orders): its
+    per-slot differences and the slots beyond the bound are reported."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import transformer as T
+
+    like = T.init_cache(cfg, 1, MOE_MAX_LEN, "meta")
+
+    def body(flat):
+        views, off = [], 0
+        for t in tree_lib.tensors(like):
+            views.append(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+        return tree_lib.unflatten(like, views)["body"][0]  # k, v: (G, 1, T, KVH, hd)
+
+    got, want = body(staged), body(looped)
+    out = []
+    for layer in range(cfg.n_layers):
+        a = torch.stack([got[n][layer, 0] for n in ("k", "v")]).float()
+        b = torch.stack([want[n][layer, 0] for n in ("k", "v")]).float()
+        scale = float(b.abs().max())
+        per_slot = (a - b).abs().amax(dim=(0, 2, 3))  # (T,)
+        far = int((per_slot > LOGITS_BOUND * scale).sum())
+        row = {"max_abs_diff": float(per_slot.max()), "absmax": scale,
+               "rel": float(per_slot.max()) / scale, "slots": int(per_slot.numel()),
+               "slots_beyond_bound": far,
+               "median_slot_rel": float(per_slot.median()) / scale}
+        log(f"[moe] rolling caches after the prompt, layer {layer}: max|diff| "
+            f"{row['max_abs_diff']:.4f} of absmax {scale:.4f} ({row['rel']:.2e}; median slot "
+            f"{row['median_slot_rel']:.2e}), {far} of {row['slots']} slots beyond "
+            f"{LOGITS_BOUND:g} of absmax{' (gated)' if layer == 0 else ''}")
+        out.append(row)
+    assert out[0]["rel"] <= LOGITS_BOUND, out[0]
+    return out
+
+
+def phase_moe(device, seed):
+    """Phase 11: mixtral-8x22b FULL widths at 2 layers. ``Deployment.program
+    (codes)`` -> ``advance(24)`` -> ``calibrate`` -> the three sessions'
+    serving checks -> the dense oracle -> the rolling path. Every check
+    raises."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("mixtral-8x22b").full, n_layers=MOE_LAYERS)
+    assert cfg.body_layout() == (0, MOE_LAYERS, 0)
+    memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dep = Deployment.program(cfg, seed, backend="codes", device=device)
+    torch.cuda.synchronize()
+    t_program = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dep.advance(24)
+    torch.cuda.synchronize()
+    t_advance = time.perf_counter() - t0
+    n_base, n_adapters = T.count_params({"base": dep.codes, "adapters": dep.adapters})
+    allocated, reserved = memory()
+    expert = dep.codes["body"][0]["ffn"]["gate_w"]
+    assert tuple(expert.g_pos.shape) == (MOE_LAYERS, 8, 6144, 16384), expert.g_pos.shape
+    result = {
+        "program_seconds": t_program, "advance_seconds": t_advance,
+        "program_peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "resident_allocated_bytes": allocated, "resident_reserved_bytes": reserved,
+        "base_params": n_base, "adapter_params": n_adapters,
+        "active_param_fraction": T.active_param_fraction(cfg, {"base": dep.codes,
+                                                                "adapters": {}}),
+        "rram_bytes": dep.rram_bytes(), "sram_bytes": dep.sram_bytes(),
+        "teacher_bytes": tree_bytes(dep.teacher_base),
+    }
+    log(f"[moe] {cfg.name} at {MOE_LAYERS} of 56 layers: {n_base:,} weights "
+        f"({result['active_param_fraction']:.2%} active a token), {n_adapters:,} side-car "
+        f"parameters; program {t_program:.2f} s (peak "
+        f"{result['program_peak_mem_bytes'] / 2**30:.2f} GiB), advance(24) {t_advance:.2f} s; "
+        f"resident {allocated / 2**30:.2f} GiB (teacher {result['teacher_bytes'] / 2**30:.2f}, "
+        f"codes {result['rram_bytes'] / 2**30:.2f})")
+    result["calibration"] = moe_calibrate(dep)
+    result["serving"] = moe_serve_checked(dep, seed, "calibrated ")
+    memory()
+    result["rolling"] = moe_rolling(dep, seed)
+    result["retained_bytes"] = memory()
+    result["peak_mem_bytes"] = max(result["calibration"]["peak_mem_bytes"],
+                                   *(r["peak_mem_bytes"] for r in result["serving"].values()))
+    del dep
+    memory()
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[moe] phase 11 took {result['phase_seconds']:.2f} s; peak "
+        f"{result['peak_mem_bytes'] / 2**30:.2f} GiB (calibration "
+        f"{result['calibration']['peak_mem_bytes'] / 2**30:.2f}); retained after the rolling "
+        f"check {result['retained_bytes'][0] / 2**30:.2f} GiB allocated, "
+        f"{result['retained_bytes'][1] / 2**30:.2f} reserved")
+    return result
+
 
 def main():
     ap = argparse.ArgumentParser()
@@ -2676,6 +3250,8 @@ def main():
     faults["study"] = phase_study(device, args.seed)
     memory()
     paper = phase_paper(device, args.seed)
+    memory()
+    moe = phase_moe(device, args.seed)
 
     # one transformer layer: the four fused leaves at the decode tick (GEMV)
     # or the fused prefill (tiled), the seven unfused leaves at the decode
@@ -2683,7 +3259,11 @@ def main():
     session_of = {"dora_linear_gemv": serving, "dora_linear": serving,
                   "dora_linear_gemv/int8": serving["int8"],
                   "dora_linear/int8": serving["int8"], "crossbar_mvm": serving["codes_adc"]}
-    launches = {name: run["launches"][name] for name, run in session_of.items()}
+    # phase 5's main path and phase 11's (the mixtral sessions of each body)
+    moe_of = {"dora_linear_gemv": "f32", "dora_linear": "f32", "dora_linear_gemv/int8": "int8",
+              "dora_linear/int8": "int8", "crossbar_mvm": "codes_adc"}
+    launches = {name: run["launches"][name] + moe["serving"][moe_of[name]]["launches"][name]
+                for name, run in session_of.items()}
     table = (
         ("dora_linear_gemv", "dora_linear.cu", "dora_linear.py:194", SLOTS),
         ("dora_linear", "dora_linear.cu", "dora_linear.py:129", PREFILL_M),
@@ -2693,7 +3273,7 @@ def main():
     )
     kernels = []
     for name, source, replaces, m in table:
-        mine = [r for r in rows if r["kernel"] == name and r["m"] == m]
+        mine = [r for r in rows if r["kernel"] == name and r["m"] == m and r["leaf"] != "router"]
         library = [r["library_ms"] for r in mine]
         kernels.append({
             "name": name, "route": "cuda",
@@ -2712,7 +3292,8 @@ def main():
         with open(args.out, "w") as f:
             json.dump({"card": smi, "timing": rows, "breakdown": breakdown,
                        "serving": serving, "calibration": calibration, "faults": faults,
-                       "persist": persist, "paper": paper, "kernels": kernels}, f,
+                       "persist": persist, "paper": paper, "moe": moe, "kernels": kernels},
+                      f,
                       indent=1, default=str)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

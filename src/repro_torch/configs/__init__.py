@@ -1,6 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolves here. Port of
-``repro/configs``; the port serves the dense decoder family, starting
-with qwen3-1.7b."""
+``repro/configs``; the port serves the dense decoder family (qwen3-1.7b,
+deepseek-coder-33b, minitron-8b) and the mixture-of-experts mixtral-8x22b."""
 from __future__ import annotations
 
 import importlib
@@ -8,7 +8,8 @@ from typing import List
 
 from repro_torch.configs.shapes import ArchSpec  # noqa: F401
 
-ARCH_IDS: List[str] = ["qwen3_1_7b"]
+ARCH_IDS: List[str] = ["qwen3_1_7b", "minitron_8b", "deepseek_coder_33b",
+                       "mixtral_8x22b"]
 
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 ALIASES.update({"qwen3-1.7b": "qwen3_1_7b"})

@@ -19,6 +19,7 @@ per leaf and per event, replayable from the seed alone.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import zlib
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -28,6 +29,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.core import dora as dora_lib
 from repro_torch.core import rram
 from repro_torch.core.rram import RramConfig
+from repro_torch.models.moe import _stacked_column_norm
 from repro_torch.optim.adam import (
     AdamW,
     AdamState,
@@ -41,6 +43,15 @@ Pytree = Any
 
 # Leaf names that live in RRAM (weights that participate in MVMs).
 RRAM_LEAF_NAMES = ("w", "gate_w", "up_w", "down_w")
+# the MoE expert stacks among them (models/moe.py)
+EXPERT_STACKS = ("gate_w", "up_w", "down_w")
+
+
+def _per_matrix_leaf(path, x) -> bool:
+    """A scan-stacked expert stack, (G, E, d, k): programmed and drifted
+    one matrix at a time."""
+    t = x.g_pos if isinstance(x, rram.CrossbarWeight) else x
+    return bool(path) and path[-1] in EXPERT_STACKS and t.dim() == 4
 
 
 def _is_rram_leaf(path) -> bool:
@@ -66,24 +77,61 @@ def program_model(base: Pytree, cfg: RramConfig, seed: int, *,
     def leaf(path, x):
         if not _is_rram_leaf(path):
             return x
+        per_matrix = _per_matrix_leaf(path, x)
         if noise is not None:
-            return program_leaf(x, cfg, None, mode=mode, noise=noise[tree_lib.path_str(path)])
+            return program_leaf(x, cfg, None, mode=mode, noise=noise[tree_lib.path_str(path)],
+                                per_matrix=per_matrix)
         g = rram.make_generator(x.device, seed, _crc(path), 0)
-        return program_leaf(x, cfg, g, mode=mode)
+        return program_leaf(x, cfg, g, mode=mode, per_matrix=per_matrix)
 
     return tree_lib.map_with_path(leaf, base)
 
 
 def program_leaf(w: torch.Tensor, cfg: RramConfig, generator: Optional[torch.Generator],
                  *, mode: str = "codes",
-                 noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                 noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 per_matrix: bool = False):
     """Program ONE RRAM leaf. Stacked leaves (G, d, k), and conv leaves
     (kh, kw, cin, cout), program per matrix (the absmax is per column of
-    each matrix) with one draw for the stack."""
+    each matrix) with one draw for the stack. ``per_matrix`` (scan-stacked
+    expert stacks, (G, E, d, k)) programs one matrix at a time, each with
+    its own draw from ``generator`` in order (the reference splits its key
+    per matrix), so no f32 copy of a whole stack is made; ``noise`` is
+    then the leaf's, indexed per matrix."""
+    if per_matrix:
+        def one(m, n):
+            return program_leaf(m, cfg, generator, mode=mode, noise=n)
+
+        return _per_matrix(w, one, noise)
     xw = rram.programmed_codes(w, cfg, generator, noise=noise)
     if mode == "codes":
         return xw
     return rram.dequantize(xw, dtype=w.dtype)
+
+
+def _per_matrix(x, fn, noise=None):
+    """``fn(matrix, its noise or None)`` over the matrices of a 4-D leaf
+    (a float stack or a ``CrossbarWeight``), assembled into the leaf's
+    shape: codes into one ``CrossbarWeight``, floats into one tensor."""
+    codes = isinstance(x, rram.CrossbarWeight)
+    shape = tuple((x.g_pos if codes else x).shape)
+    lead = shape[:-2]
+    out = None
+    for idx in itertools.product(*(range(n) for n in lead)):
+        mat = tree_lib.index(x, idx) if codes else x[idx]
+        got = fn(mat, None if noise is None else (noise[0][idx], noise[1][idx]))
+        if out is None:
+            out = (rram.CrossbarWeight(
+                       g_pos=got.g_pos.new_empty(shape), g_neg=got.g_neg.new_empty(shape),
+                       scale=got.scale.new_empty(lead + tuple(got.scale.shape)))
+                   if isinstance(got, rram.CrossbarWeight) else got.new_empty(shape))
+        if isinstance(got, rram.CrossbarWeight):
+            out.g_pos[idx].copy_(got.g_pos)
+            out.g_neg[idx].copy_(got.g_neg)
+            out.scale[idx].copy_(got.scale)
+        else:
+            out[idx].copy_(got)
+    return out
 
 
 def drift_model(base: Pytree, cfg: RramConfig, seed: int, *,
@@ -102,8 +150,12 @@ def drift_model(base: Pytree, cfg: RramConfig, seed: int, *,
             return x
         n_drifted += 1
         g = rram.make_generator(x.g_pos.device, seed, _crc(path), event_index + 1)
-        return rram.apply_drift(x, cfg, g, hours=hours,
-                                clock_offset=clock_offset, sigma=sigma)
+
+        def drift(xw, _=None):
+            return rram.apply_drift(xw, cfg, g, hours=hours, clock_offset=clock_offset,
+                                    sigma=sigma)
+
+        return _per_matrix(x, drift) if _per_matrix_leaf(path, x) else drift(x)
 
     out = tree_lib.map_with_path(
         leaf, base, is_leaf=lambda n: isinstance(n, rram.CrossbarWeight))
@@ -146,43 +198,31 @@ def calibrated_fraction(base: Pytree, adapters: Pytree) -> float:
     return n_adapters / max(n_base, 1)
 
 
-def _stacked_column_norm(w, a, b, eps=1e-6):
-    """``column_norm`` over a stack: w (E, d, k), a (E, d, r), b (E, r, k)
-    -> (E, k). Port of ``repro/models/moe.py::_stacked_column_norm``."""
-    if isinstance(w, rram.CrossbarWeight):
-        w = rram.dequantize(w)
-    wf = w.to(torch.float32)
-    af = a.to(torch.float32)
-    bf = b.to(torch.float32)
-    w_sq = torch.sum(wf * wf, dim=1)
-    wta = torch.einsum("edk,edr->ekr", wf, af)
-    cross = torch.einsum("ekr,erk->ek", wta, bf)
-    ab = torch.einsum("edr,erk->edk", af, bf)
-    ab_sq = torch.sum(ab * ab, dim=1)
-    return torch.sqrt(torch.clamp_min(w_sq + 2.0 * cross + ab_sq, eps))
-
-
 def merge_adapters_for_serve(base: Pytree, adapters: Pytree) -> Pytree:
     """Algorithm 2 line 12 over a whole model: every ``dora_m`` becomes
-    ``dora_m_merged = M / ||W_r + A@B||_col``. Scan-stacked adapters
-    (lora_b (G, r, k)) take the stacked norm."""
+    ``dora_m_merged = M / ||W_r + A@B||_col``. Stacked adapters (lora_b
+    (E, r, k): experts or scan groups) take the stacked norm; scan-stacked
+    expert stacks (lora_b (G, E, r, k)) take it per scan group (the
+    reference's ``vmap``), reading back one group of codes at a time."""
 
     def walk(b, a):
         if isinstance(a, dict) and "lora_a" in a:
             if "dora_m" not in a:
                 return a
             w = b["w"] if isinstance(b, dict) and "w" in b else b
-            if isinstance(w, rram.CrossbarWeight):
-                w = rram.dequantize(w)
             m = a["dora_m"].to(torch.float32)
             lb = a["lora_b"]
-            if lb.dim() == 2:
-                norm = dora_lib.column_norm(w, a["lora_a"], lb)
-            elif lb.dim() == 3:
-                norm = _stacked_column_norm(w, a["lora_a"], lb)
+            if lb.dim() == 4:
+                norm = torch.stack([
+                    _stacked_column_norm(tree_lib.index(w, g), a["lora_a"][g], lb[g])
+                    for g in range(lb.shape[0])])
             else:
-                raise NotImplementedError(
-                    f"adapter with lora_b of rank {lb.dim()} is not ported")
+                if isinstance(w, rram.CrossbarWeight):
+                    w = rram.dequantize(w)
+                if lb.dim() == 2:
+                    norm = dora_lib.column_norm(w, a["lora_a"], lb)
+                else:
+                    norm = _stacked_column_norm(w, a["lora_a"], lb)
             out = {k: v for k, v in a.items() if k != "dora_m"}
             out["dora_m_merged"] = m / norm
             return out
@@ -499,6 +539,10 @@ class CompiledCalibStep:
             current.wait_stream(self.stream)
         else:
             if self.graph is None:
+                # the eager first step's blocks go back to the device: the
+                # capture's private pool cannot take them from the cache
+                # (an MoE step reads every expert stack back in f32)
+                torch.cuda.empty_cache()
                 self._failed = True
                 self.graph, _, self.launches = graphs.capture(self._run, self.stream)
                 self._failed = False

@@ -161,9 +161,13 @@ def apply_drift(
 
 
 def dequantize(xw: CrossbarWeight, dtype=torch.float32) -> torch.Tensor:
-    """The effective weight read back out of the codes."""
-    diff = xw.g_pos.to(torch.float32) - xw.g_neg.to(torch.float32)
-    return (diff * xw.scale).to(dtype)
+    """The effective weight read back out of the codes: ``(G+ - G-) *
+    scale`` in f32, rounded once to ``dtype``. The difference is exact in
+    int16 and the product is computed in f32 and written in ``dtype`` by
+    one op, so an expert stack's read-back makes no f32 copy of it."""
+    diff = xw.g_pos.to(torch.int16) - xw.g_neg
+    out = torch.empty(diff.shape, dtype=dtype, device=diff.device)
+    return torch.mul(diff, xw.scale, out=out)
 
 
 def programmed_codes(

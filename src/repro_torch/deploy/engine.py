@@ -25,7 +25,10 @@ of ``repro/deploy/engine.py`` for decoder-only attention stacks
   ``codes_adc`` a chunk's rows share each tile's ADC step (it tracks the
   tile's max |x|), so which rows a chunk holds changes its result: there
   the engine resumes only at multiples of ``prefill_chunk`` (the
-  reference resumes anywhere).
+  reference resumes anywhere). So it does for an MoE stack whose
+  capacity can drop tokens: a chunk's rows share each expert's capacity
+  (``moe.capacity_of`` of the chunk width), so which rows compete decides
+  which are dropped.
 * **One decode step for everyone.** ``step()`` advances every active
   slot with one ``decode_step``; idle rows ride along and their writes
   stay masked.
@@ -52,6 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.deploy import serving
+from repro_torch.models import moe as M
 
 _CHUNKABLE = ("attn", "local", "swa")
 
@@ -113,9 +117,12 @@ class ServeEngine:
         self.prefix_cache_entries = int(prefix_cache_entries)
         # hash-chain digest -> (tokens, staging-cache clone, logits clone)
         self._prefix_cache: "OrderedDict[bytes, tuple]" = OrderedDict()
-        # codes_adc digitizes each tile of rows at a step from its max |x|:
-        # a resumed chunk must hold the rows a cold admission's chunk holds
-        self._resume_off_boundary = session.backend != "codes_adc"
+        # codes_adc digitizes each tile of rows at a step from its max |x|,
+        # and an MoE chunk's rows compete for expert capacity: a resumed
+        # chunk must hold the rows a cold admission's chunk holds
+        moe = getattr(self.cfg, "moe", None)
+        self._resume_off_boundary = (session.backend != "codes_adc"
+                                     and not (moe is not None and M.can_drop(moe)))
         self.pos = np.zeros(self.max_slots, np.int64)
         self.active = np.zeros(self.max_slots, bool)
         self.last_tok = np.zeros((self.max_slots, 1), np.int64)

@@ -15,18 +15,20 @@ import torch
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel's launch counter (``dora_linear`` and ``crossbar_mvm``)."""
+    """Every kernel's launch counter (``dora_linear`` and ``crossbar_mvm``),
+    and their f32-x tallies."""
     from repro_torch.kernels import crossbar_mvm, dora_linear
 
-    return {**dora_linear.launch_counts(), **crossbar_mvm.launch_counts()}
+    return {**dora_linear.launch_counts(), **crossbar_mvm.launch_counts(),
+            **dora_linear.f32x_launch_counts(), **crossbar_mvm.f32x_launch_counts()}
 
 
 def add_launch_counts(counts: Dict[str, int]) -> None:
     from repro_torch.kernels import crossbar_mvm, dora_linear
 
     for module in (dora_linear, crossbar_mvm):
-        mine = {k: n for k, n in counts.items() if k in module.launch_counts()}
-        module.add_launch_counts(mine)
+        keys = {**module.launch_counts(), **module.f32x_launch_counts()}
+        module.add_launch_counts({k: n for k, n in counts.items() if k in keys})
 
 
 def capture(fn: Callable, stream: torch.cuda.Stream, pool=None

@@ -20,7 +20,8 @@ a CUDA tensor launches the kernel or raises — there is no fallback.
 It has no backward: an operand that requires grad under grad mode
 raises on every device (``build.refuse_autograd``).
 ``launch_counts`` counts the calls that launch (one each, whatever the
-body).
+body); ``f32x_launch_counts`` the share of them whose x was float32 (the
+MoE router's).
 """
 from __future__ import annotations
 
@@ -33,7 +34,9 @@ from repro_torch.kernels import autotune
 from repro_torch.kernels.build import CudaLibrary, device_of, refuse_autograd, tickets
 from repro_torch.kernels.ref import crossbar_mvm_ref
 
+F32X = "/f32x"
 _LAUNCHES: Dict[str, int] = {"crossbar_mvm": 0}
+_F32X_LAUNCHES: Dict[str, int] = {"crossbar_mvm" + F32X: 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -41,16 +44,23 @@ def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
 
 
+def f32x_launch_counts() -> Dict[str, int]:
+    """The share of ``launch_counts`` whose x was float32 (``F32X``
+    appended to the key)."""
+    return dict(_F32X_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
     _LAUNCHES["crossbar_mvm"] = 0
+    _F32X_LAUNCHES["crossbar_mvm" + F32X] = 0
 
 
 def add_launch_counts(counts: Dict[str, int]) -> None:
-    """Add ``counts`` (keys of ``launch_counts``) to the counters: a CUDA
-    graph's replay adds the launches its capture recorded, since a replay
-    runs no wrapper."""
+    """Add ``counts`` (keys of ``launch_counts`` or ``f32x_launch_counts``)
+    to the counters: a CUDA graph's replay adds the launches its capture
+    recorded, since a replay runs no wrapper."""
     for name, n in counts.items():
-        _LAUNCHES[name] += n
+        (_F32X_LAUNCHES if name.endswith(F32X) else _LAUNCHES)[name] += n
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -133,6 +143,8 @@ def _launch(x, g_pos, g_neg, scale, code_max: int, adc_bits: int):
     if err != 0:
         raise RuntimeError(f"crossbar_mvm launch failed: cudaError {err}")
     _LAUNCHES["crossbar_mvm"] += 1
+    if x.dtype == torch.float32:
+        _F32X_LAUNCHES["crossbar_mvm" + F32X] += 1
     return out
 
 

@@ -30,7 +30,9 @@ that requires grad under grad mode raises on every device
 (``build.refuse_autograd``). Each launcher counts its launches per
 body (``launch_counts``: ``"dora_linear_gemv"``, ``"dora_linear"`` for
 f32, with a ``"/int8"`` suffix for int8), so a run can show which kernel
-its main path went through. The library is built at first use
+its main path went through; ``f32x_launch_counts`` tallies apart the
+share of them whose x was float32 (the MoE router's, keys with a
+``"/f32x"`` suffix). The library is built at first use
 (``kernels/build.py``).
 """
 from __future__ import annotations
@@ -57,22 +59,34 @@ _LAUNCHES: Dict[str, int] = {
 }
 
 
+F32X = "/f32x"
+# the launches of _LAUNCHES whose x was float32, keyed name + F32X
+_F32X_LAUNCHES: Dict[str, int] = {name + F32X: 0 for name in _LAUNCHES}
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per launcher and body since the last reset."""
     return dict(_LAUNCHES)
 
 
+def f32x_launch_counts() -> Dict[str, int]:
+    """The share of ``launch_counts`` whose x was float32, per key with
+    ``F32X`` appended."""
+    return dict(_F32X_LAUNCHES)
+
+
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    for table in (_LAUNCHES, _F32X_LAUNCHES):
+        for name in table:
+            table[name] = 0
 
 
 def add_launch_counts(counts: Dict[str, int]) -> None:
-    """Add ``counts`` (keys of ``launch_counts``) to the counters: a CUDA
-    graph's replay adds the launches its capture recorded, since a replay
-    runs no wrapper."""
+    """Add ``counts`` (keys of ``launch_counts`` or ``f32x_launch_counts``)
+    to the counters: a CUDA graph's replay adds the launches its capture
+    recorded, since a replay runs no wrapper."""
     for name, n in counts.items():
-        _LAUNCHES[name] += n
+        (_F32X_LAUNCHES if name.endswith(F32X) else _LAUNCHES)[name] += n
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -189,6 +203,8 @@ def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
     if err != 0:
         raise RuntimeError(f"{kind} ({accum}) launch failed: cudaError {err}")
     _LAUNCHES[counter(kind, accum)] += 1
+    if x.dtype == torch.float32:
+        _F32X_LAUNCHES[counter(kind, accum) + F32X] += 1
     return out
 
 

@@ -6,10 +6,17 @@ card raises).
         --drift-hours 24
     python -m repro_torch.launch.serve --arch qwen3-1.7b --backend codes_adc
     python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch mixtral-8x22b --layers 2 \
+        --backend codes --drift-hours 24
+    python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke --device cpu
+
+``--layers`` cuts the depth and keeps every width: mixtral-8x22b's 56
+layers (141 G weights) do not fit one 80 GB card; 2 layers take ~22 GB.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import torch
 
@@ -33,9 +40,13 @@ def main(argv=None):
                     help="substrate execution backend (see repro_torch/substrate)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a CUDA card")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths kept)")
     args = ap.parse_args(argv)
     arch = get_arch(args.arch)
     cfg = arch.smoke if args.smoke else arch.full
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
 
     dep = deploy.Deployment.program(cfg, args.seed, backend=args.backend,
                                     device=args.device)

@@ -1,7 +1,8 @@
 """Attention over RimcLinear projections. Port of the dense half of
 ``repro/models/attention.py``: MHA/GQA with optional qk-norm (qwen3),
-causal and sliding-window masks, the per-slot KV cache, decode and
-chunked prefill. MLA, cross-attention and the vision prefix wait.
+causal and sliding-window masks, the per-slot KV cache (rolling for
+sliding-window layers), decode and chunked prefill. MLA,
+cross-attention and the vision prefix wait.
 
 Attention is plain PyTorch here, as it is plain jnp in the reference;
 ``_sdpa`` mirrors its precision: logits and probabilities in the compute
@@ -232,24 +233,46 @@ def chunk_attention(x, cache: Dict, pos0, n_valid, base, adapters,
                     max_len: int) -> Tuple[torch.Tensor, Dict]:
     """Advance the cache by one C-token chunk (padded tail allowed):
     write the valid rows' K/V at their absolute positions, attend each
-    query against everything written so far."""
+    query against everything written so far.
+
+    A rolling (sliding-window) cache shorter than ``max_len`` cannot take
+    the chunk directly: a chunk longer than the window, or one across the
+    wrap, would overwrite a slot an earlier query of it still reads. So,
+    as the reference does, the chunk is written into an absolute-position
+    canvas of ``max_len`` gathered from the rolling buffer (position j
+    holds slot ``j % length``), attends there, and the freshest position
+    of each residue class is gathered back into the buffer. Slots the
+    chunk never reached keep their value (the gather walks back to the
+    previous occupant); slots ahead of the clock take a clipped canvas
+    entry and stay masked until the row's clock reaches them. Every shape
+    is fixed and the buffer is written in place, so a CUDA graph can
+    hold it."""
     a = adapters or {}
     b_, c, _ = x.shape
     length = cache["k"].shape[1]
-    if length < max_len:
-        raise NotImplementedError(
-            "chunked prefill into a rolling (sliding-window) cache is not ported"
-        )
+    rolling = length < max_len
     pos0 = _as_pos_vector(pos0, b_, x.device)
     n_valid = _as_pos_vector(n_valid, b_, x.device)
     i = torch.arange(c, device=x.device)[None, :]
     positions = pos0[:, None] + i                      # (B, C)
     q, k, v = _project(x, base, a, cfg, acfg, positions)
-    _chunk_write(cache, k, v, pos0, n_valid)
-    j = torch.arange(length, device=x.device)[None, None, :]
+    if rolling:
+        canvas_at = torch.arange(max_len, device=x.device) % length
+        kv = {name: cache[name][:, canvas_at] for name in ("k", "v")}
+    else:
+        kv = cache
+    _chunk_write(kv, k, v, pos0, n_valid)
+    j = torch.arange(kv["k"].shape[1], device=x.device)[None, None, :]
     allow = j <= positions[:, :, None]                 # (B, C, T)
     if cfg.window is not None:
         allow = allow & (j > positions[:, :, None] - cfg.window)
-    out = _sdpa(q, cache["k"], cache["v"], cfg.scale, allow[:, None, None])
+    out = _sdpa(q, kv["k"], kv["v"], cfg.scale, allow[:, None, None])
+    if rolling:
+        pos_max = (pos0 + n_valid - 1)[:, None]        # (B, 1)
+        m = torch.arange(length, device=x.device)[None, :]
+        src = torch.clamp(pos_max - torch.remainder(pos_max - m, length), 0, max_len - 1)
+        src = src[:, :, None, None].expand(b_, length, *k.shape[2:])
+        for name in ("k", "v"):
+            cache[name].copy_(kv[name].gather(1, src))
     y = L.linear(out.reshape(b_, c, -1), base["o"], a.get("o"), acfg)
     return y, {"k": cache["k"], "v": cache["v"]}

@@ -1,6 +1,6 @@
-"""Model assembly, dense decoder path. Port of ``repro/models/
-transformer.py`` (attention mixers and gated-MLP FFNs, the forward, the
-feature-KD calibration loss and the serving steps; MoE, SSM, RG-LRU,
+"""Model assembly, decoder path. Port of ``repro/models/transformer.py``
+(attention mixers with MLP or MoE FFNs, the forward, the feature-KD
+calibration loss and the serving steps; MLA, SSM, RG-LRU,
 encoder-decoder and vision prefix wait).
 
 The parameter layout is the reference's: ``prologue`` (list) + ``body``
@@ -22,6 +22,7 @@ from repro_torch.core.dora import AdapterConfig
 from repro_torch.core.rram import CrossbarWeight, DEFAULT_RRAM, RramConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 _ATTN = ("attn", "local", "swa")
 
@@ -34,6 +35,7 @@ class ModelConfig:
     vocab: int
     attn: Optional[A.AttentionConfig] = None
     mlp: Optional[L.MlpConfig] = None
+    moe: Optional[M.MoeConfig] = None
     mixer_pattern: Tuple[str, ...] = ("attn",)
     local_window: int = 1024
     ffn_pattern: Tuple[str, ...] = ("mlp",)
@@ -72,8 +74,15 @@ class ModelConfig:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    """Attention mixers (not MLA) with MLP, MoE or no FFN; the other
+    kinds (SSM, RG-LRU, encoder, vision) are not ported."""
+    for attr in ("ssm", "rglru", "encoder_layers", "vision_tokens"):
+        if getattr(cfg, attr, None):
+            raise NotImplementedError(f"{cfg.name}: {attr} is not ported")
+    if cfg.attn is not None and getattr(cfg.attn, "mla", False):
+        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported")
     for mixer, ffn in cfg.layer_kinds():
-        if mixer not in _ATTN or ffn not in ("mlp", "none"):
+        if mixer not in _ATTN or ffn not in ("mlp", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: layer kind ({mixer}, {ffn}) is not ported"
             )
@@ -110,6 +119,10 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, mixer: str,
         base["norm2"] = _norm_init(cfg, device)
         base["ffn"], adapters["ffn"] = L.init_mlp(
             generator, cfg.mlp, cfg.adapter, cfg.dtype)
+    elif ffn == "moe":
+        base["norm2"] = _norm_init(cfg, device)
+        base["ffn"], adapters["ffn"] = M.init_moe(
+            generator, cfg.moe, cfg.adapter, cfg.dtype)
     return base, adapters
 
 
@@ -186,16 +199,24 @@ def _adapters_or_empty(params: Dict) -> Dict:
 # ---------------------------------------------------------------------------
 
 
+def _ffn(h, base, a_, cfg: ModelConfig, ffn: str):
+    """The residual stream after the block's FFN (MLP or MoE), if any."""
+    if ffn == "mlp":
+        x = _norm(h, base["norm2"], cfg)
+        return h + L.mlp(x, base["ffn"], a_.get("ffn"), cfg.mlp, cfg.adapter)
+    if ffn == "moe":
+        x = _norm(h, base["norm2"], cfg)
+        return h + M.moe_block(x, base["ffn"], a_.get("ffn"), cfg.moe, cfg.adapter)
+    return h
+
+
 def block_forward(h, base, adapters, cfg: ModelConfig, mixer: str, ffn: str, *,
                   positions=None, mask=None):
     a_ = adapters or {}
     x = _norm(h, base["norm1"], cfg)
     h = h + A.attention(x, base["mixer"], a_.get("mixer"), _attn_cfg(cfg, mixer),
                         cfg.adapter, positions=positions, mask=mask)
-    if ffn == "mlp":
-        x = _norm(h, base["norm2"], cfg)
-        h = h + L.mlp(x, base["ffn"], a_.get("ffn"), cfg.mlp, cfg.adapter)
-    return h
+    return _ffn(h, base, a_, cfg, ffn)
 
 
 def forward(params: Dict, batch: Dict, cfg: ModelConfig, *,
@@ -352,10 +373,7 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
         layer = A.prefill_kv_cache(kv, b, max_len, acfg, cfg.dtype)
         for name, buf in layer_caches[i].items():
             buf.copy_(layer[name])
-        h = h + mix
-        if ffn == "mlp":
-            x = _norm(h, lb["norm2"], cfg)
-            h = h + L.mlp(x, lb["ffn"], la.get("ffn"), cfg.mlp, cfg.adapter)
+        h = _ffn(h + mix, lb, la, cfg, ffn)
     h = _norm(h, base["final_norm"], cfg)
     logits = _lm_head(h[:, -1:], base, adapters, cfg)
     return logits, cache
@@ -378,10 +396,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos,
         x = _norm(h, lb["norm1"], cfg)
         mix, _ = A.decode_attention(x, layer_caches[i], pos, lb["mixer"],
                                     la.get("mixer"), _attn_cfg(cfg, mixer), cfg.adapter)
-        h = h + mix
-        if ffn == "mlp":
-            x = _norm(h, lb["norm2"], cfg)
-            h = h + L.mlp(x, lb["ffn"], la.get("ffn"), cfg.mlp, cfg.adapter)
+        h = _ffn(h + mix, lb, la, cfg, ffn)
     h = _norm(h, base["final_norm"], cfg)
     return _lm_head(h, base, adapters, cfg), cache
 
@@ -398,11 +413,7 @@ def _chunk_block(h, cache_l, pos0, n_valid, b, a_, cfg: ModelConfig, mixer: str,
     mix, new_kv = A.chunk_attention(x, cache_l, pos0, n_valid, b["mixer"],
                                     a_.get("mixer"), _attn_cfg(cfg, mixer),
                                     cfg.adapter, max_len=max_len)
-    h = h + mix
-    if ffn == "mlp":
-        x = _norm(h, b["norm2"], cfg)
-        h = h + L.mlp(x, b["ffn"], a_.get("ffn"), cfg.mlp, cfg.adapter)
-    return h, new_kv
+    return _ffn(h + mix, b, a_, cfg, ffn), new_kv
 
 
 def _chunk_stack(params, h, cache, pos0, n_valid, cfg: ModelConfig, max_len: int):
@@ -456,3 +467,28 @@ def count_params(params: Dict) -> Tuple[int, int]:
         return total
 
     return size(params["base"]), size(params["adapters"])
+
+
+def active_param_fraction(cfg: ModelConfig, params: Dict) -> float:
+    """Fraction of the base parameters active per token: 1.0 for dense
+    stacks; for MoE the routed expert stacks count ``top_k / n_experts``."""
+    if cfg.moe is None:
+        return 1.0
+    base, _ = count_params(params)
+    routed = sum(_tree_key_size(params["base"], k) for k in M._STACKS)
+    active = base - routed * (1 - cfg.moe.top_k / cfg.moe.n_experts)
+    return active / base
+
+
+def _tree_key_size(tree, key) -> int:
+    """Logical weights under every ``key`` of ``tree``."""
+    total = 0
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k == key:
+                total += count_params({"base": v, "adapters": {}})[0]
+            else:
+                total += _tree_key_size(v, key)
+    elif isinstance(tree, list):
+        total += sum(_tree_key_size(v, key) for v in tree)
+    return total

@@ -1289,3 +1289,106 @@ def test_run_cell_on_card_launches_no_kernel_and_writes_no_weight(cuda, monkeypa
     assert set(K.launch_counts().values()) == {0} and C.launch_counts() == {"crossbar_mvm": 0}
     assert seen == [True]
     assert all(0 <= a <= 1 for a in (r.teacher_acc, r.drifted_acc, r.calibrated_acc))
+
+
+# ---------------------------------------------------------------------------
+# the MoE slice (models/moe.py, the rolling chunk path, the router's f32 x)
+# ---------------------------------------------------------------------------
+
+MOE_ORACLE_BOUND = 1e-2   # of absmax: bf16 expert products, M = C vs M = 1 shapes
+# the router's f32-x launches at mixtral-8x22b's width: K = 6144, N = 8 (one
+# column per expert, narrower than a 128-column strip), r = 8
+ROUTER_K, ROUTER_N, ROUTER_R = 6144, 8, 8
+
+
+@pytest.mark.parametrize("m", [1, 4, 32, 96])
+@pytest.mark.parametrize("accum", ["f32", "int8"])
+def test_router_f32x_launches_at_n8(cuda, accum, m):
+    """The fused linear with f32 x at the router's shape: the SIMT GEMV
+    (f32) or the int8 GEMV up to 64 rows, the tiled bodies above, against
+    the plain version (f32 at 1e-4, int8 within 1e-4 of absmax), each
+    launch counted once and in the f32-x tally."""
+    ops = operands(m, ROUTER_K, ROUTER_N, ROUTER_R, cuda, dtype=torch.float32, seed=m)
+    launcher = K.dora_linear_gemv if autotune.use_gemv(m) else K.dora_linear
+    kind = "dora_linear_gemv" if autotune.use_gemv(m) else "dora_linear"
+    K.reset_launch_counts()
+    y = launcher(*ops, accum=accum)
+    torch.cuda.synchronize()
+    if accum == "f32":
+        torch.testing.assert_close(y, dora_linear_ref(*ops), rtol=1e-4, atol=1e-4)
+    else:
+        want = ref.dora_linear_int8_ref(*ops)
+        assert float((y - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    key = K.counter(kind, accum)
+    assert K.launch_counts()[key] == 1 and sum(K.launch_counts().values()) == 1
+    assert K.f32x_launch_counts() == {k: int(k == key + K.F32X)
+                                      for k in K.f32x_launch_counts()}
+
+
+@pytest.mark.parametrize("m", [1, 4, 32, 96])
+def test_router_f32x_adc_at_n8(cuda, m):
+    """The ADC's SIMT body (f32 x) at the router's shape, against its plain
+    version; counted once and in the f32-x tally."""
+    x, gp, gn, scale = operands(m, ROUTER_K, ROUTER_N, 1, cuda, dtype=torch.float32,
+                                seed=m)[:4]
+    C.reset_launch_counts()
+    _check_adc(x, gp, gn, scale)
+    assert C.launch_counts() == {"crossbar_mvm": 1}
+    assert C.f32x_launch_counts() == {"crossbar_mvm/f32x": 1}
+
+
+def test_moe_dispatch_matches_dense_oracle_on_card(cuda):
+    """A mid-width MoE block (d 1024, ff 2048, 8 experts, top-2, bf16,
+    codes-resident stacks, the router through the f32-x GEMV) with
+    capacity_factor = E / top_k, so no token is dropped: the dispatch path
+    within ``MOE_ORACLE_BOUND`` of absmax of the dense gate-weighted sum
+    over every expert, token by token."""
+    from repro_torch import substrate
+    from repro_torch.core.calibrate import merge_adapters_for_serve, program_model
+    from repro_torch.core.dora import AdapterConfig
+    from repro_torch.core.rram import RramConfig
+    from repro_torch.models import moe as M
+
+    cfg = M.MoeConfig(d_model=1024, d_ff=2048, n_experts=8, top_k=2, capacity_factor=4.0)
+    acfg = AdapterConfig(rank=8, kind="dora")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    base, adapters = M.init_moe(g, cfg, acfg)
+    codes = program_model(base, RramConfig(relative_drift=0.1), 1, mode="codes")
+    merged = merge_adapters_for_serve(codes, adapters)
+    x = torch.randn((2, 24, 1024), generator=g, device=cuda).to(torch.bfloat16)
+    K.reset_launch_counts()
+    with substrate.use_backend("codes"), torch.no_grad():
+        y = M.moe_block(x, codes, merged, cfg, acfg)
+        dense = torch.cat([M.moe_block(x[:, i:i + 1], codes, merged, cfg, acfg)
+                           for i in range(24)], dim=1)
+    torch.cuda.synchronize()
+    assert K.f32x_launch_counts()["dora_linear_gemv/f32x"] == 25  # router: dispatch + 24
+    err = float((y.float() - dense.float()).abs().max())
+    assert err <= MOE_ORACLE_BOUND * float(dense.float().abs().max()), err
+
+
+def test_rolling_chunk_steps_replay_bitwise(cuda):
+    """mixtral smoke (window 16) in a 40-token cache, so every chunk goes
+    through the rolling canvas: a 36-token prompt in chunks of 32 and 4
+    through the graphs, then each chunk graph replayed on inputs across the
+    wrap (and past the window) bitwise equal to its eager step, logits and
+    rolling buffer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment, ServeEngine
+
+    cfg = get_arch("mixtral_8x22b").smoke
+    session = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24).serve()
+    engine = ServeEngine(session, max_slots=2, max_len=40, prefix_cache_entries=0)
+    req = engine.submit(torch.arange(36) % cfg.vocab, max_new=4)
+    engine.run()
+    assert req.done and len(req.tokens) == 4
+    assert session.compile_count() == 3  # decode, chunks 32 and 8 (4 tokens)
+    g = torch.Generator().manual_seed(3)
+    for step in session.steps:
+        kind, _, _, width, _ = step.key
+        if kind != "prefill_chunk":
+            continue
+        for pos0, n in ((0, width), (12, min(width, 20)), (30, min(width, 9))):
+            host = torch.cat([torch.randint(0, cfg.vocab, (width,), generator=g),
+                              torch.tensor([pos0, n])])
+            assert _replay_equals_eager(step, host) == (True, True), (width, pos0, n)

@@ -15,9 +15,14 @@ reference engine (``repro/deploy/engine.py``):
   ``OFF_BOUNDARY_BOUND`` of their absmax (the rule on the card too);
 * under ``codes_adc`` an off-boundary snapshot is passed over (the ADC's
   step tracks a tile's max |x| over the chunk's rows, so resuming there
-  changes the digitization); a boundary one is used, bitwise;
+  changes the digitization); a boundary one is used, bitwise; so it is
+  at mixtral smoke with a capacity that drops tokens (a chunk's rows
+  compete for each expert's slots), where resuming off the boundary
+  breaks the rule; with a capacity that cannot drop, it resumes there;
 * snapshots stay as stored while later admissions write the staging
   cache and ``Request._cache``; eviction is LRU."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -232,3 +237,41 @@ def test_disabled_cache_counts_nothing(session):
     st = engine.stats()
     assert (st["prefix_lookups"], st["prefix_hits"], st["prefill_chunks"]) == (0, 0, 4)
     assert not engine._prefix_cache
+
+
+@pytest.mark.parametrize("seed", [11, 21])
+def test_moe_with_drops_resumes_only_at_chunk_boundaries(seed):
+    """mixtral smoke at capacity_factor 0.5 (one slot an expert in a
+    4-token chunk): P = 5 tokens is stored at 4 and 5; P + 3 resumes at
+    4, bitwise the cold admission. Resuming at 5 (the reference's choice)
+    runs rows 5-7 in a chunk without row 4, so other tokens are dropped:
+    the rule fails there (tokens differ, or logits beyond the bound). At
+    the smoke's own capacity_factor 2.0 (= E / top_k, nothing dropped)
+    the engine resumes at 5 and stays bitwise on the CPU."""
+    cfg = get_arch("mixtral_8x22b").smoke
+    out = {}
+    for cf in (0.5, 2.0):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+        s = Deployment.program(c, 0, backend="codes", device="cpu").advance(24).serve()
+        p = _tokens(c.vocab, 5, seed)
+        longer = np.concatenate([p, _tokens(c.vocab, 3, seed + 1)])
+        engine = _engine(s)
+        _serve(engine, p)
+        hit = _serve(engine, longer)
+        cold = _cold(s, longer)
+        out[cf] = (engine, hit, cold)
+        if cf == 0.5:
+            anywhere = _engine(s)
+            anywhere._resume_off_boundary = True
+            _serve(anywhere, p)
+            off = _serve(anywhere, longer)
+            assert off[0].prefix_hit_tokens == 5
+            got, want = off[1][1].float(), cold[1][1].float()
+            assert (off[0].tokens != cold[0].tokens or float((got - want).abs().max())
+                    > OFF_BOUNDARY_BOUND * float(want.abs().max()))
+    engine, hit, cold = out[0.5]
+    assert not engine._resume_off_boundary
+    assert hit[0].prefix_hit_tokens == 4 and _bitwise(hit, cold)
+    engine, hit, cold = out[2.0]
+    assert engine._resume_off_boundary
+    assert hit[0].prefix_hit_tokens == 5 and _bitwise(hit, cold)
