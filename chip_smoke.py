@@ -42,6 +42,17 @@ Phases (any failure exits non-zero; no failure is caught):
                   twice and the two results bitwise equal; the int8
                   exactness case where the plan splits K; the f32 body's
                   SIMT kernel (f32 x) once per leaf;
+                * the narrow body (f32 x with the f32 body at N <= 64: the
+                  MoE routers, either launcher, one split-K launch) at
+                  rtol = atol = 1e-4 at mixtral-8x22b's router (K 6144, N
+                  8) and deepseek-v2-lite's (K 2048, N 64) for M in {1, 2,
+                  4, 8, 16, 32, 64, 96, 256} and ragged shapes (K 6100, N 7
+                  and 60), x aligned and 4 bytes off: each call twice,
+                  bitwise equal; each shape's calls from CUDA graphs
+                  replayed at once on several streams, bitwise equal to
+                  eager, the tickets zero after; bitwise equal under
+                  several parts of K (``NARROW_PLANS``); one kernel a call
+                  through both launchers (profiler);
                 * the ADC kernel's tensor-core body (bf16 x) at the seven
                   unfused leaves for M in {1, 4, 32, 96, 256} and ragged
                   shapes: every output within rtol 1e-4 / atol 1e-6 or one
@@ -54,7 +65,9 @@ Phases (any failure exits non-zero; no failure is caught):
                   once per leaf;
   4. timing   — (the tiled f32 and int8 bodies also at M=96, the phase-5
                 prefill; both GEMV bodies also at M = 8, 16, 64, the int8
-                one also at M=1; the ADC at
+                one also at M=1; the routers' f32-x launches: mixtral's
+                through every body at M = 1, 4, 32, 96, deepseek-v2-lite's
+                through the f32 body at M = 4, 32; the ADC at
                 M = 4, 32, 96, 256; the time per kernel from torch.profiler
                 of both tiled bodies at M = 96, 256, of both GEMV bodies at
                 M = 4, 32 and of the ADC at M = 4, 256, per layer and per
@@ -227,8 +240,12 @@ Phases (any failure exits non-zero; no failure is caught):
                 and step ms captured vs eager, peak and retained memory.
                 Phase 3 holds the router's f32-x launches at N = 8 (every
                 body, M in {1, 4, 32, 96}) against their plain versions and
-                phase 4 times them.
-The last line is the contract line; the line before it the kernel table.
+                phase 4 times them; the f32 body's run the narrow body.
+The last line is the contract line; the line before it the kernel table,
+where ``dora_linear_narrow`` is the narrow body: its launches are the f32
+body's f32-x launches of phases 5 and 11 (the routers'), which the rows of
+``dora_linear_gemv`` and ``dora_linear`` do not count, and its times are
+mixtral's router at the decode tick (M = 4).
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -347,6 +364,21 @@ TIMED_M_GEMV = (8, 16, 64)       # also timed for the f32 GEMV: chunk buckets, 6
 # the fused prefill (tiled)
 ROUTER_K, ROUTER_N, ROUTER_R = 6144, 8, 8
 ROUTER_M = (1, SLOTS, 32, PREFILL_ROWS)
+# the narrow body (f32 x with the f32 body at N <= 64: every router of the
+# zoo, either launcher): mixtral-8x22b's router and deepseek-v2-lite's (K
+# 2048, N 64, rank 8) at every GEMV row bucket and the tiled rows; ragged:
+# K 6100 (neither whole 128-row slabs nor 32-row stages), N 7 and 60, R 5;
+# a tile's units past the block's threads (R 256) and one lane a unit (R
+# 96); each also with x 4 bytes off a 16-byte boundary (masked loads)
+NARROW_ROUTERS = (("router", ROUTER_K, ROUTER_N, ROUTER_R), ("router64", 2048, 64, 8))
+NARROW_M = (1, 2, 4, 8, 16, 32, 64, PREFILL_ROWS, PREFILL_M)
+NARROW_RAGGED = [(5, 6100, 7, 8), (33, 6100, 60, 8), (96, 6100, 7, 5), (256, 6100, 60, 8),
+                 (33, 1000, 64, 256), (20, 700, 64, 96)]
+# the narrow body's plans: shapes run under several parts of K, bitwise equal
+NARROW_PLANS = [(1, 6144, 8, 8), (SLOTS, 6144, 8, 8), (PREFILL_ROWS, 6144, 8, 8),
+                (32, 2048, 64, 8), (33, 6100, 60, 8)]
+# deepseek-v2-lite's router rows also timed (phase 4)
+ROUTER64_M = (SLOTS, 32)
 # f32 arithmetic outside the tensor cores (data sheet): the f32 body and
 # the ADC multiply f32 x exactly
 F32_FLOP_PER_S = 67e12
@@ -576,7 +608,7 @@ def phase_kernels(device):
     from repro_torch.kernels import dora_linear as K
 
     worst = {name: 0.0 for name in K.launch_counts()}
-    worst["crossbar_mvm"] = 0.0
+    worst["crossbar_mvm"] = worst["dora_linear_narrow"] = 0.0
     cases = [(m, k, n, r, name) for name, k, n, r in LEAVES for m in DECODE_M]
     cases += [(PREFILL_M, k, n, r, name) for name, k, n, r in LEAVES]
     cases += [(m, k, n, r, "ragged") for m, k, n, r in RAGGED]
@@ -819,6 +851,8 @@ def phase_kernels(device):
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 _fail(f"{key} (f32 x, router) at {(m, ROUTER_K, ROUTER_N)}", f"max|err| {err}")
+            # the f32 body runs the narrow body here (N <= 64)
+            key = "dora_linear_narrow" if accum == "f32" else key
             worst[key] = max(worst[key], err)
         x, gp, gn, scale = ops[:4]
         got = C.crossbar_mvm(x, gp, gn, scale)
@@ -834,13 +868,120 @@ def phase_kernels(device):
             _fail(f"crossbar_mvm (f32 x, router) at {(m, ROUTER_K, ROUTER_N)}",
                   f"{bad} off, {flips} flips")
         worst["crossbar_mvm"] = max(worst["crossbar_mvm"], err)
+    narrow_checks(device, worst)
     return worst
 
 
-def router_operands(m, device, seed=0):
-    """The router's operands: f32 x (M, 6144), codes (6144, 8), rank 8."""
-    x, *rest = operands(m, ROUTER_K, ROUTER_N, ROUTER_R, device, seed=seed)
+def router_operands(m, device, seed=0, shape=(ROUTER_K, ROUTER_N, ROUTER_R)):
+    """A router's operands: f32 x (M, K), codes (K, N), rank R; mixtral's
+    (6144, 8, 8) by default."""
+    x, *rest = operands(m, *shape, device, seed=seed)
     return (x.float(), *rest)
+
+
+def misaligned(ops):
+    """``ops`` with x moved 4 bytes off a 16-byte boundary: a contiguous
+    view at storage offset 1."""
+    x = ops[0]
+    moved = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    moved.copy_(x)
+    assert moved.data_ptr() % 16 != 0 and moved.is_contiguous()
+    return (moved, *ops[1:])
+
+
+def launched_kernels(fn, ops):
+    """Names of the kernels one call ``fn(*ops)`` launches (torch.profiler,
+    after a warm-up call); None where the profiler records no device
+    activity."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*ops)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*ops)
+        torch.cuda.synchronize()
+    names = [re.search(r"(\w+_kernel)", e.name) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [n.group(1) if n else "?" for n in names] or None
+
+
+def narrow_checks(device, worst):
+    """The narrow body (f32 x, f32 body, N <= 64) vs its plain version at
+    rtol = atol = TOL through each launcher that takes the rows, at
+    ``NARROW_ROUTERS`` x ``NARROW_M`` and ``NARROW_RAGGED``, x aligned and
+    misaligned: each call twice, bitwise equal; each shape's calls from CUDA
+    graphs replayed at once on several streams, bitwise equal to eager, and
+    the tickets zero afterwards; ``NARROW_PLANS`` bitwise equal under
+    several parts of K; one kernel a call through both launchers
+    (profiler)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import dora_linear as K
+
+    cases = [(m, k, n, r, name) for name, k, n, r in NARROW_ROUTERS for m in NARROW_M]
+    cases += [(m, k, n, r, "ragged") for m, k, n, r in NARROW_RAGGED]
+    for m, k, n, r, name in cases:
+        base = router_operands(m, device, seed=m + k + n, shape=(k, n, r))
+        calls = []
+        K._SEMS.clear()  # only this shape's tickets are checked below
+        for shift, ops in (("", base), (" misaligned x", misaligned(base))):
+            kinds = ["dora_linear_gemv", "dora_linear"] if autotune.use_gemv(m) else ["dora_linear"]
+            for kind in kinds:
+                fn = getattr(K, kind)
+                got, again = fn(*ops), fn(*ops)
+                torch.cuda.synchronize()
+                err, ok, _ = _vs_plain(got, ops, "f32")
+                same = torch.equal(got, again)
+                ok = ok and same
+                log(f"[kernels] {'narrow ' + kind:22s} {name:8s} M={m:4d} K={k:5d} N={n:5d} "
+                    f"r={r:2d}{shift} parts {autotune.narrow_plan(m, n, k)} max|err|={err:.3e} "
+                    f"repeat {'bitwise' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    _fail(f"narrow body via {kind}{shift} at {(m, k, n, r)}",
+                          f"max|err| {err}, repeat bitwise {same}")
+                worst["dora_linear_narrow"] = max(worst["dora_linear_narrow"], err)
+                calls.append(lambda fn=fn, ops=ops: fn(*ops))
+        same = graph_replays(calls)
+        zero = all(int(sem.abs().sum()) == 0 for _, sem in K._SEMS.values())
+        log(f"[kernels] narrow graphs          {name:8s} M={m:4d} K={k:5d} N={n:5d} "
+            f"{len(calls)} captures on {len(calls)} streams, 5 replays "
+            f"{'bitwise equal to eager' if same else 'DIFFER'}, tickets "
+            f"{'zero' if zero else 'NOT ZERO'} {'ok' if same and zero else 'FAIL'}")
+        if not (same and zero):
+            _fail(f"narrow body graphs at {(m, k, n, r)}", f"bitwise {same}, tickets zero {zero}")
+
+    # the result does not depend on the plan: the parts of K
+    for m, k, n, r in NARROW_PLANS:
+        ops = router_operands(m, device, seed=k + n, shape=(k, n, r))
+        slabs = -(-k // autotune.MIN_SPLIT_ROWS)
+        policy, got = autotune.narrow_plan, {}
+        try:
+            for parts in sorted({1, 2, 3, policy(m, n, k), slabs}):
+                autotune.narrow_plan = lambda *_, p=parts: p
+                got[parts] = K.dora_linear(*ops)
+        finally:
+            autotune.narrow_plan = policy
+        torch.cuda.synchronize()
+        same = all(torch.equal(got[1], y) for y in got.values())
+        log(f"[kernels] narrow plans           M={m:4d} K={k:5d} N={n:5d} parts {sorted(got)} "
+            f"(policy {policy(m, n, k)}) {'bitwise equal' if same else 'DIFFER'} "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            _fail(f"narrow body plans at {(m, k, n, r)}", "the parts of K change the result")
+
+    # one kernel a call, no prologue, through both launchers
+    for kind, m in (("dora_linear_gemv", SLOTS), ("dora_linear", PREFILL_ROWS)):
+        names = launched_kernels(getattr(K, kind), router_operands(m, device, seed=1))
+        if names is None:
+            log(f"[kernels] narrow {kind} M={m}: the profiler recorded no device activity: "
+                "not measured")
+            continue
+        ok = names == ["dora_narrow_kernel"]
+        log(f"[kernels] narrow {kind} M={m} router: kernels of one call {names} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"narrow body via {kind} at M={m}", f"launched {names}")
 
 
 def bound(nbytes, ops, rate):
@@ -988,6 +1129,18 @@ def phase_timing(device):
                    bound(2 * k * n + 4 * m * k + 4 * n + 4 * m * n, 2 * m * k * n,
                          F32_FLOP_PER_S))
         del ops, w32, library
+    # deepseek-v2-lite's router (K 2048, N 64, rank 8): the f32 body (the
+    # narrow body) at the decode tick and a full admission chunk
+    _, k, n, r = NARROW_ROUTERS[1]
+    for m in ROUTER64_M:
+        ops = [router_operands(m, device, seed=i, shape=(k, n, r))
+               for i in range(_copies(2 * k * n + 4 * m * k + 4 * m * n))]
+        w32 = [(o[1].float() - o[2].float()) * o[3] for o in ops]
+        _timed_row(rows, "dora_linear_gemv", "router64", (m, k, n), ops, K.dora_linear_gemv,
+                   ref.dora_linear_ref,
+                   [lambda o=o, w=w: torch.matmul(o[0], w) for o, w in zip(ops, w32)],
+                   router_bound(m, k, n, r, F32_FLOP_PER_S))
+        del ops, w32
     return rows
 
 
@@ -2788,12 +2941,11 @@ def phase_paper(device, seed):
 # ---------------------------------------------------------------------------
 
 # kernel classes of a decode tick's profile (first match wins): the router's
-# f32-x bodies (SIMT GEMV and tiled, the ADC's SIMT body), the tensor-core
+# f32-x bodies (the narrow body, the ADC's SIMT body), the tensor-core
 # bodies (attention and the head), the expert products (cuBLAS), and the
 # experts' read-back: (G+ - G-) in int16, then one multiply into bf16
 MOE_TICK_CLASSES = {
-    "router_f32x": r"prep_kernel|dora_gemv_kernel|dora_tiled_kernel|adc_step_kernel"
-                   r"|adc_tile_kernel|adc_sum_kernel",
+    "router_f32x": r"dora_narrow_kernel|adc_step_kernel|adc_tile_kernel|adc_sum_kernel",
     "gemv_tensor_core": r"dora_gemv_mma_kernel|dora_gemv_int8_kernel|row_scale_kernel"
                         r"|adc_mma_kernel",
     # u8 -> int16, the int16 difference, and the int16 x f32 -> bf16 multiply
@@ -3264,16 +3416,30 @@ def main():
               "dora_linear/int8": "int8", "crossbar_mvm": "codes_adc"}
     launches = {name: run["launches"][name] + moe["serving"][moe_of[name]]["launches"][name]
                 for name, run in session_of.items()}
+    # the f32 body's f32-x launches are the narrow body's (every one of them
+    # a router's, N <= 64), not the launcher's own kernels'
+    narrow = {name: serving["launches"][name + "/f32x"]
+              + moe["serving"]["f32"]["launches"][name + "/f32x"]
+              for name in ("dora_linear_gemv", "dora_linear")}
+    for name, n in narrow.items():
+        launches[name] -= n
+    launches["dora_linear_narrow"] = sum(narrow.values())
+    assert launches["dora_linear_narrow"] > 0, narrow
+    # (name, source, TPU kernel, rows, leaf of the timed rows)
     table = (
-        ("dora_linear_gemv", "dora_linear.cu", "dora_linear.py:194", SLOTS),
-        ("dora_linear", "dora_linear.cu", "dora_linear.py:129", PREFILL_M),
-        ("dora_linear_gemv/int8", "dora_linear.cu", "dora_linear.py:77", SLOTS),
-        ("dora_linear/int8", "dora_linear.cu", "dora_linear.py:77", PREFILL_M),
-        ("crossbar_mvm", "crossbar_mvm.cu", "crossbar_mvm.py:60", SLOTS),
+        ("dora_linear_gemv", "dora_linear.cu", "dora_linear.py:194", SLOTS, None),
+        ("dora_linear", "dora_linear.cu", "dora_linear.py:129", PREFILL_M, None),
+        ("dora_linear_gemv/int8", "dora_linear.cu", "dora_linear.py:77", SLOTS, None),
+        ("dora_linear/int8", "dora_linear.cu", "dora_linear.py:77", PREFILL_M, None),
+        ("crossbar_mvm", "crossbar_mvm.cu", "crossbar_mvm.py:60", SLOTS, None),
+        # the router's decode tick through the GEMV launcher
+        ("dora_linear_narrow", "dora_linear.cu", "dora_linear.py:46", SLOTS, "router"),
     )
     kernels = []
-    for name, source, replaces, m in table:
-        mine = [r for r in rows if r["kernel"] == name and r["m"] == m and r["leaf"] != "router"]
+    for name, source, replaces, m, leaf in table:
+        timed = "dora_linear_gemv" if leaf else name
+        mine = [r for r in rows if r["kernel"] == timed and r["m"] == m
+                and (r["leaf"] == leaf if leaf else not r["leaf"].startswith("router"))]
         library = [r["library_ms"] for r in mine]
         kernels.append({
             "name": name, "route": "cuda",

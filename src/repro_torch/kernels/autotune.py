@@ -20,7 +20,10 @@ and the only decisions left are:
 * the GEMV launcher's tensor-core bodies (f32 with bf16 x; int8 with any
   x): the parts of their ordered K split (``gemv_plan``, per body), and
   from which row bucket the int8 body takes its row scales in a pass of
-  their own (``gemv_int8_prescale``).
+  their own (``gemv_int8_prescale``);
+* whether a call of the f32 body with f32 x is narrow (``use_narrow``:
+  N <= ``NARROW_MAX_N``, every MoE router), which both launchers then send
+  to one split-K kernel, and that kernel's parts of K (``narrow_plan``).
 
 The ADC kernel's 128-row block and 256-row array tile are not choices:
 max |x| is taken per (block, tile) and each tile's current is digitized
@@ -239,3 +242,42 @@ def adc_plan(m: int, k: int, n: int) -> int:
     tiles = -(-k // ADC_ARRAY_ROWS)
     cap = min(ADC_TARGET_BLOCKS, adc_wave(m))
     return max(1, min(tiles, cap // adc_blocks(m, n, 1)))
+
+
+# The narrow body (dora_linear.cu, dora_narrow_kernel): the f32 body with
+# f32 x at N <= NARROW_MAX_N (kNarrowMaxN), which covers every router of
+# the zoo (mixtral-8x22b N 8, deepseek-v2-lite N 64), under either
+# launcher. A block holds NARROW_ROWS rows of x (kNarrowM) and all N + R
+# columns, over a part of K made of whole slabs of MIN_SPLIT_ROWS rows
+# (kNarrowSlab), whose sums the row tile's last block adds in slab order.
+NARROW_MAX_N = 64
+# tile rows, measured on the H100 at the routers' rows (tools/narrow_costs.py,
+# tiles of 8, 16 and 32 rows; PERF.md): 16 is the best or within 1% of it
+# at mixtral's 1-64 rows and deepseek-v2-lite's 4 and 256; 32 is 1.26x
+# faster at mixtral's 96-row prefill and 8 1.4x at deepseek-v2-lite's 32
+# rows, each up to 1.4-1.6x slower at the others' rows
+NARROW_ROWS = 16
+
+
+def use_narrow(n: int, accum: str, f32_x: bool) -> bool:
+    """Whether a fused-linear call runs the narrow body: the f32 body, f32
+    x and at most ``NARROW_MAX_N`` output columns."""
+    return accum == "f32" and f32_x and n <= NARROW_MAX_N
+
+
+def narrow_plan(m: int, n: int, k: int) -> int:
+    """The narrow body's parts of K for an (m, k) x (k, n) product: whole
+    slabs of ``MIN_SPLIT_ROWS`` rows, as many parts as keep the launch
+    (row tiles x parts) within one wave of two blocks an SM (``WAVE``),
+    each part at most ``per`` slabs (the kernel deals them out as evenly
+    as they go). The result does not depend on the parts: every block
+    writes one sum a slab. Measured on the H100 at the routers' rows
+    (tools/narrow_costs.py; PERF.md): against one block an SM, 21% faster
+    at mixtral's 64 rows, 11% at 96 and 27% at deepseek-v2-lite's 256,
+    the same where both give one slab a part; a part of one slab at every
+    row was within 4% of it either way."""
+    del n  # a block holds every column
+    tiles = -(-m // NARROW_ROWS)
+    slabs = -(-k // MIN_SPLIT_ROWS)
+    per = -(-slabs // max(1, WAVE // tiles))
+    return -(-slabs // per)

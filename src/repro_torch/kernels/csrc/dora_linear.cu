@@ -12,13 +12,17 @@
 //
 // Which body runs where:
 //
-//     launcher  body  x          kernel                        arithmetic
-//     GEMV      f32   bf16       dora_gemv_mma_kernel          mma.sync bf16, f32 acc
-//     GEMV      f32   f32        dora_gemv_kernel<..., false>  SIMT f32
-//     GEMV      int8  f32, bf16  dora_gemv_int8_kernel         mma.sync u8 x s8, s32 acc
-//     tiled     f32   bf16       dora_mma_kernel<..., false>   mma.sync bf16, f32 acc
-//     tiled     f32   f32        dora_tiled_kernel             SIMT f32
-//     tiled     int8  f32, bf16  dora_mma_kernel<..., true>    mma.sync s8 x u8, s32 acc
+//     launcher  body  x          N     kernel                        arithmetic
+//     GEMV      f32   bf16       any   dora_gemv_mma_kernel          mma.sync bf16, f32 acc
+//     GEMV      f32   f32        > 64  dora_gemv_kernel<..., false>  SIMT f32
+//     GEMV      int8  f32, bf16  any   dora_gemv_int8_kernel         mma.sync u8 x s8, s32 acc
+//     tiled     f32   bf16       any   dora_mma_kernel<..., false>   mma.sync bf16, f32 acc
+//     tiled     f32   f32        > 64  dora_tiled_kernel             SIMT f32
+//     tiled     int8  f32, bf16  any   dora_mma_kernel<..., true>    mma.sync s8 x u8, s32 acc
+//     either    f32   f32        <= 64 dora_narrow_kernel            SIMT f32, K split
+//
+// N <= 64 with f32 x is every MoE router of the zoo (autotune.NARROW_MAX_N);
+// wider f32-x calls run on no serving path.
 //
 // The int8 body. Each row of X is quantized to s8 (xs = max(max|x|,
 // 1e-30) / 127, xq = clip(rint(x / xs), +-127), IEEE division and
@@ -47,7 +51,9 @@
 // rows up the instruction rate caps a SIMT body above the byte floor (M =
 // 32: 3.2 GFLOP a layer, 0.048 ms at 67 TFLOP/s). So every call of the
 // serving paths (bf16 x; the int8 body with any x) runs on the tensor
-// cores, GEMV and tiled alike.
+// cores, GEMV and tiled alike, but the routers' f32-x calls: at N <= 64
+// they are neither byte- nor operation-bound, and dora_narrow_kernel
+// spreads them over the card.
 //
 // The tiled tensor-core bodies. The f32 body (bf16 x) multiplies a bf16
 // x by a bf16 G+ - G-, exact in f32, so mma.sync bf16 with f32 accumulators
@@ -124,7 +130,12 @@
 //   every block, or, from autotune.GEMV_INT8_PRESCALE_ROWS rows, by a pass
 //   before it), x quantized to s8 once per block and stage (details at
 //   the kernel).
-// * GEMV launcher, SIMT body (f32 x with the f32 body): a block owns a
+// * Both launchers, f32 x at N <= 64 (the routers), dora_narrow_kernel:
+//   one launch, K split across blocks in slabs of 128 rows, X @ A as R more
+//   columns of the same pass, the slabs' sums added in slab order by each
+//   row tile's last block (a ticket): no prologue, no X^T (details at the
+//   kernel).
+// * GEMV launcher, SIMT body (f32 x with the f32 body, N > 64): a block owns a
 //   strip of 32 (16 from 8 rows up) output columns and all of K (the TPU
 //   grid's sequential K axis becomes a loop: no block waits for another).
 //   Each thread loads CPT neighbouring
@@ -134,7 +145,7 @@
 //   Each thread holds rows x CPT accumulators; the row groups are summed
 //   with warp shuffles, then warp by warp in a fixed order
 //   (deterministic), and the epilogue applies scale, XA @ B and gamma.
-// * Tiled launcher, SIMT body (f32 x only): a shared-memory product,
+// * Tiled launcher, SIMT body (f32 x, N > 64): a shared-memory product,
 //   128x128 output tile, 8-deep K tiles, each thread an 8x8 register
 //   tile; codes become f32 weights as the tile is loaded. The low-rank
 //   term reuses the same micro-kernel as 8-deep "K tiles" of XA against
@@ -2105,6 +2116,314 @@ __global__ void __launch_bounds__(kGemvThreads, NT < 8 ? 2 : 1)
 }
 
 // ---------------------------------------------------------------------------
+// f32 x at narrow N (the MoE routers): one split-K launch, both launchers
+// ---------------------------------------------------------------------------
+
+// The f32 body with f32 x at N <= kNarrowMaxN (autotune.NARROW_MAX_N): every
+// router of the zoo (mixtral-8x22b K 6144 N 8, deepseek-v2-lite K 2048 N
+// 64). It computes what repro/kernels/dora_linear.py::_kernel computes,
+// y = gamma * (scale * X @ (G+ - G-) + (X @ A) @ B), for either launcher.
+//
+// What bounds it. Nothing that scales: the work is 0.3-2.6 MB and at most a
+// few MFLOP, a bound of 0.1-0.8 us. The SIMT bodies it replaces here held all
+// of K in one block (the GEMV's 16- or 32-column strips, the tiled body's
+// 128 x 128 tile, each one block at N = 8) behind a prologue launch: one SM
+// walked K in hundreds of dependent steps. What is left is latency: the
+// launch, a memory round trip, and the reduction across blocks.
+//
+// Design:
+// * The grid is (parts of K) x (tiles of kNarrowM rows of x). A block owns
+//   all N columns and all R ranks of its tile, so its slice of the codes
+//   (rows x N bytes) and of A (rows x R floats) is one contiguous run of
+//   memory, and it computes X @ [G+ - G- | A], N + R columns, in one pass:
+//   no prologue, x read from memory once. Parts are whole slabs of
+//   kNarrowSlab rows (autotune.narrow_plan: a wave of two blocks an SM).
+// * A ring of kNarrowStages stages of kNarrowK rows (a whole slab and one
+//   stage ahead) is filled by 16-byte cp.async copies where the operands
+//   allow (N % 4, R % 4, K % 4 == 0 and 16-byte aligned; the codes' last
+//   run zero-filled by the copy's source size), else by masked scalar loads;
+//   both zero-fill past M, N, R and K. Nothing is padded in memory.
+// * Work units are 4 rows x 4 columns (16 accumulators; codes turned into
+//   f32 weights exactly by code_diff as they are read from shared memory).
+//   Units over the live rows of the tile and the column groups (N, then R,
+//   each rounded up to 4) share the block's threads; when they are fewer
+//   than the threads, a power of two of lanes (at most 32, neighbouring
+//   threads) split each stage's rows, row k to lane k % lanes, and at the
+//   end of each slab a butterfly of warp shuffles adds the lanes (lane 0's
+//   order), whose sum goes to ws[slab].
+// * The last block of a row tile to finish (a ticket in sem[tile], which it
+//   resets) adds the slabs' sums: one thread a chunk of kNarrowChunk slabs
+//   (16-byte loads, all of the chunk in flight), then the chunks in order,
+//   while B, scale and gamma are copied in; then the epilogue in the
+//   reference's order, (acc * scale + XA @ B) * gamma. The order of every
+//   f32 sum depends on the shape alone, not on the parts, and no data goes
+//   through atomics: the result is bitwise the same across launches, plans
+//   and graph replays.
+// Measured on the H100 (tools/narrow_costs.py, PERF.md), a call at 1-4 rows
+// takes 8.1-8.4 us, a chain: ~1 us each for the launch and the ticket,
+// ~1.5 for the last block, ~2 for the products with the lanes' sums and
+// ~2.7 for the copies, whose one memory round trip a block cannot overlap.
+constexpr int kNarrowThreads = 256;
+constexpr int kNarrowMaxN = 64;    // autotune.NARROW_MAX_N
+constexpr int kNarrowM = 16;       // rows of x a block (autotune.NARROW_ROWS)
+constexpr int kNarrowK = 32;       // rows of K a stage
+constexpr int kNarrowSlab = 128;   // rows of K a sum in ws (autotune.MIN_SPLIT_ROWS)
+constexpr int kNarrowStages = 5;   // stages of the ring
+constexpr int kNarrowXS = kNarrowK + 4;  // x tile row stride, floats
+constexpr int kNarrowLanes = kNarrowK;  // threads over one unit's rows, at most
+constexpr int kNarrowUnits = 3;    // units a thread holds at most
+constexpr int kNarrowChunk = 8;    // slabs of K a thread of the last block adds
+static_assert((kNarrowM / 4) * (kNarrowMaxN + 256) / 4 <= kNarrowUnits * kNarrowThreads,
+              "units of a tile at N = kNarrowMaxN and R = 256");
+static_assert(kNarrowSlab % kNarrowK == 0 && kNarrowStages > kNarrowSlab / kNarrowK, "ring");
+// the operands the copies may take 16 bytes at a time (the `vec` mask)
+constexpr int kVecCodes = 1, kVecA = 2, kVecX = 4;
+
+// 16 bytes global -> shared, asynchronously, of which the first `bytes`
+// (0..16) are read and the rest zero-filled
+__device__ __forceinline__ void cp_async16n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// bytes of one stage of the ring: the x tile, the A slice and both code
+// slices (np, rp: N and R rounded up to 4)
+__host__ __device__ __forceinline__ int narrow_stage_bytes(int np, int rp) {
+  return kNarrowM * kNarrowXS * 4 + kNarrowK * rp * 4 + 2 * kNarrowK * np;
+}
+
+__global__ void __launch_bounds__(kNarrowThreads)
+    dora_narrow_kernel(const float* __restrict__ x, const uint8_t* __restrict__ gp,
+                       const uint8_t* __restrict__ gn, const float* __restrict__ scale,
+                       const float* __restrict__ a, const float* __restrict__ b,
+                       const float* __restrict__ gamma, float* __restrict__ out,
+                       float* __restrict__ ws, int* __restrict__ sem, int M, int K, int N,
+                       int R, int vec) {
+  extern __shared__ __align__(16) float smem_f[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const int NP = (N + 3) & ~3, RP = (R + 3) & ~3, CP = NP + RP, CG = CP / 4;
+  const int XB = kNarrowM * kNarrowXS * 4, AB = kNarrowK * RP * 4, CB = kNarrowK * NP;
+  const int SB = narrow_stage_bytes(NP, RP);
+
+  const int tile = blockIdx.y, part = blockIdx.x, parts = gridDim.x;
+  const int m0 = tile * kNarrowM, rows = min(kNarrowM, M - m0);
+  const int RG = (rows + 3) / 4, U = RG * CG;  // units: (row group, column group)
+  const int slabs = (K + kNarrowSlab - 1) / kNarrowSlab;
+  const int sb = part * slabs / parts, se = (part + 1) * slabs / parts;
+  const int kb = sb * kNarrowSlab, ke = min(K, se * kNarrowSlab);
+  const int T = (ke - kb + kNarrowK - 1) / kNarrowK;  // stages of this part
+  // lanes: a power of two, the most that fit the threads (at most one row of
+  // a stage each); a unit's lanes are neighbouring threads of one warp
+  // wide: more units than threads; a thread then takes up to kNarrowUnits, one lane
+  const bool wide = U > kNarrowThreads;
+  int lanes = 1;
+  while (!wide && 2 * lanes <= kNarrowLanes && 2 * lanes * U <= kNarrowThreads) lanes *= 2;
+  const int lane = tid % lanes, unit0 = wide ? tid : tid / lanes;
+  const size_t wstride = (size_t)M * CP;  // floats of one slab's sums
+
+  // stage j of the part into slot j % kNarrowStages (an empty group past T)
+  auto load_stage = [&](int j) {
+    if (j < T) {
+      unsigned char* st = smem + (j % kNarrowStages) * SB;
+      float* xs = reinterpret_cast<float*>(st);
+      float* as = reinterpret_cast<float*>(st + XB);
+      uint8_t* ps = st + XB + AB;
+      uint8_t* ns = ps + CB;
+      const int k0 = kb + j * kNarrowK, kr = min(kNarrowK, ke - k0);
+      // x: the tile's rows [0, 4 RG), zeros past M and past K
+      if (vec & kVecX) {
+        for (int p = tid; p < 4 * RG * (kNarrowK / 4); p += kNarrowThreads) {
+          const int i = p / (kNarrowK / 4), c = p % (kNarrowK / 4) * 4;
+          const bool in = i < rows && c < kr;
+          cp_async16(xs + i * kNarrowXS + c, in ? x + (size_t)(m0 + i) * K + k0 + c : x, in);
+        }
+      } else {
+        for (int p = tid; p < 4 * RG * kNarrowK; p += kNarrowThreads) {
+          const int i = p / kNarrowK, c = p % kNarrowK;
+          xs[i * kNarrowXS + c] = i < rows && c < kr ? x[(size_t)(m0 + i) * K + k0 + c] : 0.f;
+        }
+      }
+      // A: kr rows of R ranks (RP == R where copied as one run)
+      if (vec & kVecA) {
+        const int bytes = kr * R * 4;
+        const unsigned char* src = reinterpret_cast<const unsigned char*>(a + (size_t)k0 * R);
+        for (int o = tid * 16; o < AB; o += kNarrowThreads * 16)
+          cp_async16(st + XB + o, o < bytes ? src + o : src, o < bytes);
+      } else {
+        for (int p = tid; p < kNarrowK * RP; p += kNarrowThreads) {
+          const int r = p / RP, c = p % RP;
+          as[p] = r < kr && c < R ? a[(size_t)(k0 + r) * R + c] : 0.f;
+        }
+      }
+      // both code slices: kr rows of N bytes (NP == N where copied as one run)
+      if (vec & kVecCodes) {
+        const int bytes = kr * N;
+        const size_t off = (size_t)k0 * N;
+        for (int o = tid * 16; o < CB; o += kNarrowThreads * 16) {
+          const int n = max(0, min(16, bytes - o));
+          cp_async16n(ps + o, n ? gp + off + o : gp, n);
+          cp_async16n(ns + o, n ? gn + off + o : gn, n);
+        }
+      } else {
+        for (int p = tid; p < kNarrowK * NP; p += kNarrowThreads) {
+          const int r = p / NP, c = p % NP;
+          const bool in = r < kr && c < N;
+          const size_t e = (size_t)(k0 + r) * N + c;
+          ps[p] = in ? gp[e] : (uint8_t)0;
+          ns[p] = in ? gn[e] : (uint8_t)0;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[kNarrowUnits][4][4];
+#pragma unroll
+  for (int t = 0; t < kNarrowUnits; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[t][i][c] = 0.f;
+
+  for (int j = 0; j < kNarrowStages - 1; ++j) load_stage(j);
+  for (int j = 0; j < T; ++j) {
+    cp_async_wait<kNarrowStages - 2>();  // stage j landed
+    __syncthreads();                     // and every thread is done with stage j - 1
+    load_stage(j + kNarrowStages - 1);
+    const unsigned char* st = smem + (j % kNarrowStages) * SB;
+    const float* xs = reinterpret_cast<const float*>(st);
+    const float* as = reinterpret_cast<const float*>(st + XB);
+    const uint8_t* ps = st + XB + AB;
+    const uint8_t* ns = ps + CB;
+    // lane l takes the slab's rows l, l + lanes, ...: here the stage's rows
+    // kk = l, l + lanes, ... (a stage starts a multiple of 32 rows in)
+#pragma unroll
+    for (int t = 0; t < kNarrowUnits; ++t) {
+      const int u = unit0 + t * kNarrowThreads;
+      if ((t > 0 && !wide) || u >= U) break;
+      const int rg = u / CG, cg = u - rg * CG;
+      const bool codes = 4 * cg < NP;
+      for (int kk = lane; kk < kNarrowK; kk += lanes) {
+        float w[4];
+        if (codes) {
+          const uint32_t p = *reinterpret_cast<const uint32_t*>(ps + kk * NP + 4 * cg);
+          const uint32_t n = *reinterpret_cast<const uint32_t*>(ns + kk * NP + 4 * cg);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) w[c] = code_diff(p, n, c);
+        } else {
+          const float4 v = *reinterpret_cast<const float4*>(as + kk * RP + 4 * cg - NP);
+          w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float xv = xs[(4 * rg + i) * kNarrowXS + kk];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[t][i][c] = fmaf(xv, w[c], acc[t][i][c]);
+        }
+      }
+    }
+    if ((j + 1) % (kNarrowSlab / kNarrowK) != 0 && j != T - 1) continue;
+    // slab s ends here: its sums, the lanes added by a butterfly over each
+    // unit's neighbouring threads (lane 0's order), to ws[s]
+    float* wsl = ws + (size_t)(sb + j / (kNarrowSlab / kNarrowK)) * wstride + (size_t)m0 * CP;
+    if (lanes > 1) {
+      for (int off = lanes / 2; off > 0; off /= 2)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[0][i][c] += __shfl_xor_sync(0xffffffffu, acc[0][i][c], off);
+    }
+#pragma unroll
+    for (int t = 0; t < kNarrowUnits; ++t) {
+      const int u = unit0 + t * kNarrowThreads;
+      if ((t > 0 && !wide) || u >= U || lane != 0) break;
+      const int rg = u / CG, cg = u - rg * CG;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * rg + i < rows)
+          *reinterpret_cast<float4*>(wsl + (4 * rg + i) * CP + 4 * cg) =
+              make_float4(acc[t][i][0], acc[t][i][1], acc[t][i][2], acc[t][i][3]);
+    }
+#pragma unroll
+    for (int t = 0; t < kNarrowUnits; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[t][i][c] = 0.f;
+  }
+  cp_async_wait<0>();  // only empty groups are left
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(sem + tile, 1) == parts - 1;
+    if (last) atomicExch(sem + tile, 0);  // every part of the tile has counted
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // The tile's last block (the ring is idle: its operands take its place).
+  // B, scale and gamma are copied in while the slabs' sums are read, four
+  // columns a load: each chunk of kNarrowChunk slabs is added in slab order
+  // by one thread, then the chunks in chunk order (an order fixed by K
+  // alone), as many chunks at a time as the space holds; then the epilogue
+  const int G = rows * CP / 4;              // groups of 4 sums of the tile
+  float4* tot = reinterpret_cast<float4*>(smem_f);   // [G]
+  float* bs = smem_f + kNarrowM * CP;                // B, [R][N]
+  float* sg = bs + R * N;                            // scale [N], gamma [N]
+  float4* chunk = reinterpret_cast<float4*>(smem_f + ((kNarrowM * CP + R * N + 2 * N + 3) & ~3));
+  const int room = (kNarrowStages * SB / 4 - (int)(reinterpret_cast<float*>(chunk) - smem_f)) /
+                   (4 * G);                // chunks the space holds at once
+  for (int p = tid; p < R * N; p += kNarrowThreads) cp_async4(bs + p, b + p, true);
+  for (int p = tid; p < 2 * N; p += kNarrowThreads)
+    cp_async4(sg + p, p < N ? scale + p : gamma + p - N, true);
+  cp_async_commit();
+  const int chunks = (slabs + kNarrowChunk - 1) / kNarrowChunk;
+  const float4* src = reinterpret_cast<const float4*>(ws + (size_t)m0 * CP);
+  const size_t step = wstride / 4;
+  for (int c0 = 0; c0 < chunks; c0 += room) {
+    const int nc = min(room, chunks - c0);
+    for (int w = tid; w < nc * G; w += kNarrowThreads) {
+      const int c = c0 + w / G, g = w - (w / G) * G;
+      const int s0 = c * kNarrowChunk, sn = min(kNarrowChunk, slabs - s0);
+      float4 v[kNarrowChunk];
+#pragma unroll
+      for (int q = 0; q < kNarrowChunk; ++q)
+        v[q] = q < sn ? __ldcg(src + (size_t)(s0 + q) * step + g) : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 y = v[0];
+#pragma unroll
+      for (int q = 1; q < kNarrowChunk; ++q)
+        if (q < sn) y.x += v[q].x, y.y += v[q].y, y.z += v[q].z, y.w += v[q].w;
+      chunk[w] = y;
+    }
+    __syncthreads();
+    for (int g = tid; g < G; g += kNarrowThreads) {
+      float4 y = c0 == 0 ? chunk[g] : tot[g];
+      for (int c = c0 == 0 ? 1 : 0; c < nc; ++c) {
+        const float4 v = chunk[c * G + g];
+        y.x += v.x, y.y += v.y, y.z += v.z, y.w += v.w;
+      }
+      tot[g] = y;
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  const float* t = smem_f;  // tot as [rows][CP]
+  for (int p = tid; p < rows * N; p += kNarrowThreads) {
+    const int m = p / N, n = p - m * N;
+    float low = 0.f;
+    for (int r = 0; r < R; ++r) low = fmaf(t[m * CP + NP + r], bs[r * N + n], low);
+    out[(size_t)(m0 + m) * N + n] = (t[m * CP + n] * sg[n] + low) * sg[N + n];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host-side launch helpers
 // ---------------------------------------------------------------------------
 
@@ -2254,6 +2573,26 @@ cudaError_t launch_tiled(const Ops& o, cudaStream_t s) {
       (const float*)o.x, (const uint8_t*)o.gp, (const uint8_t*)o.gn, (const float*)o.scale,
       (const float*)o.b, (const float*)o.gamma, (const float*)o.xa, (float*)o.out, o.M, o.K,
       o.N, o.R, prep_chunks(o.K));
+  return cudaGetLastError();
+}
+
+// the narrow body (f32 x, f32 body, N <= kNarrowMaxN): one launch, a block
+// per (part of K, tile of kNarrowM rows); the ring, then the lanes' sums
+cudaError_t launch_narrow(const void* x, const void* a, const Ops& o, void* ws, void* sem,
+                          int parts, cudaStream_t s) {
+  const int np = (o.N + 3) & ~3, rp = (o.R + 3) & ~3;
+  const int smem = kNarrowStages * narrow_stage_bytes(np, rp);
+  cudaError_t e =
+      cudaFuncSetAttribute(dora_narrow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int vec = (o.N % 4 == 0 && aligned(o.gp, 16) && aligned(o.gn, 16) ? kVecCodes : 0) |
+                  (o.R % 4 == 0 && aligned(a, 16) ? kVecA : 0) |
+                  (o.K % 4 == 0 && aligned(x, 16) ? kVecX : 0);
+  const dim3 grid(parts, (o.M + kNarrowM - 1) / kNarrowM);
+  dora_narrow_kernel<<<grid, kNarrowThreads, smem, s>>>(
+      (const float*)x, (const uint8_t*)o.gp, (const uint8_t*)o.gn, (const float*)o.scale,
+      (const float*)a, (const float*)o.b, (const float*)o.gamma, (float*)o.out, (float*)ws,
+      (int*)sem, o.M, o.K, o.N, o.R, vec);
   return cudaGetLastError();
 }
 
@@ -2424,6 +2763,23 @@ int rimc_dora_linear_gemv_int8(const void* x, int x_bf16, const void* gp, const 
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(x_bf16 ? gemv_int8_rows<__nv_bfloat16>(rows, a, o, ws, sem, parts, prescale, s)
                       : gemv_int8_rows<float>(rows, a, o, ws, sem, parts, prescale, s));
+}
+
+// The f32 body with f32 x at narrow N, either launcher: x (M, K) f32,
+// N <= kNarrowMaxN; ws: a (ceil(K / kNarrowSlab), M, NP + RP) f32 scratch
+// (NP, RP: N and R rounded up to a multiple of 4); sem: ceil(M / kNarrowM)
+// ints, all zero, which the launch leaves all zero (launches sharing sem
+// must not overlap); parts: the parts of K, 1 <= parts <= ceil(K /
+// kNarrowSlab) (autotune.narrow_plan).
+int rimc_dora_linear_narrow(const void* x, const void* gp, const void* gn, const void* scale,
+                            const void* a, const void* b, const void* gamma, void* out,
+                            void* ws, void* sem, int M, int K, int N, int R, int parts,
+                            void* stream) {
+  if (M < 1 || K < 1 || N < 1 || N > kNarrowMaxN || R < 1 || R > kPrepThreads || parts < 1 ||
+      parts > (K + kNarrowSlab - 1) / kNarrowSlab)
+    return (int)cudaErrorInvalidValue;
+  const Ops o{x, nullptr, nullptr, nullptr, gp, gn, scale, b, gamma, nullptr, out, M, K, N, R};
+  return (int)launch_narrow(x, a, o, ws, sem, parts, (cudaStream_t)stream);
 }
 
 // xq: (M, K) s8 scratch for the int8 body (null for f32). The int8 body,

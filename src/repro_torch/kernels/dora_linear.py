@@ -12,11 +12,17 @@ Port of ``repro/kernels/dora_linear.py``: the source is
   cores (``mma.sync`` bf16 or u8 x s8) in one launch each, with K split
   into the parts ``autotune.gemv_plan`` says (the int8 body after a pass
   for its row scales from ``GEMV_INT8_PRESCALE_ROWS`` rows); f32 x with
-  the f32 body runs a SIMT body behind a prologue.
+  the f32 body above ``NARROW_MAX_N`` columns runs a SIMT body behind a
+  prologue.
 * ``dora_linear`` — prefill-shaped launcher, tiled over M and N; the
   int8 body, and the f32 body with bf16 x, run on the tensor cores
   (``mma.sync`` s8 x u8 or bf16), with tiles and K splits from
-  ``autotune.tiled_tiles``; f32 x with the f32 body runs a SIMT body.
+  ``autotune.tiled_tiles``; f32 x with the f32 body above
+  ``NARROW_MAX_N`` columns runs a SIMT body.
+* Either launcher, f32 x with the f32 body at ``N <= NARROW_MAX_N`` (the
+  MoE routers, ``autotune.use_narrow``): one launch of the narrow body,
+  K split into the parts ``autotune.narrow_plan`` says, X @ A in the same
+  pass, the parts added in a fixed order in the same launch.
 
 Both take ``accum``: ``"f32"`` (exact f32 products of x and the codes)
 or ``"int8"`` (x quantized per row to s8, an exact int32 accumulator, the
@@ -32,7 +38,8 @@ body (``launch_counts``: ``"dora_linear_gemv"``, ``"dora_linear"`` for
 f32, with a ``"/int8"`` suffix for int8), so a run can show which kernel
 its main path went through; ``f32x_launch_counts`` tallies apart the
 share of them whose x was float32 (the MoE router's, keys with a
-``"/f32x"`` suffix). The library is built at first use
+``"/f32x"`` suffix; those of the f32 body at ``N <= NARROW_MAX_N`` are
+the narrow body's launches). The library is built at first use
 (``kernels/build.py``).
 """
 from __future__ import annotations
@@ -100,6 +107,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rimc_dora_linear_gemv_mma.restype = i32
     lib.rimc_dora_linear_gemv_int8.argtypes = operands + [ptr] * 3 + [i32] * 7 + [ptr]
     lib.rimc_dora_linear_gemv_int8.restype = i32
+    lib.rimc_dora_linear_narrow.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+    lib.rimc_dora_linear_narrow.restype = i32
     lib.rimc_xa_scratch.argtypes = [i32, i32, i32]
     lib.rimc_xa_scratch.restype = i32
     lib.rimc_gemv_mma_sems.argtypes = [i32]
@@ -112,8 +121,9 @@ LIB = CudaLibrary("dora_linear.cu", _bind)
 build = LIB.load
 build_info = LIB.info
 
-# the tensor-core GEMVs' tickets (build.tickets), zeros that every launch
-# leaves as it found them: (capture id, tensor) per (device, stream)
+# the tickets of the tensor-core GEMVs and the narrow body (build.tickets),
+# zeros that every launch leaves as it found them: (capture id, tensor) per
+# (device, stream)
 _SEMS: Dict[tuple, tuple] = {}
 
 
@@ -153,10 +163,22 @@ def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
     int8 = accum == "int8"
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), **f32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if autotune.use_narrow(n, accum, x.dtype == torch.float32):
+        # one sum per slab of K, column and row: the N columns and the R
+        # ranks, each rounded up to 4
+        slabs = -(-k // autotune.MIN_SPLIT_ROWS)
+        ws = torch.empty((slabs, m, -(-n // 4) * 4 + -(-r // 4) * 4), **f32)
+        sem = tickets(_SEMS, lib.rimc_capture_id, x.device, stream,
+                      -(-m // autotune.NARROW_ROWS))
+        err = lib.rimc_dora_linear_narrow(
+            *(t.data_ptr() for t in (x, g_pos, g_neg, scale, a, b, gamma, out, ws, sem)),
+            m, k, n, r, autotune.narrow_plan(m, n, k), stream,
+        )
+        return _launched(kind, accum, x, err, out)
     # X @ A partials over K chunks, written by the kernel's prologue
     xa = torch.empty((lib.rimc_xa_scratch(m, k, r),), **f32)
     xs = torch.empty((m,), **f32) if int8 else None  # int8 row scales
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [t.data_ptr() for t in (g_pos, g_neg, scale, a, b, gamma, out, xa)]
     head = [x.data_ptr(), int(x.dtype == torch.bfloat16)]
     xs_ptr = None if xs is None else xs.data_ptr()
@@ -200,6 +222,11 @@ def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
             None if ws is None else ws.data_ptr(), m, k, n, r, int(int8),
             plan.bm, plan.k_split, stream,
         )
+    return _launched(kind, accum, x, err, out)
+
+
+def _launched(kind: str, accum: str, x, err: int, out):
+    """Raise on a failed launch, else count it (and its f32-x share)."""
     if err != 0:
         raise RuntimeError(f"{kind} ({accum}) launch failed: cudaError {err}")
     _LAUNCHES[counter(kind, accum)] += 1

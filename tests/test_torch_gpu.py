@@ -5,7 +5,10 @@ full-width leaves and at ragged shapes:
 * the fused linear's f32 body at rtol = atol = 1e-4 (exact f32 arithmetic
   in both; only the summation order differs), and both launchers'
   tensor-core bodies (bf16 x) at the same tolerance, bitwise equal to
-  themselves when launched twice; f32 x still runs the SIMT bodies;
+  themselves when launched twice; f32 x still runs the SIMT bodies above
+  64 columns, and the narrow body at N <= 64 (the routers: one split-K
+  launch through either launcher, bitwise across launches, plans and
+  graph replays, tickets left zero);
 * its int8 body within 1e-4 of the output's absmax (the same row
   quantization and exact int32 sum; only f32 orders differ), bitwise on
   the exactness case (integer x with 127 in every row, scale = gamma = 1,
@@ -143,35 +146,39 @@ def test_tensor_core_gemv_k_split_edges(cuda, shape):
     assert torch.equal(K.dora_linear_gemv(*ops), K.dora_linear_gemv(*ops))
 
 
-def _gemv_kernels(ops, accum):
-    """Names of the kernels one GEMV call launches (torch.profiler)."""
+def _gemv_kernels(ops, accum, launcher=K.dora_linear_gemv):
+    """Names of the kernels one call of ``launcher`` (the GEMV by default)
+    launches (torch.profiler)."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
 
-    K.dora_linear_gemv(*ops, accum=accum)
+    launcher(*ops, accum=accum)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        K.dora_linear_gemv(*ops, accum=accum)
+        launcher(*ops, accum=accum)
         torch.cuda.synchronize()
     return [re.search(r"(\w+_kernel)", e.name).group(1) for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-@pytest.mark.parametrize("dtype,accum,kernels", [
-    (torch.bfloat16, "f32", ["dora_gemv_mma_kernel"]),
-    (torch.float32, "f32", ["prep_kernel", "dora_gemv_kernel"]),
-    (torch.bfloat16, "int8", ["dora_gemv_int8_kernel"]),
-    (torch.float32, "int8", ["dora_gemv_int8_kernel"]),
+@pytest.mark.parametrize("dtype,accum,shape,kernels", [
+    (torch.bfloat16, "f32", (2048, 2048), ["dora_gemv_mma_kernel"]),
+    (torch.float32, "f32", (2048, 2048), ["prep_kernel", "dora_gemv_kernel"]),
+    (torch.bfloat16, "int8", (2048, 2048), ["dora_gemv_int8_kernel"]),
+    (torch.float32, "int8", (2048, 2048), ["dora_gemv_int8_kernel"]),
+    (torch.float32, "f32", (6144, 8), ["dora_narrow_kernel"]),
+    (torch.float32, "f32", (2048, 64), ["dora_narrow_kernel"]),
 ])
-def test_gemv_body_per_x_type(cuda, dtype, accum, kernels):
+def test_gemv_body_per_x_type(cuda, dtype, accum, shape, kernels):
     """At the decode tick (M = 4), bf16 x with the f32 body runs the
     tensor-core GEMV alone (one launch, X @ A included), and so does the
     int8 body with bf16 or f32 x (row scales in the launch too); f32 x
-    with the f32 body keeps the SIMT body behind its prologue; each call
-    counts one launch."""
+    with the f32 body keeps the SIMT body behind its prologue at N = 2048
+    and runs the narrow body alone at the routers' shapes (N = 8, 64);
+    each call counts one launch."""
     assert not autotune.gemv_int8_prescale(4)
-    ops = operands(4, 2048, 2048, 8, cuda, dtype=dtype)
+    ops = operands(4, *shape, 8, cuda, dtype=dtype)
     names = _gemv_kernels(ops, accum)
     if not names:
         pytest.skip("the profiler recorded no device activity")
@@ -1392,3 +1399,142 @@ def test_rolling_chunk_steps_replay_bitwise(cuda):
             host = torch.cat([torch.randint(0, cfg.vocab, (width,), generator=g),
                               torch.tensor([pos0, n])])
             assert _replay_equals_eager(step, host) == (True, True), (width, pos0, n)
+
+
+# ---------------------------------------------------------------------------
+# the narrow body: f32 x with the f32 body at N <= 64 (the routers), either
+# launcher, one split-K launch (autotune.narrow_plan)
+# ---------------------------------------------------------------------------
+
+# (M, K, N, R): the routers (mixtral-8x22b K 6144 N 8, deepseek-v2-lite K
+# 2048 N 64) at every GEMV bucket and the tiled rows; then K ragged against
+# the 128-row slab and the 32-row stage, N and R not multiples of 4, K
+# within one slab, the most ranks the kernel takes, ragged row tiles; units
+# of a tile past the threads (33 rows, R 256: 2 units a thread for some)
+# and just under them (one lane each)
+NARROW = [(m, k, n, 8) for k, n in ((6144, 8), (2048, 64))
+          for m in (1, 2, 4, 8, 16, 32, 64, 96, 256)]
+NARROW_RAGGED = [(5, 6100, 7, 8), (33, 6100, 60, 8), (96, 6100, 8, 5), (3, 40, 8, 1),
+                 (4, 2048, 64, 256), (130, 257, 31, 5), (70, 1000, 64, 3),
+                 (33, 1000, 64, 256), (20, 700, 64, 96)]
+
+
+def _misaligned(ops):
+    """The operands with x moved 4 bytes off a 16-byte boundary (a
+    contiguous view at storage offset 1)."""
+    x = ops[0]
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    moved = buf[1:].view(x.shape)
+    moved.copy_(x)
+    assert moved.data_ptr() % 16 != 0 and moved.is_contiguous()
+    return (moved, *ops[1:])
+
+
+def _narrow_launchers(m):
+    return [K.dora_linear_gemv, K.dora_linear] if autotune.use_gemv(m) else [K.dora_linear]
+
+
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("shape", NARROW + NARROW_RAGGED)
+def test_narrow_body_matches_plain(cuda, shape, misaligned):
+    """The narrow body against the plain version at rtol = atol = 1e-4
+    through each launcher that takes the rows, with x aligned and 4 bytes
+    off, each call one launch counted under its launcher and in the f32-x
+    tally."""
+    m, k, n, r = shape
+    ops = operands(m, k, n, r, cuda, dtype=torch.float32, seed=m + k + n)
+    if misaligned:
+        ops = _misaligned(ops)
+    for launcher in _narrow_launchers(m):
+        K.reset_launch_counts()
+        _check(launcher, ops)
+        key = launcher.__name__
+        assert K.launch_counts()[key] == 1 and sum(K.launch_counts().values()) == 1
+        assert K.f32x_launch_counts()[key + K.F32X] == 1
+
+
+def _fresh_tickets():
+    """Drop the tickets earlier tests left (a graph that was captured but
+    never replayed holds tickets its zeroing node never cleared), so that
+    a check sees only the tickets of the launches that follow."""
+    torch.cuda.synchronize()
+    K._SEMS.clear()
+
+
+@pytest.mark.parametrize("shape", NARROW + NARROW_RAGGED)
+def test_narrow_body_is_bitwise_repeatable(cuda, shape):
+    """Two launches of the same call are bitwise equal (no atomics on data),
+    and leave every ticket zero."""
+    ops = operands(*shape, cuda, dtype=torch.float32, seed=1)
+    _fresh_tickets()
+    for launcher in _narrow_launchers(shape[0]):
+        assert torch.equal(launcher(*ops), launcher(*ops))
+    torch.cuda.synchronize()
+    assert all(int(sem.abs().sum()) == 0 for _, sem in K._SEMS.values())
+
+
+@pytest.mark.parametrize("shape", [(1, 6144, 8, 8), (4, 6144, 8, 8), (96, 6144, 8, 8),
+                                   (32, 2048, 64, 8), (256, 2048, 64, 8), (33, 6100, 60, 8)])
+def test_narrow_result_is_independent_of_the_plan(cuda, shape, monkeypatch):
+    """Every block writes one sum a slab and the last block adds them in
+    slab order, so the parts of K change no bit of the result: one part,
+    two, three, the policy's, and one a slab."""
+    m, k, n, r = shape
+    ops = operands(m, k, n, r, cuda, dtype=torch.float32, seed=2)
+    slabs = -(-k // autotune.MIN_SPLIT_ROWS)
+    plans = sorted({1, 2, 3, autotune.narrow_plan(m, n, k), slabs})
+    got = {}
+    for parts in plans:
+        monkeypatch.setattr(autotune, "narrow_plan", lambda *_, p=parts: p)
+        got[parts] = K.dora_linear(*ops)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[1], y) for y in got.values()), plans
+    torch.testing.assert_close(got[1], dora_linear_ref(*ops), rtol=1e-4, atol=1e-4)
+
+
+def test_narrow_tiled_runs_one_kernel(cuda):
+    """The tiled launcher at the router's 96-row prefill runs the narrow
+    body alone: one kernel, no prologue, one launch counted."""
+    ops = operands(96, 6144, 8, 8, cuda, dtype=torch.float32)
+    names = _gemv_kernels(ops, "f32", launcher=K.dora_linear)
+    if not names:
+        pytest.skip("the profiler recorded no device activity")
+    assert names == ["dora_narrow_kernel"]
+    K.reset_launch_counts()
+    K.dora_linear(*ops)
+    assert K.launch_counts() == {"dora_linear": 1, "dora_linear_gemv": 0,
+                                 "dora_linear_gemv/int8": 0, "dora_linear/int8": 0}
+
+
+def test_narrow_graphs_hold_tickets_of_their_own(cuda):
+    """Graphs of narrow calls (the GEMV at the decode tick, the tiled
+    launcher at the prefill, deepseek-v2-lite's router), each captured
+    after an eager call, replay at once on three streams, each to its
+    eager result; the tickets are zero afterwards."""
+    calls = [(K.dora_linear_gemv, operands(4, 6144, 8, 8, cuda, dtype=torch.float32, seed=3)),
+             (K.dora_linear, operands(96, 6144, 8, 8, cuda, dtype=torch.float32, seed=4)),
+             (K.dora_linear_gemv, operands(32, 2048, 64, 8, cuda, dtype=torch.float32,
+                                           seed=5))]
+    _fresh_tickets()
+    wants = [fn(*ops) for fn, ops in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn, ops in calls:
+            fn(*ops)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, gots = [], []
+    for fn, ops in calls:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            gots.append(fn(*ops))
+    streams = [torch.cuda.Stream() for _ in graphs]
+    for _ in range(5):
+        for stream, graph in zip(streams, graphs):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(gots, wants):
+            assert torch.equal(got, want)
+    assert all(int(sem.abs().sum()) == 0 for _, sem in K._SEMS.values())

@@ -27,6 +27,9 @@ CASES = [
     (64, 45, 130, 4), (65, 77, 33, 12), (130, 31, 97, 1),
     (8, 50, 64, 4), (16, 33, 96, 1), (32, 70, 48, 12),
     (96, 130, 77, 8), (128, 257, 31, 5), (200, 300, 999, 3),
+    # narrow N (the MoE routers' f32 x on the card): N = 8 and 64 with K
+    # over two slabs, N = 7 with R = 3 (neither a multiple of 4)
+    (4, 260, 8, 8), (96, 300, 64, 8), (33, 150, 7, 3),
 ]
 
 # qwen3-1.7b fused serve leaves: (K, N)
@@ -206,8 +209,8 @@ def test_tiled_binding_matches_the_c_signature():
 
     src = tk.LIB.src.read_text()
     names = ("rimc_dora_linear_gemv", "rimc_dora_linear_gemv_mma", "rimc_dora_linear_gemv_int8",
-             "rimc_dora_linear_tiled", "rimc_xa_scratch", "rimc_gemv_mma_sems",
-             "rimc_capture_id")
+             "rimc_dora_linear_tiled", "rimc_dora_linear_narrow", "rimc_xa_scratch",
+             "rimc_gemv_mma_sems", "rimc_capture_id")
     lib = SimpleNamespace(**{nm: SimpleNamespace() for nm in names})
     tk._bind(lib)
     for nm in names:
@@ -230,8 +233,19 @@ def test_tile_constants_match_the_kernel():
                         ("kGemvMmaK", autotune.GEMV_MMA_STAGE),
                         ("kGemvXaChunks", autotune.GEMV_XA_CHUNKS),
                         ("kPrepRows", autotune.XA_SLAB),
-                        ("kPrepRowTile", autotune.XA_ROW_TILE)):
+                        ("kPrepRowTile", autotune.XA_ROW_TILE),
+                        ("kNarrowMaxN", autotune.NARROW_MAX_N),
+                        ("kNarrowM", autotune.NARROW_ROWS),
+                        ("kNarrowSlab", autotune.MIN_SPLIT_ROWS)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
+    # the narrow body bounds its parts as test_narrow_plan_parts_partition_k
+    # does, and its C entry refuses more parts than slabs and wider N
+    for line in ("const int sb = part * slabs / parts, se = (part + 1) * slabs / parts;",
+                 "const int kb = sb * kNarrowSlab, ke = min(K, se * kNarrowSlab);",
+                 "const int m0 = tile * kNarrowM, rows = min(kNarrowM, M - m0);",
+                 "N > kNarrowMaxN",
+                 "parts > (K + kNarrowSlab - 1) / kNarrowSlab"):
+        assert src.count(line) == 1, line
     # the int8 GEMV's wave: two blocks an SM below 8 tiles of rows (64
     # rows), one at 64, by its launch bounds, its shared memory held to
     # that; and its X @ A blocks, at most kGemvXaChunks in all
@@ -259,3 +273,60 @@ def test_int8_gemv_row_scales_in_the_launch_at_the_decode_tick(m):
                                               >= autotune.GEMV_INT8_PRESCALE_ROWS)
     if m <= 4:
         assert not autotune.gemv_int8_prescale(m)
+
+
+# the routers (mixtral-8x22b K 6144 N 8; deepseek-v2-lite K 2048 N 64) at
+# every GEMV row bucket and the tiled rows, then ragged K and M, K within
+# one slab, and K of one row
+NARROW_SHAPES = [(m, k, n) for k, n in ((6144, 8), (2048, 64))
+                 for m in (1, 2, 4, 8, 16, 32, 64, 96, 256)]
+NARROW_SHAPES += [(5, 6100, 7), (33, 6100, 60), (200, 1000, 64), (1, 40, 8), (3, 1, 5),
+                  (4096, 2048, 64)]
+
+
+@pytest.mark.parametrize("m,k,n", NARROW_SHAPES)
+def test_narrow_plan_parts_partition_k(m, k, n):
+    """The narrow body's parts, bounded as dora_narrow_kernel bounds them
+    (checked in test_tile_constants_match_the_kernel), are whole slabs of
+    MIN_SPLIT_ROWS rows that partition [0, K) in order: consecutive, none
+    empty, none past K, each of at least MIN_SPLIT_ROWS rows but the last,
+    which ends at K's ragged last slab."""
+    parts = autotune.narrow_plan(m, n, k)
+    slabs = -(-k // autotune.MIN_SPLIT_ROWS)
+    assert 1 <= parts <= slabs
+    ranges = [(p * slabs // parts * autotune.MIN_SPLIT_ROWS,
+               min(k, (p + 1) * slabs // parts * autotune.MIN_SPLIT_ROWS)) for p in range(parts)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(hi - lo >= autotune.MIN_SPLIT_ROWS for lo, hi in ranges[:-1])
+    assert all(lo % autotune.MIN_SPLIT_ROWS == 0 for lo, _ in ranges)
+    assert ranges[-1][0] < k
+
+
+@pytest.mark.parametrize("m,k,n", NARROW_SHAPES)
+def test_narrow_plan_fills_one_wave(m, k, n):
+    """The launch (row tiles x parts) fits one wave of two blocks an SM,
+    and takes every part it may: one more would need a part of fewer
+    slabs, which puts more blocks on the card than that wave (or more
+    parts than slabs)."""
+    parts = autotune.narrow_plan(m, n, k)
+    tiles = -(-m // autotune.NARROW_ROWS)
+    slabs = -(-k // autotune.MIN_SPLIT_ROWS)
+    assert autotune.WAVE == 2 * autotune.SMS
+    assert tiles * parts <= autotune.WAVE or parts == 1
+    per = max(-(-slabs // parts) - 1, 1)
+    assert parts == slabs or tiles * -(-slabs // per) > autotune.WAVE
+    if (m, k, n) in ((1, 6144, 8), (4, 6144, 8), (32, 6144, 8)):
+        assert parts == 48  # one slab a block at the router's decode rows
+
+
+@pytest.mark.parametrize("n,accum,f32_x,narrow", [
+    (8, "f32", True, True), (64, "f32", True, True), (1, "f32", True, True),
+    (65, "f32", True, False), (8, "f32", False, False), (8, "int8", True, False),
+    (64, "int8", False, False), (2048, "f32", True, False),
+])
+def test_narrow_dispatch_rule(n, accum, f32_x, narrow):
+    """f32 x with the f32 body at N <= NARROW_MAX_N runs the narrow body
+    (either launcher); bf16 x, the int8 body and N = 65 do not."""
+    assert autotune.NARROW_MAX_N == 64
+    assert autotune.use_narrow(n, accum, f32_x) is narrow
