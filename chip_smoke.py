@@ -61,13 +61,24 @@ Phases (any failure exits non-zero; no failure is caught):
                   bf16 x; shapes whose plan splits K bitwise equal to
                   unsplit and other splits (``ADC_SPLITS``); CUDA-graph
                   replays bitwise equal to the eager result, two graphs
-                  replayed at once on two streams; its SIMT body (f32 x)
-                  once per leaf;
+                  replayed at once on two streams; its SIMT body (f32 x,
+                  N > 64) once per leaf;
+                * the ADC kernel's narrow body (f32 x at N <= 64: the MoE
+                  routers under codes_adc, one split-K launch) at the
+                  narrow body's routers and rows (M up to 256: two 128-row
+                  blocks) and ragged shapes, x aligned and 4 bytes off:
+                  every output within rtol 1e-4 / atol 1e-6 or one ADC step
+                  apart (at most 0.1%), each call twice, bitwise equal; each
+                  shape's calls from CUDA graphs replayed at once on several
+                  streams, bitwise equal to eager, the tickets zero after;
+                  bitwise equal under several parts of K
+                  (``ADC_NARROW_PLANS``); its exactness cases bitwise; one
+                  kernel a call at M = 4 and 96 (profiler);
   4. timing   — (the tiled f32 and int8 bodies also at M=96, the phase-5
                 prefill; both GEMV bodies also at M = 8, 16, 64, the int8
                 one also at M=1; the routers' f32-x launches: mixtral's
                 through every body at M = 1, 4, 32, 96, deepseek-v2-lite's
-                through the f32 body at M = 4, 32; the ADC at
+                through the f32 body and the ADC at M = 4, 32; the ADC at
                 M = 4, 32, 96, 256; the time per kernel from torch.profiler
                 of both tiled bodies at M = 96, 256, of both GEMV bodies at
                 M = 4, 32 and of the ADC at M = 4, 256, per layer and per
@@ -240,12 +251,16 @@ Phases (any failure exits non-zero; no failure is caught):
                 and step ms captured vs eager, peak and retained memory.
                 Phase 3 holds the router's f32-x launches at N = 8 (every
                 body, M in {1, 4, 32, 96}) against their plain versions and
-                phase 4 times them; the f32 body's run the narrow body.
+                phase 4 times them; the f32 body's run the narrow body, the
+                ADC's its narrow body.
 The last line is the contract line; the line before it the kernel table,
-where ``dora_linear_narrow`` is the narrow body: its launches are the f32
-body's f32-x launches of phases 5 and 11 (the routers'), which the rows of
-``dora_linear_gemv`` and ``dora_linear`` do not count, and its times are
-mixtral's router at the decode tick (M = 4).
+where ``dora_linear_narrow`` is the fused linear's narrow body: its
+launches are the f32 body's f32-x launches of phases 5 and 11 (the
+routers'), which the rows of ``dora_linear_gemv`` and ``dora_linear`` do not
+count, and its times are mixtral's router at the decode tick (M = 4);
+``crossbar_mvm_narrow`` is the ADC's narrow body, likewise: its launches
+are the ``crossbar_mvm`` f32-x launches of phases 5 and 11, which the
+``crossbar_mvm`` row does not count.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -379,6 +394,14 @@ NARROW_PLANS = [(1, 6144, 8, 8), (SLOTS, 6144, 8, 8), (PREFILL_ROWS, 6144, 8, 8)
                 (32, 2048, 64, 8), (33, 6100, 60, 8)]
 # deepseek-v2-lite's router rows also timed (phase 4)
 ROUTER64_M = (SLOTS, 32)
+# the ADC's narrow body (f32 x at N <= 64): the narrow body's routers at its
+# rows (NARROW_M: up to 256, two 128-row blocks) and ragged shapes (its
+# NARROW_RAGGED; R unused), x aligned and misaligned; its plans, shapes run
+# under several parts of K (whole 256-row tiles), bitwise equal; its
+# exactness cases (a partial last tile, two row blocks)
+ADC_NARROW_PLANS = [(1, 6144, 8), (SLOTS, 6144, 8), (PREFILL_ROWS, 6144, 8), (PREFILL_M, 6144, 8),
+                    (32, 2048, 64), (130, 2048, 64), (33, 6100, 60)]
+ADC_NARROW_EXACT = [(SLOTS, 6144, 8), (130, 2048, 64), (PREFILL_M, 6100, 60)]
 # f32 arithmetic outside the tensor cores (data sheet): the f32 body and
 # the ADC multiply f32 x exactly
 F32_FLOP_PER_S = 67e12
@@ -608,7 +631,7 @@ def phase_kernels(device):
     from repro_torch.kernels import dora_linear as K
 
     worst = {name: 0.0 for name in K.launch_counts()}
-    worst["crossbar_mvm"] = worst["dora_linear_narrow"] = 0.0
+    worst["crossbar_mvm"] = worst["dora_linear_narrow"] = worst["crossbar_mvm_narrow"] = 0.0
     cases = [(m, k, n, r, name) for name, k, n, r in LEAVES for m in DECODE_M]
     cases += [(PREFILL_M, k, n, r, name) for name, k, n, r in LEAVES]
     cases += [(m, k, n, r, "ragged") for m, k, n, r in RAGGED]
@@ -821,7 +844,7 @@ def phase_kernels(device):
     if not same:
         _fail("crossbar_mvm graph replay", "differs from the eager result")
 
-    # the SIMT body, which f32 x keeps, once per leaf
+    # the SIMT body, which f32 x keeps above 64 columns, once per leaf
     for name, k, n in ADC_LEAVES:
         x, gp, gn, scale, *_ = operands(SLOTS, k, n, 1, device, seed=k + n)
         x = x.float()
@@ -861,14 +884,15 @@ def phase_kernels(device):
         err = float((got - want).abs().max())
         bad, flips = ref.adc_disagreement(got, want, x, scale, rtol=ADC_RTOL, atol=ADC_ATOL)
         ok = bad == 0 and flips <= ADC_FLIP_SHARE * got.numel()
-        log(f"[kernels] crossbar_mvm f32 x     router   M={m:4d} K={ROUTER_K:5d} "
+        log(f"[kernels] crossbar_mvm_narrow    router   M={m:4d} K={ROUTER_K:5d} "
             f"N={ROUTER_N:5d} max|err|={err:.3e} one-step flips {flips}/{got.numel()} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             _fail(f"crossbar_mvm (f32 x, router) at {(m, ROUTER_K, ROUTER_N)}",
                   f"{bad} off, {flips} flips")
-        worst["crossbar_mvm"] = max(worst["crossbar_mvm"], err)
+        worst["crossbar_mvm_narrow"] = max(worst["crossbar_mvm_narrow"], err)
     narrow_checks(device, worst)
+    adc_narrow_checks(device, worst)
     return worst
 
 
@@ -889,22 +913,56 @@ def misaligned(ops):
     return (moved, *ops[1:])
 
 
-def launched_kernels(fn, ops):
-    """Names of the kernels one call ``fn(*ops)`` launches (torch.profiler,
-    after a warm-up call); None where the profiler records no device
-    activity."""
+def profiled_kernels(fn, calls=3, window_s=0.02):
+    """[(kernel, device ms)] of one call ``fn()``, in launch order
+    (torch.profiler, after a warm-up call), or None where the profiler
+    recorded no whole call. Deep in a long process the profiler has been
+    seen to start late, missing the first kernels of a window or all of
+    them (PERF.md §6); so one window runs calls for ``window_s`` seconds
+    (at least ``calls`` of them), each between two marker kernels (int16
+    fills), synchronized, and the kernels read are those between the last
+    two markers it recorded."""
     import re
 
     from torch.profiler import ProfilerActivity, profile
 
-    fn(*ops)
+    mark = torch.empty(1, dtype=torch.int16, device="cuda")
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*ops)
+        t0, done = time.perf_counter(), 0
+        while done < calls or time.perf_counter() - t0 < window_s:
+            mark.fill_(7)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            done += 1
+        mark.fill_(7)
         torch.cuda.synchronize()
-    names = [re.search(r"(\w+_kernel)", e.name) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return [n.group(1) if n else "?" for n in names] or None
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "FillFunctor<short>" in e.name]
+    if len(marks) < 2:
+        return None
+    call = events[marks[-2] + 1:marks[-1]]
+    names = [re.search(r"(\w+_kernel)", e.name) for e in call]
+    return [(n.group(1) if n else "?", e.device_time_total / 1e3) for n, e in zip(names, call)]
+
+
+def kernel_ms(fn):
+    """{kernel: device ms} of one call ``fn()`` (``profiled_kernels``), or
+    None where the profiler records nothing."""
+    by = {}
+    for name, ms in profiled_kernels(fn) or ():
+        by[name] = by.get(name, 0.0) + ms
+    return by or None
+
+
+def launched_kernels(fn, ops):
+    """Names of the kernels one call ``fn(*ops)`` launches
+    (``profiled_kernels``), or None where the profiler records nothing."""
+    kernels = profiled_kernels(lambda: fn(*ops))
+    return None if kernels is None else [name for name, _ in kernels]
 
 
 def narrow_checks(device, worst):
@@ -984,6 +1042,97 @@ def narrow_checks(device, worst):
             _fail(f"narrow body via {kind} at M={m}", f"launched {names}")
 
 
+def adc_narrow_checks(device, worst):
+    """The ADC's narrow body (f32 x, N <= 64) vs its plain version (every
+    output within ADC_RTOL / ADC_ATOL or one ADC step apart, at most
+    ADC_FLIP_SHARE of them) at ``NARROW_ROUTERS`` x ``NARROW_M`` and
+    ``NARROW_RAGGED``, x aligned and misaligned: each call twice, bitwise
+    equal; each shape's calls from CUDA graphs replayed at once on several
+    streams, bitwise equal to eager, and the tickets zero afterwards;
+    ``ADC_NARROW_PLANS`` bitwise equal under several parts of K;
+    ``ADC_NARROW_EXACT`` bitwise; one kernel a call at M = 4 and 96
+    (profiler)."""
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import crossbar_mvm as C
+
+    cases = [(m, k, n, name) for name, k, n, _ in NARROW_ROUTERS for m in NARROW_M]
+    cases += [(m, k, n, "ragged") for m, k, n, _ in NARROW_RAGGED]
+    for m, k, n, name in cases:
+        base = router_operands(m, device, seed=m + k + n, shape=(k, n, 1))[:4]
+        calls = []
+        C._SEMS.clear()  # only this shape's tickets are checked below
+        for shift, ops in (("", base), (" misaligned x", misaligned(base))):
+            got, again = C.crossbar_mvm(*ops), C.crossbar_mvm(*ops)
+            torch.cuda.synchronize()
+            want = ref.crossbar_mvm_ref(*ops)
+            err = float((got - want).abs().max())
+            bad, flips = ref.adc_disagreement(got, want, ops[0], ops[3], rtol=ADC_RTOL,
+                                              atol=ADC_ATOL)
+            same = torch.equal(got, again)
+            ok = bad == 0 and flips <= ADC_FLIP_SHARE * got.numel() and same
+            log(f"[kernels] crossbar_mvm_narrow    {name:8s} M={m:4d} K={k:5d} N={n:5d}{shift} "
+                f"parts {autotune.adc_narrow_plan(m, k, n)} max|err|={err:.3e} one-step flips "
+                f"{flips}/{got.numel()} repeat {'bitwise' if same else 'DIFFERS'} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"ADC narrow body{shift} at {(m, k, n)}",
+                      f"{bad} off, {flips} flips, repeat bitwise {same}")
+            worst["crossbar_mvm_narrow"] = max(worst["crossbar_mvm_narrow"], err)
+            calls.append(lambda ops=ops: C.crossbar_mvm(*ops))
+        same = graph_replays(calls)
+        zero = all(int(sem.abs().sum()) == 0 for _, sem in C._SEMS.values())
+        log(f"[kernels] crossbar_mvm_narrow    graphs {name:8s} M={m:4d} K={k:5d} N={n:5d} "
+            f"{len(calls)} captures on {len(calls)} streams, 5 replays "
+            f"{'bitwise equal to eager' if same else 'DIFFER'}, tickets "
+            f"{'zero' if zero else 'NOT ZERO'} {'ok' if same and zero else 'FAIL'}")
+        if not (same and zero):
+            _fail(f"ADC narrow body graphs at {(m, k, n)}", f"bitwise {same}, tickets zero {zero}")
+
+    # the result does not depend on the plan: the parts of K
+    for m, k, n in ADC_NARROW_PLANS:
+        ops = router_operands(m, device, seed=k + n, shape=(k, n, 1))[:4]
+        tiles = -(-k // autotune.ADC_ARRAY_ROWS)
+        policy, got = autotune.adc_narrow_plan, {}
+        try:
+            for parts in sorted({1, 2, 3, policy(m, k, n), tiles}):
+                autotune.adc_narrow_plan = lambda *_, p=parts: p
+                got[parts] = C.crossbar_mvm(*ops)
+        finally:
+            autotune.adc_narrow_plan = policy
+        torch.cuda.synchronize()
+        same = all(torch.equal(got[1], y) for y in got.values())
+        log(f"[kernels] crossbar_mvm_narrow    plans  M={m:4d} K={k:5d} N={n:5d} parts "
+            f"{sorted(got)} (policy {policy(m, k, n)}) {'bitwise equal' if same else 'DIFFER'} "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            _fail(f"ADC narrow body plans at {(m, k, n)}", "the parts of K change the result")
+
+    # exactness: 127 in every (128-row, 256-row) block, so step = 4080 and
+    # every current is an exact integer below 2^24
+    for m, k, n in ADC_NARROW_EXACT:
+        x, gp, gn, one, *_ = exact_operands(
+            m, k, n, device, seed=k, every=(autotune.ADC_BLOCK_ROWS, autotune.ADC_ARRAY_ROWS))
+        assert torch.all(ref.adc_steps(x) == 4080.0)
+        ok = torch.equal(C.crossbar_mvm(x, gp, gn, one), ref.crossbar_mvm_ref(x, gp, gn, one))
+        log(f"[kernels] crossbar_mvm_narrow    exact  M={m:4d} K={k:5d} N={n:5d} bitwise "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"ADC narrow body exactness case at {(m, k, n)}", "not bitwise")
+
+    # one kernel a call: no step prologue, no sum pass
+    for m in (SLOTS, PREFILL_ROWS):
+        names = launched_kernels(C.crossbar_mvm, router_operands(m, device, seed=1)[:4])
+        if names is None:
+            log(f"[kernels] crossbar_mvm_narrow    M={m}: the profiler recorded no device "
+                "activity: not measured")
+            continue
+        ok = names == ["adc_narrow_kernel"]
+        log(f"[kernels] crossbar_mvm_narrow    M={m} router: kernels of one call {names} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"ADC narrow body at M={m}", f"launched {names}")
+
+
 def bound(nbytes, ops, rate):
     """(bound_ms, bound_by): ``nbytes`` over the HBM rate against ``ops``
     at ``rate``, whichever takes longer."""
@@ -1001,6 +1150,12 @@ def linear_bound(m, k, n, r, rate):
 def adc_bound(m, k, n):
     """The ADC MVM: bf16 x, both code arrays, scale, the f32 output."""
     return bound(2 * k * n + 2 * m * k + 4 * n + 4 * m * n, 2 * m * k * n, BF16_FLOP_PER_S)
+
+
+def adc_f32x_bound(m, k, n):
+    """The ADC MVM with f32 x (the routers): x 4 bytes an element, both code
+    arrays, scale, the f32 output; f32 operations outside the tensor cores."""
+    return bound(2 * k * n + 4 * m * k + 4 * n + 4 * m * n, 2 * m * k * n, F32_FLOP_PER_S)
 
 
 def int_mm_takes(m, k, n):
@@ -1124,13 +1279,12 @@ def phase_timing(device):
         _timed_row(rows, K.counter(kind, "int8"), "router", (m, k, n), ops,
                    lambda *o, fn=fn: fn(*o, accum="int8"), ref.dora_linear_int8_ref,
                    library, router_bound(m, k, n, r, INT8_OP_PER_S))
-        _timed_row(rows, "crossbar_mvm", "router", (m, k, n), [o[:4] for o in ops],
-                   C.crossbar_mvm, ref.crossbar_mvm_ref, None,
-                   bound(2 * k * n + 4 * m * k + 4 * n + 4 * m * n, 2 * m * k * n,
-                         F32_FLOP_PER_S))
+        _timed_row(rows, "crossbar_mvm_narrow", "router", (m, k, n), [o[:4] for o in ops],
+                   C.crossbar_mvm, ref.crossbar_mvm_ref, None, adc_f32x_bound(m, k, n))
         del ops, w32, library
     # deepseek-v2-lite's router (K 2048, N 64, rank 8): the f32 body (the
-    # narrow body) at the decode tick and a full admission chunk
+    # narrow body) and the ADC (its narrow body) at the decode tick and a
+    # full admission chunk
     _, k, n, r = NARROW_ROUTERS[1]
     for m in ROUTER64_M:
         ops = [router_operands(m, device, seed=i, shape=(k, n, r))
@@ -1140,6 +1294,8 @@ def phase_timing(device):
                    ref.dora_linear_ref,
                    [lambda o=o, w=w: torch.matmul(o[0], w) for o, w in zip(ops, w32)],
                    router_bound(m, k, n, r, F32_FLOP_PER_S))
+        _timed_row(rows, "crossbar_mvm_narrow", "router64", (m, k, n), [o[:4] for o in ops],
+                   C.crossbar_mvm, ref.crossbar_mvm_ref, None, adc_f32x_bound(m, k, n))
         del ops, w32
     return rows
 
@@ -1154,28 +1310,12 @@ def router_bound(m, k, n, r, rate):
 def kernel_breakdown(device, fn, leaves, m):
     """Device time of each kernel that one call ``fn(*operands)`` launches
     (``m`` rows), per leaf of ``leaves`` ((name, K, N, rank) each), from
-    torch.profiler around one call per leaf after a warm-up call (L2
-    warm): {leaf: {kernel: ms}}, ``None`` for a leaf where the profiler
-    records no device activity."""
-    import re
-
-    from torch.profiler import ProfilerActivity, profile
-
+    ``kernel_ms`` (L2 warm): {leaf: {kernel: ms}}, ``None`` for a leaf
+    where the profiler records nothing."""
     out = {}
     for leaf, k, n, r in leaves:
         ops = operands(m, k, n, r, device, seed=1)
-        fn(*ops)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(*ops)
-            torch.cuda.synchronize()
-        by = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = re.search(r"(\w+_kernel)", e.name)
-                name = name.group(1) if name else e.name[:40]
-                by[name] = by.get(name, 0.0) + e.device_time_total / 1e3
-        out[leaf] = by or None
+        out[leaf] = kernel_ms(lambda: fn(*ops))
         del ops
     return out
 
@@ -2941,11 +3081,11 @@ def phase_paper(device, seed):
 # ---------------------------------------------------------------------------
 
 # kernel classes of a decode tick's profile (first match wins): the router's
-# f32-x bodies (the narrow body, the ADC's SIMT body), the tensor-core
+# f32-x bodies (the fused linear's and the ADC's narrow bodies), the tensor-core
 # bodies (attention and the head), the expert products (cuBLAS), and the
 # experts' read-back: (G+ - G-) in int16, then one multiply into bf16
 MOE_TICK_CLASSES = {
-    "router_f32x": r"dora_narrow_kernel|adc_step_kernel|adc_tile_kernel|adc_sum_kernel",
+    "router_f32x": r"dora_narrow_kernel|adc_narrow_kernel",
     "gemv_tensor_core": r"dora_gemv_mma_kernel|dora_gemv_int8_kernel|row_scale_kernel"
                         r"|adc_mma_kernel",
     # u8 -> int16, the int16 difference, and the int16 x f32 -> bf16 multiply
@@ -3369,8 +3509,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in exact f32
     device = torch.device("cuda")
     phase_build()
+    t0 = time.perf_counter()
     worst = phase_kernels(device)
+    log(f"[kernels] phase 3 took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     rows = phase_timing(device)
+    log(f"[timing] phase 4 took {time.perf_counter() - t0:.2f} s")
     breakdown = phase_breakdown(device)
     serving, sessions, dep = phase_serving(device, args.seed)
     for body, run in (("f32", serving), ("int8", serving["int8"]),
@@ -3425,19 +3569,28 @@ def main():
         launches[name] -= n
     launches["dora_linear_narrow"] = sum(narrow.values())
     assert launches["dora_linear_narrow"] > 0, narrow
-    # (name, source, TPU kernel, rows, leaf of the timed rows)
+    # likewise the ADC's f32-x launches are its narrow body's (the routers')
+    adc_narrow = (serving["codes_adc"]["launches"]["crossbar_mvm/f32x"]
+                  + moe["serving"]["codes_adc"]["launches"]["crossbar_mvm/f32x"])
+    launches["crossbar_mvm"] -= adc_narrow
+    launches["crossbar_mvm_narrow"] = adc_narrow
+    assert adc_narrow > 0, adc_narrow
+    # (name, source, TPU kernel, rows, leaf of the timed rows, timed kernel)
     table = (
-        ("dora_linear_gemv", "dora_linear.cu", "dora_linear.py:194", SLOTS, None),
-        ("dora_linear", "dora_linear.cu", "dora_linear.py:129", PREFILL_M, None),
-        ("dora_linear_gemv/int8", "dora_linear.cu", "dora_linear.py:77", SLOTS, None),
-        ("dora_linear/int8", "dora_linear.cu", "dora_linear.py:77", PREFILL_M, None),
-        ("crossbar_mvm", "crossbar_mvm.cu", "crossbar_mvm.py:60", SLOTS, None),
-        # the router's decode tick through the GEMV launcher
-        ("dora_linear_narrow", "dora_linear.cu", "dora_linear.py:46", SLOTS, "router"),
+        ("dora_linear_gemv", "dora_linear.cu", "dora_linear.py:194", SLOTS, None, None),
+        ("dora_linear", "dora_linear.cu", "dora_linear.py:129", PREFILL_M, None, None),
+        ("dora_linear_gemv/int8", "dora_linear.cu", "dora_linear.py:77", SLOTS, None, None),
+        ("dora_linear/int8", "dora_linear.cu", "dora_linear.py:77", PREFILL_M, None, None),
+        ("crossbar_mvm", "crossbar_mvm.cu", "crossbar_mvm.py:60", SLOTS, None, None),
+        # the router's decode tick through the GEMV launcher, and the ADC's
+        ("dora_linear_narrow", "dora_linear.cu", "dora_linear.py:46", SLOTS, "router",
+         "dora_linear_gemv"),
+        ("crossbar_mvm_narrow", "crossbar_mvm.cu", "crossbar_mvm.py:60", SLOTS, "router",
+         "crossbar_mvm_narrow"),
     )
     kernels = []
-    for name, source, replaces, m, leaf in table:
-        timed = "dora_linear_gemv" if leaf else name
+    for name, source, replaces, m, leaf, timed in table:
+        timed = timed or name
         mine = [r for r in rows if r["kernel"] == timed and r["m"] == m
                 and (r["leaf"] == leaf if leaf else not r["leaf"].startswith("router"))]
         library = [r["library_ms"] for r in mine]

@@ -23,7 +23,10 @@ and the only decisions left are:
   their own (``gemv_int8_prescale``);
 * whether a call of the f32 body with f32 x is narrow (``use_narrow``:
   N <= ``NARROW_MAX_N``, every MoE router), which both launchers then send
-  to one split-K kernel, and that kernel's parts of K (``narrow_plan``).
+  to one split-K kernel, and that kernel's parts of K (``narrow_plan``);
+* whether an ADC call with f32 x is narrow (``use_adc_narrow``, the same
+  rule: the routers under codes_adc), which then runs one split-K kernel,
+  and that kernel's parts of K (``adc_narrow_plan``).
 
 The ADC kernel's 128-row block and 256-row array tile are not choices:
 max |x| is taken per (block, tile) and each tile's current is digitized
@@ -281,3 +284,49 @@ def narrow_plan(m: int, n: int, k: int) -> int:
     slabs = -(-k // MIN_SPLIT_ROWS)
     per = -(-slabs // max(1, WAVE // tiles))
     return -(-slabs // per)
+
+
+# The ADC kernel's narrow body (crossbar_mvm.cu, adc_narrow_kernel): f32 x at
+# N <= NARROW_MAX_N (the routers under codes_adc). A block holds a 128-row
+# block's rows and every column over a part of K made of whole 256-row
+# tiles, in a ring of ADC_NARROW_STAGES stages of ADC_NARROW_STAGE_ROWS rows
+# (kNarrowK, kNarrowStages): x rows padded to 4 with a row stride of
+# ADC_NARROW_STAGE_ROWS + 4 floats, both code slices N (padded to 4) bytes a
+# row.
+ADC_NARROW_STAGE_ROWS = 64
+ADC_NARROW_STAGES = 5
+
+
+def use_adc_narrow(n: int, f32_x: bool) -> bool:
+    """Whether an ADC call runs the narrow body: f32 x and at most
+    ``NARROW_MAX_N`` output columns (bf16 x runs the tensor-core body at
+    any N, f32 x above it the three-launch SIMT body)."""
+    return f32_x and n <= NARROW_MAX_N
+
+
+def adc_narrow_smem(m: int, n: int) -> int:
+    """Dynamic shared memory of one block of the narrow body: the ring
+    (kNarrowStages x narrow_stage_bytes) for the rows of one row block."""
+    rp = -(-min(m, ADC_BLOCK_ROWS) // 4) * 4
+    np_ = -(-n // 4) * 4
+    return ADC_NARROW_STAGES * (rp * (ADC_NARROW_STAGE_ROWS + 4) * 4
+                                + 2 * ADC_NARROW_STAGE_ROWS * np_)
+
+
+def adc_narrow_wave(m: int, n: int) -> int:
+    """Blocks of the narrow body the card holds at once: two an SM
+    (``WAVE``) where their shared memory fits, else as many as fit."""
+    fit = SMEM_PER_SM // (adc_narrow_smem(m, n) + SMEM_PER_BLOCK_RESERVED)
+    return SMS * max(1, min(2, fit))
+
+
+def adc_narrow_plan(m: int, k: int, n: int) -> int:
+    """The narrow body's parts of K for an (m, k) x (k, n) ADC product with
+    f32 x: whole 256-row tiles, a part per tile while the launch (row blocks
+    x parts) fits one wave (``adc_narrow_wave``), fewer where it would not
+    (the kernel deals the tiles out as evenly as they go). The result does
+    not depend on the parts: every tile's digitized partial is written and
+    the row block's last block adds them in tile order."""
+    tiles = -(-k // ADC_ARRAY_ROWS)
+    blocks = -(-m // ADC_BLOCK_ROWS)
+    return max(1, min(tiles, adc_narrow_wave(m, n) // blocks))

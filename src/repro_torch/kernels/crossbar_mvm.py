@@ -11,9 +11,12 @@ tracks max |x| over the (128-row block, tile):
 The digitized partials accumulate over the K tiles and the per-column
 scale applies at the end. Port of ``repro/kernels/crossbar_mvm.py``
 (whose docstring's ``/ 64`` is wrong; its code divides by 16, as here).
-The source is ``csrc/crossbar_mvm.cu``: bf16 x (what serving passes) runs
-its tensor-core body in one launch, K split into the ordered parts of
-``autotune.adc_plan``; f32 x its SIMT body (three launches).
+The source is ``csrc/crossbar_mvm.cu``: bf16 x (what the dense leaves
+pass) runs its tensor-core body in one launch, K split into the ordered
+parts of ``autotune.adc_plan``; f32 x at N <= ``autotune.NARROW_MAX_N``
+(the MoE routers, ``autotune.use_adc_narrow``) its narrow body in one
+launch, K split into the parts of ``autotune.adc_narrow_plan``; f32 x above
+it the SIMT body (three launches).
 
 A tensor on the CPU takes the plain version (``ref.crossbar_mvm_ref``);
 a CUDA tensor launches the kernel or raises — there is no fallback.
@@ -73,6 +76,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rimc_adc_mma_sems.restype = i32
     lib.rimc_adc_mma_scratch.argtypes = [i32] * 4
     lib.rimc_adc_mma_scratch.restype = ctypes.c_longlong
+    lib.rimc_crossbar_mvm_narrow.argtypes = [ptr] * 7 + [i32] * 4 + [f32] * 3 + [ptr]
+    lib.rimc_crossbar_mvm_narrow.restype = i32
+    lib.rimc_adc_narrow_sems.argtypes = [i32]
+    lib.rimc_adc_narrow_sems.restype = i32
     lib.rimc_adc_capture_id.argtypes = [ptr, ctypes.POINTER(ctypes.c_ulonglong)]
     lib.rimc_adc_capture_id.restype = i32
     lib.rimc_adc_step_scratch.argtypes = [i32, i32]
@@ -85,8 +92,8 @@ LIB = CudaLibrary("crossbar_mvm.cu", _bind)
 build = LIB.load
 build_info = LIB.info
 
-# the tensor-core body's tickets, zeros that every launch leaves as it
-# found them: (capture id, tensor) per (device, stream)
+# the tickets of the tensor-core and narrow bodies, zeros that every launch
+# leaves as it found them: (capture id, tensor) per (device, stream)
 _SEMS: Dict[tuple, tuple] = {}
 
 
@@ -134,6 +141,16 @@ def _launch(x, g_pos, g_neg, scale, code_max: int, adc_bits: int):
         err = lib.rimc_crossbar_mvm_mma(
             *ptrs, None if ws is None else ws.data_ptr(),
             None if sem is None else sem.data_ptr(), m, k, n, parts, *consts, stream,
+        )
+    elif autotune.use_adc_narrow(n, x.dtype == torch.float32):
+        # every tile's digitized partial, added in tile order by the row
+        # block's last block
+        ws = torch.empty((lib.rimc_adc_part_scratch(m, k, n),), **f32)
+        sem = tickets(_SEMS, lib.rimc_adc_capture_id, x.device, stream,
+                      lib.rimc_adc_narrow_sems(m))
+        err = lib.rimc_crossbar_mvm_narrow(
+            *ptrs, ws.data_ptr(), sem.data_ptr(), m, k, n, autotune.adc_narrow_plan(m, k, n),
+            *consts, stream,
         )
     else:
         step = torch.empty((lib.rimc_adc_step_scratch(m, k),), **f32)

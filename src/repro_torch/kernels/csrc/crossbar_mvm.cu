@@ -14,12 +14,15 @@
 //
 // Which body runs where:
 //
-//     x     kernels                                         arithmetic
-//     bf16  adc_mma_kernel (one launch)                     mma.sync bf16, f32 acc
-//     f32   adc_step_kernel, adc_tile_kernel, adc_sum_kernel  SIMT f32
+//     x     N      kernels                                         arithmetic
+//     bf16  any    adc_mma_kernel (one launch)                     mma.sync bf16, f32 acc
+//     f32   <= 64  adc_narrow_kernel (one launch)                  SIMT f32, K split
+//     f32   > 64   adc_step_kernel, adc_tile_kernel, adc_sum_kernel  SIMT f32
 //
-// The serving path (substrate/exec.py::rimc_mvm_adc) always passes bf16
-// x. f32 x keeps the SIMT body: a bf16 MMA would round it.
+// The serving path (substrate/exec.py::rimc_mvm_adc) passes bf16 x to the
+// dense leaves and f32 x to the MoE routers (N <= 64, the narrow body). f32
+// x never takes the tensor cores: a bf16 MMA would round it. No serving path
+// runs f32 x above 64 columns.
 //
 // Faithfulness. The reference forms each tile's current in f32, then
 // rounds it. Here too: a tile's current is finished in f32 before it is
@@ -120,6 +123,12 @@
 // is loaded) whose finished tile current it digitizes and writes to a
 // partial (K tiles x M x N f32 scratch); and an ordered sum of the
 // partials times the column scale.
+//
+// The narrow body (f32 x, N <= 64: the routers), adc_narrow_kernel, one
+// launch (details at the kernel): a block holds a 128-row block's rows and
+// all N columns over a part of K made of whole 256-row tiles, digitizes each
+// tile's current itself and writes it to the (K tiles x M x N) scratch; the
+// row block's last block (a ticket) adds them in tile order.
 //
 // Plain C interface (loaded with ctypes). Each function returns
 // cudaGetLastError() after its launches; the Python wrapper raises on
@@ -655,6 +664,324 @@ __global__ void __launch_bounds__(32 * kMmaWarps, (AdcMinBlocks<NT>::value))
 }
 
 // ---------------------------------------------------------------------------
+// the narrow body (f32 x, N <= 64: the MoE routers under codes_adc)
+// ---------------------------------------------------------------------------
+
+// f32 x at N <= kNarrowMaxN (autotune.NARROW_MAX_N): the routers of the zoo
+// (mixtral-8x22b K 6144 N 8, deepseek-v2-lite K 2048 N 64), whose input is
+// f32, under codes_adc. It computes what repro/kernels/crossbar_mvm.py::
+// _kernel computes, in one launch.
+//
+// What bounds it. Nothing that scales: the work is 0.1-2 MB and at most a
+// few MFLOP, a bound below 1 us. The three SIMT launches it replaces here
+// ran 24 blocks at N = 8, each a 128-column strip of which 8 columns were
+// real, walking its tile's 256 rows in 32 dependent steps, behind a step
+// prologue that read x once more and before a third launch that read the
+// partials back. What is left is latency: the launch, one memory round
+// trip, the ticket and the last block.
+//
+// Design:
+// * The grid is (parts of K) x (128-row blocks of x). A block holds every
+//   row of its row block (min(M - 128 rb, 128)) and all N columns, so the
+//   step of each (row block, tile) is the block's own: the max |x| is folded
+//   from the staged x (fmaxf of fabsf, exact in any order; zero-fill changes
+//   nothing), and no prologue reads x. Parts are whole 256-row tiles
+//   (autotune.adc_narrow_plan: every tile a part while the launch fits one
+//   wave).
+// * A ring of kNarrowStages stages of kNarrowK rows (a whole tile in flight
+//   and one stage more; each stage costs a wait and a barrier, so 64-row
+//   stages, 4 a tile: 2.0-2.2 us faster a call than 8 of 32 rows at every
+//   router row, tools/adc_costs.py --narrow) is filled by cp.async: x 16 bytes a copy where K % 4
+//   == 0 and x is 16-byte aligned, else 4 bytes (zero-filled past M and the
+//   part's end either way); both code slices as one run of kr x N bytes 16 at
+//   a time where N % 4 == 0 and the codes are 16-byte aligned (the run's
+//   last copy zero-filled by its source size), else masked byte loads.
+// * Work units are 4 rows x 4 columns (16 accumulators; the codes become
+//   exact f32 weights by code_diff as they are read from shared memory).
+//   The units of the row block (row groups x column groups) share the
+//   block's threads, two a thread where there are more units than threads;
+//   where there are fewer, a power of two of neighbouring lanes (at most 32)
+//   split each stage's rows (row k to lane k % lanes), and at the tile's end
+//   a butterfly of warp shuffles adds them (the same bits in every lane).
+//   The current is then finished in f32; the block's max |x| gives the step
+//   (__fdiv_rn(__fmul_rn(256 code_max, fmaxf(max, 1e-8)), adc_max 16)), the
+//   current is digitized (rint of an IEEE division, clipped, times the step)
+//   and written to the scratch at (tile, row, column).
+// * The row block's last block to finish (a ticket in sem[rb], which it
+//   resets) copies the partials into the idle ring, as many tiles at a time
+//   as it holds (one round trip at the routers' shapes), and adds them in
+//   ascending tile order, acc = cur[0]; acc = acc + cur[t], then multiplies
+//   by the column scale. Every add and multiply after the dot is explicitly
+//   rounded, and no data goes through atomics: the order of every f32
+//   operation depends on the shape alone, so the result is bitwise the same
+//   across launches, plans of K and graph replays. It differs from the plain
+//   version only where the order of the dot inside a tile moves a current
+//   across a rounding boundary (ref.adc_disagreement).
+// Measured on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md; tools/router_f32x.py,
+// tools/adc_costs.py --narrow): mixtral's router 7.6-8.5 us a call at 1-8
+// rows, 10.1-10.3 at 32, 14.8-15.0 at 96 (the three SIMT launches 35-74 us).
+// At 1-4 rows a chain of latencies: the launch ~1 us, the copies ~2.5 (one
+// round trip, then a wait and a barrier a stage), max |x| and products
+// ~0.7, the tile end ~0.8-1.3, fence and ticket ~0.9, the last block ~1.5.
+// One part a tile beats two tiles a part by 3-8 us. 128 registers, no spill.
+constexpr int kNarrowThreads = 256;
+constexpr int kNarrowMaxN = 64;   // autotune.NARROW_MAX_N
+constexpr int kNarrowK = 64;      // rows of K a stage (autotune.ADC_NARROW_STAGE_ROWS)
+constexpr int kNarrowStages = 5;  // stages of the ring (autotune.ADC_NARROW_STAGES)
+constexpr int kNarrowXS = kNarrowK + 4;  // x row stride, floats
+constexpr int kNarrowLanes = 32;  // threads over one unit's rows, at most
+constexpr int kNarrowUnits = 2;   // units a thread holds at most
+static_assert((kBlockRows / 4) * (kNarrowMaxN / 4) <= kNarrowUnits * kNarrowThreads,
+              "units of a row block at N = kNarrowMaxN");
+static_assert(kArrayRows % kNarrowK == 0 && kNarrowK % kNarrowLanes == 0, "stages of a tile");
+// the operands the copies may take 16 bytes at a time (the `vec` mask)
+constexpr int kVecCodes = 1, kVecX = 2;
+
+// 16 bytes global -> shared, asynchronously, of which the first `bytes`
+// (0..16) are read and the rest zero-filled
+__device__ __forceinline__ void cp_async16n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+// 4 bytes global -> shared, asynchronously; zero-filled when !in
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// bytes of one stage of the ring (autotune.adc_narrow_smem): the x tile of
+// rp rows and both code slices (rp: rows rounded up to 4, np: N rounded up
+// to 4)
+__host__ __device__ __forceinline__ int narrow_stage_bytes(int rp, int np) {
+  return rp * kNarrowXS * 4 + 2 * kNarrowK * np;
+}
+
+__global__ void __launch_bounds__(kNarrowThreads)
+    adc_narrow_kernel(const float* __restrict__ x, const uint8_t* __restrict__ gp,
+                      const uint8_t* __restrict__ gn, const float* __restrict__ scale,
+                      float* __restrict__ out, float* __restrict__ ws, int* __restrict__ sem,
+                      int M, int K, int N, int vec, float full_scale, float denom,
+                      float adc_max) {
+  extern __shared__ __align__(16) float smem_f[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  __shared__ uint32_t wmax[kNarrowThreads / 32];
+  __shared__ int last;
+  constexpr int SPT = kArrayRows / kNarrowK;  // stages a tile
+  const int tid = threadIdx.x;
+  const int rb = blockIdx.y, part = blockIdx.x, parts = gridDim.x;
+  const int m0 = rb * kBlockRows, rows = min(kBlockRows, M - m0);
+  const int NP = (N + 3) & ~3, CG = NP / 4, RG = (rows + 3) / 4, U = RG * CG;
+  const int XB = 4 * RG * kNarrowXS * 4, CB = kNarrowK * NP;
+  const int SB = XB + 2 * CB;
+  const int T = (K + kArrayRows - 1) / kArrayRows;
+  const int t0 = part * T / parts, t1 = (part + 1) * T / parts;
+  const int kb = t0 * kArrayRows, ke = min(K, t1 * kArrayRows);
+  const int nst = (ke - kb + kNarrowK - 1) / kNarrowK;  // stages of this part
+  // lanes: a power of two, the most that fit the threads; a unit's lanes are
+  // neighbouring threads of one warp. wide: more units than threads, a
+  // thread then takes up to kNarrowUnits, one lane
+  const bool wide = U > kNarrowThreads;
+  int lanes = 1;
+  while (!wide && 2 * lanes <= kNarrowLanes && 2 * lanes * U <= kNarrowThreads) lanes *= 2;
+  const int lane = tid % lanes, unit0 = wide ? tid : tid / lanes;
+
+  // stage j of the part into slot j % kNarrowStages (an empty group past nst)
+  auto load_stage = [&](int j) {
+    if (j < nst) {
+      unsigned char* st = smem + (j % kNarrowStages) * SB;
+      float* xs = reinterpret_cast<float*>(st);
+      uint8_t* ps = st + XB;
+      uint8_t* ns = ps + CB;
+      const int k0 = kb + j * kNarrowK, kr = min(kNarrowK, ke - k0);
+      // x: the row block's rows [0, 4 RG), zeros past M and past the part
+      if (vec & kVecX) {
+        for (int p = tid; p < 4 * RG * (kNarrowK / 4); p += kNarrowThreads) {
+          const int i = p / (kNarrowK / 4), c = p % (kNarrowK / 4) * 4;
+          const bool in = i < rows && c < kr;
+          cp_async16(xs + i * kNarrowXS + c, in ? x + (size_t)(m0 + i) * K + k0 + c : x, in);
+        }
+      } else {
+        for (int p = tid; p < 4 * RG * kNarrowK; p += kNarrowThreads) {
+          const int i = p / kNarrowK, c = p % kNarrowK;
+          const bool in = i < rows && c < kr;
+          cp_async4(xs + i * kNarrowXS + c, in ? x + (size_t)(m0 + i) * K + k0 + c : x, in);
+        }
+      }
+      // both code slices: kr rows of N bytes (NP == N where copied as one run)
+      if (vec & kVecCodes) {
+        const int bytes = kr * N;
+        const size_t off = (size_t)k0 * N;
+        for (int o = tid * 16; o < CB; o += kNarrowThreads * 16) {
+          const int n = max(0, min(16, bytes - o));
+          cp_async16n(ps + o, n ? gp + off + o : gp, n);
+          cp_async16n(ns + o, n ? gn + off + o : gn, n);
+        }
+      } else {
+        for (int p = tid; p < kNarrowK * NP; p += kNarrowThreads) {
+          const int r = p / NP, c = p % NP;
+          const bool in = r < kr && c < N;
+          const size_t e = (size_t)(k0 + r) * N + c;
+          ps[p] = in ? gp[e] : (uint8_t)0;
+          ns[p] = in ? gn[e] : (uint8_t)0;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[kNarrowUnits][4][4];
+#pragma unroll
+  for (int t = 0; t < kNarrowUnits; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[t][i][c] = 0.f;
+  float amax = 0.f;  // max |x| of the tile so far, over this thread's share
+
+  for (int j = 0; j < kNarrowStages - 1; ++j) load_stage(j);
+  for (int j = 0; j < nst; ++j) {
+    cp_async_wait<kNarrowStages - 2>();  // stage j landed
+    __syncthreads();                     // and every thread is done with stage j - 1
+    load_stage(j + kNarrowStages - 1);
+    const unsigned char* st = smem + (j % kNarrowStages) * SB;
+    const float* xs = reinterpret_cast<const float*>(st);
+    const uint8_t* ps = st + XB;
+    const uint8_t* ns = ps + CB;
+    // max |x| of the stage: every staged float of the row block once
+    for (int p = tid; p < RG * kNarrowK; p += kNarrowThreads) {
+      const int i = p / (kNarrowK / 4), c = p % (kNarrowK / 4) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(xs + i * kNarrowXS + c);
+      amax = fmaxf(fmaxf(amax, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
+    }
+    // lane l takes the stage's rows kk = l, l + lanes, ...
+#pragma unroll
+    for (int t = 0; t < kNarrowUnits; ++t) {
+      const int u = unit0 + t * kNarrowThreads;
+      if ((t > 0 && !wide) || u >= U) break;
+      const int rg = u / CG, cg = u - rg * CG;
+      for (int kk = lane; kk < kNarrowK; kk += lanes) {
+        const uint32_t p = *reinterpret_cast<const uint32_t*>(ps + kk * NP + 4 * cg);
+        const uint32_t q = *reinterpret_cast<const uint32_t*>(ns + kk * NP + 4 * cg);
+        float w[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) w[c] = byte_f32(p, c) - byte_f32(q, c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float xv = xs[(4 * rg + i) * kNarrowXS + kk];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[t][i][c] = fmaf(xv, w[c], acc[t][i][c]);
+        }
+      }
+    }
+    if ((j + 1) % SPT != 0 && j != nst - 1) continue;
+    // the tile ends: its step from the row block's max |x| (non-negative
+    // floats order as their bits), its lanes' sums by a butterfly
+    const uint32_t mine = __reduce_max_sync(0xffffffffu, __float_as_uint(amax));
+    if ((tid & 31) == 0) wmax[tid >> 5] = mine;
+    if (lanes > 1) {
+      for (int off = lanes / 2; off > 0; off /= 2)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[0][i][c] = __fadd_rn(acc[0][i][c], __shfl_xor_sync(0xffffffffu, acc[0][i][c], off));
+    }
+    __syncthreads();
+    uint32_t bits = wmax[0];
+#pragma unroll
+    for (int w = 1; w < kNarrowThreads / 32; ++w) bits = max(bits, wmax[w]);
+    const float step =
+        __fdiv_rn(__fmul_rn(full_scale, fmaxf(__uint_as_float(bits), 1e-8f)), denom);
+    // the digitized currents of tile t0 + j / SPT: ws[tile][m0 + row][col]
+    float* part_ws = ws + ((size_t)(t0 + j / SPT) * M + m0) * N;
+#pragma unroll
+    for (int t = 0; t < kNarrowUnits; ++t) {
+      const int u = unit0 + t * kNarrowThreads;
+      if ((t > 0 && !wide) || u >= U || lane != 0) break;
+      const int rg = u / CG, n = 4 * (u - rg * CG);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 4 * rg + i;
+        if (row >= rows) break;
+        float d[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float code =
+              fminf(fmaxf(rintf(__fdiv_rn(acc[t][i][c], step)), -adc_max), adc_max);
+          d[c] = __fmul_rn(code, step);
+        }
+        float* dst = part_ws + (size_t)row * N + n;
+        if (NP == N) {
+          *reinterpret_cast<float4*>(dst) = make_float4(d[0], d[1], d[2], d[3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (n + c < N) dst[c] = d[c];
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kNarrowUnits; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[t][i][c] = 0.f;
+    amax = 0.f;
+  }
+  cp_async_wait<0>();  // only empty groups are left
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last = atomicAdd(sem + rb, 1) == parts - 1;
+    if (last) atomicExch(sem + rb, 0);  // every part of the row block has counted
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // The row block's last block (the ring is idle: the partials take its
+  // place). Each tile's partials of the row block are one run of E floats;
+  // `room` tiles at a time are copied in (16 bytes a copy where N % 4 == 0),
+  // then each output adds them in tile order onto its running sum (tot)
+  const int E = rows * N, EP = (E + 3) & ~3;
+  const int ring = kNarrowStages * narrow_stage_bytes((min(M, kBlockRows) + 3) & ~3, NP) / 4;
+  const int room = (ring - EP) / EP;  // tiles the ring holds at once, beside tot
+  float* tot = smem_f;
+  float* buf = smem_f + EP;
+  const float* src = ws + (size_t)m0 * N;
+  const size_t tstride = (size_t)M * N;  // floats of one tile's partials
+  for (int c0 = 0; c0 < T; c0 += room) {
+    const int nc = min(room, T - c0);
+    if (NP == N) {
+      for (int q = tid; q < nc * (E / 4); q += kNarrowThreads) {
+        const int t = q / (E / 4), e = (q - t * (E / 4)) * 4;
+        cp_async16(buf + t * EP + e, src + (c0 + t) * tstride + e, true);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      for (int q = tid; q < nc * E; q += kNarrowThreads) {
+        const int t = q / E, e = q - t * E;
+        buf[t * EP + e] = __ldcg(src + (c0 + t) * tstride + e);
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < E; e += kNarrowThreads) {
+      float y = c0 == 0 ? buf[e] : tot[e];
+      for (int t = c0 == 0 ? 1 : 0; t < nc; ++t) y = __fadd_rn(y, buf[t * EP + e]);
+      if (c0 + nc < T)
+        tot[e] = y;
+      else
+        out[(size_t)m0 * N + e] = __fmul_rn(y, scale[e % N]);
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host-side launch helpers
 // ---------------------------------------------------------------------------
 
@@ -708,6 +1035,24 @@ cudaError_t launch_mma_rows(const MmaArgs& a, cudaStream_t s) {
     case 12: return launch_mma_vec<12>(a, s);
     default: return launch_mma_vec<16>(a, s);
   }
+}
+
+// the narrow body: one launch, a block per (part of K, 128-row block)
+cudaError_t launch_narrow(const void* x, const void* gp, const void* gn, const void* scale,
+                          void* out, void* ws, void* sem, int M, int K, int N, int parts,
+                          float full_scale, float denom, float adc_max, cudaStream_t s) {
+  const int rp = ((M < kBlockRows ? M : kBlockRows) + 3) & ~3, np = (N + 3) & ~3;
+  const int smem = kNarrowStages * narrow_stage_bytes(rp, np);
+  cudaError_t e =
+      cudaFuncSetAttribute(adc_narrow_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int vec = (N % 4 == 0 && aligned(gp, 16) && aligned(gn, 16) ? kVecCodes : 0) |
+                  (K % 4 == 0 && aligned(x, 16) ? kVecX : 0);
+  const dim3 grid(parts, (M + kBlockRows - 1) / kBlockRows);
+  adc_narrow_kernel<<<grid, kNarrowThreads, smem, s>>>(
+      (const float*)x, (const uint8_t*)gp, (const uint8_t*)gn, (const float*)scale, (float*)out,
+      (float*)ws, (int*)sem, M, K, N, vec, full_scale, denom, adc_max);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -773,6 +1118,25 @@ int rimc_crossbar_mvm_mma(const void* x, const void* gp, const void* gn, const v
     return (int)cudaErrorInvalidValue;
   const MmaArgs a{x, gp, gn, scale, out, ws, sem, M, K, N, parts, full_scale, denom, adc_max};
   return (int)launch_mma_rows(a, (cudaStream_t)stream);
+}
+
+// tickets of the narrow body: one per 128-row block
+int rimc_adc_narrow_sems(int M) { return (M + kBlockRows - 1) / kBlockRows; }
+
+// The narrow body, f32 x at N <= kNarrowMaxN, one launch: x (M, K) f32; gp,
+// gn, scale, out as above; ws: rimc_adc_part_scratch(M, K, N) f32 (every
+// tile's digitized partials); sem: rimc_adc_narrow_sems(M) ints, all zero,
+// which the launch leaves all zero (launches sharing sem must not overlap);
+// parts of K, 1 <= parts <= K tiles (autotune.adc_narrow_plan).
+int rimc_crossbar_mvm_narrow(const void* x, const void* gp, const void* gn, const void* scale,
+                             void* out, void* ws, void* sem, int M, int K, int N, int parts,
+                             float full_scale, float denom, float adc_max, void* stream) {
+  const int T = (K + kArrayRows - 1) / kArrayRows;
+  if (M < 1 || K < 1 || N < 1 || N > kNarrowMaxN || parts < 1 || parts > T || ws == nullptr ||
+      sem == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_narrow(x, gp, gn, scale, out, ws, sem, M, K, N, parts, full_scale, denom,
+                            adc_max, (cudaStream_t)stream);
 }
 
 }  // extern "C"

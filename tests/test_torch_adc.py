@@ -108,8 +108,11 @@ def test_exactness_case_bitwise(m, k, n):
     np.testing.assert_array_equal(got, kern)
 
 
+# the narrow body's shapes (f32 x, N <= 64) too: N 8 and 64, K 700 (a
+# partial last 256-row tile), M within one 128-row block and across two
 @pytest.mark.parametrize("adc_bits", [8, 3])
-@pytest.mark.parametrize("m,k,n", [(5, 300, 40), (130, 300, 24), (64, 777, 33)])
+@pytest.mark.parametrize("m,k,n", [(5, 300, 40), (130, 300, 24), (64, 777, 33),
+                                   (4, 700, 8), (130, 700, 8), (4, 700, 64), (130, 700, 64)])
 def test_crossbar_mvm_matches_reference(m, k, n, adc_bits):
     x, gp, gn, scale = _operands(m, k, n, seed=7 * m + k)
     kern, oracle = _reference(x, gp, gn, scale, adc_bits=adc_bits)
@@ -293,6 +296,66 @@ def test_adc_plan_parts_blocks_and_wave(m, k, n):
         autotune.SMEM_PER_SM // autotune.adc_min_blocks(rows // 8)
 
 
+# -- the narrow body's plan (autotune.adc_narrow_plan) ---------------------------
+
+# the routers under codes_adc, f32 x: mixtral-8x22b (K 6144, N 8) and
+# deepseek-v2-lite (K 2048, N 64) at the decode ticks, a chunk, the 96-row
+# prefill, across two row blocks (130) and the 256-row prefill; K 6100 (a
+# partial last tile) at N 60; one tile (K 40) and two (K 300)
+ADC_NARROW_SHAPES = [pytest.param(m, k, n, id=f"{name}-{m}")
+                     for name, k, n in (("mixtral", 6144, 8), ("deepseek", 2048, 64),
+                                        ("ragged", 6100, 60))
+                     for m in (1, 4, 32, 96, 130, 256)]
+ADC_NARROW_SHAPES += [pytest.param(m, k, n, id=f"small-{m}-{k}-{n}")
+                      for m, k, n in ((3, 40, 8), (1, 300, 64), (200, 257, 31))]
+
+
+@pytest.mark.parametrize("m,k,n", ADC_NARROW_SHAPES)
+def test_adc_narrow_plan_covers_whole_tiles_within_a_wave(m, k, n):
+    """The parts, bounded as the kernel bounds them (t0, t1 of
+    adc_narrow_kernel, checked in test_adc_constants_match_the_kernel), are
+    whole 256-row tiles that cover [0, K) in order, one part a tile at the
+    routers' K; the launch (row blocks x parts) fits one wave and a block's
+    ring fits the shared memory of an SM."""
+    parts = autotune.adc_narrow_plan(m, k, n)
+    tiles = -(-k // autotune.ADC_ARRAY_ROWS)
+    assert isinstance(parts, int) and 1 <= parts <= tiles
+    bounds = [(p * tiles // parts * autotune.ADC_ARRAY_ROWS,
+               min(k, (p + 1) * tiles // parts * autotune.ADC_ARRAY_ROWS))
+              for p in range(parts)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == k
+    assert all(lo < hi and lo % autotune.ADC_ARRAY_ROWS == 0 for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    blocks = -(-m // autotune.ADC_BLOCK_ROWS) * parts
+    assert blocks <= autotune.adc_narrow_wave(m, n) <= autotune.WAVE
+    assert parts == tiles  # the routers' K gives every tile a part
+    assert autotune.adc_narrow_smem(m, n) + autotune.SMEM_PER_BLOCK_RESERVED <= \
+        autotune.SMEM_PER_SM
+
+
+def test_adc_narrow_plan_stays_within_the_wave_at_large_m():
+    """Where the row blocks alone come near the wave, the tiles are dealt
+    to fewer parts, never fewer than one."""
+    m, k, n = 128 * 100, 6144, 8
+    parts = autotune.adc_narrow_plan(m, k, n)
+    assert parts == autotune.adc_narrow_wave(m, n) // 100 == 1
+    assert autotune.adc_narrow_plan(128 * 200, k, n) == 1
+
+
+def test_adc_narrow_dispatch_rule():
+    """f32 x at N <= NARROW_MAX_N runs the narrow body; bf16 x (the tensor-
+    core body at any N) and f32 x at N = 65 (the SIMT body) do not."""
+    assert autotune.NARROW_MAX_N == 64
+    assert autotune.use_adc_narrow(8, True) and autotune.use_adc_narrow(64, True)
+    assert autotune.use_adc_narrow(1, True)
+    assert not autotune.use_adc_narrow(65, True)
+    assert not autotune.use_adc_narrow(8, False) and not autotune.use_adc_narrow(64, False)
+    src = tc.LIB.src.read_text()
+    wrapper = tc._launch.__code__.co_names
+    assert "use_adc_narrow" in wrapper and "rimc_crossbar_mvm_narrow" in wrapper
+    assert "N > kNarrowMaxN" in src  # the C entry refuses wider calls
+
+
 def test_adc_constants_match_the_kernel():
     """The plan's view of the tensor-core body (row tiles, warp columns,
     strip, stage rows and ring, the blocks an SM must hold, shared memory
@@ -315,8 +378,22 @@ def test_adc_constants_match_the_kernel():
     assert "(NT >= 8 ? 1 : 2) * (8 / kMmaWarps)" in src
     assert "static constexpr int STAGE = 2 * C + X;" in src
     assert "static constexpr int RING = kMmaStages * STAGE;" in src
-    assert "const int t0 = part * T / parts, t1 = (part + 1) * T / parts;" in src
+    assert src.count("const int t0 = part * T / parts, t1 = (part + 1) * T / parts;") == 2
     assert "return parts > 1 ? (long long)(T - T / parts + 1) * M * N : 0;" in src
+    # the narrow body: its most columns, stage rows and ring, the shared
+    # memory a block (autotune.adc_narrow_smem), its scratch (every tile's
+    # partials, rimc_adc_part_scratch) and one ticket a row block
+    narrow = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+              for name in ("kNarrowMaxN", "kNarrowK", "kNarrowStages")}
+    assert narrow == {"kNarrowMaxN": autotune.NARROW_MAX_N,
+                      "kNarrowK": autotune.ADC_NARROW_STAGE_ROWS,
+                      "kNarrowStages": autotune.ADC_NARROW_STAGES}
+    assert "constexpr int kNarrowXS = kNarrowK + 4;" in src
+    assert "return rp * kNarrowXS * 4 + 2 * kNarrowK * np;" in src
+    assert "const int rp = ((M < kBlockRows ? M : kBlockRows) + 3) & ~3, np = (N + 3) & ~3;" in src
+    assert "const int smem = kNarrowStages * narrow_stage_bytes(rp, np);" in src
+    assert "return (long long)((K + kArrayRows - 1) / kArrayRows) * M * N;" in src
+    assert "int rimc_adc_narrow_sems(int M) { return (M + kBlockRows - 1) / kBlockRows; }" in src
 
 
 def test_adc_binding_matches_the_c_signature():
@@ -328,7 +405,7 @@ def test_adc_binding_matches_the_c_signature():
     src = tc.LIB.src.read_text()
     names = ("rimc_crossbar_mvm", "rimc_crossbar_mvm_mma", "rimc_adc_mma_sems",
              "rimc_adc_mma_scratch", "rimc_adc_capture_id", "rimc_adc_step_scratch",
-             "rimc_adc_part_scratch")
+             "rimc_adc_part_scratch", "rimc_crossbar_mvm_narrow", "rimc_adc_narrow_sems")
     lib = SimpleNamespace(**{nm: SimpleNamespace() for nm in names})
     tc._bind(lib)
     for nm in names:

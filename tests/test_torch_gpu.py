@@ -26,7 +26,9 @@ full-width leaves and at ragged shapes:
   127 in every (128-row, 256-row) block, so the step is 4080) with f32 and
   with bf16 x; its tensor-core body (bf16 x) bitwise equal to itself when
   launched twice, under any plan (splits of K, strips, stages) and when
-  replayed from CUDA graphs; f32 x still runs the SIMT body;
+  replayed from CUDA graphs; its narrow body (f32 x at N <= 64, the routers
+  under codes_adc: one split-K launch) the same, x aligned or not, across
+  two row blocks; f32 x still runs the SIMT body above 64 columns;
 * calibration's compiled step (``CompiledCalibStep``): ``calibrate``
   through its CUDA graph bitwise the eager step functions on the same
   stream, cached and fused, with no launch and one capture a call; a
@@ -146,20 +148,46 @@ def test_tensor_core_gemv_k_split_edges(cuda, shape):
     assert torch.equal(K.dora_linear_gemv(*ops), K.dora_linear_gemv(*ops))
 
 
-def _gemv_kernels(ops, accum, launcher=K.dora_linear_gemv):
-    """Names of the kernels one call of ``launcher`` (the GEMV by default)
-    launches (torch.profiler)."""
+def _kernels_of_one_call(fn, calls=3, window_s=0.02):
+    """Names of the kernels one call ``fn()`` launches, in launch order
+    (torch.profiler, after a warm-up call), or None where the profiler
+    recorded no whole call. Deep in this file's run the profiler has been
+    seen to start late, missing the first kernels of a window
+    (``adc_sum_kernel`` alone of three) or all of them; so one window runs
+    calls for ``window_s`` seconds (at least ``calls`` of them), each
+    between two marker kernels (int16 fills), synchronized, and the kernels
+    read are those between the last two markers it recorded."""
     import re
+    import time
 
     from torch.profiler import ProfilerActivity, profile
 
-    launcher(*ops, accum=accum)
+    mark = torch.empty(1, dtype=torch.int16, device="cuda")
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        launcher(*ops, accum=accum)
+        t0, done = time.perf_counter(), 0
+        while done < calls or time.perf_counter() - t0 < window_s:
+            mark.fill_(7)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            done += 1
+        mark.fill_(7)
         torch.cuda.synchronize()
-    return [re.search(r"(\w+_kernel)", e.name).group(1) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "FillFunctor<short>" in e.name]
+    if len(marks) < 2:
+        return None
+    names = [re.search(r"(\w+_kernel)", e.name) for e in events[marks[-2] + 1:marks[-1]]]
+    return [n.group(1) if n else "?" for n in names]
+
+
+def _gemv_kernels(ops, accum, launcher=K.dora_linear_gemv):
+    """Names of the kernels one call of ``launcher`` (the GEMV by default)
+    launches (torch.profiler), or None where it records nothing."""
+    return _kernels_of_one_call(lambda: launcher(*ops, accum=accum))
 
 
 @pytest.mark.parametrize("dtype,accum,shape,kernels", [
@@ -180,7 +208,7 @@ def test_gemv_body_per_x_type(cuda, dtype, accum, shape, kernels):
     assert not autotune.gemv_int8_prescale(4)
     ops = operands(4, *shape, 8, cuda, dtype=dtype)
     names = _gemv_kernels(ops, accum)
-    if not names:
+    if names is None:
         pytest.skip("the profiler recorded no device activity")
     assert names == kernels
     K.reset_launch_counts()
@@ -608,26 +636,19 @@ def test_adc_graphs_replay_with_tickets_of_their_own(cuda):
     assert all(int(sem.abs().sum()) == 0 for _, sem in C._SEMS.values())
 
 
-@pytest.mark.parametrize("dtype,kernels", [
-    (torch.bfloat16, ["adc_mma_kernel"]),
-    (torch.float32, ["adc_step_kernel", "adc_tile_kernel", "adc_sum_kernel"]),
+@pytest.mark.parametrize("dtype,shape,kernels", [
+    (torch.bfloat16, (2048, 2048), ["adc_mma_kernel"]),
+    (torch.float32, (2048, 2048), ["adc_step_kernel", "adc_tile_kernel", "adc_sum_kernel"]),
+    (torch.float32, (6144, 8), ["adc_narrow_kernel"]),
+    (torch.float32, (2048, 64), ["adc_narrow_kernel"]),
 ])
-def test_adc_body_per_x_type(cuda, dtype, kernels):
+def test_adc_body_per_x_type(cuda, dtype, shape, kernels):
     """bf16 x runs the tensor-core body alone (one launch); f32 x keeps the
-    three-launch SIMT body; each call counts one launch."""
-    import re
-
-    from torch.profiler import ProfilerActivity, profile
-
-    ops = operands(4, 2048, 2048, 1, cuda, dtype=dtype)[:4]
-    C.crossbar_mvm(*ops)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        C.crossbar_mvm(*ops)
-        torch.cuda.synchronize()
-    names = [re.search(r"(\w+_kernel)", e.name).group(1) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and "_kernel" in e.name]
-    if not names:
+    three-launch SIMT body at N = 2048 and runs the narrow body alone at the
+    routers' shapes (N = 8, 64); each call counts one launch."""
+    ops = operands(4, *shape, 1, cuda, dtype=dtype)[:4]
+    names = _kernels_of_one_call(lambda: C.crossbar_mvm(*ops))
+    if names is None:
         pytest.skip("the profiler recorded no device activity")
     assert names == kernels
     C.reset_launch_counts()
@@ -1334,8 +1355,9 @@ def test_router_f32x_launches_at_n8(cuda, accum, m):
 
 @pytest.mark.parametrize("m", [1, 4, 32, 96])
 def test_router_f32x_adc_at_n8(cuda, m):
-    """The ADC's SIMT body (f32 x) at the router's shape, against its plain
-    version; counted once and in the f32-x tally."""
+    """The ADC's narrow body (f32 x) at the router's shape, against its plain
+    version (0 outputs off, at most 0.1% one-step flips); counted once and
+    in the f32-x tally."""
     x, gp, gn, scale = operands(m, ROUTER_K, ROUTER_N, 1, cuda, dtype=torch.float32,
                                 seed=m)[:4]
     C.reset_launch_counts()
@@ -1497,7 +1519,7 @@ def test_narrow_tiled_runs_one_kernel(cuda):
     body alone: one kernel, no prologue, one launch counted."""
     ops = operands(96, 6144, 8, 8, cuda, dtype=torch.float32)
     names = _gemv_kernels(ops, "f32", launcher=K.dora_linear)
-    if not names:
+    if names is None:
         pytest.skip("the profiler recorded no device activity")
     assert names == ["dora_narrow_kernel"]
     K.reset_launch_counts()
@@ -1538,3 +1560,164 @@ def test_narrow_graphs_hold_tickets_of_their_own(cuda):
         for got, want in zip(gots, wants):
             assert torch.equal(got, want)
     assert all(int(sem.abs().sum()) == 0 for _, sem in K._SEMS.values())
+
+
+# ---------------------------------------------------------------------------
+# the ADC's narrow body: f32 x at N <= 64 (the routers under codes_adc), one
+# split-K launch (autotune.adc_narrow_plan)
+# ---------------------------------------------------------------------------
+
+# (M, K, N): the routers (mixtral-8x22b K 6144 N 8, deepseek-v2-lite K 2048
+# N 64) at every GEMV bucket, the prefill's 96 rows, across two 128-row
+# blocks (130) and at 256; then K ragged against the 256-row tile and the
+# 32-row stage, N not a multiple of 4, K within one tile, M across row blocks
+ADC_NARROW = [(m, k, n) for k, n in ((6144, 8), (2048, 64))
+              for m in (1, 2, 4, 8, 16, 32, 64, 96, 130, 256)]
+ADC_NARROW_RAGGED = [(5, 6100, 7), (33, 6100, 60), (96, 6100, 8), (3, 40, 8), (130, 257, 31),
+                     (1, 300, 64), (200, 1000, 64)]
+
+
+def _adc_fresh_tickets():
+    """Drop the tickets earlier tests left (a graph captured but never
+    replayed holds tickets its zeroing node never cleared)."""
+    torch.cuda.synchronize()
+    C._SEMS.clear()
+
+
+def _adc_tickets_zero():
+    torch.cuda.synchronize()
+    return all(int(sem.abs().sum()) == 0 for _, sem in C._SEMS.values())
+
+
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("shape", ADC_NARROW + ADC_NARROW_RAGGED)
+def test_adc_narrow_matches_plain(cuda, shape, misaligned):
+    """The narrow body against the plain version (0 outputs off, at most 0.1%
+    one-step flips), x aligned and 4 bytes off; one launch counted, in the
+    f32-x tally."""
+    m, k, n = shape
+    ops = operands(m, k, n, 1, cuda, dtype=torch.float32, seed=m + k + n)[:4]
+    if misaligned:
+        ops = _misaligned(ops)
+    C.reset_launch_counts()
+    _check_adc(*ops)
+    assert C.launch_counts() == {"crossbar_mvm": 1}
+    assert C.f32x_launch_counts() == {"crossbar_mvm/f32x": 1}
+
+
+@pytest.mark.parametrize("shape", ADC_NARROW + ADC_NARROW_RAGGED)
+def test_adc_narrow_is_bitwise_repeatable(cuda, shape):
+    """Two launches of the same call are bitwise equal (no atomics on data)
+    and leave every ticket zero."""
+    ops = operands(*shape, 1, cuda, dtype=torch.float32, seed=1)[:4]
+    _adc_fresh_tickets()
+    assert torch.equal(C.crossbar_mvm(*ops), C.crossbar_mvm(*ops))
+    assert _adc_tickets_zero()
+
+
+@pytest.mark.parametrize("shape", [(1, 6144, 8), (4, 6144, 8), (96, 6144, 8), (256, 6144, 8),
+                                   (32, 2048, 64), (130, 2048, 64), (33, 6100, 60)])
+def test_adc_narrow_result_is_independent_of_the_plan(cuda, shape, monkeypatch):
+    """Every tile's digitized partial is written and the row block's last
+    block adds them in tile order, so the parts of K change no bit: one
+    part, two, three, the policy's, and one a tile."""
+    m, k, n = shape
+    ops = operands(m, k, n, 1, cuda, dtype=torch.float32, seed=2)[:4]
+    tiles = -(-k // autotune.ADC_ARRAY_ROWS)
+    plans = sorted({1, 2, 3, autotune.adc_narrow_plan(m, k, n), tiles})
+    got = {}
+    for parts in plans:
+        monkeypatch.setattr(autotune, "adc_narrow_plan", lambda *_, p=parts: p)
+        got[parts] = C.crossbar_mvm(*ops)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[1], y) for y in got.values()), plans
+    bad, flips = ref.adc_disagreement(got[1], ref.crossbar_mvm_ref(*ops), ops[0], ops[3])
+    assert bad == 0 and flips <= 1e-3 * got[1].numel(), (bad, flips)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 6144, 8), (130, 2048, 64), (256, 6100, 60)])
+def test_adc_narrow_exactness_case(cuda, m, k, n):
+    """Integer x in [-127, 127] with 127 in every (128-row, 256-row) block:
+    every step is 4080 and every current an exact integer below 2^24, so
+    the narrow body is bitwise the plain version, a partial last tile and
+    two row blocks included."""
+    x, gp, gn, one = _exact_adc(m, k, n, cuda)
+    assert torch.all(ref.adc_steps(x) == 4080.0)
+    assert torch.equal(C.crossbar_mvm(x, gp, gn, one), ref.crossbar_mvm_ref(x, gp, gn, one))
+
+
+def test_adc_narrow_steps_of_zero_and_ragged_tiles(cuda):
+    """A row block of zeros takes the 1e-8 floor's step (its outputs 0),
+    and the max |x| of a partial last tile is its own rows' (the zero-fill
+    past K changes nothing): the other row block and tiles as the plain
+    version has them."""
+    m, k, n = 200, 6100, 60
+    x, gp, gn, scale = operands(m, k, n, 1, cuda, dtype=torch.float32, seed=9)[:4]
+    x[128:] = 0.0
+    x[:, 6000:] *= 50.0  # the last, partial tile's step far above the others'
+    y = C.crossbar_mvm(x, gp, gn, scale)
+    torch.cuda.synchronize()
+    assert torch.all(y[128:] == 0)
+    bad, flips = ref.adc_disagreement(y, ref.crossbar_mvm_ref(x, gp, gn, scale), x, scale)
+    assert bad == 0 and flips <= 1e-3 * y.numel(), (bad, flips)
+
+
+def test_adc_narrow_graphs_hold_tickets_of_their_own(cuda):
+    """Graphs of narrow ADC calls (mixtral's decode tick, its 96-row prefill,
+    256 rows over two row blocks, deepseek-v2-lite's chunk), each captured
+    after an eager call, replay at once on four streams, each to its eager
+    result; the tickets are zero afterwards."""
+    calls = [operands(4, 6144, 8, 1, cuda, dtype=torch.float32, seed=3)[:4],
+             operands(96, 6144, 8, 1, cuda, dtype=torch.float32, seed=4)[:4],
+             operands(256, 6144, 8, 1, cuda, dtype=torch.float32, seed=5)[:4],
+             operands(32, 2048, 64, 1, cuda, dtype=torch.float32, seed=6)[:4]]
+    _adc_fresh_tickets()
+    wants = [C.crossbar_mvm(*ops) for ops in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for ops in calls:
+            C.crossbar_mvm(*ops)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, gots = [], []
+    for ops in calls:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            gots.append(C.crossbar_mvm(*ops))
+    streams = [torch.cuda.Stream() for _ in graphs]
+    for _ in range(5):
+        for stream, graph in zip(streams, graphs):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(gots, wants):
+            assert torch.equal(got, want)
+    assert _adc_tickets_zero()
+
+
+@pytest.mark.parametrize("m", [4, 96])
+def test_adc_narrow_runs_one_kernel(cuda, m):
+    """At the router's decode tick and 96-row prefill the narrow body runs
+    alone: one kernel, no step prologue, no sum pass."""
+    ops = operands(m, 6144, 8, 1, cuda, dtype=torch.float32)[:4]
+    names = _kernels_of_one_call(lambda: C.crossbar_mvm(*ops))
+    if names is None:
+        pytest.skip("the profiler recorded no device activity")
+    assert names == ["adc_narrow_kernel"]
+
+
+def test_adc_narrow_never_reaches_simt_or_plain(cuda, monkeypatch):
+    """A call with f32 x at N <= 64 reaches neither the SIMT body's C entry
+    nor the plain version."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a narrow f32-x call left the narrow body")
+
+    lib = C.build()
+    monkeypatch.setattr(C, "crossbar_mvm_ref", refuse)
+    monkeypatch.setattr(lib, "rimc_crossbar_mvm", refuse)
+    C.reset_launch_counts()
+    for m, k, n in ((1, 6144, 8), (96, 6144, 8), (32, 2048, 64), (5, 6100, 7)):
+        C.crossbar_mvm(*operands(m, k, n, 1, cuda, dtype=torch.float32)[:4])
+    torch.cuda.synchronize()
+    assert C.launch_counts() == {"crossbar_mvm": 4}

@@ -1,16 +1,19 @@
-"""The MoE routers' f32-x launches of the fused linear's f32 body on the
-card: mixtral-8x22b's router (K 6144, N 8) at M = 1, 4, 8, 32, 96 and
-deepseek-v2-lite's (K 2048, N 64) at M = 4, 32, both DoRA rank 8, through
-the public wrappers as the serving path calls them (``dora_linear_gemv``
-up to 64 rows, ``dora_linear`` above):
+"""The MoE routers' f32-x launches on the card: mixtral-8x22b's router (K
+6144, N 8) at M = 1, 4, 8, 32, 96 and deepseek-v2-lite's (K 2048, N 64) at
+M = 4, 32, through the public wrappers as the serving path calls them:
 
-* CUDA events around CUDA-graph replays over operand copies rotated past
-  the L2 (``chip_smoke.time_ms``), beside the bound
+* the fused linear's f32 body, DoRA rank 8 (``dora_linear_gemv`` up to 64
+  rows, ``dora_linear`` above), beside its bound
   (``chip_smoke.router_bound``: bytes over 3.35 TB/s or f32 operations
   over 67 TFLOP/s) and one ``torch.matmul`` of x by the pre-dequantized
   f32 weight (TF32 off), the yardstick of ``chip_smoke.py`` phase 4;
-* the kernels one call launches and their device times (torch.profiler,
-  L2 warm).
+* the ADC (``crossbar_mvm``, codes_adc's router), beside its bound
+  (``chip_smoke.adc_f32x_bound``); no PyTorch call digitizes per tile, so
+  it has no yardstick;
+
+each timed by CUDA events around CUDA-graph replays over operand copies
+rotated past the L2 (``chip_smoke.time_ms``), with the kernels one call
+launches and their device times (torch.profiler, L2 warm).
 
 Uses only the kernels' public wrappers, so it times any checkout of the
 port against the same inputs; run it on two checkouts in one call to
@@ -23,7 +26,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import sys
 from pathlib import Path
 
@@ -37,24 +39,17 @@ ROUTERS = (("mixtral-8x22b", 6144, 8, 8, (1, 4, 8, 32, 96)),
            ("deepseek-v2-lite", 2048, 64, 8, (4, 32)))
 
 
-def kernels_of(fn, ops):
-    """{kernel: device ms} of one call ``fn(*ops)`` after a warm-up call
-    (torch.profiler), or None where the profiler records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn(*ops)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*ops)
-        torch.cuda.synchronize()
-    by = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = re.search(r"(\w+_kernel)", e.name)
-            name = name.group(1) if name else e.name[:40]
-            by[name] = by.get(name, 0.0) + e.device_time_total / 1e3
-    return by or None
+def log_row(result, row, library):
+    """Keep ``row`` and log it beside its bound and yardstick (``library``
+    names it; None: there is none)."""
+    result["rows"].append(row)
+    per = ("not measured" if row["kernels"] is None else
+           ", ".join(f"{name} {t:.4f}" for name, t in row["kernels"].items()))
+    lib = ("none" if library is None else f"{library} {row['library_ms']:.4f} ms "
+           f"({row['ms'] / row['library_ms']:.2f}x)")
+    S.log(f"[router] {row['router']:16s} {row['launcher']:16s} M={row['m']:3d} "
+          f"K={row['k']:5d} N={row['n']:3d} kernel {row['ms']:.4f} ms | {lib} | bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}) | kernels: {per}")
 
 
 def main():
@@ -66,6 +61,7 @@ def main():
 
     import torch
 
+    from repro_torch.kernels import crossbar_mvm as C
     from repro_torch.kernels import dora_linear as K
 
     smi = S.phase_card()
@@ -73,6 +69,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     K.build()
+    C.build()
     result = {"card": smi, "src": os.path.abspath(args.src), "rows": []}
     for router, k, n, r, ms in ROUTERS:
         for m in ms:
@@ -87,14 +84,14 @@ def main():
                    "library_ms": S.time_ms([lambda o=o, w=w: torch.matmul(o[0], w)
                                             for o, w in zip(ops, w32)]),
                    "bound_ms": bound_ms, "bound_by": bound_by,
-                   "kernels": kernels_of(fn, ops[0])}
-            result["rows"].append(row)
-            per = ("not measured" if row["kernels"] is None else
-                   ", ".join(f"{name} {t:.4f}" for name, t in row["kernels"].items()))
-            S.log(f"[router] {router:16s} {kind:16s} M={m:3d} K={k:5d} N={n:3d} "
-                  f"kernel {row['ms']:.4f} ms | torch.matmul f32 {row['library_ms']:.4f} ms "
-                  f"({row['ms'] / row['library_ms']:.2f}x) | bound {bound_ms:.5f} ms "
-                  f"({bound_by}) | kernels: {per}")
+                   "kernels": S.kernel_ms(lambda: fn(*ops[0]))}
+            log_row(result, row, "torch.matmul f32")
+            bound_ms, bound_by = S.adc_f32x_bound(m, k, n)
+            row = {"router": router, "launcher": "crossbar_mvm", "m": m, "k": k, "n": n,
+                   "ms": S.time_ms([lambda o=o: C.crossbar_mvm(*o[:4]) for o in ops]),
+                   "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "kernels": S.kernel_ms(lambda: C.crossbar_mvm(*ops[0][:4]))}
+            log_row(result, row, None)
             del ops, w32
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
