@@ -10,7 +10,9 @@ it, restores it bitwise and serves the restored deployment
 with the engine's shared prefix cache; then it runs the paper's own CNN
 experiment (ResNet-20, drift, DoRA / LoRA / backprop calibration); last
 it programs, drifts, calibrates and serves mixtral-8x22b (mixture of
-experts, sliding window) at its full widths and 2 layers.
+experts, sliding window) at its full widths and 1 layer, then
+deepseek-v2-lite (multi-head latent attention, a dense first layer,
+shared experts) at its full widths and 3 layers.
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
@@ -74,12 +76,21 @@ Phases (any failure exits non-zero; no failure is caught):
                   bitwise equal under several parts of K
                   (``ADC_NARROW_PLANS``); its exactness cases bitwise; one
                   kernel a call at M = 4 and 96 (profiler);
+                * deepseek-v2-lite's up-projection of the whole latent
+                  cache (phase 12's decode tick and chunks): the fused
+                  _kup_vup (K 512, N 4096, rank 16) through both tiled
+                  bodies at M = 512 and 128, k_up (K 512, N 2048) through
+                  the ADC at M = 512, each against its plain version,
+                  twice bitwise equal, and replayed from a CUDA graph
+                  bitwise equal to the eager call;
   4. timing   — (the tiled f32 and int8 bodies also at M=96, the phase-5
                 prefill; both GEMV bodies also at M = 8, 16, 64, the int8
                 one also at M=1; the routers' f32-x launches: mixtral's
                 through every body at M = 1, 4, 32, 96, deepseek-v2-lite's
                 through the f32 body and the ADC at M = 4, 32; the ADC at
-                M = 4, 32, 96, 256; the time per kernel from torch.profiler
+                M = 4, 32, 96, 256; deepseek-v2-lite's _kup_vup at M = 512
+                through both tiled bodies and its k_up through the ADC;
+                the time per kernel from torch.profiler
                 of both tiled bodies at M = 96, 256, of both GEMV bodies at
                 M = 4, 32 and of the ADC at M = 4, 256, per layer and per
                 leaf against its bound)
@@ -223,7 +234,7 @@ Phases (any failure exits non-zero; no failure is caught):
                 (device busy share, kernels a step, the largest kernels).
   11. moe    — mixtral-8x22b at its published widths (d 6144, 48 / 8 KV
                 heads of 128, 8 experts top-2 of d_ff 16384, window 4096,
-                vocab 32768, untied head, DoRA rank 8), 2 of its 56 layers:
+                vocab 32768, untied head, DoRA rank 8), 1 of its 56 layers:
                 Deployment.program(codes) -> advance(24) -> calibrate(10,
                 steps=20) through its graph (no launch, one capture, the
                 codes' digest unchanged, the loss falling, bitwise the eager
@@ -253,14 +264,36 @@ Phases (any failure exits non-zero; no failure is caught):
                 body, M in {1, 4, 32, 96}) against their plain versions and
                 phase 4 times them; the f32 body's run the narrow body, the
                 ADC's its narrow body.
+  12. mla    — deepseek-v2-lite at its published widths (d 2048, 16 heads,
+                MLA kv_lora 512, nope 128, rope 64, v 128; a dense first
+                layer of d_ff 10944; 64 experts top-6 of d_ff 1408, 2
+                shared, capacity 1.25; vocab 102400, untied head, DoRA rank
+                8), 3 of its 27 layers (the dense layer, then a scan group
+                stack of two MoE layers): phase 11's lifecycle and checks
+                with phase 5's traffic (4 greedy requests of 5, 40, 17 and 9
+                tokens in a 128-token cache, compile_count 4): exact launch
+                counts (per decode tick 15 GEMV launches, 2 of them the
+                routers', and 3 tiled ones, _kup_vup over the whole latent
+                cache of 4 slots x 128; 27 ADC launches under codes_adc),
+                every replay bitwise its eager step (the tiled launches
+                inside the decode and chunk graphs included), codes vs
+                dequant within LOGITS_BOUND, int8 vs f32 within
+                INT8_LOGITS_BOUND, the dense oracle on the first MoE layer;
+                on a copy with capacity_factor = E / top_k the 40-token
+                prompt's chunked admission against the token-by-token loop
+                (logits within LOGITS_BOUND, tokens equal or split at a
+                near-tie). Reported as phase 11's, the tick by class with
+                the tiled _kup_vup launches apart.
 The last line is the contract line; the line before it the kernel table,
 where ``dora_linear_narrow`` is the fused linear's narrow body: its
-launches are the f32 body's f32-x launches of phases 5 and 11 (the
+launches are the f32 body's f32-x launches of phases 5, 11 and 12 (the
 routers'), which the rows of ``dora_linear_gemv`` and ``dora_linear`` do not
 count, and its times are mixtral's router at the decode tick (M = 4);
 ``crossbar_mvm_narrow`` is the ADC's narrow body, likewise: its launches
-are the ``crossbar_mvm`` f32-x launches of phases 5 and 11, which the
-``crossbar_mvm`` row does not count.
+are the ``crossbar_mvm`` f32-x launches of phases 5, 11 and 12, which the
+``crossbar_mvm`` row does not count. The launches of ``dora_linear`` and
+``dora_linear/int8`` include phase 12's tiled _kup_vup launches in every
+decode tick and chunk.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -406,11 +439,11 @@ ADC_NARROW_EXACT = [(SLOTS, 6144, 8), (130, 2048, 64), (PREFILL_M, 6100, 60)]
 # the ADC multiply f32 x exactly
 F32_FLOP_PER_S = 67e12
 # phase 11: mixtral-8x22b at its published widths, the depth cut from 56
-# layers to 2 (one scan group stack of 2, so each expert leaf is a (2, 8,
-# d, ff) stack); 4 greedy requests on 4 slots in a cache of 4224 > the
-# 4096 window, so every layer's cache rolls: the long prompt is admitted
-# in 130 chunks of 32 and its generation crosses position 4096
-MOE_LAYERS = 2
+# layers to 1 (no scan group: the layer is the prologue, its expert leaves
+# (8, d, ff) stacks); 4 greedy requests on 4 slots in a cache of 4224 >
+# the 4096 window, so the cache rolls: the long prompt is admitted in 130
+# chunks of 32 and its generation crosses position 4096
+MOE_LAYERS = 1
 MOE_MAX_LEN = 4224
 MOE_PROMPT_LENS = (5, 40, 17, 4160)
 # the steps phase 11's traffic compiles per session: the decode tick and
@@ -423,6 +456,20 @@ MOE_DECODE_POS = (4090, 4095, 4100, 4200)
 # bf16 expert products at M = C rows vs M = 1 row (other cuBLAS tilings)
 MOE_ORACLE_BOUND = 1e-2
 MOE_ORACLE_TOKENS = 64
+# phase 12: deepseek-v2-lite at its published widths, the depth cut from 27
+# layers to 3: the dense first layer (the prologue) and a scan group stack
+# of two MoE layers, so each expert leaf is a (2, 64, d, ff) stack; phase
+# 5's traffic (4 slots, a 128-token cache), the decode tick's replay at
+# clocks up to the cache's last position
+MLA_LAYERS = 3
+MLA_DECODE_POS = (40, 57, 90, ENGINE_MAX_LEN - 1)
+# its fused up-projection _kup_vup (K kv_lora 512, N 16 heads x (128 + 128),
+# fused rank 16), run over the whole latent cache every step: at the decode
+# tick's rows (4 slots x 128) and a chunk's on the batch-1 staging cache
+# (128); under codes_adc k_up and v_up unfused, each (K 512, N 2048)
+KUP_VUP = ("kup_vup", 512, 4096, 16)
+KUP_VUP_M = (SLOTS * ENGINE_MAX_LEN, ENGINE_MAX_LEN)
+ADC_KUP = ("k_up", 512, 2048)
 # phase 7: the paper's calibration set (10 samples of 32 tokens) and the
 # reference's calibrate defaults (20 steps, lr 1e-3)
 CALIB_SAMPLES, CALIB_SEQ, CALIB_STEPS = 10, 32, 20
@@ -893,7 +940,59 @@ def phase_kernels(device):
         worst["crossbar_mvm_narrow"] = max(worst["crossbar_mvm_narrow"], err)
     narrow_checks(device, worst)
     adc_narrow_checks(device, worst)
+    kup_vup_checks(device, worst)
     return worst
+
+
+def kup_vup_checks(device, worst):
+    """deepseek-v2-lite's up-projection of the whole latent cache (phase
+    12): the fused ``_kup_vup`` through both tiled bodies at ``KUP_VUP_M``
+    rows and ``k_up`` through the ADC at the decode tick's, each against
+    its plain version, launched twice bitwise equal, and from a CUDA graph
+    (captured as the decode graphs capture it) replayed bitwise equal to
+    the eager call."""
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import crossbar_mvm as C
+    from repro_torch.kernels import dora_linear as K
+
+    name, k, n, r = KUP_VUP
+    for m in KUP_VUP_M:
+        ops = operands(m, k, n, r, device, seed=m + 11)
+        for accum in autotune.ACCUMS:
+            got, again = K.dora_linear(*ops, accum=accum), K.dora_linear(*ops, accum=accum)
+            torch.cuda.synchronize()
+            err, ok, note = _vs_plain(got, ops, accum)
+            same = torch.equal(got, again)
+            replays = graph_replays([lambda a=accum: K.dora_linear(*ops, accum=a)])
+            ok = ok and same and replays
+            key = K.counter("dora_linear", accum)
+            log(f"[kernels] {key + ' mma':22s} {name:8s} M={m:4d} K={k:5d} N={n:5d} r={r:2d} "
+                f"splits {autotune.tiled_tiles(m, n, k, accum).splits(k)} max|err|={err:.3e}"
+                f"{note} repeat {'bitwise' if same else 'DIFFERS'}, graph replays "
+                f"{'bitwise eager' if replays else 'DIFFER'} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"{key} (tensor cores) at {(m, k, n, r)}",
+                      f"max|err| {err}, repeat bitwise {same}, replays bitwise {replays}")
+            worst[key] = max(worst[key], err)
+    name, k, n = ADC_KUP
+    m = KUP_VUP_M[0]
+    x, gp, gn, scale, *_ = operands(m, k, n, 1, device, seed=m + k)
+    want = ref.crossbar_mvm_ref(x, gp, gn, scale)
+    got, again = C.crossbar_mvm(x, gp, gn, scale), C.crossbar_mvm(x, gp, gn, scale)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    bad, flips = ref.adc_disagreement(got, want, x, scale, rtol=ADC_RTOL, atol=ADC_ATOL)
+    same = torch.equal(got, again)
+    replays = graph_replays([lambda: C.crossbar_mvm(x, gp, gn, scale)])
+    ok = bad == 0 and flips <= ADC_FLIP_SHARE * got.numel() and same and replays
+    log(f"[kernels] crossbar_mvm           {name:8s} M={m:4d} K={k:5d} N={n:5d} "
+        f"parts {autotune.adc_plan(m, k, n)} max|err|={err:.3e} one-step flips "
+        f"{flips}/{got.numel()} repeat {'bitwise' if same else 'DIFFERS'}, graph replays "
+        f"{'bitwise eager' if replays else 'DIFFER'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        _fail(f"crossbar_mvm at {(m, k, n)}",
+              f"{bad} off, {flips} flips, repeat bitwise {same}, replays bitwise {replays}")
+    worst["crossbar_mvm"] = max(worst["crossbar_mvm"], err)
 
 
 def router_operands(m, device, seed=0, shape=(ROUTER_K, ROUTER_N, ROUTER_R)):
@@ -1226,19 +1325,24 @@ def phase_timing(device):
     from repro_torch.kernels import ref
 
     rows = []
-    for name, k, n, r in LEAVES:
-        for m in sorted({*TIMED_M, *TIMED_M_INT8, *TIMED_M_TILED, *TIMED_M_GEMV}):
+    # qwen3-1.7b's leaves at their rows, and deepseek-v2-lite's _kup_vup at
+    # phase 12's decode tick (the whole latent cache of 4 slots)
+    timed = [(leaf, sorted({*TIMED_M, *TIMED_M_INT8, *TIMED_M_TILED, *TIMED_M_GEMV}))
+             for leaf in LEAVES] + [(KUP_VUP, KUP_VUP_M[:1])]
+    for (name, k, n, r), row_counts in timed:
+        kup = name == KUP_VUP[0]
+        for m in row_counts:
             ops = [operands(m, k, n, r, device, seed=i)
                    for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
             kind = "dora_linear_gemv" if m <= 64 else "dora_linear"
             fn = getattr(K, kind)
-            if m in TIMED_M or m in TIMED_M_TILED or m in TIMED_M_GEMV:
+            if kup or m in TIMED_M or m in TIMED_M_TILED or m in TIMED_M_GEMV:
                 w16 = [((o[1].float() - o[2].float()) * o[3]).to(torch.bfloat16) for o in ops]
                 _timed_row(rows, kind, name, (m, k, n), ops, fn, ref.dora_linear_ref,
                            [lambda o=o, w=w: torch.matmul(o[0], w) for o, w in zip(ops, w16)],
                            linear_bound(m, k, n, r, BF16_FLOP_PER_S))
                 del w16
-            if m in TIMED_M_INT8:
+            if kup or m in TIMED_M_INT8:
                 library = None
                 if int_mm_takes(m, k, n):
                     s8 = [(ref.quantize_rows(o[0])[0], ref.recode_s8(o[1]), ref.recode_s8(o[2]))
@@ -1250,8 +1354,9 @@ def phase_timing(device):
                            library, linear_bound(m, k, n, r, INT8_OP_PER_S))
                 library = None
             del ops
-    for name, k, n in ADC_LEAVES:
-        for m in TIMED_M_ADC:
+    for (name, k, n), row_counts in ([(leaf, TIMED_M_ADC) for leaf in ADC_LEAVES]
+                                     + [(ADC_KUP, KUP_VUP_M[:1])]):
+        for m in row_counts:
             ops = [operands(m, k, n, 1, device, seed=i)[:4]
                    for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
             _timed_row(rows, "crossbar_mvm", name, (m, k, n), ops, C.crossbar_mvm,
@@ -3077,17 +3182,23 @@ def phase_paper(device, seed):
     return result
 
 # ---------------------------------------------------------------------------
-# phase 11: mixture-of-experts, mixtral-8x22b at full width
+# phases 11 and 12: mixture-of-experts at full width, mixtral-8x22b (sliding
+# window) and deepseek-v2-lite (MLA, a dense first layer, shared experts)
 # ---------------------------------------------------------------------------
 
-# kernel classes of a decode tick's profile (first match wins): the router's
-# f32-x bodies (the fused linear's and the ADC's narrow bodies), the tensor-core
-# bodies (attention and the head), the expert products (cuBLAS), and the
-# experts' read-back: (G+ - G-) in int16, then one multiply into bf16
+# kernel classes of a decode tick's profile (first match wins): the tiled
+# bodies (MLA's _kup_vup over the whole latent cache; the int8 body's
+# row scales come only from them at the decode tick), the router's f32-x
+# bodies (the fused linear's and the ADC's narrow bodies), the tensor-core
+# GEMV bodies (attention, the shared experts and the head; under codes_adc
+# every leaf, _kup_vup's k_up and v_up too), cuBLAS (the expert products and
+# the attention's einsums), and the experts' read-back: (G+ - G-) in int16,
+# then one multiply into bf16
 MOE_TICK_CLASSES = {
+    "tiled_kup_vup": r"dora_mma_kernel|prep_tile_kernel|xa_finish_kernel"
+                     r"|splitk_epilogue_kernel|row_scale_kernel",
     "router_f32x": r"dora_narrow_kernel|adc_narrow_kernel",
-    "gemv_tensor_core": r"dora_gemv_mma_kernel|dora_gemv_int8_kernel|row_scale_kernel"
-                        r"|adc_mma_kernel",
+    "gemv_tensor_core": r"dora_gemv_mma_kernel|dora_gemv_int8_kernel|adc_mma_kernel",
     # u8 -> int16, the int16 difference, and the int16 x f32 -> bf16 multiply
     # (mixed types: PyTorch's generic, unvectorized elementwise kernel)
     "expert_readback": r"<short>|\(short\)|gpu_kernel_impl<at::native::BinaryFunctor<float, "
@@ -3099,23 +3210,94 @@ MOE_TICK_CLASSES = {
 def moe_counts(cfg, steps, prefill, body):
     """The exact launches of ``steps`` engine steps (decode ticks and
     admission chunks, each at most 32 rows) and, with ``prefill``, one fused
-    prefill of 96 rows, for mixtral's layers: per layer the fused qkv, o and
-    the router (f32 x, counted apart in the ``/f32x`` tally), plus the untied
-    head once per step; codes_adc runs q, k, v, o and the router per layer."""
-    n_layers = cfg.n_layers
-    if body == "codes_adc":
-        n = (steps + prefill) * (5 * n_layers + 1)
-        return {"crossbar_mvm": n, "crossbar_mvm/f32x": (steps + prefill) * n_layers}
+    prefill of 96 rows. Per attention layer the fused qkv and o, or under
+    MLA ``_q_kvd`` and o, through the GEMV launcher, and MLA's ``_kup_vup``
+    over the whole latent cache (a decode tick's slots x 128 rows, a chunk's
+    128 on the staging cache: the tiled launcher); per dense layer the
+    fused gate_up and down; per MoE layer the router (f32 x, counted apart
+    in the ``/f32x`` tally) and the shared experts' gate_up and down; the
+    untied head once a step (the prefill's at 3 rows). The 96-row prefill
+    runs every other leaf tiled. codes_adc runs every leaf unfused."""
+    mla = cfg.attn.mla
+    n_moe = sum(ffn == "moe" for _, ffn in cfg.layer_kinds())
+    n_mlp = cfg.n_layers - n_moe
+    shared = 1 if cfg.moe.n_shared else 0  # the shared experts' gated MLP
+    if body == "codes_adc":  # q, kv_down, k_up, v_up, o or q, k, v, o; gate, up, down
+        attn = 5 if mla else 4
+        per_step = attn * cfg.n_layers + 3 * n_mlp + (1 + 3 * shared) * n_moe + 1
+        return {"crossbar_mvm": (steps + prefill) * per_step,
+                "crossbar_mvm/f32x": (steps + prefill) * n_moe}
     sfx = "" if body == "f32" else "/int8"
-    want = {f"dora_linear_gemv{sfx}": steps * (3 * n_layers + 1) + prefill,
-            f"dora_linear_gemv{sfx}/f32x": steps * n_layers}
-    if prefill:  # the 96-row prefill: tiled qkv, o and router; its head at 3 rows
-        want.update({f"dora_linear{sfx}": 3 * n_layers, f"dora_linear{sfx}/f32x": n_layers})
+    per_layer = 2 * cfg.n_layers + 2 * n_mlp + (1 + 2 * shared) * n_moe  # GEMV-sized leaves
+    tiled = cfg.n_layers if mla else 0                               # _kup_vup
+    want = {f"dora_linear_gemv{sfx}": steps * (per_layer + 1) + prefill,
+            f"dora_linear_gemv{sfx}/f32x": steps * n_moe,
+            f"dora_linear{sfx}": steps * tiled}
+    if prefill:
+        want[f"dora_linear{sfx}"] += per_layer + tiled
+        want[f"dora_linear{sfx}/f32x"] = n_moe
     return want
 
 
-def moe_calibrate(dep):
-    """Phase 7's calibration on the mixtral deployment: ``calibrate(10,
+@dataclasses.dataclass(frozen=True)
+class MoeCell:
+    """One mixture-of-experts phase: the arch at ``layers`` of its
+    ``of_layers``, where its first expert leaf lies (``expert_at``: prologue
+    or body, index) and its shape, the engine traffic (``prompt_lens`` in a
+    ``max_len`` cache, the steps it compiles, the decode tick's replay
+    clocks) and the prompt of the chunked-admission vs token-loop check."""
+    phase: int
+    tag: str
+    arch: str
+    of_layers: int
+    layers: int
+    layout: tuple
+    expert_at: tuple
+    expert_shape: tuple
+    prompt_lens: tuple
+    max_len: int
+    compiled: int
+    decode_pos: tuple
+    loop_prompt: int
+
+
+MOE_CELL = MoeCell(11, "moe", "mixtral-8x22b", 56, MOE_LAYERS, (MOE_LAYERS, 0, 0),
+                   ("prologue", 0), (8, 6144, 16384), MOE_PROMPT_LENS, MOE_MAX_LEN,
+                   MOE_COMPILED_STEPS, MOE_DECODE_POS, MOE_PROMPT_LENS[-1])
+MLA_CELL = MoeCell(12, "mla", "deepseek-v2-lite", 27, MLA_LAYERS, (1, MLA_LAYERS - 1, 0),
+                   ("body", 0), (MLA_LAYERS - 1, 64, 2048, 1408), PROMPT_LENS, ENGINE_MAX_LEN,
+                   COMPILED_STEPS, MLA_DECODE_POS, PROMPT_LENS[1])
+
+
+def expert_stacks(base):
+    """Every expert stack of a codes tree as an (E, d, k) CrossbarWeight: a
+    scan-stacked body leaf (G, E, d, k) split on its scan axis."""
+    from repro_torch.core.rram import CrossbarWeight
+    from repro_torch.models import moe as M
+
+    out = []
+
+    def walk(node):
+        if isinstance(node, list):
+            for v in node:
+                walk(v)
+        elif isinstance(node, dict):
+            for key, v in node.items():
+                if key in M._STACKS and isinstance(v, CrossbarWeight):
+                    if v.g_pos.dim() == 3:
+                        out.append(v)
+                    else:
+                        out.extend(CrossbarWeight(*(t[i] for t in (v.g_pos, v.g_neg, v.scale)))
+                                   for i in range(v.g_pos.shape[0]))
+                else:
+                    walk(v)
+
+    walk(base)
+    return out
+
+
+def moe_calibrate(dep, cell):
+    """Phase 7's calibration on the cell's deployment: ``calibrate(10,
     steps=20)`` through its CUDA graph; gated: no launch, one capture, the
     codes unchanged (their digest), the last feature MSE below the first,
     the graph's losses, adapters and AdamW state bitwise the eager step
@@ -3126,6 +3308,7 @@ def moe_calibrate(dep):
     from repro_torch.deploy.deployment import code_digest
     from repro_torch.optim.adam import adamw_init
 
+    tag = cell.tag
     digest = code_digest(dep.codes)
     start = tree_lib.map_tensors(torch.clone, dep.adapters)
     start = (start, adamw_init(start))
@@ -3139,8 +3322,8 @@ def moe_calibrate(dep):
         t_calibrate = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"[moe] {report.summary()}")
-    log(f"[moe] losses {', '.join(f'{x:.6f}' for x in report.losses)}")
+    log(f"[{tag}] {report.summary()}")
+    log(f"[{tag}] losses {', '.join(f'{x:.6f}' for x in report.losses)}")
     expect_counts(counts, {})
     assert code_digest(dep.codes) == digest, "calibrate changed the codes"
     assert all(math.isfinite(x) for x in report.losses), report.losses
@@ -3153,7 +3336,7 @@ def moe_calibrate(dep):
         dep, start, calibration_batch(dep.cfg, CALIB_SAMPLES, CALIB_SEQ), True,
         built["stream"], CALIB_STEPS)
     eager_peak = torch.cuda.max_memory_allocated()
-    versus = graph_vs_eager("mixtral cached step", report, dep, eager_state, eager_losses)
+    versus = graph_vs_eager(f"{cell.arch} cached step", report, dep, eager_state, eager_losses)
     assert versus["bitwise"], versus
     del eager_state, start
     steps_ms = times["step_ms"]
@@ -3166,7 +3349,7 @@ def moe_calibrate(dep):
         "eager_step_ms_median_2_on": statistics.median(eager_ms[1:]),
         "peak_mem_bytes": peak, "eager_peak_mem_bytes": eager_peak, "graph_vs_eager": versus,
     }
-    log(f"[moe] calibrate {t_calibrate:.3f} s (teacher features "
+    log(f"[{tag}] calibrate {t_calibrate:.3f} s (teacher features "
         f"{result['teacher_features_seconds']:.3f} s, the capture "
         f"{result['capture_seconds']:.3f} s); step captured vs eager (median of steps "
         f"2-{CALIB_STEPS}) {result['step_ms_median_2_on']:.2f} vs "
@@ -3176,13 +3359,14 @@ def moe_calibrate(dep):
     return result
 
 
-def moe_dense_oracle(session, device, seed):
-    """One layer's ``moe_block`` on the card (layer 0 of the f32 session's
+def moe_dense_oracle(session, device, seed, cell):
+    """The first MoE layer's ``moe_block`` on the card (the f32 session's
     params: codes-resident stacks, the prepared router through the f32-x
-    GEMV, merged side-cars) with capacity_factor = E / top_k, so no token
-    is dropped: the dispatch path over ``MOE_ORACLE_TOKENS`` tokens against
-    the dense path (every expert on every token, gate-weighted) on the same
-    tokens as rows of one, within ``MOE_ORACLE_BOUND`` of absmax."""
+    GEMV, merged side-cars, the shared experts) with capacity_factor = E /
+    top_k, so no token is dropped: the dispatch path over
+    ``MOE_ORACLE_TOKENS`` tokens against the dense path (every expert on
+    every token, gate-weighted) on the same tokens as rows of one, within
+    ``MOE_ORACLE_BOUND`` of absmax."""
     from repro_torch import substrate
     from repro_torch import tree as tree_lib
     from repro_torch.models import moe as M
@@ -3190,8 +3374,13 @@ def moe_dense_oracle(session, device, seed):
     cfg = session.cfg
     mcfg = dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
     assert not M.can_drop(mcfg)
-    base = tree_lib.index(session.params["base"]["body"], 0)[0]["ffn"]
-    adapters = tree_lib.index(session.params["adapters"]["body"], 0)[0]["ffn"]
+    where, i = cell.expert_at
+    params = {name: session.params[name][where] for name in ("base", "adapters")}
+    if where == "body":
+        params = {name: tree_lib.index(tree, i)[0] for name, tree in params.items()}
+    else:
+        params = {name: tree[i] for name, tree in params.items()}
+    base, adapters = params["base"]["ffn"], params["adapters"]["ffn"]
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((1, MOE_ORACLE_TOKENS, cfg.d_model), generator=g, device=device)
     x = x.to(torch.bfloat16)
@@ -3199,62 +3388,60 @@ def moe_dense_oracle(session, device, seed):
         y = M.moe_block(x, base, adapters, mcfg, cfg.adapter)
         dense = M.moe_block(x.reshape(MOE_ORACLE_TOKENS, 1, cfg.d_model), base, adapters, mcfg,
                             cfg.adapter).reshape(y.shape)
-    out = compare_logits("moe dispatch vs dense oracle, one layer", y, dense, MOE_ORACLE_BOUND)
-    log(f"[moe] dispatch path ({MOE_ORACLE_TOKENS} tokens, capacity "
+    out = compare_logits(f"{cell.arch} moe dispatch vs dense oracle, one layer", y, dense,
+                         MOE_ORACLE_BOUND)
+    log(f"[{cell.tag}] dispatch path ({MOE_ORACLE_TOKENS} tokens, capacity "
         f"{M.capacity_of(MOE_ORACLE_TOKENS, mcfg)} an expert) vs dense over all "
         f"{cfg.moe.n_experts} experts: max|diff| {out['max_abs_diff']:.4e} of absmax "
         f"{out['absmax']:.4f} (bound {MOE_ORACLE_BOUND:g})")
     return out
 
 
-def moe_tick_profile(session, label):
-    """The captured decode tick (4 live slots, clocks across the wrap)
-    profiled over a few replays: device time by class (router, tensor-core
-    GEMVs, expert products, expert read-back), and the experts' read-back
-    timed alone (the dequantize of every expert stack, CUDA events)."""
-    from repro_torch.core.rram import CrossbarWeight, dequantize
+def moe_tick_profile(session, label, cell):
+    """The captured decode tick (4 live slots at the cell's replay clocks)
+    profiled over a few replays: device time by class (``MOE_TICK_CLASSES``),
+    and the experts' read-back timed alone (the dequantize of every expert
+    stack, CUDA events)."""
+    from repro_torch.core.rram import dequantize
     from repro_torch.deploy import ServeEngine
 
     gc.collect()  # the drive's engines hand their lease back
-    engine = ServeEngine(session, max_slots=SLOTS, max_len=MOE_MAX_LEN)  # the warm step
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=cell.max_len)  # the warm step
     step = engine._decode
-    host = torch.stack([torch.arange(SLOTS) + 7, torch.tensor(MOE_DECODE_POS)])
+    host = torch.stack([torch.arange(SLOTS) + 7, torch.tensor(cell.decode_pos)])
     for _ in range(2):
         step(host)
     torch.cuda.synchronize()
-    log(f"[moe] {label}: profile of 4 captured decode ticks")
-    trace = profile_window("moe", "tick", 4, lambda: torch.argmax(step(host)[:, -1], -1).cpu(),
+    log(f"[{cell.tag}] {label}: profile of 4 captured decode ticks")
+    trace = profile_window(cell.tag, "tick", 4,
+                           lambda: torch.argmax(step(host)[:, -1], -1).cpu(),
                            classes=MOE_TICK_CLASSES)
-    stacks = [leaf for lay in session.params["base"]["body"] for leaf in
-              (lay["ffn"][name] for name in ("gate_w", "up_w", "down_w"))
-              if isinstance(leaf, CrossbarWeight)]
-    per_layer = [CrossbarWeight(*(t[i] for t in (w.g_pos, w.g_neg, w.scale)))
-                 for w in stacks for i in range(w.g_pos.shape[0])]
-    readback = time_ms([lambda: [dequantize(w, torch.bfloat16) for w in per_layer]], reps=2)
+    stacks = expert_stacks(session.params["base"])
+    readback = time_ms([lambda: [dequantize(w, torch.bfloat16) for w in stacks]], reps=2)
     trace["expert_readback_ms_per_tick"] = readback
-    log(f"[moe] {label}: the experts' read-back alone ({len(per_layer)} stacks of "
-        f"{tuple(per_layer[0].g_pos.shape)}) {readback:.3f} ms a tick")
+    log(f"[{cell.tag}] {label}: the experts' read-back alone ({len(stacks)} stacks of "
+        f"{tuple(stacks[0].g_pos.shape)}) {readback:.3f} ms a tick")
     del engine
     return trace
 
 
-def moe_serve_checked(dep, seed, calibrated):
-    """Phase 5's per-session checks on the mixtral deployment: ``serve()``,
+def moe_serve_checked(dep, seed, calibrated, cell):
+    """Phase 5's per-session checks on the cell's deployment: ``serve()``,
     ``serve(accum="int8")`` and a codes_adc deployment over the same
-    teacher, codes and side-cars, each through ``drive`` with
-    ``MOE_PROMPT_LENS`` in a 4224-token cache (first drive captures, a warm
-    drive and an eager one with the same launches and streams,
-    ``compile_count`` 3 and flat, every graph's replay bitwise its eager
-    step with the rolling buffer, the tick captured vs eager), exact launch
-    counts with the router's apart, codes vs dequant within ``LOGITS_BOUND``
-    (the fused prefill and one chunk per bucket), int8 vs f32 within
+    teacher, codes and side-cars, each through ``drive`` with the cell's
+    prompts and cache (first drive captures, a warm drive and an eager one
+    with the same launches and streams, ``compile_count`` the cell's and
+    flat, every graph's replay bitwise its eager step at the cell's clocks,
+    the tick captured vs eager), exact launch counts (``moe_counts``) with
+    the router's apart, codes vs dequant within ``LOGITS_BOUND`` (the fused
+    prefill and one chunk per bucket), int8 vs f32 within
     ``INT8_LOGITS_BOUND``, ADC vs f32 reported; a profile of each session's
-    captured tick; the dense oracle on the f32 session's first layer."""
+    captured tick; the dense oracle on the f32 session's first MoE layer."""
     from repro_torch.deploy import Deployment
 
-    cfg, device = dep.cfg, dep.device
+    cfg, device, tag = dep.cfg, dep.device, cell.tag
     g = torch.Generator().manual_seed(seed)
-    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in MOE_PROMPT_LENS]
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in cell.prompt_lens]
     tokens = torch.randint(0, cfg.vocab, (3, PREFILL_ROWS // 3), generator=g).to(device)
     runs, logits = {}, {}
     makers = (("f32", lambda: dep.serve()), ("int8", lambda: dep.serve(accum="int8")),
@@ -3265,76 +3452,78 @@ def moe_serve_checked(dep, seed, calibrated):
         memory()
         torch.cuda.reset_peak_memory_stats()
         session = make()
-        run, logits[body] = drive(session, prompts, tokens, MAX_NEW, max_len=MOE_MAX_LEN,
-                                  compiled=MOE_COMPILED_STEPS,
-                                  decode_pos=torch.tensor(MOE_DECODE_POS))
+        run, logits[body] = drive(session, prompts, tokens, MAX_NEW, max_len=cell.max_len,
+                                  compiled=cell.compiled,
+                                  decode_pos=torch.tensor(cell.decode_pos))
         steps = run["prefill_chunks"] + run["decode_steps"]
         expect_counts(run["launches_engine"], moe_counts(cfg, steps, 0, body))
         expect_counts(run["launches"], moe_counts(cfg, steps, 1, body))
-        assert run["prefill_chunks"] == 1 + 2 + 1 + MOE_PROMPT_LENS[-1] // 32, run
+        assert run["prefill_chunks"] == sum(-(-n // 32) for n in cell.prompt_lens), run
         run["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         run["memory_after_first_drive"] = {
             "allocated": run["registry_allocated_bytes"], "reserved": run["registry_reserved_bytes"]}
         if body == "f32":
             run["codes_vs_dequant"], run["chunk_logits_rel_diff"] = codes_vs_dequant(
                 session, logits["f32"], tokens, g, device)
-            run["dense_oracle"] = moe_dense_oracle(session, device, seed)
+            run["dense_oracle"] = moe_dense_oracle(session, device, seed, cell)
         elif body == "int8":
-            run["int8_vs_f32"] = compare_logits(f"mixtral {calibrated}int8 vs f32 codes prefill "
-                                                "logits", logits["int8"], logits["f32"],
+            run["int8_vs_f32"] = compare_logits(f"{cell.arch} {calibrated}int8 vs f32 codes "
+                                                "prefill logits", logits["int8"], logits["f32"],
                                                 INT8_LOGITS_BOUND)
         else:
-            run["adc_vs_f32"] = compare_logits(f"mixtral {calibrated}codes_adc vs f32 codes "
+            run["adc_vs_f32"] = compare_logits(f"{cell.arch} {calibrated}codes_adc vs f32 codes "
                                                "prefill logits", logits["codes_adc"],
                                                logits["f32"])
             same = sum(a == b for ra, rb in zip(run["streams"], runs["f32"]["streams"])
                        for a, b in zip(ra, rb))
             run["greedy_tokens_equal_f32"] = same / sum(len(r) for r in run["streams"])
-        long = run["ttft_s"][-1]
-        run["long_prompt_ttft_s"] = {"first": long, "warm": run["warm"]["ttft_s"][-1],
-                                     "eager": run["eager"]["ttft_s"][-1]}
-        run["trace"] = moe_tick_profile(session, body)
+        longest = max(range(len(cell.prompt_lens)), key=lambda i: cell.prompt_lens[i])
+        run["long_prompt_ttft_s"] = {"first": run["ttft_s"][longest],
+                                     "warm": run["warm"]["ttft_s"][longest],
+                                     "eager": run["eager"]["ttft_s"][longest]}
+        run["trace"] = moe_tick_profile(session, body, cell)
         busy = run["trace"]["device_busy_ms_per_tick"]
         if busy is not None:
             run["trace"]["device_busy_share_of_unprofiled_tick"] = busy / run["tick"]["captured"]
-        log(f"[moe] {body}: tick captured {run['tick']['captured']:.3f} ms vs eager "
+        log(f"[{tag}] {body}: tick captured {run['tick']['captured']:.3f} ms vs eager "
             f"{run['tick']['eager']:.3f} ms; engine {run['warm']['decode_tok_per_s']:.1f} tok/s "
             f"captured vs {run['eager']['decode_tok_per_s']:.1f} eager; TTFT of the "
-            f"{MOE_PROMPT_LENS[-1]}-token prompt {run['long_prompt_ttft_s']['warm']:.3f} s warm, "
-            f"{run['long_prompt_ttft_s']['eager']:.3f} s eager, {long:.3f} s in the first drive; "
+            f"{cell.prompt_lens[longest]}-token prompt {run['long_prompt_ttft_s']['warm']:.3f} s "
+            f"warm, {run['long_prompt_ttft_s']['eager']:.3f} s eager, "
+            f"{run['long_prompt_ttft_s']['first']:.3f} s in the first drive; "
             f"peak {run['peak_mem_bytes'] / 2**30:.2f} GiB; launches {run['launches']}")
         runs[body] = run
         del session
     return runs
 
 
-def moe_rolling(dep, seed):
-    """The rolling path at full width, on a copy of the config with
-    capacity_factor = E / top_k (no path drops a token): the long prompt
-    through an engine of one slot (130 chunks through the rolling canvas,
-    then 16 greedy tokens across position 4096), against a token-by-token
-    ``decode_step`` loop through the session's batch-1 decode graph (the
-    engine's, leased again with a zeroed cache): the admission logits
-    within ``LOGITS_BOUND`` of absmax of the loop's at the prompt's last
-    position, and the engine's tokens the loop's greedy ones. The two
-    compute the cache in other orders (chunk rows vs single rows: other
-    GEMV plans and cuBLAS tilings, bf16 K/V that differ in their last
-    bits), so where the loop's argmax differs from the engine's token, the
-    engine's token must lie within ``LOGITS_BOUND`` of absmax below the
-    loop's top logit (a near-tie), and the loop then follows the engine's
-    token; the flips are reported."""
+def chunked_vs_loop(dep, seed, cell):
+    """Chunked admission at full width, on a copy of the config with
+    capacity_factor = E / top_k (no path drops a token): the cell's loop
+    prompt through an engine of one slot (chunks of 32; mixtral's through
+    the rolling canvas, then 16 greedy tokens across position 4096),
+    against a token-by-token ``decode_step`` loop through the session's
+    batch-1 decode graph (the engine's, leased again with a zeroed cache):
+    the admission logits within ``LOGITS_BOUND`` of absmax of the loop's at
+    the prompt's last position, and the engine's tokens the loop's greedy
+    ones. The two compute the cache in other orders (chunk rows vs single
+    rows: other GEMV plans and cuBLAS tilings, bf16 caches that differ in
+    their last bits), so where the loop's argmax differs from the engine's
+    token, the engine's token must lie within ``LOGITS_BOUND`` of absmax
+    below the loop's top logit (a near-tie), and the loop then follows the
+    engine's token; the flips are reported."""
     from repro_torch.deploy import Deployment, ServeEngine
     from repro_torch.models import moe as M
 
-    cfg = dep.cfg
+    cfg, tag = dep.cfg, cell.tag
     cfg4 = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     assert not M.can_drop(cfg4.moe)
     session = Deployment(cfg4, "codes", dep.teacher_base, dep.codes, dep.adapters,
                          dep.teacher_seed, dep.program_seed, dep.drift_hours).serve()
     g = torch.Generator().manual_seed(seed + 11)
-    prompt = torch.randint(0, cfg.vocab, (MOE_PROMPT_LENS[-1],), generator=g).numpy()
-    engine = ServeEngine(session, max_slots=1, max_len=MOE_MAX_LEN)
+    prompt = torch.randint(0, cfg.vocab, (cell.loop_prompt,), generator=g).numpy()
+    engine = ServeEngine(session, max_slots=1, max_len=cell.max_len)
     admitted = []
     finalize = engine._finalize_admission
 
@@ -3357,7 +3546,7 @@ def moe_rolling(dep, seed):
         pass
 
     owner = Loop()
-    step = session.decode_step_fn(1, MOE_MAX_LEN, owner=owner)  # zeroed cache
+    step = session.decode_step_fn(1, cell.max_len, owner=owner)  # zeroed cache
     assert step.graph is not None  # the engine's tick, captured
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3366,7 +3555,7 @@ def moe_rolling(dep, seed):
         host[0, 0], host[1, 0] = int(tok), i
         logits = step(host)
     loop_admission = logits.clone()
-    cache = rolling_caches_agree(cfg4, admitted[0][1], step.flat)
+    cache = caches_agree(cfg4, cell, admitted[0][1], step.flat)
     tokens, flips = [], []
     for i, want in enumerate(req.tokens):
         row = logits[0, -1].float()
@@ -3382,12 +3571,13 @@ def moe_rolling(dep, seed):
             logits = step(host)
     torch.cuda.synchronize()
     t_loop = time.perf_counter() - t0
-    versus = compare_logits("rolling: engine admission vs the token-by-token loop, "
+    versus = compare_logits(f"{cell.arch}: engine admission vs the token-by-token loop, "
                             f"{len(prompt)}-token prompt", admitted[0][0], loop_admission,
                             LOGITS_BOUND)
-    log(f"[moe] rolling path: engine tokens {req.tokens}; loop's argmax {tokens} "
+    chunks = -(-len(prompt) // 32)
+    log(f"[{tag}] chunked admission: engine tokens {req.tokens}; loop's argmax {tokens} "
         f"({MAX_NEW - len(flips)} of {MAX_NEW} equal; near-ties {flips}); engine "
-        f"{t_engine:.2f} s ({MOE_PROMPT_LENS[-1] // 32} chunks + {MAX_NEW - 1} ticks), "
+        f"{t_engine:.2f} s ({chunks} chunks + {MAX_NEW - 1} ticks), "
         f"token-by-token loop {t_loop:.2f} s ({len(prompt) + MAX_NEW - 1} replays, "
         f"{1e3 * t_loop / (len(prompt) + MAX_NEW - 1):.2f} ms each)")
     return {"engine_tokens": list(req.tokens), "loop_argmax": tokens, "near_tie_flips": flips,
@@ -3396,40 +3586,40 @@ def moe_rolling(dep, seed):
             "ttft_s": req.ttft_seconds}
 
 
-def rolling_caches_agree(cfg, staged, looped):
-    """The rolling buffers after the long prompt: the engine's staged cache
-    (each chunk's canvas gathered back) against the loop's (one write a
-    token), layer by layer. Layer 0's K/V come from the tokens alone, so a
-    slot holding another position would differ by the order of absmax:
-    gated within ``LOGITS_BOUND`` of absmax. Layer 1's depend on layer 0's
-    MoE, where a token whose router has a near-tie may go to another expert
-    in one of the two (their router GEMVs sum in other orders): its
-    per-slot differences and the slots beyond the bound are reported."""
+def caches_agree(cfg, cell, staged, looped):
+    """The caches after the loop prompt: the engine's staged cache (mixtral:
+    each chunk's canvas gathered back into the rolling buffer) against the
+    loop's (one write a token), layer by layer, per cache position over
+    every leaf (K/V, or MLA's latent and rope key). Layer 0's come from the
+    tokens alone, so a position holding another one's would differ by the
+    order of absmax: gated within ``LOGITS_BOUND`` of absmax. Later layers'
+    depend on earlier MoE layers, where a token whose router has a near-tie
+    may go to another expert in one of the two (their router GEMVs sum in
+    other orders): their per-position differences and the positions beyond
+    the bound are reported."""
     from repro_torch import tree as tree_lib
     from repro_torch.models import transformer as T
 
-    like = T.init_cache(cfg, 1, MOE_MAX_LEN, "meta")
+    like = T.init_cache(cfg, 1, cell.max_len, "meta")
 
-    def body(flat):
+    def layers(flat):
         views, off = [], 0
         for t in tree_lib.tensors(like):
             views.append(flat[off:off + t.numel()].view(t.shape))
             off += t.numel()
-        return tree_lib.unflatten(like, views)["body"][0]  # k, v: (G, 1, T, KVH, hd)
+        return T._cache_layers(tree_lib.unflatten(like, views), cfg)
 
-    got, want = body(staged), body(looped)
     out = []
-    for layer in range(cfg.n_layers):
-        a = torch.stack([got[n][layer, 0] for n in ("k", "v")]).float()
-        b = torch.stack([want[n][layer, 0] for n in ("k", "v")]).float()
-        scale = float(b.abs().max())
-        per_slot = (a - b).abs().amax(dim=(0, 2, 3))  # (T,)
+    for layer, (got, want) in enumerate(zip(layers(staged), layers(looped))):
+        scale = max(float(want[n][0].abs().max()) for n in want)
+        per_slot = torch.stack([(got[n][0].float() - want[n][0].float()).abs().flatten(1).amax(1)
+                                for n in want]).amax(0)  # (T,)
         far = int((per_slot > LOGITS_BOUND * scale).sum())
         row = {"max_abs_diff": float(per_slot.max()), "absmax": scale,
                "rel": float(per_slot.max()) / scale, "slots": int(per_slot.numel()),
                "slots_beyond_bound": far,
                "median_slot_rel": float(per_slot.median()) / scale}
-        log(f"[moe] rolling caches after the prompt, layer {layer}: max|diff| "
+        log(f"[{cell.tag}] caches after the prompt, layer {layer} ({', '.join(want)}): max|diff| "
             f"{row['max_abs_diff']:.4f} of absmax {scale:.4f} ({row['rel']:.2e}; median slot "
             f"{row['median_slot_rel']:.2e}), {far} of {row['slots']} slots beyond "
             f"{LOGITS_BOUND:g} of absmax{' (gated)' if layer == 0 else ''}")
@@ -3438,19 +3628,19 @@ def rolling_caches_agree(cfg, staged, looped):
     return out
 
 
-def phase_moe(device, seed):
-    """Phase 11: mixtral-8x22b FULL widths at 2 layers. ``Deployment.program
-    (codes)`` -> ``advance(24)`` -> ``calibrate`` -> the three sessions'
-    serving checks -> the dense oracle -> the rolling path. Every check
-    raises."""
-    from repro_torch import tree as tree_lib
+def phase_moe(device, seed, cell):
+    """Phases 11 and 12: the cell's arch at its FULL widths, its depth cut.
+    ``Deployment.program(codes)`` -> ``advance(24)`` -> ``calibrate`` -> the
+    three sessions' serving checks -> the dense oracle -> chunked admission
+    against the token loop. Every check raises."""
     from repro_torch.configs import get_arch
     from repro_torch.deploy import Deployment
     from repro_torch.models import transformer as T
 
+    tag = cell.tag
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_arch("mixtral-8x22b").full, n_layers=MOE_LAYERS)
-    assert cfg.body_layout() == (0, MOE_LAYERS, 0)
+    cfg = dataclasses.replace(get_arch(cell.arch).full, n_layers=cell.layers)
+    assert cfg.body_layout() == cell.layout, cfg.body_layout()
     memory()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3463,9 +3653,11 @@ def phase_moe(device, seed):
     t_advance = time.perf_counter() - t0
     n_base, n_adapters = T.count_params({"base": dep.codes, "adapters": dep.adapters})
     allocated, reserved = memory()
-    expert = dep.codes["body"][0]["ffn"]["gate_w"]
-    assert tuple(expert.g_pos.shape) == (MOE_LAYERS, 8, 6144, 16384), expert.g_pos.shape
+    where, i = cell.expert_at
+    expert = dep.codes[where][i]["ffn"]["gate_w"]
+    assert tuple(expert.g_pos.shape) == cell.expert_shape, expert.g_pos.shape
     result = {
+        "layers": cell.layers, "body_layout": cfg.body_layout(),
         "program_seconds": t_program, "advance_seconds": t_advance,
         "program_peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "resident_allocated_bytes": allocated, "resident_reserved_bytes": reserved,
@@ -3475,26 +3667,27 @@ def phase_moe(device, seed):
         "rram_bytes": dep.rram_bytes(), "sram_bytes": dep.sram_bytes(),
         "teacher_bytes": tree_bytes(dep.teacher_base),
     }
-    log(f"[moe] {cfg.name} at {MOE_LAYERS} of 56 layers: {n_base:,} weights "
+    log(f"[{tag}] {cfg.name} at {cell.layers} of {cell.of_layers} layers (layout "
+        f"{cfg.body_layout()}, expert leaf {cell.expert_shape}): {n_base:,} weights "
         f"({result['active_param_fraction']:.2%} active a token), {n_adapters:,} side-car "
         f"parameters; program {t_program:.2f} s (peak "
         f"{result['program_peak_mem_bytes'] / 2**30:.2f} GiB), advance(24) {t_advance:.2f} s; "
         f"resident {allocated / 2**30:.2f} GiB (teacher {result['teacher_bytes'] / 2**30:.2f}, "
         f"codes {result['rram_bytes'] / 2**30:.2f})")
-    result["calibration"] = moe_calibrate(dep)
-    result["serving"] = moe_serve_checked(dep, seed, "calibrated ")
+    result["calibration"] = moe_calibrate(dep, cell)
+    result["serving"] = moe_serve_checked(dep, seed, "calibrated ", cell)
     memory()
-    result["rolling"] = moe_rolling(dep, seed)
+    result["chunked_vs_loop"] = chunked_vs_loop(dep, seed, cell)
     result["retained_bytes"] = memory()
     result["peak_mem_bytes"] = max(result["calibration"]["peak_mem_bytes"],
                                    *(r["peak_mem_bytes"] for r in result["serving"].values()))
     del dep
     memory()
     result["phase_seconds"] = time.perf_counter() - t_phase
-    log(f"[moe] phase 11 took {result['phase_seconds']:.2f} s; peak "
+    log(f"[{tag}] phase {cell.phase} took {result['phase_seconds']:.2f} s; peak "
         f"{result['peak_mem_bytes'] / 2**30:.2f} GiB (calibration "
-        f"{result['calibration']['peak_mem_bytes'] / 2**30:.2f}); retained after the rolling "
-        f"check {result['retained_bytes'][0] / 2**30:.2f} GiB allocated, "
+        f"{result['calibration']['peak_mem_bytes'] / 2**30:.2f}); retained after the "
+        f"chunked-admission check {result['retained_bytes'][0] / 2**30:.2f} GiB allocated, "
         f"{result['retained_bytes'][1] / 2**30:.2f} reserved")
     return result
 
@@ -3547,7 +3740,10 @@ def main():
     memory()
     paper = phase_paper(device, args.seed)
     memory()
-    moe = phase_moe(device, args.seed)
+    moe = phase_moe(device, args.seed, MOE_CELL)
+    memory()
+    mla = phase_moe(device, args.seed, MLA_CELL)
+    zoo = (moe, mla)
 
     # one transformer layer: the four fused leaves at the decode tick (GEMV)
     # or the fused prefill (tiled), the seven unfused leaves at the decode
@@ -3555,15 +3751,17 @@ def main():
     session_of = {"dora_linear_gemv": serving, "dora_linear": serving,
                   "dora_linear_gemv/int8": serving["int8"],
                   "dora_linear/int8": serving["int8"], "crossbar_mvm": serving["codes_adc"]}
-    # phase 5's main path and phase 11's (the mixtral sessions of each body)
+    # phase 5's main path and those of phases 11 and 12 (the mixtral and
+    # deepseek sessions of each body)
     moe_of = {"dora_linear_gemv": "f32", "dora_linear": "f32", "dora_linear_gemv/int8": "int8",
               "dora_linear/int8": "int8", "crossbar_mvm": "codes_adc"}
-    launches = {name: run["launches"][name] + moe["serving"][moe_of[name]]["launches"][name]
+    launches = {name: run["launches"][name] + sum(z["serving"][moe_of[name]]["launches"][name]
+                                                  for z in zoo)
                 for name, run in session_of.items()}
     # the f32 body's f32-x launches are the narrow body's (every one of them
     # a router's, N <= 64), not the launcher's own kernels'
     narrow = {name: serving["launches"][name + "/f32x"]
-              + moe["serving"]["f32"]["launches"][name + "/f32x"]
+              + sum(z["serving"]["f32"]["launches"][name + "/f32x"] for z in zoo)
               for name in ("dora_linear_gemv", "dora_linear")}
     for name, n in narrow.items():
         launches[name] -= n
@@ -3571,7 +3769,7 @@ def main():
     assert launches["dora_linear_narrow"] > 0, narrow
     # likewise the ADC's f32-x launches are its narrow body's (the routers')
     adc_narrow = (serving["codes_adc"]["launches"]["crossbar_mvm/f32x"]
-                  + moe["serving"]["codes_adc"]["launches"]["crossbar_mvm/f32x"])
+                  + sum(z["serving"]["codes_adc"]["launches"]["crossbar_mvm/f32x"] for z in zoo))
     launches["crossbar_mvm"] -= adc_narrow
     launches["crossbar_mvm_narrow"] = adc_narrow
     assert adc_narrow > 0, adc_narrow
@@ -3611,7 +3809,8 @@ def main():
         with open(args.out, "w") as f:
             json.dump({"card": smi, "timing": rows, "breakdown": breakdown,
                        "serving": serving, "calibration": calibration, "faults": faults,
-                       "persist": persist, "paper": paper, "moe": moe, "kernels": kernels},
+                       "persist": persist, "paper": paper, "moe": moe, "mla": mla,
+                       "kernels": kernels},
                       f,
                       indent=1, default=str)
     log(json.dumps({"kernels": kernels}))

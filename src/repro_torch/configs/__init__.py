@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolves here. Port of
 ``repro/configs``; the port serves the dense decoder family (qwen3-1.7b,
-deepseek-coder-33b, minitron-8b) and the mixture-of-experts mixtral-8x22b."""
+deepseek-coder-33b, minitron-8b) and the mixture-of-experts mixtral-8x22b
+and deepseek-v2-lite (MLA)."""
 from __future__ import annotations
 
 import importlib
@@ -9,10 +10,10 @@ from typing import List
 from repro_torch.configs.shapes import ArchSpec  # noqa: F401
 
 ARCH_IDS: List[str] = ["qwen3_1_7b", "minitron_8b", "deepseek_coder_33b",
-                       "mixtral_8x22b"]
+                       "mixtral_8x22b", "deepseek_v2_lite_16b"]
 
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
-ALIASES.update({"qwen3-1.7b": "qwen3_1_7b"})
+ALIASES.update({"qwen3-1.7b": "qwen3_1_7b", "deepseek-v2-lite": "deepseek_v2_lite_16b"})
 
 
 def get_arch(name: str) -> ArchSpec:

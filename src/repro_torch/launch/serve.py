@@ -9,9 +9,15 @@ card raises).
     python -m repro_torch.launch.serve --arch mixtral-8x22b --layers 2 \
         --backend codes --drift-hours 24
     python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite --layers 3 \
+        --backend codes
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite --smoke --device cpu
 
 ``--layers`` cuts the depth and keeps every width: mixtral-8x22b's 56
 layers (141 G weights) do not fit one 80 GB card; 2 layers take ~22 GB.
+deepseek-v2-lite's 27 layers (15.7 G weights) fit as codes but leave no
+room for a teacher and calibration; 3 layers (the dense first layer and
+two MoE layers) take ~1.7 G weights.
 """
 from __future__ import annotations
 

@@ -20,9 +20,12 @@ Pallas kernel. So under every backend, ``codes_adc`` included, the
 experts bypass the kernels.
 
 Decode (one token a row) uses dense gating: every expert runs on the
-token and the outputs are gate-weighted. A real row receives at most
-``top_k`` adds in either combine, onto zero, so the sums do not depend on
-the order of the adds.
+token and the outputs are gate-weighted. The dispatch combine, and the
+dispatch's backward, sum a token's ``top_k`` slots by gathers added in
+slot order (``_gather_sum``), never by a scatter-add: with more than two
+adds a row (deepseek-v2-lite's top-6) atomics in a varying order would
+change the last bits from run to run, and a CUDA graph's replay would
+not repeat its eager step.
 """
 from __future__ import annotations
 
@@ -214,6 +217,59 @@ def _route_row(xrow: torch.Tensor, router_logits: torch.Tensor, cfg: MoeConfig,
     return slot_token[..., :-1], slot_gate[..., :-1]
 
 
+def _token_slots(slot_token: torch.Tensor, s: int, k: int) -> torch.Tensor:
+    """The inverse of ``_route_row``'s layout: for each of a row's ``s``
+    tokens the slots that hold it, ascending, padded with the empty index
+    ``E * C`` (..., s, k); a token holds at most ``k`` slots, fewer where
+    it was dropped."""
+    n = slot_token.shape[-1]
+    lead = slot_token.shape[:-1]
+    order = torch.argsort(slot_token, dim=-1, stable=True)  # by token, slots ascending
+    tokens = torch.gather(slot_token, -1, order)
+    want = torch.arange(s, dtype=slot_token.dtype, device=slot_token.device)
+    want = want.expand(*lead, s).contiguous()
+    start = torch.searchsorted(tokens, want)
+    pos = start[..., None] + torch.arange(k, device=slot_token.device)  # (..., s, k)
+    at = pos.clamp(max=n - 1).reshape(*lead, s * k)
+    held = (pos < n) & (torch.gather(tokens, -1, at).reshape(*lead, s, k) == want[..., None])
+    return torch.where(held, torch.gather(order, -1, at).reshape(*lead, s, k), n)
+
+
+def _gather_sum(v: torch.Tensor, token_slots: torch.Tensor) -> torch.Tensor:
+    """(B, S, d): each token's sum of ``v``'s slot rows (B, n, d) at
+    ``token_slots`` (B, S, k), added onto zero in slot order (the
+    reference's sequential scatter-add). Gathers and adds in a fixed order
+    give the same bits on every run, where a scatter-add onto the token's
+    row would add its ``top_k`` values with atomics in a varying order."""
+    bsz, s, k = token_slots.shape
+    d = v.shape[-1]
+    v_pad = torch.cat([v, v.new_zeros((bsz, 1, d))], dim=1)  # the empty index reads zeros
+    y = v.new_zeros((bsz, s, d))
+    for j in range(k):
+        y = y + torch.gather(v_pad, 1, token_slots[:, :, j, None].expand(bsz, s, d))
+    return y
+
+
+class _Dispatch(torch.autograd.Function):
+    """The slots' tokens: ``x_pad`` (B, S + 1, d; row S zeros) gathered by
+    ``slot_token`` (B, n). Its backward sums each token's slot gradients by
+    ``_gather_sum``, so calibration's gradients repeat bitwise, where
+    autograd's gather backward scatter-adds up to ``top_k`` of them onto a
+    token with atomics."""
+
+    @staticmethod
+    def forward(ctx, x_pad, slot_token, token_slots):
+        ctx.save_for_backward(token_slots)
+        idx = slot_token.to(torch.int64)[..., None].expand(*slot_token.shape, x_pad.shape[-1])
+        return torch.gather(x_pad, 1, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (token_slots,) = ctx.saved_tensors
+        g = _gather_sum(grad, token_slots)
+        return torch.cat([g, g.new_zeros((g.shape[0], 1, g.shape[2]))], dim=1), None, None
+
+
 def capacity_of(s: int, cfg: MoeConfig) -> int:
     """Slots per expert for ``s`` tokens a row: ``ceil(s * top_k *
     capacity_factor / E)``, at least 1 (the reference's float arithmetic).
@@ -239,18 +295,17 @@ def moe_block(x: torch.Tensor, base: Dict, adapters: Optional[Dict], cfg: MoeCon
     capacity = capacity_of(s, cfg)
     logits = L.linear(x.to(torch.float32), base["router"], a_.get("router"), acfg)
     slot_token, slot_gate = _route_row(x, logits, cfg, capacity)  # (B, E*C) each
-    idx = slot_token.to(torch.int64)[..., None].expand(bsz, cfg.n_experts * capacity, d)
+    token_slots = _token_slots(slot_token, s, cfg.top_k)           # (B, S, k)
     x_pad = torch.cat([x, x.new_zeros((bsz, 1, d))], dim=1)
-    xg = torch.gather(x_pad, 1, idx).reshape(bsz, cfg.n_experts, capacity, d)
+    xg = _Dispatch.apply(x_pad, slot_token, token_slots)
+    xg = xg.reshape(bsz, cfg.n_experts, capacity, d)
     gate_h = _expert_matmul(xg, base["gate_w"], a_.get("gate_w"), acfg)
     up_h = _expert_matmul(xg, base["up_w"], a_.get("up_w"), acfg)
     h = L._act(gate_h, cfg.activation) * up_h
     out_g = _expert_matmul(h, base["down_w"], a_.get("down_w"), acfg)
     out_flat = out_g.reshape(bsz, cfg.n_experts * capacity, d).to(torch.float32)
     out_flat = out_flat * slot_gate[..., None]
-    combined = torch.zeros((bsz, s + 1, d), dtype=torch.float32, device=x.device)
-    combined.scatter_add_(1, idx, out_flat)  # row s absorbs the empty slots
-    y = combined[:, :s] * cfg.routed_scale
+    y = _gather_sum(out_flat, token_slots) * cfg.routed_scale
     if cfg.n_shared:
         y = y + L.mlp(x, base["shared"], a_.get("shared"), _shared_cfg(cfg),
                       acfg).to(torch.float32)

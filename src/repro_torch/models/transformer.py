@@ -1,6 +1,6 @@
 """Model assembly, decoder path. Port of ``repro/models/transformer.py``
-(attention mixers with MLP or MoE FFNs, the forward, the feature-KD
-calibration loss and the serving steps; MLA, SSM, RG-LRU,
+(attention mixers, MLA among them, with MLP or MoE FFNs, the forward, the
+feature-KD calibration loss and the serving steps; SSM, RG-LRU,
 encoder-decoder and vision prefix wait).
 
 The parameter layout is the reference's: ``prologue`` (list) + ``body``
@@ -74,18 +74,20 @@ class ModelConfig:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Attention mixers (not MLA) with MLP, MoE or no FFN; the other
-    kinds (SSM, RG-LRU, encoder, vision) are not ported."""
+    """Attention mixers (MLA ones global) with MLP, MoE or no FFN; the
+    other kinds (SSM, RG-LRU, encoder, vision) are not ported."""
     for attr in ("ssm", "rglru", "encoder_layers", "vision_tokens"):
         if getattr(cfg, attr, None):
             raise NotImplementedError(f"{cfg.name}: {attr} is not ported")
-    if cfg.attn is not None and getattr(cfg.attn, "mla", False):
-        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported")
+    mla = cfg.attn is not None and cfg.attn.mla
     for mixer, ffn in cfg.layer_kinds():
         if mixer not in _ATTN or ffn not in ("mlp", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: layer kind ({mixer}, {ffn}) is not ported"
             )
+        if mla and mixer != "attn":
+            raise NotImplementedError(f"{cfg.name}: MLA with a sliding window ({mixer}) "
+                                      "is not supported")
 
 
 def _norm_init(cfg: ModelConfig, device):

@@ -45,6 +45,11 @@ full-width leaves and at ragged shapes:
 * the shared prefix cache through the graphs, for each body: full and
   chunk-boundary hits bitwise the cold admission, an off-boundary hit
   within 1e-2 of the logits' absmax with equal tokens.
+* MLA (deepseek-v2-lite): both tiled tensor-core bodies at the fused
+  _kup_vup (M 512 and 128, K 512, N 4096, rank 16) and the ADC's at k_up
+  (M 512, K 512, N 2048) against their plain versions and replayed from a
+  CUDA graph bitwise equal to eager; the smoke decode and chunk graphs of
+  each body replayed bitwise equal to the eager step;
 * the paper's CNN experiment (``core/resnet.py``, no kernel of the
   port): the ResNet-20 forward on the card, with calibrated-looking
   adapters, within 1e-4 of absmax of the CPU's on the same parameters
@@ -1721,3 +1726,119 @@ def test_adc_narrow_never_reaches_simt_or_plain(cuda, monkeypatch):
         C.crossbar_mvm(*operands(m, k, n, 1, cuda, dtype=torch.float32)[:4])
     torch.cuda.synchronize()
     assert C.launch_counts() == {"crossbar_mvm": 4}
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2-lite): the up-projection of the whole latent cache every
+# decode tick and chunk puts the tiled bodies inside the decode graphs
+# ---------------------------------------------------------------------------
+
+# _kup_vup at full width: (K kv_lora, N 16 heads x (128 + 128), fused rank)
+KUP_VUP = (512, 4096, 16)
+
+
+def _graph_equals_eager(call):
+    """``call`` captured in a CUDA graph after a warm-up on a side stream
+    (as the serving registry captures a step), replayed three times: each
+    replay bitwise equal to the eager result."""
+    want = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            return False
+    return True
+
+
+# a decode tick's rows (4 slots x a 128-token cache) and a chunk's (the
+# batch-1 staging cache)
+@pytest.mark.parametrize("m", [512, 128])
+@pytest.mark.parametrize("accum", ["f32", "int8"])
+def test_tiled_kup_vup_replays_bitwise_in_a_graph(cuda, accum, m):
+    """Both tensor-core tiled bodies at deepseek-v2-lite's fused _kup_vup:
+    against their plain versions, and captured in a CUDA graph (the
+    launcher's scratch from the graph's pool, its K split chosen by M)
+    replayed bitwise equal to the eager call."""
+    k, n, r = KUP_VUP
+    ops = operands(m, k, n, r, cuda, seed=m)
+    (_check if accum == "f32" else _check_int8)(K.dora_linear, ops)
+    assert _graph_equals_eager(lambda: K.dora_linear(*ops, accum=accum))
+
+
+def test_adc_kup_replays_bitwise_in_a_graph(cuda):
+    """The ADC's tensor-core body at k_up under codes_adc (M 512, K 512, N
+    2048): against its plain version, and replayed from a CUDA graph
+    bitwise equal to the eager call."""
+    ops = operands(512, 512, 2048, 1, cuda, seed=3)[:4]
+    _check_adc(*ops)
+    assert _graph_equals_eager(lambda: C.crossbar_mvm(*ops))
+
+
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_mla_decode_tick_replays_bitwise(cuda, body):
+    """deepseek-v2-lite smoke at 2 layers (the dense layer and one MoE
+    layer): the decode graph (its _kup_vup over 4 slots x 64 positions
+    tiled) and the chunk graphs replay bitwise equal to the eager step,
+    logits and latent cache; the tiled launcher ran in the engine."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+
+    cfg = dataclasses.replace(get_arch("deepseek-v2-lite").smoke, n_layers=2)
+    dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24)
+    if body == "codes_adc":
+        session = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
+                             dep.teacher_seed, dep.program_seed, dep.drift_hours).serve()
+    else:
+        session = dep.serve(accum=body)
+    _, counts, _ = _drive(session)
+    if body != "codes_adc":
+        assert counts[K.counter("dora_linear", body)] > 0, counts
+    _check_replays(session)
+
+
+def test_moe_dispatch_top6_repeats_bitwise(cuda):
+    """deepseek-v2-lite's routing (64 experts, top-6, capacity 1.25) at a
+    narrow width: the dispatch path's output and its gradients w.r.t. the
+    input and the side-cars bitwise equal over two runs (no scatter-add of
+    a token's six slots with atomics)."""
+    from repro_torch.core.dora import AdapterConfig
+    from repro_torch.models import moe as M
+
+    cfg = M.MoeConfig(d_model=64, d_ff=32, n_experts=64, top_k=6, n_shared=1,
+                      capacity_factor=1.25)
+    acfg = AdapterConfig(rank=4, kind="dora")
+    base, ad = M.init_moe(torch.Generator(device=cuda).manual_seed(0), cfg, acfg)
+    for leaf in ad.values():
+        if "lora_b" in leaf:
+            leaf["lora_b"].normal_(0.0, 0.05)
+    x = torch.randn((4, 32, 64), device=cuda).to(torch.bfloat16)
+    leaves = [t for t in _leaves(ad)]
+    runs = []
+    for _ in range(2):
+        xr = x.clone().requires_grad_(True)
+        for t in leaves:
+            t.requires_grad_(True)
+        y = M.moe_block(xr, base, ad, cfg, acfg)
+        grads = torch.autograd.grad(y.float().square().sum(), [xr, *leaves])
+        runs.append((y.detach(), grads))
+    (y0, g0), (y1, g1) = runs
+    assert torch.equal(y0, y1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        yield tree

@@ -269,6 +269,35 @@ def test_moe_matches_dense_oracle_no_drops():
     assert torch.allclose(y, dense, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("top_k,n_experts,cf", [(2, 4, 1.0), (6, 16, 1.25), (3, 4, 0.5)])
+def test_gather_combine_is_the_scatter_add_bitwise(top_k, n_experts, cf):
+    """The dispatch path's combine (``_gather_sum`` over ``_token_slots``)
+    and its dispatch backward equal the scatter-add they replace bitwise on
+    the CPU (adds in slot order onto zero), at top-2, deepseek-v2-lite's
+    top-6 and with dropped tokens (f32)."""
+    cfg = TM.MoeConfig(d_model=16, d_ff=24, n_experts=n_experts, top_k=top_k,
+                       capacity_factor=cf)
+    acfg = TAdapterConfig(rank=2, kind="dora")
+    base, ad = TM.init_moe(torch.Generator().manual_seed(1), cfg, acfg, dtype=torch.float32)
+    x = torch.randn((2, 12, 16), generator=torch.Generator().manual_seed(2), requires_grad=True)
+    bsz, s, d = x.shape
+    capacity = TM.capacity_of(s, cfg)
+    logits = TM.L.linear(x.float(), base["router"], ad["router"], acfg)
+    slot_token, slot_gate = TM._route_row(x, logits, cfg, capacity)
+    slots = TM._token_slots(slot_token, s, top_k)
+    held = slots < n_experts * capacity
+    assert (held.sum(-1) <= top_k).all() and int(held.sum()) == int((slot_token < s).sum())
+    idx = slot_token.long()[..., None].expand(bsz, n_experts * capacity, d)
+    x_pad = torch.cat([x, x.new_zeros((bsz, 1, d))], dim=1)
+    v = torch.randn((bsz, n_experts * capacity, d), generator=torch.Generator().manual_seed(3))
+    want = torch.zeros((bsz, s + 1, d)).scatter_add_(1, idx, v)[:, :s]
+    assert torch.equal(TM._gather_sum(v, slots), want)
+    g = torch.randn((bsz, n_experts * capacity, d), generator=torch.Generator().manual_seed(4))
+    (want_grad,) = torch.autograd.grad(torch.gather(x_pad, 1, idx), x, g)
+    (got_grad,) = torch.autograd.grad(TM._Dispatch.apply(x_pad, slot_token, slots), x, g)
+    assert torch.equal(got_grad, want_grad)
+
+
 def test_load_balancing_loss_matches_reference():
     rng = np.random.default_rng(2)
     logits = (rng.standard_normal((20, 4)) * 2).astype(np.float32)
@@ -411,7 +440,8 @@ def test_counts_match_reference(model):
 
 
 def test_unported_kinds_still_raise():
-    """MoE is ported; MLA, SSM, RG-LRU, encoder and vision are not."""
+    """MoE and MLA (deepseek-v2-lite) are ported; SSM, RG-LRU, encoder and
+    vision are not."""
     cfg = t_arch("mixtral_8x22b").smoke
     TT._check_supported(cfg)
     for mixer in ("ssm", "rglru"):
@@ -423,12 +453,10 @@ def test_unported_kinds_still_raise():
         with pytest.raises(NotImplementedError, match="not ported"):
             TT._check_supported(bad(**_fields(cfg)))
 
-    @dataclasses.dataclass(frozen=True)
-    class MlaAttention(TA.AttentionConfig):
-        mla: bool = True
-
-    with pytest.raises(NotImplementedError, match="MLA"):
-        TT._check_supported(dataclasses.replace(cfg, attn=MlaAttention(**_fields(cfg.attn))))
+    for size in ("full", "smoke"):  # deepseek-v2-lite is accepted
+        mla = getattr(t_arch("deepseek-v2-lite"), size)
+        assert mla.attn.mla
+        TT._check_supported(mla)
 
 
 def _fields(obj):

@@ -39,15 +39,15 @@ from test_torch_serve import _one_thread, _prompts, assert_streams_match, sessio
 DTYPES = [torch.float32, torch.bfloat16]
 
 
-def _mask_write(cache, k, v, pos0, n_valid):
+def _mask_write(cache, new, pos0, n_valid):
     """The boolean-mask write ``chunk_attention`` had: the oracle."""
-    b_, c = k.shape[:2]
+    b_, c = next(iter(new.values())).shape[:2]
     i = torch.arange(c)[None, :]
     positions = pos0[:, None] + i
     live = i < n_valid[:, None]
     rows = torch.arange(b_)[:, None].expand(b_, c)
-    cache["k"][rows[live], positions[live]] = k[live].to(cache["k"].dtype)
-    cache["v"][rows[live], positions[live]] = v[live].to(cache["v"].dtype)
+    for name, val in new.items():
+        cache[name][rows[live], positions[live]] = val[live].to(cache[name].dtype)
 
 
 def _chunk_case(seed, b_, c, length):
@@ -60,20 +60,27 @@ def _chunk_case(seed, b_, c, length):
     return torch.as_tensor(pos0), torch.as_tensor(n_valid)
 
 
+# the leaves a chunk writes: (B, C, KVH, hd) K/V, or MLA's (B, C, kv_lora)
+# latent and (B, C, rope) shared key
+LEAF_SHAPES = {"kv": {"k": (2, 4), "v": (2, 4)}, "mla": {"c_kv": (12,), "k_rope": (4,)}}
+
+
+@pytest.mark.parametrize("leaves", list(LEAF_SHAPES))
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("seed,c,length", [(0, 8, 20), (1, 8, 8), (2, 16, 12), (3, 4, 33),
                                            (4, 32, 48)])
-def test_chunk_write_is_the_mask_write(seed, c, length, dtype):
-    b_, kvh, hd = 3, 2, 4
+def test_chunk_write_is_the_mask_write(seed, c, length, dtype, leaves):
+    b_ = 3
     pos0, n_valid = _chunk_case(seed, b_, c, length)
     g = torch.Generator().manual_seed(seed)
-    k, v = (torch.randn((b_, c, kvh, hd), generator=g).to(dtype) for _ in range(2))
-    cache = {n: torch.randn((b_, length, kvh, hd), generator=g).to(torch.bfloat16)
-             for n in ("k", "v")}
+    shapes = LEAF_SHAPES[leaves]
+    new = {n: torch.randn((b_, c, *tail), generator=g).to(dtype) for n, tail in shapes.items()}
+    cache = {n: torch.randn((b_, length, *tail), generator=g).to(torch.bfloat16)
+             for n, tail in shapes.items()}
     want = {n: t.clone() for n, t in cache.items()}
-    A._chunk_write(cache, k, v, pos0, n_valid)
-    _mask_write(want, k, v, pos0, n_valid)
-    for n in ("k", "v"):
+    A._chunk_write(cache, new, pos0, n_valid)
+    _mask_write(want, new, pos0, n_valid)
+    for n in shapes:
         assert torch.equal(cache[n], want[n]), n
 
 

@@ -4,7 +4,8 @@ untied head) and minitron-8b (LayerNorm, ungated ReLU MLP, untied head),
 against ``repro`` at their smoke configs on the reference's teacher
 params (key 0) carried across: the full forward, and a token-by-token
 ``decode_step`` loop against the reference's loop. The FULL configs
-carry the published widths.
+carry the published widths; those of mixtral-8x22b and deepseek-v2-lite
+(whose models ``test_torch_moe`` and ``test_torch_mla`` hold) too.
 
 Bounds (``test_torch_model``'s, relative to the reference's absmax):
 ``F32_BOUND`` in f32 (only summation orders differ) and ``BF16_BOUND``
@@ -38,7 +39,7 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("mixtral_8x22b",))
+@pytest.mark.parametrize("arch", ARCHS + ("mixtral_8x22b", "deepseek_v2_lite_16b"))
 def test_full_config_is_the_reference_s(arch):
     """Registered under both spellings, with the reference's FULL and
     SMOKE fields (the reference's ``remat`` and the layer kinds the port
