@@ -12,7 +12,8 @@ experiment (ResNet-20, drift, DoRA / LoRA / backprop calibration); last
 it programs, drifts, calibrates and serves mixtral-8x22b (mixture of
 experts, sliding window) at its full widths and 1 layer, then
 deepseek-v2-lite (multi-head latent attention, a dense first layer,
-shared experts) at its full widths and 3 layers.
+shared experts) at its full widths and 3 layers, then the encoder-decoder
+seamless-m4t-large-v2 at its full widths and all 24 + 24 layers.
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
@@ -250,11 +251,13 @@ Phases (any failure exits non-zero; no failure is caught):
                 within LOGITS_BOUND, int8 vs f32 within INT8_LOGITS_BOUND;
                 one layer's dispatch path against the dense oracle
                 (capacity_factor = E / top_k) within MOE_ORACLE_BOUND; on a
-                copy with capacity_factor = E / top_k, the long prompt's
-                engine tokens the greedy tokens of a token-by-token
-                decode_step loop (or, where they differ, at a near-tie of
-                the loop's logits within LOGITS_BOUND of absmax) and its
-                admission logits within LOGITS_BOUND. Reported: the
+                copy with capacity_factor = E / top_k, the 40-token prompt's
+                engine tokens (two chunks through the rolling canvas) the
+                greedy tokens of a token-by-token decode_step loop (or,
+                where they differ, at a near-tie of the loop's logits
+                within LOGITS_BOUND of absmax) and its admission logits
+                within LOGITS_BOUND (the wrap stays covered by the drive
+                and the decode replays across 4096). Reported: the
                 tick captured vs eager and tok/s per session, the long
                 prompt's TTFT, a profile of the captured tick by class
                 (router, tensor-core GEMVs, expert products, expert
@@ -284,6 +287,38 @@ Phases (any failure exits non-zero; no failure is caught):
                 (logits within LOGITS_BOUND, tokens equal or split at a
                 near-tie). Reported as phase 11's, the tick by class with
                 the tiled _kup_vup launches apart.
+  13. encdec — seamless-m4t-large-v2 at its published widths and all 24
+                encoder + 24 decoder layers (d 1024, 16 heads of 64, an
+                ungated GELU MLP of 8192, LayerNorm, an untied head of
+                256206, DoRA rank 8): program -> advance(24) ->
+                calibrate(10, steps=20) (encoder inputs of 32 frames; phase
+                11's gates) -> serve(), serve(accum="int8") and a codes_adc
+                deployment, each through phase 5's drive with phase 5's
+                prompts, each request with an encoder input of 4096, 1000,
+                333 or 64 frames in cross lines of 4096 (the reference
+                ArchSpec's enc_src_len): exact launch counts (per step 145
+                GEMV launches, 24 x (qkv, o, cross q, cross o, up, down) +
+                the head; per encoder admission 144, 24 x (qkv, o, up, down)
+                + 24 x (cross k, v), tiled above 64 frames; codes_adc 193 and
+                192 unfused), compile_count 8 (decode, chunks 8, 16, 32 and
+                an encoder admission per source length) and flat, every
+                replay bitwise its eager step (logits, self cache, cross
+                lines, enc_len), each slot's cross lines and enc_len bitwise
+                encode_into_cache of its request alone, codes vs dequant
+                within LOGITS_BOUND, int8 vs f32 within INT8_LOGITS_BOUND,
+                each stream against its request served alone at its exact
+                source length (admission logits within ENCDEC_ALONE_BOUND,
+                tokens equal or split at a near-tie; codes_adc reported),
+                a full prefix hit bitwise the cold admission and chains
+                disjoint when only the encoder input differs. Reported: the
+                tick captured vs eager, tok/s, TTFT with each encoder
+                admission's ms apart, the tick's and a 4096-frame
+                admission's device time by class, calibrate seconds and
+                step ms, peak and retained memory. Phase 3 holds its leaves
+                (the encoder's through both tiled bodies at 4096 and 333
+                rows, K up to 8192; the decoder's and the head's through
+                both GEMVs at 4; the unfused ones through the ADC) and phase
+                4 times them.
 The last line is the contract line; the line before it the kernel table,
 where ``dora_linear_narrow`` is the fused linear's narrow body: its
 launches are the f32 body's f32-x launches of phases 5, 11 and 12 (the
@@ -293,7 +328,8 @@ count, and its times are mixtral's router at the decode tick (M = 4);
 are the ``crossbar_mvm`` f32-x launches of phases 5, 11 and 12, which the
 ``crossbar_mvm`` row does not count. The launches of ``dora_linear`` and
 ``dora_linear/int8`` include phase 12's tiled _kup_vup launches in every
-decode tick and chunk.
+decode tick and chunk and phase 13's encoder admissions; every entry's,
+phase 13's launches.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -470,6 +506,38 @@ MLA_DECODE_POS = (40, 57, 90, ENGINE_MAX_LEN - 1)
 KUP_VUP = ("kup_vup", 512, 4096, 16)
 KUP_VUP_M = (SLOTS * ENGINE_MAX_LEN, ENGINE_MAX_LEN)
 ADC_KUP = ("k_up", 512, 2048)
+# phase 13: seamless-m4t-large-v2 at its published widths and all 24 + 24
+# layers; phase 5's traffic, each request with an encoder input of its own
+# length, in cross lines of the reference ArchSpec's 4096 source frames
+ENCDEC_SRC_LEN = 4096
+ENCDEC_ENC_LENS = (4096, 1000, 333, 64)
+# the fused prefill's encoder input (3 rows of 64 frames: 192 encoder rows)
+ENCDEC_PREFILL_FRAMES = 64
+# the steps phase 13's traffic compiles per session: phase 5's four and an
+# encoder admission per distinct source length
+ENCDEC_COMPILED_STEPS = COMPILED_STEPS + len(set(ENCDEC_ENC_LENS))
+# an engine stream against the same request served alone (a fused prefill
+# at its exact source length, then batch-1 decode steps): the admission
+# logits within this share of their absmax, tokens equal or split at a
+# near-tie within it. Other row counts (the fused prefill's 40 rows vs
+# chunks of 32 and 8; one row vs the 4-slot tick: other GEMV plans and
+# tiled vs GEMV), and cross lines over 4096 padded positions instead of
+# the exact length (the softmax's f32 sum and probs @ V reduce over
+# another length) change the last bits, and bf16 compounds them over 48
+# layers
+ENCDEC_ALONE_BOUND = LOGITS_BOUND
+# its fused serve leaves (name, K, N, fused rank): the encoder's and the
+# decoder's self-attention qkv and o and the ungated MLP's up and down; the
+# decoder's cross-attention keeps q, k, v and o unfused (K = N = 1024, the
+# o leaf's shape), k and v over the encoder's output at every admission
+ENCDEC_LEAVES = [("qkv", 1024, 3072, 24), ("o", 1024, 1024, 8), ("up", 1024, 8192, 8),
+                 ("down", 8192, 1024, 8)]
+# the unfused leaves (codes_adc): q, k, v, o (self and cross), up, down
+ENCDEC_ADC_LEAVES = [("q/k/v/o", 1024, 1024), ("up", 1024, 8192), ("down", 8192, 1024)]
+ENCDEC_HEAD = ("head", 1024, 256206, 8)
+# the encoder admission's rows through the tiled bodies and the ADC: the
+# longest input and a ragged one
+ENCDEC_ENC_M = (ENCDEC_SRC_LEN, 333)
 # phase 7: the paper's calibration set (10 samples of 32 tokens) and the
 # reference's calibrate defaults (20 steps, lr 1e-3)
 CALIB_SAMPLES, CALIB_SEQ, CALIB_STEPS = 10, 32, 20
@@ -941,7 +1009,62 @@ def phase_kernels(device):
     narrow_checks(device, worst)
     adc_narrow_checks(device, worst)
     kup_vup_checks(device, worst)
+    encdec_checks(device, worst)
     return worst
+
+
+def encdec_checks(device, worst):
+    """seamless-m4t-large-v2's leaves (phase 13) against their plain
+    versions: the encoder's fused leaves through both tiled bodies at the
+    admission's ``ENCDEC_ENC_M`` rows (K up to 8192), twice bitwise equal;
+    the decoder's at the decode tick through both GEMV bodies, twice
+    bitwise equal; the untied head (1024 -> 256206) once through each GEMV
+    body; the unfused leaves through the ADC at both, the head too."""
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import crossbar_mvm as C
+    from repro_torch.kernels import dora_linear as K
+
+    cases = [(m, leaf) for m in ENCDEC_ENC_M for leaf in ENCDEC_LEAVES]
+    cases += [(SLOTS, leaf) for leaf in ENCDEC_LEAVES + [ENCDEC_HEAD]]
+    for m, (name, k, n, r) in cases:
+        ops = operands(m, k, n, r, device, seed=m + k + n)
+        kind = "dora_linear_gemv" if autotune.use_gemv(m) else "dora_linear"
+        fn = getattr(K, kind)
+        for accum in autotune.ACCUMS:
+            got, again = fn(*ops, accum=accum), fn(*ops, accum=accum)
+            torch.cuda.synchronize()
+            err, ok, note = _vs_plain(got, ops, accum)
+            same = torch.equal(got, again)
+            ok = ok and same
+            key = K.counter(kind, accum)
+            log(f"[kernels] {key:22s} {'enc ' if m > SLOTS else 'dec '}{name:4s} M={m:4d} "
+                f"K={k:5d} N={n:6d} r={r:2d} max|err|={err:.3e}{note} repeat "
+                f"{'bitwise' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"{key} at seamless {(m, k, n, r)}",
+                      f"max|err| {err}, repeat bitwise {same}")
+            worst[key] = max(worst[key], err)
+        del ops, got, again
+    adc = [(m, leaf) for m in (*ENCDEC_ENC_M, SLOTS) for leaf in ENCDEC_ADC_LEAVES]
+    adc.append((SLOTS, ENCDEC_HEAD[:3]))
+    for m, (name, k, n) in adc:
+        x, gp, gn, scale, *_ = operands(m, k, n, 1, device, seed=m + k)
+        want = ref.crossbar_mvm_ref(x, gp, gn, scale)
+        got, again = C.crossbar_mvm(x, gp, gn, scale), C.crossbar_mvm(x, gp, gn, scale)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        bad, flips = ref.adc_disagreement(got, want, x, scale, rtol=ADC_RTOL, atol=ADC_ATOL)
+        same = torch.equal(got, again)
+        ok = bad == 0 and flips <= ADC_FLIP_SHARE * got.numel() and same
+        log(f"[kernels] crossbar_mvm           seamless {name:7s} M={m:4d} K={k:5d} N={n:6d} "
+            f"parts {autotune.adc_plan(m, k, n)} max|err|={err:.3e} one-step flips "
+            f"{flips}/{got.numel()} repeat {'bitwise' if same else 'DIFFERS'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            _fail(f"crossbar_mvm at seamless {(m, k, n)}",
+                  f"{bad} off, {flips} flips, repeat bitwise {same}")
+        worst["crossbar_mvm"] = max(worst["crossbar_mvm"], err)
+        del x, gp, gn, want, got, again
 
 
 def kup_vup_checks(device, worst):
@@ -1329,8 +1452,13 @@ def phase_timing(device):
     # phase 12's decode tick (the whole latent cache of 4 slots)
     timed = [(leaf, sorted({*TIMED_M, *TIMED_M_INT8, *TIMED_M_TILED, *TIMED_M_GEMV}))
              for leaf in LEAVES] + [(KUP_VUP, KUP_VUP_M[:1])]
+    # seamless-m4t-large-v2's (phase 13): the encoder's at its admission
+    # rows, the decoder's at the decode tick, the head at the decode tick
+    timed += [(("s-" + name, k, n, r), (SLOTS, *ENCDEC_ENC_M))
+              for name, k, n, r in ENCDEC_LEAVES]
+    timed += [(("s-" + ENCDEC_HEAD[0], *ENCDEC_HEAD[1:]), (SLOTS,))]
     for (name, k, n, r), row_counts in timed:
-        kup = name == KUP_VUP[0]
+        kup = name == KUP_VUP[0] or name.startswith("s-")
         for m in row_counts:
             ops = [operands(m, k, n, r, device, seed=i)
                    for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
@@ -1355,7 +1483,10 @@ def phase_timing(device):
                 library = None
             del ops
     for (name, k, n), row_counts in ([(leaf, TIMED_M_ADC) for leaf in ADC_LEAVES]
-                                     + [(ADC_KUP, KUP_VUP_M[:1])]):
+                                     + [(ADC_KUP, KUP_VUP_M[:1])]
+                                     + [(("s-" + leaf[0], *leaf[1:]), (SLOTS, *ENCDEC_ENC_M))
+                                        for leaf in ENCDEC_ADC_LEAVES]
+                                     + [(("s-" + ENCDEC_HEAD[0], *ENCDEC_HEAD[1:3]), (SLOTS,))]):
         for m in row_counts:
             ops = [operands(m, k, n, 1, device, seed=i)[:4]
                    for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
@@ -1520,15 +1651,16 @@ def serving_inputs(vocab, seed, device):
     return prompts, tokens, g
 
 
-def time_prefill(session, tokens, reps=1):
-    """Wall time of each of ``reps`` fused prefills on the device's clock
-    (CUDA events around the whole eager call, host launch gaps included),
-    and the last one's logits."""
+def time_prefill(session, tokens, reps=1, enc=None):
+    """Wall time of each of ``reps`` fused prefills (after the encoder over
+    ``enc``, for an encoder-decoder config) on the device's clock (CUDA
+    events around the whole eager call, host launch gaps included), and
+    the last one's logits."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     times = []
     for _ in range(reps):
         start.record()
-        logits, _ = session.prefill(tokens, PREFILL_MAX_LEN)
+        logits, _ = session.prefill(tokens, PREFILL_MAX_LEN, enc)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
@@ -1556,19 +1688,21 @@ def eager_steps():
         serving.CompiledStep.__call__ = call
 
 
-def engine_run(session, prompts, max_new, max_len=ENGINE_MAX_LEN):
+def engine_run(session, prompts, max_new, max_len=ENGINE_MAX_LEN, encs=None, src_len=0):
     """Phase 5's engine traffic once: ragged greedy requests through a
-    4-slot ServeEngine (submitted one per tick), the launch counters reset
+    4-slot ServeEngine (submitted one per tick; with ``encs``, each with its
+    encoder input, in cross lines of ``src_len``), the launch counters reset
     just before and read just after."""
     from repro_torch.deploy import ServeEngine
 
-    engine = ServeEngine(session, max_slots=SLOTS, max_len=max_len)
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=max_len, src_len=src_len)
     reqs = []
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    for p in prompts:
-        reqs.append(engine.submit(p.numpy(), max_new=max_new))
+    for i, p in enumerate(prompts):
+        reqs.append(engine.submit(p.numpy(), max_new=max_new,
+                                  enc_embeds=None if encs is None else encs[i]))
         engine.step()
     engine.run()
     torch.cuda.synchronize()
@@ -1588,6 +1722,7 @@ def engine_run(session, prompts, max_new, max_len=ENGINE_MAX_LEN):
         "tick_ms": 1e3 * stats["decode_seconds"] / stats["decode_steps"],
         "ttft_s": [r.ttft_seconds for r in reqs], "launches": counts,
         "streams": [list(r.tokens) for r in reqs], "compile_count": stats["compile_count"],
+        "prefix_hit_tokens": [r.prefix_hit_tokens for r in reqs],
     }
 
 
@@ -1602,11 +1737,13 @@ def replay_vs_eager(session, seed=3, decode_pos=None):
     vocab = session.cfg.vocab
     out = {}
     for step in session.steps:
-        kind, _, batch, width, max_len = step.key
+        kind, _, batch, width, max_len = step.key[:5]
         assert step.graph is not None, step.key
         if kind == "decode":
             pos = torch.arange(batch) * 10 + 40 if decode_pos is None else decode_pos
             host = torch.stack([torch.randint(0, vocab, (batch,), generator=g), pos])
+        elif kind == "encode":  # fresh frames; the output is enc_len, the cache its lines
+            host = torch.randn(tuple(step.inputs.shape), generator=g)
         else:
             host = torch.cat([torch.randint(0, vocab, (width,), generator=g),
                               torch.tensor([max_len - width // 2 - 1, width // 2 + 1])])
@@ -1630,7 +1767,7 @@ def replay_vs_eager(session, seed=3, decode_pos=None):
     return out
 
 
-def tick_times(session, ticks=20, rounds=2, max_len=ENGINE_MAX_LEN):
+def tick_times(session, ticks=20, rounds=2, max_len=ENGINE_MAX_LEN, src_len=0):
     """The decode tick at 4 live slots, captured (a replay) and eager
     (``transformer.decode_step`` on the same static inputs), each ending
     in the greedy argmax's copy to the host as the engine's tick does: ms
@@ -1638,7 +1775,8 @@ def tick_times(session, ticks=20, rounds=2, max_len=ENGINE_MAX_LEN):
     captured per round (both medians over the rounds)."""
     from repro_torch.deploy import ServeEngine
 
-    engine = ServeEngine(session, max_slots=SLOTS, max_len=max_len)  # leases the warm step
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=max_len,  # leases the warm step
+                         src_len=src_len)
     step = engine._decode
     g = torch.Generator().manual_seed(2)
     host = torch.stack([torch.randint(0, session.cfg.vocab, (SLOTS,), generator=g),
@@ -1683,7 +1821,7 @@ def memory():
 
 
 def drive(session, prompts, tokens, max_new, max_len=ENGINE_MAX_LEN, compiled=None,
-          decode_pos=None):
+          decode_pos=None, encs=None, src_len=0, prefill_enc=None):
     """The phase-5 traffic on one session: the engine traffic through the
     compiled steps (the first call of each step eager, then captured), then
     one fused prefill (eager), the launch counters reset before and read
@@ -1692,23 +1830,26 @@ def drive(session, prompts, tokens, max_new, max_len=ENGINE_MAX_LEN, compiled=No
     eagerly (the same launches and streams), each step's replay vs eager,
     the decode tick captured vs eager, and the fused prefill again.
     ``max_len`` is the engines' cache length; ``compiled`` the steps the
-    traffic compiles (phase 5's ``COMPILED_STEPS`` by default)."""
+    traffic compiles (phase 5's ``COMPILED_STEPS`` by default); ``encs``
+    the requests' encoder inputs, ``src_len`` their cross lines' extent and
+    ``prefill_enc`` the fused prefill's (an encoder-decoder config)."""
     compiled = COMPILED_STEPS if compiled is None else compiled
+    runs = dict(max_len=max_len, encs=encs, src_len=src_len)
     mem0 = memory()
-    cold = engine_run(session, prompts, max_new, max_len)
+    cold = engine_run(session, prompts, max_new, **runs)
     mem1 = memory()
     reset_counts()
-    (prefill_ms,), logits = time_prefill(session, tokens)
+    (prefill_ms,), logits = time_prefill(session, tokens, enc=prefill_enc)
     prefill_counts = read_counts()
     counts = {k: cold["launches"][k] + n for k, n in prefill_counts.items()}
     # again, uncounted, now that every shape has been seen once
-    warm_prefill, _ = time_prefill(session, tokens, reps=3)
+    warm_prefill, _ = time_prefill(session, tokens, reps=3, enc=prefill_enc)
     assert torch.isfinite(logits.float()).all()
     assert cold["compile_count"] == session.compile_count() == compiled
 
-    warm = engine_run(session, prompts, max_new, max_len)
+    warm = engine_run(session, prompts, max_new, **runs)
     with eager_steps():
-        eager = engine_run(session, prompts, max_new, max_len)
+        eager = engine_run(session, prompts, max_new, **runs)
     for name, run in (("warm", warm), ("eager", eager)):
         assert run["launches"] == cold["launches"], (name, run["launches"], cold["launches"])
         assert run["streams"] == cold["streams"], name
@@ -1719,7 +1860,7 @@ def drive(session, prompts, tokens, max_new, max_len=ENGINE_MAX_LEN, compiled=No
         "registry_allocated_bytes": mem1[0] - mem0[0],
         "registry_reserved_bytes": mem1[1] - mem0[1],
         "replay_vs_eager": replay_vs_eager(session, decode_pos=decode_pos),
-        "tick": tick_times(session, max_len=max_len),
+        "tick": tick_times(session, max_len=max_len, src_len=src_len),
         "prefill_rows": int(tokens.numel()), "prefill_ms": prefill_ms,
         "prefill_ms_warm": warm_prefill,
     }
@@ -1763,17 +1904,20 @@ def compare_logits(label, a, b, bound=None):
     return {"max_abs_diff": err, "absmax": scale, "rel": err / scale, "top1_agree": top1}
 
 
-def codes_vs_dequant(session, logits, tokens, g, device):
+def codes_vs_dequant(session, logits, tokens, g, device, enc=None):
     """The session's fused-prefill ``logits`` (codes) against the same
     prefill under ``dequant``, then one admission chunk per GEMV row bucket
     the engine pads to (5, 9 and 17 valid tokens -> 8, 16 and 32 rows),
-    codes vs dequant, each within ``LOGITS_BOUND``."""
+    codes vs dequant, each within ``LOGITS_BOUND``. An encoder-decoder
+    config's prefill runs its encoder over ``enc`` and each chunk follows
+    the encoder admission of ``enc``'s first row, under the same backend."""
     from repro_torch import substrate
     from repro_torch.models import transformer as T
 
     cfg = session.cfg
+    src = 0 if enc is None else enc.shape[1]
     with substrate.use_backend("dequant"), torch.no_grad():
-        ref_logits, _ = T.prefill(session.params, tokens, cfg, PREFILL_MAX_LEN)
+        ref_logits, _ = T.prefill(session.params, tokens, cfg, PREFILL_MAX_LEN, enc)
     prefill = compare_logits("codes vs dequant prefill logits", logits, ref_logits,
                              LOGITS_BOUND)
     del ref_logits
@@ -1784,8 +1928,10 @@ def codes_vs_dequant(session, logits, tokens, g, device):
         toks[0, :n] = torch.randint(0, cfg.vocab, (n,), generator=g)
         out = {}
         for backend in ("codes", "dequant"):
-            cache = T.init_cache(cfg, 1, PREFILL_MAX_LEN, device)
+            cache = T.init_cache(cfg, 1, PREFILL_MAX_LEN, device, src)
             with substrate.use_backend(backend), torch.no_grad():
+                if enc is not None:
+                    T.encode_into_cache(session.params, cache, enc[:1], cfg)
                 out[backend], _ = T.prefill_chunk(
                     session.params, toks, cache, torch.tensor([0], device=device),
                     torch.tensor([n], device=device), cfg, PREFILL_MAX_LEN)
@@ -3263,7 +3409,7 @@ class MoeCell:
 
 MOE_CELL = MoeCell(11, "moe", "mixtral-8x22b", 56, MOE_LAYERS, (MOE_LAYERS, 0, 0),
                    ("prologue", 0), (8, 6144, 16384), MOE_PROMPT_LENS, MOE_MAX_LEN,
-                   MOE_COMPILED_STEPS, MOE_DECODE_POS, MOE_PROMPT_LENS[-1])
+                   MOE_COMPILED_STEPS, MOE_DECODE_POS, MOE_PROMPT_LENS[1])
 MLA_CELL = MoeCell(12, "mla", "deepseek-v2-lite", 27, MLA_LAYERS, (1, MLA_LAYERS - 1, 0),
                    ("body", 0), (MLA_LAYERS - 1, 64, 2048, 1408), PROMPT_LENS, ENGINE_MAX_LEN,
                    COMPILED_STEPS, MLA_DECODE_POS, PROMPT_LENS[1])
@@ -3501,7 +3647,7 @@ def chunked_vs_loop(dep, seed, cell):
     """Chunked admission at full width, on a copy of the config with
     capacity_factor = E / top_k (no path drops a token): the cell's loop
     prompt through an engine of one slot (chunks of 32; mixtral's through
-    the rolling canvas, then 16 greedy tokens across position 4096),
+    the rolling canvas), then 16 greedy tokens,
     against a token-by-token ``decode_step`` loop through the session's
     batch-1 decode graph (the engine's, leased again with a zeroed cache):
     the admission logits within ``LOGITS_BOUND`` of absmax of the loop's at
@@ -3555,7 +3701,7 @@ def chunked_vs_loop(dep, seed, cell):
         host[0, 0], host[1, 0] = int(tok), i
         logits = step(host)
     loop_admission = logits.clone()
-    cache = caches_agree(cfg4, cell, admitted[0][1], step.flat)
+    cache = caches_agree(cfg4, cell, admitted[0][1], step.flat, len(prompt))
     tokens, flips = [], []
     for i, want in enumerate(req.tokens):
         row = logits[0, -1].float()
@@ -3586,34 +3732,32 @@ def chunked_vs_loop(dep, seed, cell):
             "ttft_s": req.ttft_seconds}
 
 
-def caches_agree(cfg, cell, staged, looped):
-    """The caches after the loop prompt: the engine's staged cache (mixtral:
-    each chunk's canvas gathered back into the rolling buffer) against the
-    loop's (one write a token), layer by layer, per cache position over
-    every leaf (K/V, or MLA's latent and rope key). Layer 0's come from the
+def caches_agree(cfg, cell, staged, looped, n):
+    """The caches after the ``n``-token loop prompt: the engine's staged
+    cache (mixtral: each chunk's canvas gathered back into the rolling
+    buffer) against the loop's (one write a token), layer by layer, per
+    written cache position (the first ``n``, or every one once the prompt
+    fills the buffer: a rolling buffer's slots ahead of the clock hold a
+    clipped canvas entry, masked, where the loop's hold zeros) over every
+    leaf (K/V, or MLA's latent and rope key). Layer 0's come from the
     tokens alone, so a position holding another one's would differ by the
     order of absmax: gated within ``LOGITS_BOUND`` of absmax. Later layers'
     depend on earlier MoE layers, where a token whose router has a near-tie
     may go to another expert in one of the two (their router GEMVs sum in
     other orders): their per-position differences and the positions beyond
     the bound are reported."""
-    from repro_torch import tree as tree_lib
     from repro_torch.models import transformer as T
 
     like = T.init_cache(cfg, 1, cell.max_len, "meta")
 
     def layers(flat):
-        views, off = [], 0
-        for t in tree_lib.tensors(like):
-            views.append(flat[off:off + t.numel()].view(t.shape))
-            off += t.numel()
-        return T._cache_layers(tree_lib.unflatten(like, views), cfg)
+        return T._cache_layers(T.flat_views(like, flat), cfg)
 
     out = []
     for layer, (got, want) in enumerate(zip(layers(staged), layers(looped))):
-        scale = max(float(want[n][0].abs().max()) for n in want)
-        per_slot = torch.stack([(got[n][0].float() - want[n][0].float()).abs().flatten(1).amax(1)
-                                for n in want]).amax(0)  # (T,)
+        scale = max(float(want[k][0].abs().max()) for k in want)
+        per_slot = torch.stack([(got[k][0].float() - want[k][0].float()).abs().flatten(1).amax(1)
+                                for k in want]).amax(0)[:n]  # (written T,)
         far = int((per_slot > LOGITS_BOUND * scale).sum())
         row = {"max_abs_diff": float(per_slot.max()), "absmax": scale,
                "rel": float(per_slot.max()) / scale, "slots": int(per_slot.numel()),
@@ -3692,6 +3836,368 @@ def phase_moe(device, seed, cell):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the encoder-decoder family, seamless-m4t-large-v2 at its full
+# 24 + 24 layers
+# ---------------------------------------------------------------------------
+
+# kernel classes of a decode tick's and an encoder admission's profile
+# (first match wins): the tiled bodies (the encoder at its admission rows),
+# the tensor-core GEMV bodies, the ADC, cuBLAS (the attention's einsums),
+# and the rest (softmax, norms, rope, the small PyTorch kernels)
+ENCDEC_CLASSES = {
+    "tiled": r"dora_mma_kernel|prep_tile_kernel|xa_finish_kernel|splitk_epilogue_kernel"
+             r"|row_scale_kernel",
+    "gemv": r"dora_gemv_mma_kernel|dora_gemv_int8_kernel",
+    "adc": r"adc_",
+    "attention_einsums": r"gemm|Gemm|xmma|cutlass|nvjet|sm90_",
+}
+ENCDEC_CELL = dataclasses.make_dataclass("EncdecCell", ["tag", "arch"])(
+    "encdec", "seamless-m4t-large-v2")
+
+
+def encdec_counts(cfg, steps, enc_rows, prefill, body):
+    """The exact launches of ``steps`` engine steps (decode ticks and
+    admission chunks, at most 32 rows: the GEMV launcher), the encoder
+    admissions of ``enc_rows`` frames and, with ``prefill``, one fused
+    prefill (3 x 32 tokens after an encoder input of 3 x 64 frames). A
+    step runs per decoder layer the fused qkv, o, the cross-attention's q
+    and o, up and down, and the head; an admission the encoder's qkv, o,
+    up and down per encoder layer and the cross k and v per decoder layer,
+    through the GEMV launcher at 64 rows or fewer, else tiled; the prefill
+    its encoder (192 rows) and its decoder (96 rows, cross k and v at 192)
+    tiled and the head (3 rows) through the GEMV. codes_adc runs every leaf
+    unfused: q, k, v, o (self and cross), up and down."""
+    from repro_torch.kernels import autotune
+
+    n_dec, n_enc = cfg.n_layers, cfg.encoder_layers
+    if body == "codes_adc":
+        step, admit = 8 * n_dec + 1, 6 * n_enc + 2 * n_dec
+        n = steps * step + len(enc_rows) * admit + prefill * (admit + step)
+        return {"crossbar_mvm": n}
+    sfx = "" if body == "f32" else "/int8"
+    admit = 4 * n_enc + 2 * n_dec
+    short = sum(autotune.use_gemv(m) for m in enc_rows)
+    return {f"dora_linear_gemv{sfx}": steps * (6 * n_dec + 1) + short * admit + prefill,
+            f"dora_linear{sfx}": (len(enc_rows) - short) * admit
+            + prefill * (4 * n_enc + 8 * n_dec)}
+
+
+def encdec_traffic(cfg, seed, device):
+    """Phase 13's traffic, drawn from ``seed``: phase 5's ragged prompts,
+    each request's encoder input (``ENCDEC_ENC_LENS`` frames, bf16 values
+    as numpy f32: the bytes the engine's hash chain reads), the fused
+    prefill's tokens and encoder input, and the generator."""
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in PROMPT_LENS]
+    encs = [torch.randn((n, cfg.d_model), generator=g).to(torch.bfloat16).float().numpy()
+            for n in ENCDEC_ENC_LENS]
+    tokens = torch.randint(0, cfg.vocab, (3, PREFILL_ROWS // 3), generator=g).to(device)
+    prefill_enc = torch.randn((3, ENCDEC_PREFILL_FRAMES, cfg.d_model), generator=g)
+    return prompts, encs, tokens, prefill_enc.to(device, torch.bfloat16), g
+
+
+def encdec_admissions(session, prompts, encs):
+    """The traffic once more through a 4-slot engine (warm graphs), each
+    request's encoder admission timed apart (CUDA events around the
+    engine's ``_encode``), and each slot's cross lines and ``enc_len`` as
+    admitted against ``encode_into_cache`` of its request alone, run
+    eagerly on a fresh batch-1 cache: bitwise."""
+    from repro_torch.deploy import ServeEngine
+    from repro_torch.interop import to_tensor
+    from repro_torch.models import transformer as T
+
+    cfg = session.cfg
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=ENGINE_MAX_LEN,
+                         src_len=ENCDEC_SRC_LEN)
+    encode, finalize = engine._encode, engine._finalize_admission
+    enc_ms, lines = {}, {}
+
+    def timed_encode(req):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        encode(req)
+        end.record()
+        torch.cuda.synchronize()
+        enc_ms[req.rid] = start.elapsed_time(end)
+
+    def record(slot, req):
+        finalize(slot, req)
+        n, body = req.enc_embeds.shape[0], engine.cache["body"][0]
+        lines[req.rid] = ([body[name][:, slot, :n].clone() for name in ("xk", "xv")],
+                          int(engine.cache["enc_len"][slot]))
+
+    engine._encode, engine._finalize_admission = timed_encode, record
+    reqs = []
+    for p, e in zip(prompts, encs):
+        reqs.append(engine.submit(p.numpy(), max_new=MAX_NEW, enc_embeds=e))
+        engine.step()
+    engine.run()
+    del engine, encode, finalize, timed_encode, record
+    gc.collect()
+    equal = []
+    for req, e in zip(reqs, encs):
+        (xk, xv), enc_len = lines[req.rid]
+        cache = T.init_cache(cfg, 1, ENGINE_MAX_LEN, session.device, ENCDEC_SRC_LEN)
+        with session.scope(), torch.no_grad():
+            T.encode_into_cache(session.params, cache, to_tensor(e, session.device)[None], cfg)
+        n = e.shape[0]
+        equal.append(enc_len == n and torch.equal(xk, cache["body"][0]["xk"][:, 0, :n])
+                     and torch.equal(xv, cache["body"][0]["xv"][:, 0, :n]))
+        del cache
+    log(f"[encdec] {session.options or 'f32'} {session.backend}: encoder admissions of "
+        + ", ".join(f"{e.shape[0]} frames {enc_ms[r.rid]:.2f} ms" for r, e in zip(reqs, encs))
+        + f" (warm graphs); each slot's cross lines and enc_len vs encode_into_cache alone: "
+        + ", ".join("bitwise" if ok else "DIFFER" for ok in equal))
+    assert all(equal), equal
+    return {"encode_ms": [enc_ms[r.rid] for r in reqs],
+            "ttft_s": [r.ttft_seconds for r in reqs], "lines_bitwise": equal}
+
+
+def encdec_alone(session, prompts, encs, streams, gated):
+    """Each engine stream against its request served alone at its exact
+    source length: a fused prefill (cross lines of its own length), then
+    batch-1 ``decode_step`` calls fed the engine's tokens, eagerly. The
+    engine's admission logits (recorded in a warm engine run) against the
+    prefill's within ``ENCDEC_ALONE_BOUND`` of absmax; each engine token the
+    alone argmax, or within ``ENCDEC_ALONE_BOUND`` of absmax below its top
+    logit (a near-tie). ``gated`` False (codes_adc: the ADC digitizes a
+    tile of rows at one step from their max |x|, so a row served with
+    others is another computation) reports them."""
+    from repro_torch.deploy import ServeEngine
+    from repro_torch.interop import to_tensor
+    from repro_torch.models import transformer as T
+
+    cfg, device = session.cfg, session.device
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=ENGINE_MAX_LEN,
+                         src_len=ENCDEC_SRC_LEN)
+    admitted, finalize = {}, engine._finalize_admission
+    engine._finalize_admission = lambda slot, req: (
+        admitted.__setitem__(req.rid, req._logits[0, -1].float().clone()), finalize(slot, req))
+    for p, e in zip(prompts, encs):
+        engine.submit(p.numpy(), max_new=MAX_NEW, enc_embeds=e)
+        engine.step()
+    engine.run()
+    del engine, finalize
+    gc.collect()
+    out = []
+    for rid, (p, e, stream) in enumerate(zip(prompts, encs, streams)):
+        with session.scope(), torch.no_grad():
+            logits, cache = T.prefill(session.params, p[None].to(device), cfg, ENGINE_MAX_LEN,
+                                      to_tensor(e, device)[None])
+            versus = compare_logits(f"seamless {session.options or 'f32'} {session.backend} "
+                                    f"request {rid} ({len(p)} tokens, {e.shape[0]} frames): "
+                                    "engine admission vs served alone", admitted[rid],
+                                    logits[0, -1], ENCDEC_ALONE_BOUND if gated else None)
+            flips = []
+            for i, want in enumerate(stream):
+                row = logits[0, -1].float()
+                tok = int(torch.argmax(row))
+                if tok != want:
+                    gap = float(row[tok] - row[want])
+                    flips.append({"index": i, "alone": tok, "engine": want, "gap": gap,
+                                  "absmax": float(row.abs().max())})
+                    assert not gated or gap <= ENCDEC_ALONE_BOUND * float(row.abs().max()), (
+                        flips[-1])
+                if i + 1 < len(stream):
+                    tok_in = torch.tensor([[want]], device=device)
+                    logits, cache = T.decode_step(session.params, cache, tok_in,
+                                                  len(p) + i, cfg)
+        out.append({"admission_logits": versus, "near_tie_flips": flips})
+        del cache, logits
+    log(f"[encdec] {session.options or 'f32'} {session.backend}: engine streams vs served "
+        f"alone: " + "; ".join(f"request {i} {MAX_NEW - len(o['near_tie_flips'])}/{MAX_NEW} "
+                               f"tokens equal, flips {o['near_tie_flips']}"
+                               for i, o in enumerate(out)))
+    return out
+
+
+def encdec_prefix(session, prompt, enc, other):
+    """A request (``prompt`` with encoder input ``enc``) admitted cold on an
+    engine with the prefix cache, then again: a full hit that runs no chunk
+    and no encoder admission, bitwise the cold admission (the staged cache,
+    cross lines and ``enc_len`` included, and the admission logits); then
+    the same prompt with the encoder input ``other``: no hit, and a hash
+    chain that shares no key with the first."""
+    from repro_torch.deploy import ServeEngine
+
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=ENGINE_MAX_LEN,
+                         src_len=ENCDEC_SRC_LEN)
+    staged, finalize = [], engine._finalize_admission
+    encodes, encode = [], engine._encode
+    engine._finalize_admission = lambda slot, req: (
+        staged.append((engine._staging_flat.clone(), req._logits.clone())), finalize(slot, req))
+    engine._encode = lambda req: (encodes.append(req.rid), encode(req))
+    reqs = []
+    for e in (enc, enc, other):
+        reqs.append(engine.submit(prompt.numpy(), max_new=MAX_NEW, enc_embeds=e))
+        engine.run()
+    chains = [set(engine._hash_chain(r)) for r in (reqs[0], reqs[2])]
+    hits = [r.prefix_hit_tokens for r in reqs]
+    bitwise = (all(torch.equal(a, b) for a, b in zip(staged[0], staged[1]))
+               and reqs[0].tokens == reqs[1].tokens)
+    result = {"prefix_hit_tokens": hits, "encodes": len(encodes), "full_hit_bitwise": bitwise,
+              "chains_disjoint": not chains[0] & chains[1],
+              "prefix_cache_bytes": engine.prefix_cache_bytes()}
+    log(f"[encdec] {session.options or 'f32'} {session.backend}: prefix cache, the same request "
+        f"twice then another encoder input: reused tokens {hits}, {len(encodes)} encoder "
+        f"admissions, full hit {'bitwise' if bitwise else 'DIFFERS from'} the cold admission, "
+        f"chains {'disjoint' if result['chains_disjoint'] else 'SHARE keys'}; cache "
+        f"{result['prefix_cache_bytes'] / 2**20:.1f} MiB")
+    assert hits == [0, len(prompt), 0] and len(encodes) == 2, result
+    assert bitwise and result["chains_disjoint"], result
+    del engine, staged
+    return result
+
+
+def encdec_profiles(session, label):
+    """The captured decode tick (4 live slots whose cross lines hold the
+    last drive's requests) and one encoder admission of 4096 frames (its
+    captured step), each profiled over a few replays: device time by class
+    (``ENCDEC_CLASSES``)."""
+    from repro_torch.deploy import ServeEngine
+
+    gc.collect()  # the drive's engines hand their lease back
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=ENGINE_MAX_LEN,
+                         src_len=ENCDEC_SRC_LEN)  # the warm step
+    step = engine._decode
+    engine.cache["enc_len"].copy_(torch.tensor(ENCDEC_ENC_LENS))
+    host = torch.stack([torch.arange(SLOTS) + 7, torch.arange(SLOTS) * 10 + 40])
+    for _ in range(2):
+        step(host)
+    torch.cuda.synchronize()
+    tick = profile_window("encdec", "tick", 4,
+                          lambda: torch.argmax(step(host)[:, -1], -1).cpu(),
+                          classes=ENCDEC_CLASSES)
+    enc = session.encode_fn(ENCDEC_SRC_LEN, ENGINE_MAX_LEN, ENCDEC_SRC_LEN)
+    frames = torch.randn(tuple(enc.inputs.shape), generator=torch.Generator().manual_seed(5))
+    enc(frames)
+    torch.cuda.synchronize()
+    log(f"[encdec] {label}: profile of 2 encoder admissions of {ENCDEC_SRC_LEN} frames")
+    admission = profile_window("encdec", "admission", 2, lambda: enc(frames),
+                               classes=ENCDEC_CLASSES)
+    del engine
+    return {"tick": tick, "admission": admission}
+
+
+def encdec_serve_checked(dep, seed):
+    """Phase 5's per-session checks on seamless: ``serve()``,
+    ``serve(accum="int8")`` and a codes_adc deployment over the same
+    teacher, codes and side-cars, each through ``drive`` with the encoder
+    traffic (first drive captures, a warm drive and an eager one with the
+    same launches and streams, ``compile_count`` the decode tick, three
+    chunk buckets and an encoder admission per source length, flat; every
+    graph's replay bitwise its eager step, cross lines included; the tick
+    captured vs eager); exact launch counts (``encdec_counts``); codes vs
+    dequant within ``LOGITS_BOUND``, int8 vs f32 within
+    ``INT8_LOGITS_BOUND``, ADC vs f32 reported; the slots' cross lines
+    (``encdec_admissions``), the streams against the requests served alone
+    (``encdec_alone``), a full prefix hit (``encdec_prefix``) and the
+    profiles (``encdec_profiles``)."""
+    from repro_torch.deploy import Deployment
+
+    cfg, device = dep.cfg, dep.device
+    prompts, encs, tokens, prefill_enc, g = encdec_traffic(cfg, seed, device)
+    enc_rows = [e.shape[0] for e in encs]
+    runs, logits = {}, {}
+    makers = (("f32", lambda: dep.serve()), ("int8", lambda: dep.serve(accum="int8")),
+              ("codes_adc", lambda: Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes,
+                                               dep.adapters, dep.teacher_seed,
+                                               dep.program_seed, dep.drift_hours).serve()))
+    for body, make in makers:
+        memory()
+        torch.cuda.reset_peak_memory_stats()
+        session = make()
+        run, logits[body] = drive(session, prompts, tokens, MAX_NEW,
+                                  compiled=ENCDEC_COMPILED_STEPS, encs=encs,
+                                  src_len=ENCDEC_SRC_LEN, prefill_enc=prefill_enc)
+        steps = run["prefill_chunks"] + run["decode_steps"]
+        assert run["prefix_hit_tokens"] == [0] * len(prompts), run["prefix_hit_tokens"]
+        expect_counts(run["launches_engine"], encdec_counts(cfg, steps, enc_rows, 0, body))
+        expect_counts(run["launches"], encdec_counts(cfg, steps, enc_rows, 1, body))
+        assert run["prefill_chunks"] == sum(-(-n // 32) for n in PROMPT_LENS), run
+        assert {k[0] for k in (s.key for s in session.steps)} == {
+            "decode", "prefill_chunk", "encode"}
+        run["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        if body == "f32":
+            run["codes_vs_dequant"], run["chunk_logits_rel_diff"] = codes_vs_dequant(
+                session, logits["f32"], tokens, g, device, enc=prefill_enc)
+        elif body == "int8":
+            run["int8_vs_f32"] = compare_logits("seamless calibrated int8 vs f32 codes prefill "
+                                                "logits", logits["int8"], logits["f32"],
+                                                INT8_LOGITS_BOUND)
+        else:
+            run["adc_vs_f32"] = compare_logits("seamless calibrated codes_adc vs f32 codes "
+                                               "prefill logits", logits["codes_adc"],
+                                               logits["f32"])
+            same = sum(a == b for ra, rb in zip(run["streams"], runs["f32"]["streams"])
+                       for a, b in zip(ra, rb))
+            run["greedy_tokens_equal_f32"] = same / sum(len(r) for r in run["streams"])
+        run["admissions"] = encdec_admissions(session, prompts, encs)
+        run["alone"] = encdec_alone(session, prompts, encs, run["streams"],
+                                    gated=body != "codes_adc")
+        run["prefix"] = encdec_prefix(session, prompts[2], encs[2], -encs[2])
+        run["trace"] = encdec_profiles(session, body)
+        assert session.compile_count() == ENCDEC_COMPILED_STEPS, session.compile_count()
+        run["retained_bytes"] = memory()
+        log(f"[encdec] {body}: tick captured {run['tick']['captured']:.3f} ms vs eager "
+            f"{run['tick']['eager']:.3f} ms; engine {run['warm']['decode_tok_per_s']:.1f} tok/s "
+            f"captured vs {run['eager']['decode_tok_per_s']:.1f} eager; TTFT warm "
+            + ", ".join(f"{t:.4f}" for t in run["warm"]["ttft_s"])
+            + " s (encoder admissions "
+            + ", ".join(f"{x:.2f}" for x in run["admissions"]["encode_ms"])
+            + f" ms); compile_count {run['compile_count']}; peak "
+            f"{run['peak_mem_bytes'] / 2**30:.2f} GiB; after the drive the registry holds "
+            f"+{run['registry_allocated_bytes'] / 2**30:.2f} GiB allocated, "
+            f"+{run['registry_reserved_bytes'] / 2**30:.2f} reserved; launches "
+            f"{run['launches']}")
+        runs[body] = run
+        del session
+    return runs
+
+
+def phase_encdec(device, seed):
+    """Phase 13: seamless-m4t-large-v2 at its FULL config (all 24 + 24
+    layers). ``Deployment.program(codes)`` -> ``advance(24)`` ->
+    ``calibrate(10, steps=20)`` (encoder inputs at the calibration length)
+    -> the three sessions' serving checks. Every check raises."""
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(ENCDEC_CELL.arch).full
+    assert (cfg.encoder_layers, cfg.n_layers) == (24, 24)
+    memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dep = Deployment.program(cfg, seed, backend="codes", device=device)
+    dep.advance(24)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    n_base, n_adapters = T.count_params({"base": dep.codes, "adapters": dep.adapters})
+    allocated, reserved = memory()
+    result = {"setup_seconds": t_setup, "base_params": n_base, "adapter_params": n_adapters,
+              "rram_bytes": dep.rram_bytes(), "sram_bytes": dep.sram_bytes(),
+              "teacher_bytes": tree_bytes(dep.teacher_base),
+              "resident_allocated_bytes": allocated, "resident_reserved_bytes": reserved}
+    log(f"[encdec] {cfg.name} at all {cfg.encoder_layers} + {cfg.n_layers} layers: {n_base:,} "
+        f"weights, {n_adapters:,} side-car parameters; program + advance(24) {t_setup:.2f} s; "
+        f"resident {allocated / 2**30:.2f} GiB (teacher {result['teacher_bytes'] / 2**30:.2f}, "
+        f"codes {result['rram_bytes'] / 2**30:.2f})")
+    result["calibration"] = moe_calibrate(dep, ENCDEC_CELL)
+    result["serving"] = encdec_serve_checked(dep, seed)
+    result["peak_mem_bytes"] = max(result["calibration"]["peak_mem_bytes"],
+                                   *(r["peak_mem_bytes"] for r in result["serving"].values()))
+    del dep
+    result["retained_bytes"] = memory()
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[encdec] phase 13 took {result['phase_seconds']:.2f} s; peak "
+        f"{result['peak_mem_bytes'] / 2**30:.2f} GiB (calibration "
+        f"{result['calibration']['peak_mem_bytes'] / 2**30:.2f})")
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3743,7 +4249,9 @@ def main():
     moe = phase_moe(device, args.seed, MOE_CELL)
     memory()
     mla = phase_moe(device, args.seed, MLA_CELL)
-    zoo = (moe, mla)
+    memory()
+    encdec = phase_encdec(device, args.seed)
+    zoo = (moe, mla, encdec)
 
     # one transformer layer: the four fused leaves at the decode tick (GEMV)
     # or the fused prefill (tiled), the seven unfused leaves at the decode
@@ -3751,8 +4259,8 @@ def main():
     session_of = {"dora_linear_gemv": serving, "dora_linear": serving,
                   "dora_linear_gemv/int8": serving["int8"],
                   "dora_linear/int8": serving["int8"], "crossbar_mvm": serving["codes_adc"]}
-    # phase 5's main path and those of phases 11 and 12 (the mixtral and
-    # deepseek sessions of each body)
+    # phase 5's main path and those of phases 11, 12 and 13 (the mixtral,
+    # deepseek and seamless sessions of each body)
     moe_of = {"dora_linear_gemv": "f32", "dora_linear": "f32", "dora_linear_gemv/int8": "int8",
               "dora_linear/int8": "int8", "crossbar_mvm": "codes_adc"}
     launches = {name: run["launches"][name] + sum(z["serving"][moe_of[name]]["launches"][name]
@@ -3790,7 +4298,7 @@ def main():
     for name, source, replaces, m, leaf, timed in table:
         timed = timed or name
         mine = [r for r in rows if r["kernel"] == timed and r["m"] == m
-                and (r["leaf"] == leaf if leaf else not r["leaf"].startswith("router"))]
+                and (r["leaf"] == leaf if leaf else not r["leaf"].startswith(("router", "s-")))]
         library = [r["library_ms"] for r in mine]
         kernels.append({
             "name": name, "route": "cuda",
@@ -3810,7 +4318,7 @@ def main():
             json.dump({"card": smi, "timing": rows, "breakdown": breakdown,
                        "serving": serving, "calibration": calibration, "faults": faults,
                        "persist": persist, "paper": paper, "moe": moe, "mla": mla,
-                       "kernels": kernels},
+                       "encdec": encdec, "kernels": kernels},
                       f,
                       indent=1, default=str)
     log(json.dumps({"kernels": kernels}))

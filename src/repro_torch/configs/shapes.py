@@ -1,6 +1,7 @@
 """Architecture spec: the published (full) config and its reduced smoke
-config. Port of the part of ``repro/configs/shapes.py`` the serving
-slice needs (the dry-run input specs wait)."""
+config, and an encoder-decoder arch's source length. Port of the part of
+``repro/configs/shapes.py`` the serving slice needs (the dry-run input
+specs wait)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,4 +14,6 @@ class ArchSpec:
     name: str
     full: object   # ModelConfig
     smoke: object  # ModelConfig
+    # encoder source length (encoder-decoder archs): the frames the stub provides
+    enc_src_len: int = 0
     notes: str = ""

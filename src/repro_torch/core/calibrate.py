@@ -328,20 +328,35 @@ class CalibState:
 def teacher_features(teacher_base: Pytree, batch: Dict, cfg) -> Dict[str, torch.Tensor]:
     """Algorithm 1 line 3: run the frozen teacher once over the
     calibration batch and keep every block's input and the last block's
-    output: ``"dec"`` (L+1, B, S, d) in the config's dtype; for an untied
-    head also ``"head_in"`` (the final norm's output) and ``"head_out"``
-    (the teacher logits)."""
+    output: ``"dec"`` (L+1, B, S, d) in the config's dtype; for an
+    encoder-decoder config also ``"enc"`` (Le+1, B, S_src, d), the encoder
+    blocks' inputs and the last one's (pre-norm) output, and ``"enc_out"``
+    (B, S_src, d), the normed output every decoder block reads; for an
+    untied head also ``"head_in"`` (the final norm's output) and
+    ``"head_out"`` (the teacher logits)."""
     from repro_torch.models import transformer as T
 
     h = T.L.embed(batch["tokens"], teacher_base["embed"],
                   scale_by_sqrt_dim=cfg.embed_scale)
     positions = torch.arange(h.shape[1], device=h.device)[None]
+    out = {}
+    enc_out = None
+    if cfg.encoder_layers:
+        he = batch["enc_embeds"].to(h.dtype)
+        enc_mask, enc_pos = T._enc_inputs(he)
+        enc = [he]
+        for b, _ in T._enc_layers(teacher_base, {}, cfg):
+            he = T.block_forward(he, b, {}, cfg, "attn", "mlp", positions=enc_pos,
+                                 mask=enc_mask)
+            enc.append(he)
+        enc_out = T._norm(he, teacher_base["enc_norm"], cfg)
+        out["enc"], out["enc_out"] = torch.stack(enc), enc_out
     feats = [h]
     for _, b, _, (mixer, ffn) in T._layers(teacher_base, T._empty_adapters(teacher_base),
                                            cfg):
-        h = T.block_forward(h, b, {}, cfg, mixer, ffn, positions=positions)
+        h = T.block_forward(h, b, {}, cfg, mixer, ffn, positions=positions, enc_out=enc_out)
         feats.append(h)
-    out = {"dec": torch.stack(feats)}
+    out["dec"] = torch.stack(feats)
     if not cfg.tie_lm_head:
         hn = T._norm(h, teacher_base["final_norm"], cfg)
         out["head_in"] = hn
@@ -351,11 +366,13 @@ def teacher_features(teacher_base: Pytree, batch: Dict, cfg) -> Dict[str, torch.
 
 def make_cached_calib_loss(cfg):
     """The cached-teacher loss ``loss_fn(adapters, student_base, feats,
-    batch)``: student block ``l`` sees ``feats["dec"][l]`` and matches
-    ``feats["dec"][l + 1]``. It mirrors ``feature_calibration_loss`` term
-    for term (every block, then the untied lm_head's logits), averaged
-    over the same ``n_terms``. ``batch`` is unused by dense stacks; it is
-    kept for the reference's signature."""
+    batch)``: student block ``l`` sees ``feats["dec"][l]`` (an encoder
+    block ``feats["enc"][l]``) and matches the teacher's output at ``l +
+    1``; decoder blocks cross-attend to ``feats["enc_out"]``. It mirrors
+    ``feature_calibration_loss`` term for term (the encoder's blocks, the
+    decoder's, then the untied lm_head's logits), averaged over the same
+    ``n_terms``. ``batch`` is unused by these stacks; it is kept for the
+    reference's signature."""
     from repro_torch.models import transformer as T
 
     def loss_fn(adapters, sbase, feats, batch):
@@ -363,8 +380,18 @@ def make_cached_calib_loss(cfg):
         positions = torch.arange(dec.shape[2], device=dec.device)[None]
         loss = torch.zeros((), dtype=torch.float32, device=dec.device)
         n_terms = 0
+        enc_out = feats.get("enc_out")
+        if cfg.encoder_layers:
+            enc = feats["enc"]
+            enc_mask, enc_pos = T._enc_inputs(enc[0])
+            for e, (b, a_) in enumerate(T._enc_layers(sbase, adapters, cfg)):
+                s_out = T.block_forward(enc[e], b, a_, cfg, "attn", "mlp", positions=enc_pos,
+                                        mask=enc_mask)
+                loss = loss + T._mse(enc[e + 1], s_out)
+            n_terms += cfg.encoder_layers
         for i, b, a_, (mixer, ffn) in T._layers(sbase, adapters, cfg):
-            s_out = T.block_forward(dec[i], b, a_, cfg, mixer, ffn, positions=positions)
+            s_out = T.block_forward(dec[i], b, a_, cfg, mixer, ffn, positions=positions,
+                                    enc_out=enc_out)
             loss = loss + T._mse(dec[i + 1], s_out)
             n_terms += 1
         if not cfg.tie_lm_head:
@@ -430,8 +457,10 @@ class CompiledCalibStep:
     It owns its adapter leaves (copies of ``state.adapters`` in the tree's
     layout, scan-group stacking included, that require grad) and its AdamW
     state (copies of ``state.opt_state``, the count on the device). It
-    reads the frozen inputs in place: the student base, ``batch``, and
-    ``feats`` (cached) or the teacher base (fused); their addresses and
+    reads the frozen inputs in place: the student base, ``batch`` (an
+    encoder-decoder config's encoder inputs among them), and ``feats``
+    (cached; the encoder's features among them) or the teacher base
+    (fused); their addresses and
     the substrate's backend key are recorded when it is built and checked
     at every call, since a graph would read stale operands. A call is the
     loss over the static leaves under grad mode, ``torch.autograd.grad``

@@ -70,7 +70,7 @@ from repro_torch.data.pipeline import DataConfig, global_batch_at_step
 from repro_torch.deploy import serving
 from repro_torch.faults.generators import FaultSpec, build_map
 from repro_torch.faults.map import FaultMap, compose_maps
-from repro_torch.interop import from_reference
+from repro_torch.interop import from_reference, to_tensor
 from repro_torch.models import transformer as T
 from repro_torch.optim.adam import AdamW, adamw_init
 
@@ -155,19 +155,27 @@ def _dequant_like(codes: Pytree, like: Pytree) -> Pytree:
 def calibration_batch(cfg, batch_or_samples, seq_len: int) -> Dict:
     """The deterministic calibration batch for ``cfg``: a batch dict passes
     through as it is; an int is a calibration-set size (paper: 10
-    samples), drawn by the data pipeline at step 0 on the CPU. The same
-    arguments always give the same batch."""
+    samples), drawn by the data pipeline at step 0 on the CPU, with an
+    encoder-decoder config's encoder inputs at ``seq_len`` frames in bf16,
+    as the reference's. The same arguments always give the same batch."""
     if isinstance(batch_or_samples, dict):
         return batch_or_samples
     n = int(batch_or_samples)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=n,
-                      n_calibration_samples=n)
-    return global_batch_at_step(dcfg, 0)
+                      n_calibration_samples=n,
+                      enc_src_len=seq_len if cfg.encoder_layers else 0,
+                      d_model=cfg.d_model if cfg.encoder_layers else 0)
+    batch = global_batch_at_step(dcfg, 0)
+    if "enc_embeds" in batch:  # as the reference's batch carries them: bf16
+        batch["enc_embeds"] = batch["enc_embeds"].to(torch.bfloat16)
+    return batch
 
 
 def _device_batch(batch: Dict, device) -> Dict:
-    """A batch of tensors or numpy arrays on ``device``; tokens as int64."""
-    out = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    """A batch of tensors or numpy arrays (bfloat16 ones by their bits) on
+    ``device``; tokens as int64."""
+    out = {k: v.to(device) if isinstance(v, torch.Tensor) else to_tensor(v, device)
+           for k, v in batch.items()}
     out["tokens"] = out["tokens"].long()
     return out
 

@@ -1,6 +1,6 @@
 """Continuous-batching serve engine over the batched decode step. Port
-of ``repro/deploy/engine.py`` for decoder-only attention stacks
-(``remesh`` and the encoder and vision slots wait).
+of ``repro/deploy/engine.py`` for attention stacks, decoder-only or
+encoder-decoder (``remesh`` and the vision slots wait).
 
 * **Slots.** A fixed ``(max_slots, max_len)`` decode cache; each
   in-flight request owns one row, finished rows are recycled.
@@ -10,9 +10,17 @@ of ``repro/deploy/engine.py`` for decoder-only attention stacks
   chunks (pow-2 bucketed width, masked tail), one chunk per engine tick
   interleaved with decode ticks; the first token comes from the last
   chunk's logits and the batch-1 cache is copied into the slot's row.
+* **Encoder-decoder slots.** A request carries ``enc_embeds`` (S_src, d):
+  its cold admission zeroes the staging cache and runs the session's
+  encoder step (``ServeSession.encode_fn``, one per source length) just
+  before its first chunk, which writes every decoder layer's
+  cross-attention K/V lines over ``src_len`` positions and ``enc_len``;
+  they travel with the staging cache into the slot, where each row is
+  masked past its own ``enc_len``. Decode ticks never run the encoder.
 * **Shared prefix cache.** After every admission chunk the staging
   cache and the chunk's logits are cloned under a token-hash chain key
-  (the reference's chain, byte for byte), LRU-capped at
+  (the reference's chain, byte for byte, seeded with the encoder input's
+  bytes), LRU-capped at
   ``prefix_cache_entries``. A request whose prompt starts with a stored
   prefix resumes from it: a full hit copies the snapshot into the
   staging cache and runs no chunk; a partial hit at ``k`` loads a fresh
@@ -70,6 +78,7 @@ class Request:
     temperature: float = 0.0
     key: Optional[torch.Generator] = None
     eos_id: Optional[int] = None
+    enc_embeds: Optional[np.ndarray] = None   # (s_src, d) [enc-dec]
     tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     slot: Optional[int] = None
@@ -100,20 +109,25 @@ class ServeEngine:
     """Slot-based continuous-batching scheduler over a ``ServeSession``."""
 
     def __init__(self, session, *, max_slots: int = 4, max_len: int = 128,
-                 prefill_chunk: int = 32, min_bucket: int = 8,
+                 src_len: int = 0, prefill_chunk: int = 32, min_bucket: int = 8,
                  prefix_cache_entries: int = 16):
         self.session = session
         self.cfg = session.cfg
         if not all(m in _CHUNKABLE for m in self.cfg.mixer_pattern):
             raise NotImplementedError("the engine admits attention stacks only")
+        if self.cfg.encoder_layers and src_len <= 0:
+            raise ValueError("encoder-decoder engine needs src_len > 0 (the cross-"
+                             "attention cache extent; requests may be shorter)")
         self.device = session.device
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
+        self.src_len = int(src_len) if self.cfg.encoder_layers else 0  # the cross lines' extent
         self.prefill_chunk = _pow2_ceil(int(prefill_chunk))
         self.min_bucket = min(_pow2_ceil(int(min_bucket)), self.prefill_chunk)
-        self._decode = session.decode_step_fn(self.max_slots, self.max_len, owner=self)
+        self._decode = session.decode_step_fn(self.max_slots, self.max_len, owner=self,
+                                              src_len=self.src_len)
         self.cache = self._decode.cache
-        self._staging_flat, self._staging = session.staging_cache(self.max_len)
+        self._staging_flat, self._staging = session.staging_cache(self.max_len, self.src_len)
         self.prefix_cache_entries = int(prefix_cache_entries)
         # hash-chain digest -> (tokens, staging-cache clone, logits clone)
         self._prefix_cache: "OrderedDict[bytes, tuple]" = OrderedDict()
@@ -148,9 +162,12 @@ class ServeEngine:
 
     def submit(self, prompt, *, max_new: int = 16, temperature: float = 0.0,
                key: Optional[torch.Generator] = None,
-               eos_id: Optional[int] = None) -> Request:
+               eos_id: Optional[int] = None, enc_embeds=None) -> Request:
         """Enqueue a request; admission starts at once if a slot is free
-        (a one-chunk prompt has its first token before this returns)."""
+        (a one-chunk prompt has its first token before this returns).
+        ``enc_embeds`` (s_src, d), a numpy array (a leading batch axis of 1
+        accepted), is an encoder-decoder request's encoder input; its
+        bytes, in the dtype given, seed the prefix cache's hash chain."""
         serving._check_sampling_args(temperature, key)
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
@@ -163,9 +180,22 @@ class ServeEngine:
                 f"max_len ({self.max_len})")
         if prompt.min() < 0 or prompt.max() >= self.cfg.vocab:
             raise ValueError(f"prompt tokens must lie in [0, {self.cfg.vocab})")
+        if self.cfg.encoder_layers:
+            if enc_embeds is None:
+                raise ValueError("encoder-decoder request needs enc_embeds")
+            enc_embeds = np.asarray(enc_embeds)
+            if enc_embeds.ndim == 3:
+                enc_embeds = enc_embeds[0]
+            if enc_embeds.shape[0] > self.src_len:
+                raise ValueError(f"enc_embeds length {enc_embeds.shape[0]} exceeds engine "
+                                 f"src_len ({self.src_len})")
+            if enc_embeds.shape[0] < 1:
+                raise ValueError("empty enc_embeds")
+        elif enc_embeds is not None:
+            raise ValueError("enc_embeds passed to a decoder-only config")
         req = Request(rid=self._next_rid, prompt=prompt, max_new=int(max_new),
                       temperature=float(temperature), key=key, eos_id=eos_id,
-                      submitted_at=time.perf_counter())
+                      enc_embeds=enc_embeds, submitted_at=time.perf_counter())
         self._next_rid += 1
         self.pending.append(req)
         self._admit_pending()
@@ -222,17 +252,20 @@ class ServeEngine:
     def _chunk_call(self, req: Request, a: int, b_: int) -> torch.Tensor:
         """Tokens [a, b_) at positions [a, b_), zero-padded to the bucket,
         through the bucket's step on the staging cache: zeroed for a first
-        chunk, else loaded from ``req._cache``; saved back there unless
-        this is the last chunk (the staging cache then holds the prompt
-        until ``_finalize_admission`` copies it into the slot)."""
+        chunk (then, for an encoder-decoder request, filled by its encoder
+        admission), else loaded from ``req._cache``; saved back there
+        unless this is the last chunk (the staging cache then holds the
+        prompt until ``_finalize_admission`` copies it into the slot)."""
         n = b_ - a
         width = self._bucket(n)
-        step = self.session.prefill_chunk_fn(width, self.max_len)
+        step = self.session.prefill_chunk_fn(width, self.max_len, self.src_len)
         host = np.zeros(width + 2, np.int64)
         host[:n] = req.prompt[a:b_]
         host[width:] = (a, n)
         if a == 0:
             step.flat.zero_()
+            if req.enc_embeds is not None:
+                self._encode(req)
         else:
             step.flat.copy_(req._cache)
         logits = step(torch.from_numpy(host))
@@ -241,6 +274,16 @@ class ServeEngine:
                 req._cache = torch.empty_like(step.flat)
             req._cache.copy_(step.flat)
         return logits
+
+    @torch.no_grad()
+    def _encode(self, req: Request) -> None:
+        """The request's encoder admission into the staging cache: its
+        cross lines over ``[0, s_src)`` and ``enc_len``."""
+        from repro_torch.interop import to_tensor
+
+        enc = req.enc_embeds
+        step = self.session.encode_fn(enc.shape[0], self.max_len, self.src_len)
+        step(to_tensor(enc, "cpu")[None])
 
     @torch.no_grad()
     def _finalize_admission(self, slot: int, req: Request) -> None:
@@ -268,10 +311,16 @@ class ServeEngine:
 
     @staticmethod
     def _hash_chain(req: Request) -> List[bytes]:
-        """``chain[k]`` names the request's first ``k`` prompt tokens: the
-        key of a snapshot with exactly ``k`` tokens admitted (the
-        reference's chain, byte for byte)."""
-        chain = [hashlib.sha1(b"rimc-prefix-v1").digest()]
+        """``chain[k]`` names the request's first ``k`` prompt tokens (and
+        the whole encoder input, part of position 0's context): the key of
+        a snapshot with exactly ``k`` tokens admitted (the reference's
+        chain, byte for byte: the encoder input's bytes as numpy's
+        ``tobytes`` lays them out, in the dtype the caller gave)."""
+        h = hashlib.sha1(b"rimc-prefix-v1")
+        enc = getattr(req, "enc_embeds", None)
+        if enc is not None:
+            h.update(np.ascontiguousarray(enc).tobytes())
+        chain = [h.digest()]
         for t in req.prompt:
             h = hashlib.sha1(chain[-1])
             h.update(int(t).to_bytes(8, "little", signed=True))

@@ -3,9 +3,11 @@ prefill, the reference generation loop, the compiled-step registry and
 ``ServeSession``. Port of ``repro/deploy/serving.py``.
 
 The registry's twin of the reference's jitted steps is a CUDA graph: a
-session builds its decode tick and its admission chunk once per
-``(kind, active_backend_key(), batch, width, max_len)`` (``StepRegistry``,
-``CompiledStep``) and replays them. The fused prefill and the module-level
+session builds its decode tick, its admission chunk and, for an
+encoder-decoder config, its encoder admission (``"encode"``, one per
+source length, as the reference's jit retraces per shape) once per
+``(kind, active_backend_key(), batch, width, max_len, src_len)``
+(``StepRegistry``, ``CompiledStep``) and replays them. The fused prefill and the module-level
 ``generate`` loop stay eager. Everything runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
@@ -35,12 +37,15 @@ def backend_scope(backend: str, cfg=None, **options):
 
 
 @torch.no_grad()
-def prefill_and_cache(params, tokens: torch.Tensor, cfg, max_len: int):
-    """Fused prefill: ONE forward over the prompt fills every layer's K/V.
+def prefill_and_cache(params, tokens: torch.Tensor, cfg, max_len: int, enc_embeds=None):
+    """Fused prefill: ONE forward over the prompt fills every layer's K/V
+    (and, after the encoder over ``enc_embeds``, its cross lines).
     Returns ``(last_logits (B, 1, V), cache)``."""
     from repro_torch.models import transformer as T
 
-    return T.prefill(params, tokens, cfg, int(max_len))
+    if cfg.encoder_layers and enc_embeds is None:
+        raise ValueError("encoder-decoder config needs enc_embeds")
+    return T.prefill(params, tokens, cfg, int(max_len), enc_embeds)
 
 
 def _next_token(logits: torch.Tensor, temperature: float,
@@ -67,8 +72,8 @@ def _check_sampling_args(temperature: float, generator) -> None:
 
 @torch.no_grad()
 def generate(params, prompt: torch.Tensor, cfg, *, gen_len: int = 16,
-             temperature: float = 0.0, key: Optional[torch.Generator] = None
-             ) -> Tuple[np.ndarray, float]:
+             temperature: float = 0.0, key: Optional[torch.Generator] = None,
+             enc_embeds: Optional[torch.Tensor] = None) -> Tuple[np.ndarray, float]:
     """Reference single-stream loop: fused prefill, then ``gen_len - 1``
     decode steps. Returns ``(tokens (B, gen_len), dt)``; ``dt`` covers
     the decode steps only (each ends in a device-to-host token copy).
@@ -80,7 +85,7 @@ def generate(params, prompt: torch.Tensor, cfg, *, gen_len: int = 16,
     if gen_len < 1:
         raise ValueError(f"gen_len must be >= 1, got {gen_len}")
     b, s = prompt.shape
-    logits, cache = prefill_and_cache(params, prompt, cfg, s + gen_len)
+    logits, cache = prefill_and_cache(params, prompt, cfg, s + gen_len, enc_embeds)
     tok, key = _next_token(logits, temperature, key)
     out = [tok.cpu().numpy()]
     t0 = time.perf_counter()
@@ -111,8 +116,9 @@ def generate(params, prompt: torch.Tensor, cfg, *, gen_len: int = 16,
 class CompiledStep:
     """One registry entry: a step function over static buffers.
 
-    ``inputs`` is one int64 tensor on the step's device whose views are
-    the step's arguments; ``fn()`` runs the step on them, advances
+    ``inputs`` is one tensor on the step's device whose views are the
+    step's arguments (int64; the encoder admission's frames in the
+    config's dtype); ``fn()`` runs the step on them, advances
     ``cache`` (views of ``flat``) in place and returns the logits.
     ``step(host)`` copies ``host`` (the layout of ``inputs``) in and runs
     the step. On the CPU every call runs ``fn``. On the card the first
@@ -262,7 +268,7 @@ class ServeSession:
         self.options = dict(options or {})
         self._auto_key_calls = 0
         self.steps = StepRegistry(deployment.device, lambda: self.params)
-        self._staging: Dict[int, Tuple[torch.Tensor, dict]] = {}
+        self._staging: Dict[Tuple[int, int], Tuple[torch.Tensor, dict]] = {}
 
     @property
     def cfg(self):
@@ -293,20 +299,22 @@ class ServeSession:
         _check_sampling_args(temperature, key)
         return key
 
-    # -- compiled steps (the reference's decode_step_fn / prefill_chunk_fn) --
+    # -- compiled steps (the reference's decode_step_fn / prefill_chunk_fn /
+    # encode_fn); ``src_len`` is the cross lines' extent, 0 without an encoder
 
-    def _key(self, kind: str, batch: int, width: int, max_len: int) -> tuple:
+    def _key(self, kind: str, batch: int, width: int, max_len: int, src_len: int = 0) -> tuple:
         with self.scope():
-            return (kind, substrate.active_backend_key(), batch, width, max_len)
+            return (kind, substrate.active_backend_key(), batch, width, max_len, src_len)
 
-    def decode_step_fn(self, batch: int, max_len: int, *, owner) -> CompiledStep:
-        """The decode tick over a ``(batch, max_len)`` cache of its own,
-        leased to ``owner`` (an engine). Inputs: row 0 the (B, 1) tokens,
-        row 1 the (B,) per-slot clocks."""
+    def decode_step_fn(self, batch: int, max_len: int, *, owner,
+                       src_len: int = 0) -> CompiledStep:
+        """The decode tick over a ``(batch, max_len, src_len)`` cache of its
+        own, leased to ``owner`` (an engine). Inputs: row 0 the (B, 1)
+        tokens, row 1 the (B,) per-slot clocks."""
         from repro_torch.models import transformer as T
 
         def build():
-            flat, cache = T.init_flat_cache(self.cfg, batch, max_len, self.device)
+            flat, cache = T.init_flat_cache(self.cfg, batch, max_len, self.device, src_len)
             inputs = torch.zeros((2, batch), dtype=torch.int64, device=self.device)
             tokens, pos = inputs[0].view(batch, 1), inputs[1]
 
@@ -316,26 +324,55 @@ class ServeSession:
                     return T.decode_step(self.params, cache, tokens, pos, self.cfg)[0]
             return CompiledStep(self.steps, key, fn, inputs, flat, cache)
 
-        key = self._key("decode", batch, 1, max_len)
+        key = self._key("decode", batch, 1, max_len, src_len)
         return self.steps.get(key, build, owner=owner)
 
-    def staging_cache(self, max_len: int) -> Tuple[torch.Tensor, dict]:
+    def staging_cache(self, max_len: int, src_len: int = 0) -> Tuple[torch.Tensor, dict]:
         """The batch-1 cache (flat buffer, tree of views) that every
-        admission chunk of ``max_len`` advances."""
+        admission chunk and encoder admission of ``(max_len, src_len)``
+        advances."""
         from repro_torch.models import transformer as T
 
-        if max_len not in self._staging:
-            self._staging[max_len] = T.init_flat_cache(self.cfg, 1, max_len, self.device)
-        return self._staging[max_len]
+        if (max_len, src_len) not in self._staging:
+            self._staging[max_len, src_len] = T.init_flat_cache(self.cfg, 1, max_len,
+                                                                self.device, src_len)
+        return self._staging[max_len, src_len]
 
-    def prefill_chunk_fn(self, width: int, max_len: int) -> CompiledStep:
+    def encode_fn(self, s_src: int, max_len: int, src_len: int) -> CompiledStep:
+        """The encoder admission of an ``s_src``-frame input: runs the
+        encoder and writes every decoder layer's cross lines and
+        ``enc_len`` into ``staging_cache(max_len, src_len)``
+        (``transformer.encode_into_cache``). Inputs: the (1, s_src, d)
+        frames in the config's dtype. One step per source length."""
+        from repro_torch.models import transformer as T
+
+        if not 0 < s_src <= src_len:
+            raise ValueError(f"an encoder input of {s_src} frames does not fit src_len "
+                             f"{src_len}")
+
+        def build():
+            flat, cache = self.staging_cache(max_len, src_len)
+            inputs = torch.zeros((1, s_src, self.cfg.d_model), dtype=self.cfg.dtype,
+                                 device=self.device)
+
+            @torch.no_grad()
+            def fn():
+                with self.scope():
+                    return T.encode_into_cache(self.params, cache, inputs, self.cfg)["enc_len"]
+            return CompiledStep(self.steps, key, fn, inputs, flat, cache)
+
+        key = self._key("encode", 1, s_src, max_len, src_len)
+        return self.steps.get(key, build)
+
+    def prefill_chunk_fn(self, width: int, max_len: int, src_len: int = 0) -> CompiledStep:
         """The admission chunk of bucket ``width``: advances
-        ``staging_cache(max_len)`` by tokens at ``pos0 .. pos0 + n_valid``.
-        Inputs: the (1, width) tokens, then ``pos0`` and ``n_valid``."""
+        ``staging_cache(max_len, src_len)`` by tokens at ``pos0 .. pos0 +
+        n_valid``. Inputs: the (1, width) tokens, then ``pos0`` and
+        ``n_valid``."""
         from repro_torch.models import transformer as T
 
         def build():
-            flat, cache = self.staging_cache(max_len)
+            flat, cache = self.staging_cache(max_len, src_len)
             inputs = torch.zeros((width + 2,), dtype=torch.int64, device=self.device)
             tokens = inputs[:width].view(1, width)
             pos0, n_valid = inputs[width:width + 1], inputs[width + 1:]
@@ -347,7 +384,7 @@ class ServeSession:
                                            self.cfg, max_len)[0]
             return CompiledStep(self.steps, key, fn, inputs, flat, cache)
 
-        key = self._key("prefill_chunk", 1, width, max_len)
+        key = self._key("prefill_chunk", 1, width, max_len, src_len)
         return self.steps.get(key, build)
 
     def compile_count(self) -> int:
@@ -355,23 +392,28 @@ class ServeSession:
         built on the CPU. Flat across repeated same-shape requests."""
         return self.steps.compile_count()
 
-    def prefill(self, tokens, max_len: int):
+    def prefill(self, tokens, max_len: int, enc_embeds=None):
         with self.scope():
-            return prefill_and_cache(self.params, tokens, self.cfg, max_len)
+            return prefill_and_cache(self.params, tokens, self.cfg, max_len, enc_embeds)
 
     def generate(self, prompt, *, gen_len: int = 16, temperature: float = 0.0,
-                 key: Optional[torch.Generator] = None) -> Tuple[np.ndarray, float]:
+                 key: Optional[torch.Generator] = None, enc_embeds=None
+                 ) -> Tuple[np.ndarray, float]:
         """Each prompt row becomes one request on a throwaway engine, all
-        admitted at tick 0 — the production serving path."""
+        admitted at tick 0 — the production serving path; an
+        encoder-decoder config takes ``enc_embeds`` (B, S_src, d), a numpy
+        array: row ``i`` is request ``i``'s encoder input."""
         from repro_torch.deploy.engine import ServeEngine
 
         key = self._sampling_key(temperature, key)
         prompt = np.asarray(torch.as_tensor(prompt).cpu())
         b, s = prompt.shape
-        engine = ServeEngine(self, max_slots=b, max_len=s + gen_len)
+        src_len = 0 if enc_embeds is None else enc_embeds.shape[1]
+        engine = ServeEngine(self, max_slots=b, max_len=s + gen_len, src_len=src_len)
         reqs = [engine.submit(
                     prompt[i], max_new=gen_len, temperature=temperature,
-                    key=None if key is None else _fold(key, i))
+                    key=None if key is None else _fold(key, i),
+                    enc_embeds=None if enc_embeds is None else enc_embeds[i])
                 for i in range(b)]
         engine.run()
         toks = np.stack([np.asarray(r.tokens, np.int32) for r in reqs])

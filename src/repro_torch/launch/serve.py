@@ -12,12 +12,17 @@ card raises).
     python -m repro_torch.launch.serve --arch deepseek-v2-lite --layers 3 \
         --backend codes
     python -m repro_torch.launch.serve --arch deepseek-v2-lite --smoke --device cpu
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --backend codes
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --smoke --device cpu
 
 ``--layers`` cuts the depth and keeps every width: mixtral-8x22b's 56
 layers (141 G weights) do not fit one 80 GB card; 2 layers take ~22 GB.
 deepseek-v2-lite's 27 layers (15.7 G weights) fit as codes but leave no
 room for a teacher and calibration; 3 layers (the dense first layer and
-two MoE layers) take ~1.7 G weights.
+two MoE layers) take ~1.7 G weights. seamless-m4t-large-v2 (24 encoder
+and 24 decoder layers, 1.63 G weights) fits whole; its requests carry
+random encoder inputs of ``--prompt-len`` frames, drawn from a stream of
+their own, as the reference's driver draws them.
 """
 from __future__ import annotations
 
@@ -63,8 +68,13 @@ def main(argv=None):
 
     g = make_generator("cpu", args.seed, 1)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=g)
+    enc = None
+    if cfg.encoder_layers:  # bf16 frames, kept in f32 numpy for the request's bytes
+        g_enc = make_generator("cpu", args.seed, 2)
+        enc = torch.randn((args.batch, args.prompt_len, cfg.d_model), generator=g_enc)
+        enc = enc.to(torch.bfloat16).float().numpy()
     toks, dt = session.generate(prompt, gen_len=args.gen,
-                                temperature=args.temperature)
+                                temperature=args.temperature, enc_embeds=enc)
     # dt times exactly the decode ticks; first tokens come from prefill
     decode_toks = args.batch * max(args.gen - 1, 0)
     tps = decode_toks / dt if dt > 0 else float("nan")

@@ -1,8 +1,10 @@
 """Attention over RimcLinear projections. Port of
-``repro/models/attention.py`` without cross-attention and the vision
-prefix: MHA/GQA with optional qk-norm (qwen3), causal and sliding-window
-masks, the per-slot KV cache (rolling for sliding-window layers), decode
-and chunked prefill; and MLA, multi-head latent attention
+``repro/models/attention.py`` without the vision prefix: MHA/GQA with
+optional qk-norm (qwen3), causal and sliding-window masks, the per-slot
+KV cache (rolling for sliding-window layers), decode and chunked
+prefill; cross-attention over an encoder's output (seamless-m4t), whose
+K/V the serving cache holds once per decoder layer (``"xk"``/``"xv"``),
+masked per slot by the valid source length; and MLA, multi-head latent attention
 (deepseek-v2-lite): a low-rank joint KV compression whose post-norm
 latent and shared roped key are what the cache holds, up-projected to
 per-head K and V over the whole buffer at every step (the reference's
@@ -40,6 +42,7 @@ class AttentionConfig:
     rope_theta: float = 10000.0
     qk_norm: bool = False
     window: Optional[int] = None
+    is_cross: bool = False  # cross-attention: K/V from the encoder's output
     softmax_scale: Optional[float] = None
     # MLA (deepseek-v2): low-rank KV joint compression + decoupled rope
     mla: bool = False
@@ -109,8 +112,10 @@ def _init_mla(generator: Optional[torch.Generator], cfg: AttentionConfig,
     return base, adapters
 
 
-def _qkv_proj(x, base, a, cfg: AttentionConfig, acfg):
-    """(q, k, v): one launch when the serve tree fused them ("_qkv")."""
+def _qkv_proj(x, kv_src, base, a, cfg: AttentionConfig, acfg):
+    """(q, k, v): q from ``x``, k and v from ``kv_src`` (``x`` itself
+    but for cross-attention); one launch when the serve tree fused them
+    ("_qkv", self-attention only: cross trees keep their leaves)."""
     if "_qkv" in base:
         qkv = L.linear(x, base["_qkv"], None, acfg)
         nq = cfg.num_heads * cfg.head_dim
@@ -118,8 +123,8 @@ def _qkv_proj(x, base, a, cfg: AttentionConfig, acfg):
         return qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
     return (
         L.linear(x, base["q"], a.get("q"), acfg),
-        L.linear(x, base["k"], a.get("k"), acfg),
-        L.linear(x, base["v"], a.get("v"), acfg),
+        L.linear(kv_src, base["k"], a.get("k"), acfg),
+        L.linear(kv_src, base["v"], a.get("v"), acfg),
     )
 
 
@@ -182,33 +187,42 @@ def _sdpa(q, k, v, scale: float, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return out.reshape(b, s, h, -1)
 
 
-def _project(x, base, a, cfg: AttentionConfig, acfg, positions):
-    """q, k, v with head layout, qk-norm and rope applied."""
+def _project(x, base, a, cfg: AttentionConfig, acfg, positions, kv_src=None):
+    """q, k, v with head layout and qk-norm applied, and rope unless the
+    attention is cross (K/V from ``kv_src``, never roped)."""
     b_, s, _ = x.shape
-    q, k, v = _qkv_proj(x, base, a, cfg, acfg)
+    kv_src = x if kv_src is None else kv_src
+    t = kv_src.shape[1]
+    q, k, v = _qkv_proj(x, kv_src, base, a, cfg, acfg)
     q = q.reshape(b_, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b_, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b_, s, cfg.num_kv_heads, cfg.head_dim)
+    k = k.reshape(b_, t, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b_, t, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = L.rms_norm(q, base["q_norm"])
         k = L.rms_norm(k, base["k_norm"])
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if not cfg.is_cross:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def attention(x, base, adapters, cfg: AttentionConfig, acfg: AdapterConfig,
               positions: Optional[torch.Tensor] = None,
+              kv_input: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None, return_kv: bool = False):
-    """Full-sequence causal self-attention (training / prefill)."""
+    """Full-sequence attention (training / prefill): causal self-attention
+    unless ``mask`` overrides it (the encoder passes an all-true one), or,
+    for a cross config, bidirectional over ``kv_input`` (the encoder's
+    output) by default."""
     a = adapters or {}
     b_, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     if cfg.mla:
         return _mla_attention(x, base, a, cfg, acfg, positions, mask, return_kv)
-    q, k, v = _project(x, base, a, cfg, acfg, positions)
-    if mask is None:
+    q, k, v = _project(x, base, a, cfg, acfg, positions,
+                       kv_input if cfg.is_cross else None)
+    if mask is None and not cfg.is_cross:
         mask = causal_mask(s, s, cfg.window, device=x.device)
     out = _sdpa(q, k, v, cfg.scale, mask)
     y = L.linear(out.reshape(b_, s, -1), base["o"], a.get("o"), acfg)
@@ -256,11 +270,66 @@ def _mla_attention(x, base, a, cfg: AttentionConfig, acfg, positions, mask,
     return y
 
 
+# ---------------------------------------------------------------------------
+# cross-attention cache (encoder-decoder serving)
+# ---------------------------------------------------------------------------
+#
+# The encoder's K/V never change after admission, so the serving cache holds
+# them once per decoder layer ("xk"/"xv", post-qk-norm, never roped: what
+# ``attention(kv_input=)`` computes inline) over a padded source extent, and
+# each slot's tail past its valid length ``enc_len`` is masked: a masked
+# logit is NEG_INF, so its exp is exactly 0 in the f32 sum.
+
+
+def init_cross_cache(batch: int, src_len: int, cfg: AttentionConfig, device,
+                     dtype=torch.bfloat16) -> Dict:
+    """One decoder layer's encoder K/V lines."""
+    shape = (batch, src_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"xk": torch.zeros(shape, dtype=dtype, device=device),
+            "xv": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cross_kv(enc_out, base, adapters, cfg: AttentionConfig, acfg: AdapterConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cacheable half of cross-attention: K/V over the encoder output
+    (B, S_src, d), as ``attention(kv_input=enc_out)`` computes them. Cross
+    trees keep their per-leaf projections (no fused ``_qkv``)."""
+    a = adapters or {}
+    b_, t, _ = enc_out.shape
+    k = L.linear(enc_out, base["k"], a.get("k"), acfg)
+    v = L.linear(enc_out, base["v"], a.get("v"), acfg)
+    k = k.reshape(b_, t, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b_, t, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        k = L.rms_norm(k, base["k_norm"])
+    return k, v
+
+
+def cross_attention_cached(x, cache: Dict, enc_len, base, adapters, cfg: AttentionConfig,
+                           acfg: AdapterConfig) -> torch.Tensor:
+    """Cross-attention of ``x`` (B, S, d: a decode tick or a chunk) against
+    the cached lines ``cache["xk"]``/``["xv"]`` (B, T_src, kvh, hd), row b
+    masked past ``enc_len[b]``."""
+    a = adapters or {}
+    b_, s, _ = x.shape
+    q = L.linear(x, base["q"], a.get("q"), acfg)
+    q = q.reshape(b_, s, cfg.num_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, base["q_norm"])
+    t = cache["xk"].shape[1]
+    valid = torch.arange(t, device=x.device)[None, :] < enc_len[:, None]  # (B, T_src)
+    out = _sdpa(q, cache["xk"], cache["xv"], cfg.scale, valid[:, None, None, None, :])
+    return L.linear(out.reshape(b_, s, -1), base["o"], a.get("o"), acfg)
+
+
 def init_kv_cache(batch: int, max_len: int, cfg: AttentionConfig, device,
                   dtype=torch.bfloat16) -> Dict:
     """One layer's cache; sliding-window layers keep only the window. MLA
     caches the latent and the shared rope key, always at full length: the
-    MLA chunk path has no rolling canvas, so a window is refused."""
+    MLA chunk path has no rolling canvas, so a window is refused. A cross
+    config keeps no self cache (its lines are ``init_cross_cache``'s)."""
+    if cfg.is_cross:
+        return {}
     if cfg.mla:
         if cfg.window is not None:
             raise NotImplementedError("MLA with a sliding window is not supported")

@@ -1,7 +1,10 @@
-"""Model assembly, decoder path. Port of ``repro/models/transformer.py``
-(attention mixers, MLA among them, with MLP or MoE FFNs, the forward, the
-feature-KD calibration loss and the serving steps; SSM, RG-LRU,
-encoder-decoder and vision prefix wait).
+"""Model assembly. Port of ``repro/models/transformer.py``: attention
+mixers, MLA among them, with MLP or MoE FFNs, and the encoder-decoder
+family (a bidirectional encoder over precomputed frame embeddings, then
+decoder layers with cross-attention over its normed output); the
+forward, the feature-KD calibration loss and the serving steps (the
+encoder admission writes each decoder layer's cross-attention K/V into
+the cache once). SSM, RG-LRU and the vision prefix wait.
 
 The parameter layout is the reference's: ``prologue`` (list) + ``body``
 (a list of ``scan_period`` layer trees whose leaves are stacked on axis
@@ -47,6 +50,9 @@ class ModelConfig:
     adapter: AdapterConfig = AdapterConfig()
     rram: RramConfig = DEFAULT_RRAM
     dtype: Any = torch.bfloat16
+    # encoder-decoder (seamless-m4t): the encoder's input arrives as
+    # precomputed frame embeddings (the audio frontend is a stub)
+    encoder_layers: int = 0
     unroll: bool = False
 
     @property
@@ -74,9 +80,9 @@ class ModelConfig:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Attention mixers (MLA ones global) with MLP, MoE or no FFN; the
-    other kinds (SSM, RG-LRU, encoder, vision) are not ported."""
-    for attr in ("ssm", "rglru", "encoder_layers", "vision_tokens"):
+    """Attention mixers (MLA ones global) with MLP, MoE or no FFN, and an
+    encoder; the other kinds (SSM, RG-LRU, vision) are not ported."""
+    for attr in ("ssm", "rglru", "vision_tokens"):
         if getattr(cfg, attr, None):
             raise NotImplementedError(f"{cfg.name}: {attr} is not ported")
     mla = cfg.attn is not None and cfg.attn.mla
@@ -100,9 +106,9 @@ def _norm(x, p, cfg: ModelConfig):
     return L.rms_norm(x, p) if cfg.norm == "rms" else L.layer_norm(x, p)
 
 
-def _attn_cfg(cfg: ModelConfig, kind: str) -> A.AttentionConfig:
+def _attn_cfg(cfg: ModelConfig, kind: str, cross: bool = False) -> A.AttentionConfig:
     window = cfg.local_window if kind in ("local", "swa") else None
-    return dataclasses.replace(cfg.attn, window=window)
+    return dataclasses.replace(cfg.attn, window=window, is_cross=cross)
 
 
 # ---------------------------------------------------------------------------
@@ -111,12 +117,18 @@ def _attn_cfg(cfg: ModelConfig, kind: str) -> A.AttentionConfig:
 
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig, mixer: str,
-               ffn: str) -> Tuple[Dict, Dict]:
+               ffn: str, *, cross: bool = False) -> Tuple[Dict, Dict]:
+    """One layer; ``cross`` adds a decoder layer's cross-attention
+    (``"norm_x"``, ``"xattn"``) after its mixer."""
     device = generator.device
     base: Dict = {"norm1": _norm_init(cfg, device)}
     adapters: Dict = {}
     base["mixer"], adapters["mixer"] = A.init_attention(
         generator, _attn_cfg(cfg, mixer), cfg.adapter, cfg.dtype)
+    if cross:
+        base["norm_x"] = _norm_init(cfg, device)
+        base["xattn"], adapters["xattn"] = A.init_attention(
+            generator, _attn_cfg(cfg, "attn", cross=True), cfg.adapter, cfg.dtype)
     if ffn == "mlp":
         base["norm2"] = _norm_init(cfg, device)
         base["ffn"], adapters["ffn"] = L.init_mlp(
@@ -146,7 +158,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Dict:
             generator, cfg.d_model, cfg.vocab, cfg.adapter, dtype=cfg.dtype)
 
     def make(i):
-        return init_layer(generator, cfg, *kinds[i])
+        return init_layer(generator, cfg, *kinds[i], cross=cfg.encoder_layers > 0)
 
     base["prologue"], adapters["prologue"] = [], []
     for i in range(pro):
@@ -162,6 +174,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Dict:
         b, a_ = make(i)
         base["epilogue"].append(b)
         adapters["epilogue"].append(a_)
+    if cfg.encoder_layers:
+        enc = [init_layer(generator, cfg, "attn", "mlp") for _ in range(cfg.encoder_layers)]
+        enc_b, enc_a = [lay[0] for lay in enc], [lay[1] for lay in enc]
+        # stacked on axis 0 as the reference's scan over the encoder stacks it
+        base["encoder"] = enc_b if cfg.unroll else tree_lib.stack(enc_b)
+        adapters["encoder"] = enc_a if cfg.unroll else tree_lib.stack(enc_a)
+        base["enc_norm"] = _norm_init(cfg, device)
     return {"base": base, "adapters": adapters}
 
 
@@ -192,6 +211,17 @@ def _layers(base: Dict, adapters: Dict, cfg: ModelConfig):
         yield i, base["epilogue"][j], adapters["epilogue"][j], kinds[i]
 
 
+def _enc_layers(base: Dict, adapters: Dict, cfg: ModelConfig):
+    """(base, adapters) per encoder layer in order: the stacked leaves
+    (all but ``unroll``) viewed one layer at a time."""
+    enc_a = adapters.get("encoder") or _empty_adapters(base["encoder"])
+    for e in range(cfg.encoder_layers):
+        if cfg.unroll:
+            yield base["encoder"][e], enc_a[e]
+        else:
+            yield tree_lib.index(base["encoder"], e), tree_lib.index(enc_a, e)
+
+
 def _adapters_or_empty(params: Dict) -> Dict:
     return params.get("adapters") or _empty_adapters(params["base"])
 
@@ -212,26 +242,58 @@ def _ffn(h, base, a_, cfg: ModelConfig, ffn: str):
     return h
 
 
+def _cross(h, base, a_, cfg: ModelConfig, enc_out):
+    """The residual stream after a decoder layer's cross-attention over
+    ``enc_out``, if the layer has one."""
+    if "xattn" not in base or enc_out is None:
+        return h
+    x = _norm(h, base["norm_x"], cfg)
+    return h + A.attention(x, base["xattn"], a_.get("xattn"), _attn_cfg(cfg, "attn", cross=True),
+                           cfg.adapter, kv_input=enc_out)
+
+
 def block_forward(h, base, adapters, cfg: ModelConfig, mixer: str, ffn: str, *,
-                  positions=None, mask=None):
+                  positions=None, mask=None, enc_out=None):
     a_ = adapters or {}
     x = _norm(h, base["norm1"], cfg)
     h = h + A.attention(x, base["mixer"], a_.get("mixer"), _attn_cfg(cfg, mixer),
                         cfg.adapter, positions=positions, mask=mask)
+    h = _cross(h, base, a_, cfg, enc_out)
     return _ffn(h, base, a_, cfg, ffn)
+
+
+def _enc_inputs(enc_embeds):
+    """The encoder's all-true mask and positions over ``enc_embeds``."""
+    s = enc_embeds.shape[1]
+    return (torch.ones((s, s), dtype=torch.bool, device=enc_embeds.device),
+            torch.arange(s, device=enc_embeds.device)[None])
+
+
+def encode(base: Dict, adapters: Dict, enc_embeds: torch.Tensor, cfg: ModelConfig):
+    """The bidirectional encoder over precomputed frame embeddings
+    (B, S_src, d), its final norm applied."""
+    mask, positions = _enc_inputs(enc_embeds)
+    h = enc_embeds
+    for b, a_ in _enc_layers(base, adapters, cfg):
+        h = block_forward(h, b, a_, cfg, "attn", "mlp", mask=mask, positions=positions)
+    return _norm(h, base["enc_norm"], cfg)
 
 
 def forward(params: Dict, batch: Dict, cfg: ModelConfig, *,
             use_adapters: bool = True) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, vocab); ``use_adapters=False``
     runs the base alone (the teacher, or the drifted array without its
-    side-cars)."""
+    side-cars). An encoder-decoder config also takes ``batch["enc_embeds"]``
+    (B, S_src, d)."""
     base = params["base"]
     adapters = _adapters_or_empty(params) if use_adapters else _empty_adapters(base)
     h = L.embed(batch["tokens"], base["embed"], scale_by_sqrt_dim=cfg.embed_scale)
+    enc_out = None
+    if cfg.encoder_layers:
+        enc_out = encode(base, adapters, batch["enc_embeds"].to(h.dtype), cfg)
     positions = torch.arange(h.shape[1], device=h.device)[None]
     for _, b, a_, (mixer, ffn) in _layers(base, adapters, cfg):
-        h = block_forward(h, b, a_, cfg, mixer, ffn, positions=positions)
+        h = block_forward(h, b, a_, cfg, mixer, ffn, positions=positions, enc_out=enc_out)
     h = _norm(h, base["final_norm"], cfg)
     return _lm_head(h, base, adapters, cfg)
 
@@ -255,20 +317,40 @@ def _lm_head(h, base, adapters, cfg: ModelConfig):
 
 def feature_calibration_loss(teacher_base: Dict, student_base: Dict, adapters: Dict,
                              batch: Dict, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    """Mean over blocks (and the untied lm_head's logits) of the
-    teacher/student MSE; returns ``(loss, {"feature_mse": loss})``."""
+    """Mean over blocks (the encoder's first, then the decoder's, and the
+    untied lm_head's logits) of the teacher/student MSE; returns ``(loss,
+    {"feature_mse": loss})``. Every decoder block, the student's too, reads
+    the teacher's normed encoder output."""
     with torch.no_grad():
         h = L.embed(batch["tokens"], teacher_base["embed"],
                     scale_by_sqrt_dim=cfg.embed_scale)
     positions = torch.arange(h.shape[1], device=h.device)[None]
     loss = torch.zeros((), dtype=torch.float32, device=h.device)
     n_terms = 0
+    enc_out = None
+    if cfg.encoder_layers:
+        h_enc = batch["enc_embeds"].to(h.dtype)
+        enc_mask, enc_pos = _enc_inputs(h_enc)
+        for (tb, _), (sb, sa) in zip(_enc_layers(teacher_base, {}, cfg),
+                                     _enc_layers(student_base, adapters, cfg)):
+            with torch.no_grad():
+                t_out = block_forward(h_enc, tb, {}, cfg, "attn", "mlp", positions=enc_pos,
+                                      mask=enc_mask)
+            s_out = block_forward(h_enc, sb, sa, cfg, "attn", "mlp", positions=enc_pos,
+                                  mask=enc_mask)
+            loss = loss + _mse(t_out, s_out)
+            h_enc = t_out
+        with torch.no_grad():
+            enc_out = _norm(h_enc, teacher_base["enc_norm"], cfg)
+        n_terms += cfg.encoder_layers
     teacher = _layers(teacher_base, _empty_adapters(teacher_base), cfg)
     for (_, tb, _, (mixer, ffn)), (_, sb, sa, _) in zip(
             teacher, _layers(student_base, adapters, cfg)):
         with torch.no_grad():
-            t_out = block_forward(h, tb, {}, cfg, mixer, ffn, positions=positions)
-        s_out = block_forward(h, sb, sa, cfg, mixer, ffn, positions=positions)
+            t_out = block_forward(h, tb, {}, cfg, mixer, ffn, positions=positions,
+                                  enc_out=enc_out)
+        s_out = block_forward(h, sb, sa, cfg, mixer, ffn, positions=positions,
+                              enc_out=enc_out)
         loss = loss + _mse(t_out, s_out)
         n_terms += 1
         h = t_out
@@ -294,13 +376,21 @@ def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, src_len: int = 0) -> Dict:
+    """The decode cache. An encoder-decoder config adds to each layer's
+    cache its cross-attention lines over ``src_len`` source positions
+    (``"xk"``/``"xv"``, written once at admission) and to the cache the
+    per-slot valid source length ``"enc_len"`` (int32)."""
     kinds = cfg.layer_kinds()
     pro, n_groups, epi = cfg.body_layout()
     p = cfg.scan_period
 
     def layer_cache(mixer):
-        return A.init_kv_cache(batch, max_len, _attn_cfg(cfg, mixer), device, cfg.dtype)
+        c = A.init_kv_cache(batch, max_len, _attn_cfg(cfg, mixer), device, cfg.dtype)
+        if cfg.encoder_layers:
+            c.update(A.init_cross_cache(batch, max(src_len, 1),
+                                        _attn_cfg(cfg, "attn", cross=True), device, cfg.dtype))
+        return c
 
     cache: Dict = {"prologue": [layer_cache(kinds[i][0]) for i in range(pro)]}
     if n_groups:
@@ -310,21 +400,44 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
         ])
     cache["epilogue"] = [layer_cache(kinds[i][0])
                          for i in range(cfg.n_layers - epi, cfg.n_layers)]
+    if cfg.encoder_layers:
+        cache["enc_len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return cache
 
 
-def init_flat_cache(cfg: ModelConfig, batch: int, max_len: int,
-                    device) -> Tuple[torch.Tensor, Dict]:
+def _flat_layout(like: Dict, unit: int):
+    """(offset, elements) of each leaf of ``like`` in a buffer of
+    ``unit``-byte elements, leaf after leaf; a leaf of wider elements (the
+    int32 ``enc_len``) starts at an offset aligned to its element size."""
+    spans, off = [], 0
+    for t in tree_lib.tensors(like):
+        ratio = max(t.element_size() // unit, 1)
+        off = -(-off // ratio) * ratio
+        n = -(-t.numel() * t.element_size() // unit)
+        spans.append((off, n))
+        off += n
+    return spans, off
+
+
+def flat_views(like: Dict, flat: torch.Tensor) -> Dict:
+    """``like``'s tree (``init_cache``'s) as views of ``flat``; a leaf of
+    another dtype than the buffer's is a view of its bytes there
+    (``Tensor.view`` by dtype), so copying the buffer copies it too."""
+    spans, _ = _flat_layout(like, flat.element_size())
+    views = [flat[off:off + n].view(t.dtype).view(t.shape)
+             for (off, n), t in zip(spans, tree_lib.tensors(like))]
+    return tree_lib.unflatten(like, views)
+
+
+def init_flat_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+                    src_len: int = 0) -> Tuple[torch.Tensor, Dict]:
     """``init_cache``'s tree as views of ONE zeroed buffer, returned with
-    it: a whole cache is then zeroed, saved or restored by one op."""
-    like = init_cache(cfg, batch, max_len, "meta")
-    leaves = tree_lib.tensors(like)
-    flat = torch.zeros(sum(t.numel() for t in leaves), dtype=cfg.dtype, device=device)
-    views, off = [], 0
-    for t in leaves:
-        views.append(flat[off:off + t.numel()].view(t.shape))
-        off += t.numel()
-    return flat, tree_lib.unflatten(like, views)
+    it: a whole cache (the int32 ``enc_len`` included) is then zeroed,
+    saved or restored by one op."""
+    like = init_cache(cfg, batch, max_len, "meta", src_len)
+    unit = torch.empty((), dtype=cfg.dtype).element_size()
+    flat = torch.zeros(_flat_layout(like, unit)[1], dtype=cfg.dtype, device=device)
+    return flat, flat_views(like, flat)
 
 
 def _cache_layers(cache: Dict, cfg: ModelConfig):
@@ -340,7 +453,8 @@ def _cache_layers(cache: Dict, cfg: ModelConfig):
 
 def write_cache_slot(cache: Dict, one: Dict, slot: int) -> Dict:
     """Copy a batch-1 cache into row ``slot`` of a batched cache (in
-    place). Stacked body leaves carry batch on axis 1."""
+    place; ``enc_len`` and the cross lines included). Stacked body leaves
+    carry batch on axis 1."""
     for key, v in cache.items():
         ones = tree_lib.tensors(one[key])
         for big, o in zip(tree_lib.tensors(v), ones):
@@ -351,31 +465,70 @@ def write_cache_slot(cache: Dict, one: Dict, slot: int) -> Dict:
     return cache
 
 
+def encode_into_cache(params: Dict, cache: Dict, enc_embeds: torch.Tensor,
+                      cfg: ModelConfig) -> Dict:
+    """Run the encoder once over ``enc_embeds`` (B, S_src, d) and write each
+    decoder layer's cross-attention K/V into positions [0, S_src) of its
+    ``"xk"``/``"xv"`` lines, and ``S_src`` into ``"enc_len"`` (in place).
+    The lines past ``S_src`` keep what they held: they stay masked."""
+    base = params["base"]
+    adapters = _adapters_or_empty(params)
+    enc_out = encode(base, adapters, enc_embeds.to(cfg.dtype), cfg)
+    s_src = enc_out.shape[1]
+    xcfg = _attn_cfg(cfg, "attn", cross=True)
+    layer_caches = _cache_layers(cache, cfg)
+    for i, lb, la, _ in _layers(base, adapters, cfg):
+        k, v = A.cross_kv(enc_out, lb["xattn"], la.get("xattn"), xcfg, cfg.adapter)
+        layer_caches[i]["xk"][:, :s_src] = k
+        layer_caches[i]["xv"][:, :s_src] = v
+    cache["enc_len"].fill_(s_src)
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # fused prefill
 # ---------------------------------------------------------------------------
 
 
 def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-            max_len: int) -> Tuple[torch.Tensor, Dict]:
+            max_len: int, enc_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict]:
     """One forward over the whole prompt: last-position logits
-    (B, 1, vocab) and a decode cache ready at ``pos = S``."""
+    (B, 1, vocab) and a decode cache ready at ``pos = S``. An
+    encoder-decoder config runs its encoder over ``enc_embeds`` first; the
+    cache then holds each layer's cross lines at the exact source length
+    and ``enc_len``."""
     base = params["base"]
     adapters = _adapters_or_empty(params)
     b, s = tokens.shape
     h = L.embed(tokens, base["embed"], scale_by_sqrt_dim=cfg.embed_scale)
     positions = torch.arange(s, device=h.device)[None]
-    cache = init_cache(cfg, b, max_len, h.device)
+    enc_out = None
+    if cfg.encoder_layers:
+        enc_out = encode(base, adapters, enc_embeds.to(h.dtype), cfg)
+    cache = init_cache(cfg, b, max_len, h.device,
+                       0 if enc_out is None else enc_out.shape[1])
+    if enc_out is not None:
+        cache["enc_len"].fill_(enc_out.shape[1])
     layer_caches = _cache_layers(cache, cfg)
+    xcfg = _attn_cfg(cfg, "attn", cross=True)
     for i, lb, la, (mixer, ffn) in _layers(base, adapters, cfg):
         acfg = _attn_cfg(cfg, mixer)
         x = _norm(h, lb["norm1"], cfg)
         mix, kv = A.attention(x, lb["mixer"], la.get("mixer"), acfg, cfg.adapter,
                               positions=positions, return_kv=True)
         layer = A.prefill_kv_cache(kv, b, max_len, acfg, cfg.dtype)
-        for name, buf in layer_caches[i].items():
-            buf.copy_(layer[name])
-        h = _ffn(h + mix, lb, la, cfg, ffn)
+        for name, buf in layer.items():
+            layer_caches[i][name].copy_(buf)
+        h = h + mix
+        if enc_out is not None and "xattn" in lb:
+            x = _norm(h, lb["norm_x"], cfg)
+            xa, xkv = A.attention(x, lb["xattn"], la.get("xattn"), xcfg, cfg.adapter,
+                                  kv_input=enc_out, return_kv=True)
+            h = h + xa
+            layer_caches[i]["xk"].copy_(xkv["k"])
+            layer_caches[i]["xv"].copy_(xkv["v"])
+        h = _ffn(h, lb, la, cfg, ffn)
     h = _norm(h, base["final_norm"], cfg)
     logits = _lm_head(h[:, -1:], base, adapters, cfg)
     return logits, cache
@@ -388,7 +541,9 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
 
 def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    """One batched decode tick; row ``b`` sits at clock ``pos[b]``."""
+    """One batched decode tick; row ``b`` sits at clock ``pos[b]``. The
+    cross-attention of an encoder-decoder config reads the cache's lines,
+    masked per row by ``cache["enc_len"]``."""
     base = params["base"]
     adapters = _adapters_or_empty(params)
     pos = A._as_pos_vector(pos, tokens.shape[0], tokens.device)
@@ -398,7 +553,8 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos,
         x = _norm(h, lb["norm1"], cfg)
         mix, _ = A.decode_attention(x, layer_caches[i], pos, lb["mixer"],
                                     la.get("mixer"), _attn_cfg(cfg, mixer), cfg.adapter)
-        h = _ffn(h + mix, lb, la, cfg, ffn)
+        h = _cross_cached(h + mix, layer_caches[i], cache.get("enc_len"), lb, la, cfg)
+        h = _ffn(h, lb, la, cfg, ffn)
     h = _norm(h, base["final_norm"], cfg)
     return _lm_head(h, base, adapters, cfg), cache
 
@@ -408,14 +564,25 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos,
 # ---------------------------------------------------------------------------
 
 
+def _cross_cached(h, cache_l, enc_len, b, a_, cfg: ModelConfig):
+    """The residual stream after a decoder layer's cross-attention against
+    its cached lines, if the layer has one."""
+    if "xattn" not in b or enc_len is None:
+        return h
+    x = _norm(h, b["norm_x"], cfg)
+    return h + A.cross_attention_cached(x, cache_l, enc_len, b["xattn"], a_.get("xattn"),
+                                        _attn_cfg(cfg, "attn", cross=True), cfg.adapter)
+
+
 def _chunk_block(h, cache_l, pos0, n_valid, b, a_, cfg: ModelConfig, mixer: str,
-                 ffn: str, *, max_len: int):
+                 ffn: str, *, max_len: int, enc_len=None):
     a_ = a_ or {}
     x = _norm(h, b["norm1"], cfg)
     mix, new_kv = A.chunk_attention(x, cache_l, pos0, n_valid, b["mixer"],
                                     a_.get("mixer"), _attn_cfg(cfg, mixer),
                                     cfg.adapter, max_len=max_len)
-    return _ffn(h + mix, b, a_, cfg, ffn), new_kv
+    h = _cross_cached(h + mix, cache_l, enc_len, b, a_, cfg)
+    return _ffn(h, b, a_, cfg, ffn), new_kv
 
 
 def _chunk_stack(params, h, cache, pos0, n_valid, cfg: ModelConfig, max_len: int):
@@ -425,7 +592,7 @@ def _chunk_stack(params, h, cache, pos0, n_valid, cfg: ModelConfig, max_len: int
     layer_caches = _cache_layers(cache, cfg)
     for i, lb, la, kind in _layers(base, adapters, cfg):
         h, _ = _chunk_block(h, layer_caches[i], pos0, n_valid, lb, la, cfg,
-                            *kind, max_len=max_len)
+                            *kind, max_len=max_len, enc_len=cache.get("enc_len"))
     return _norm(h, base["final_norm"], cfg), cache
 
 

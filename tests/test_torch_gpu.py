@@ -55,7 +55,13 @@ full-width leaves and at ragged shapes:
   adapters, within 1e-4 of absmax of the CPU's on the same parameters
   (TF32 off); the adapters' int8 PTQ bitwise the CPU's; ``run_cell`` on
   the card at the CI config with no kernel launch and the teacher and
-  student unchanged by calibration.
+  student unchanged by calibration;
+* the encoder-decoder family (seamless-m4t-large-v2): both tiled
+  tensor-core bodies at the encoder's leaves for its 4096- and 333-row
+  admissions (K up to 8192) against their plain versions, the ADC at its
+  unfused leaves there, and an engine drive of the full-width model at 2 +
+  2 layers with encoder inputs of four lengths on each body: exact
+  launches, ``compile_count`` 8 and flat.
 
 This file imports no jax, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -1419,7 +1425,7 @@ def test_rolling_chunk_steps_replay_bitwise(cuda):
     assert session.compile_count() == 3  # decode, chunks 32 and 8 (4 tokens)
     g = torch.Generator().manual_seed(3)
     for step in session.steps:
-        kind, _, _, width, _ = step.key
+        kind, _, _, width, *_ = step.key
         if kind != "prefill_chunk":
             continue
         for pos0, n in ((0, width), (12, min(width, 20)), (30, min(width, 9))):
@@ -1842,3 +1848,90 @@ def _leaves(tree):
             yield from _leaves(v)
     elif isinstance(tree, torch.Tensor) and tree.is_floating_point():
         yield tree
+
+
+# -- seamless-m4t-large-v2: the encoder's leaves at its admission rows and
+# an engine drive of the encoder-decoder model at 2 + 2 layers ---------------
+
+# its fused encoder leaves (name, K, N, fused rank) and unfused ones (ADC);
+# the cross-attention's k and v over the encoder's output have the o shape
+SEAMLESS_LEAVES = [("qkv", 1024, 3072, 24), ("o", 1024, 1024, 8), ("up", 1024, 8192, 8),
+                   ("down", 8192, 1024, 8)]
+SEAMLESS_ADC = [("qkvo", 1024, 1024), ("up", 1024, 8192), ("down", 8192, 1024)]
+# an encoder admission's rows: the reference ArchSpec's 4096 frames, a ragged count
+SEAMLESS_ENC_M = [4096, 333]
+
+
+@pytest.mark.parametrize("accum", ["f32", "int8"])
+@pytest.mark.parametrize("m", SEAMLESS_ENC_M)
+@pytest.mark.parametrize("leaf", SEAMLESS_LEAVES, ids=[lf[0] for lf in SEAMLESS_LEAVES])
+def test_tiled_at_the_encoder_admission(cuda, leaf, m, accum):
+    """Both tensor-core tiled bodies at the encoder's rows (K up to 8192)
+    against their plain versions, and bitwise repeatable."""
+    _, k, n, r = leaf
+    ops = operands(m, k, n, r, cuda, seed=m + k)
+    (_check if accum == "f32" else _check_int8)(K.dora_linear, ops)
+    assert torch.equal(K.dora_linear(*ops, accum=accum), K.dora_linear(*ops, accum=accum))
+
+
+@pytest.mark.parametrize("m", SEAMLESS_ENC_M)
+@pytest.mark.parametrize("leaf", SEAMLESS_ADC, ids=[lf[0] for lf in SEAMLESS_ADC])
+def test_adc_at_the_encoder_admission(cuda, leaf, m):
+    _, k, n = leaf
+    _check_adc(*operands(m, k, n, 1, cuda, seed=m + k)[:4])
+
+
+SEAMLESS_ENC_LENS = (128, 100, 33, 64)  # one per STEP_PROMPTS request
+
+
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_seamless_engine_drive_exact_launches(cuda, body):
+    """seamless-m4t-large-v2 at its widths and 2 + 2 layers: STEP_PROMPTS
+    with encoder inputs of 128, 100, 33 and 64 frames (cross lines of 128)
+    through a 4-slot engine, twice: exact launches (a step: 2 x (qkv, o,
+    cross q, cross o, up, down) + the head through the GEMV; an encoder
+    admission: 2 x (qkv, o, up, down) + 2 x (cross k, v), tiled above 64
+    frames; codes_adc every leaf unfused), ``compile_count`` 8 (decode,
+    three chunk buckets, an encoder admission a length) and flat, the same
+    streams and launches on the second drive."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment, ServeEngine
+
+    cfg = dataclasses.replace(get_arch("seamless-m4t-large-v2").full, n_layers=2,
+                              encoder_layers=2)
+    dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24)
+    if body == "codes_adc":
+        dep = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
+                         dep.teacher_seed, dep.program_seed, dep.drift_hours)
+    session = dep.serve(accum="int8") if body == "int8" else dep.serve()
+    g = torch.Generator().manual_seed(1)
+    encs = [torch.randn((n, cfg.d_model), generator=g).numpy() for n in SEAMLESS_ENC_LENS]
+    runs = []
+    for _ in range(2):
+        engine = ServeEngine(session, max_slots=4, max_len=64, src_len=128,
+                             prefix_cache_entries=0)
+        K.reset_launch_counts()
+        C.reset_launch_counts()
+        reqs = []
+        for n, e in zip(STEP_PROMPTS, encs):
+            reqs.append(engine.submit(torch.arange(n) % cfg.vocab, max_new=6, enc_embeds=e))
+            engine.step()
+        engine.run()
+        torch.cuda.synchronize()
+        assert all(r.done and len(r.tokens) == 6 for r in reqs)
+        steps = engine.stats()["prefill_chunks"] + engine.stats()["decode_steps"]
+        runs.append(([list(r.tokens) for r in reqs], {**K.launch_counts(), **C.launch_counts()},
+                     session.compile_count()))
+        del engine
+    short = sum(autotune.use_gemv(n) for n in SEAMLESS_ENC_LENS)
+    if body == "codes_adc":
+        want = {"crossbar_mvm": steps * (8 * 2 + 1) + 4 * (6 * 2 + 2 * 2)}
+    else:
+        sfx = "" if body == "f32" else "/int8"
+        want = {f"dora_linear_gemv{sfx}": steps * (6 * 2 + 1) + short * (4 * 2 + 2 * 2),
+                f"dora_linear{sfx}": (4 - short) * (4 * 2 + 2 * 2)}
+    counts = runs[0][1]
+    assert counts == {name: want.get(name, 0) for name in counts}, (counts, want)
+    assert runs[0][2] == 8 and runs[1] == runs[0]

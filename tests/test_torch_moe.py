@@ -440,23 +440,24 @@ def test_counts_match_reference(model):
 
 
 def test_unported_kinds_still_raise():
-    """MoE and MLA (deepseek-v2-lite) are ported; SSM, RG-LRU, encoder and
-    vision are not."""
+    """MoE, MLA (deepseek-v2-lite) and the encoder (seamless-m4t) are
+    ported; SSM, RG-LRU and vision are not."""
     cfg = t_arch("mixtral_8x22b").smoke
     TT._check_supported(cfg)
     for mixer in ("ssm", "rglru"):
         with pytest.raises(NotImplementedError, match="not ported"):
             TT._check_supported(dataclasses.replace(cfg, mixer_pattern=(mixer,)))
-    for attr in ("encoder_layers", "vision_tokens"):
-        bad = dataclasses.make_dataclass("Cfg", [(attr, int, dataclasses.field(default=2))],
-                                         bases=(type(cfg),), frozen=True)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TT._check_supported(bad(**_fields(cfg)))
+    bad = dataclasses.make_dataclass("Cfg", [("vision_tokens", int, dataclasses.field(default=2))],
+                                     bases=(type(cfg),), frozen=True)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TT._check_supported(bad(**_fields(cfg)))
 
-    for size in ("full", "smoke"):  # deepseek-v2-lite is accepted
+    for size in ("full", "smoke"):  # deepseek-v2-lite and seamless-m4t are accepted
         mla = getattr(t_arch("deepseek-v2-lite"), size)
         assert mla.attn.mla
         TT._check_supported(mla)
+        TT._check_supported(dataclasses.replace(cfg, encoder_layers=2))
+        TT._check_supported(getattr(t_arch("seamless-m4t-large-v2"), size))
 
 
 def _fields(obj):

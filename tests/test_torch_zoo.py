@@ -39,7 +39,8 @@ def _one_thread():
     torch.set_num_threads(prev)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("mixtral_8x22b", "deepseek_v2_lite_16b"))
+@pytest.mark.parametrize("arch", ARCHS + ("mixtral_8x22b", "deepseek_v2_lite_16b",
+                                          "seamless_m4t_large_v2"))
 def test_full_config_is_the_reference_s(arch):
     """Registered under both spellings, with the reference's FULL and
     SMOKE fields (the reference's ``remat`` and the layer kinds the port
