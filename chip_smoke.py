@@ -13,7 +13,8 @@ it programs, drifts, calibrates and serves mixtral-8x22b (mixture of
 experts, sliding window) at its full widths and 1 layer, then
 deepseek-v2-lite (multi-head latent attention, a dense first layer,
 shared experts) at its full widths and 3 layers, then the encoder-decoder
-seamless-m4t-large-v2 at its full widths and all 24 + 24 layers.
+seamless-m4t-large-v2 at its full widths and 8 + 8 layers, then the
+vision-prefix paligemma-3b at its full widths and all 18 layers.
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
@@ -287,8 +288,9 @@ Phases (any failure exits non-zero; no failure is caught):
                 (logits within LOGITS_BOUND, tokens equal or split at a
                 near-tie). Reported as phase 11's, the tick by class with
                 the tiled _kup_vup launches apart.
-  13. encdec — seamless-m4t-large-v2 at its published widths and all 24
-                encoder + 24 decoder layers (d 1024, 16 heads of 64, an
+  13. encdec — seamless-m4t-large-v2 at its published widths, the depth
+                cut from 24 + 24 to 8 encoder + 8 decoder layers (the
+                script's time limit) (d 1024, 16 heads of 64, an
                 ungated GELU MLP of 8192, LayerNorm, an untied head of
                 256206, DoRA rank 8): program -> advance(24) ->
                 calibrate(10, steps=20) (encoder inputs of 32 frames; phase
@@ -296,11 +298,11 @@ Phases (any failure exits non-zero; no failure is caught):
                 deployment, each through phase 5's drive with phase 5's
                 prompts, each request with an encoder input of 4096, 1000,
                 333 or 64 frames in cross lines of 4096 (the reference
-                ArchSpec's enc_src_len): exact launch counts (per step 145
-                GEMV launches, 24 x (qkv, o, cross q, cross o, up, down) +
-                the head; per encoder admission 144, 24 x (qkv, o, up, down)
-                + 24 x (cross k, v), tiled above 64 frames; codes_adc 193 and
-                192 unfused), compile_count 8 (decode, chunks 8, 16, 32 and
+                ArchSpec's enc_src_len): exact launch counts (per step 49
+                GEMV launches, 8 x (qkv, o, cross q, cross o, up, down) +
+                the head; per encoder admission 48, 8 x (qkv, o, up, down)
+                + 8 x (cross k, v), tiled above 64 frames; codes_adc 65 and
+                64 unfused), compile_count 8 (decode, chunks 8, 16, 32 and
                 an encoder admission per source length) and flat, every
                 replay bitwise its eager step (logits, self cache, cross
                 lines, enc_len), each slot's cross lines and enc_len bitwise
@@ -319,6 +321,40 @@ Phases (any failure exits non-zero; no failure is caught):
                 rows, K up to 8192; the decoder's and the head's through
                 both GEMVs at 4; the unfused ones through the ADC) and phase
                 4 times them.
+  14. vlm    — paligemma-3b at its published widths and all 18 layers
+                (d 2048, 8 heads of 256 and one KV head, a gated tanh-GELU
+                MLP of 16384, RMSNorm, embed_scale, a tied head of 257216,
+                DoRA rank 8, 256 patches of a stubbed SigLIP tower ahead of
+                the text, attending to each other bidirectionally):
+                program -> advance(24) -> calibrate(10, steps=20) (each
+                32-token sample behind its own 256 patches; phase 11's
+                gates) -> serve(), serve(accum="int8") and a codes_adc
+                deployment, each through phase 5's drive with phase 5's
+                prompts, the first three behind an image each and the last
+                text-only, in an engine of 384 positions: exact launch
+                counts (72 GEMV launches a tick or text chunk, 72 tiled a
+                vision admission and the fused prefill, 18 x (qkv, o,
+                gate_up, down); codes_adc 126 a forward, unfused),
+                prefill_chunks the 5 text chunks and 3 vision units,
+                compile_count 5 (decode, chunks 8, 16, 32 and the vision
+                admission) and flat, every replay bitwise its eager step
+                (the vision step's included), each image slot's K/V at
+                [0, 256) bitwise prefill_vision alone, codes vs dequant
+                within LOGITS_BOUND (a fused prefill of 3 x 32 tokens behind
+                3 images, and chunks after a vision admission), int8 vs f32
+                within INT8_LOGITS_BOUND, each image stream against its
+                request served alone (admission logits within LOGITS_BOUND
+                of the fused prefill's; generate(patch_embeds=)'s tokens
+                equal or split at a near-tie; codes_adc reported), a full
+                prefix hit bitwise the cold admission and chains disjoint
+                when only the image differs. Reported: the tick captured vs
+                eager, tok/s, TTFT with each vision admission's ms apart,
+                the tick's and a vision admission's device time by class,
+                calibrate seconds and step ms, peak and retained memory.
+                Phase 3 holds its leaves (the fused ones through both tiled
+                bodies at 256 rows, down at K 16384 also against float64,
+                and both GEMVs at 4; the unfused ones through the ADC at 4
+                and 256) and phase 4 times them.
 The last line is the contract line; the line before it the kernel table,
 where ``dora_linear_narrow`` is the fused linear's narrow body: its
 launches are the f32 body's f32-x launches of phases 5, 11 and 12 (the
@@ -328,8 +364,9 @@ count, and its times are mixtral's router at the decode tick (M = 4);
 are the ``crossbar_mvm`` f32-x launches of phases 5, 11 and 12, which the
 ``crossbar_mvm`` row does not count. The launches of ``dora_linear`` and
 ``dora_linear/int8`` include phase 12's tiled _kup_vup launches in every
-decode tick and chunk and phase 13's encoder admissions; every entry's,
-phase 13's launches.
+decode tick and chunk, phase 13's encoder admissions and phase 14's vision
+admissions and fused prefill; every entry's, phases 13's and 14's
+launches.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -506,9 +543,11 @@ MLA_DECODE_POS = (40, 57, 90, ENGINE_MAX_LEN - 1)
 KUP_VUP = ("kup_vup", 512, 4096, 16)
 KUP_VUP_M = (SLOTS * ENGINE_MAX_LEN, ENGINE_MAX_LEN)
 ADC_KUP = ("k_up", 512, 2048)
-# phase 13: seamless-m4t-large-v2 at its published widths and all 24 + 24
-# layers; phase 5's traffic, each request with an encoder input of its own
-# length, in cross lines of the reference ArchSpec's 4096 source frames
+# phase 13: seamless-m4t-large-v2 at its published widths, the depth cut
+# from 24 + 24 layers to 8 + 8 (the script's time limit: phase 14 runs
+# after it); phase 5's traffic, each request with an encoder input of its
+# own length, in cross lines of the reference ArchSpec's 4096 source frames
+ENCDEC_LAYERS = 8
 ENCDEC_SRC_LEN = 4096
 ENCDEC_ENC_LENS = (4096, 1000, 333, 64)
 # the fused prefill's encoder input (3 rows of 64 frames: 192 encoder rows)
@@ -538,6 +577,26 @@ ENCDEC_HEAD = ("head", 1024, 256206, 8)
 # the encoder admission's rows through the tiled bodies and the ADC: the
 # longest input and a ragged one
 ENCDEC_ENC_M = (ENCDEC_SRC_LEN, 333)
+# phase 14: paligemma-3b at its published widths and all 18 layers; phase
+# 5's traffic, the first three requests behind an image of 256 patches and
+# the last text-only, in an engine of 384 positions (256 + 40 + 16 fit)
+VLM_MAX_LEN = 384
+VLM_IMAGES = (True, True, True, False)
+# the steps phase 14's traffic compiles per session: phase 5's four and the
+# vision admission
+VLM_COMPILED_STEPS = COMPILED_STEPS + 1
+# the fused prefill: 3 x 32 tokens, each row behind its own 256 patches
+# (864 rows), in a cache of 320 positions
+VLM_PREFILL_MAX_LEN = 320
+# its fused serve leaves (name, K, N, fused rank): 8 query heads of 256 and
+# one KV head, the gated MLP of 16384 (the largest K yet)
+VLM_LEAVES = [("qkv", 2048, 2560, 24), ("o", 2048, 2048, 8), ("gate_up", 2048, 32768, 16),
+              ("down", 16384, 2048, 8)]
+# the unfused leaves (codes_adc): q and o, k and v, gate and up, down
+VLM_ADC_LEAVES = [("q/o", 2048, 2048), ("k/v", 2048, 256), ("gate/up", 2048, 16384),
+                  ("down", 16384, 2048)]
+# the rows of the decode tick and of a vision admission
+VLM_M = (SLOTS, 256)
 # phase 7: the paper's calibration set (10 samples of 32 tokens) and the
 # reference's calibrate defaults (20 steps, lr 1e-3)
 CALIB_SAMPLES, CALIB_SEQ, CALIB_STEPS = 10, 32, 20
@@ -1010,7 +1069,80 @@ def phase_kernels(device):
     adc_narrow_checks(device, worst)
     kup_vup_checks(device, worst)
     encdec_checks(device, worst)
+    vlm_checks(device, worst)
     return worst
+
+
+def f64_errors(got, ops):
+    """max |err| of a fused-linear result and of its plain version, each
+    against a float64 evaluation of the same formula on the same inputs."""
+    from repro_torch.kernels import ref
+
+    x, gp, gn, scale, a, b, gamma = (t.double() for t in ops)
+    exact = ((x @ ((gp - gn) * scale)) + (x @ a) @ b) * gamma
+    plain = ref.dora_linear_ref(*ops).double()
+    return float((got.double() - exact).abs().max()), float((plain - exact).abs().max())
+
+
+def vlm_checks(device, worst):
+    """paligemma-3b's leaves (phase 14) against their plain versions: the
+    fused leaves through both tiled bodies at a vision admission's 256
+    rows (``down`` at K 16384) and through both GEMV bodies at the decode
+    tick's 4, each twice and bitwise equal; the f32 results at K 16384 also
+    against a float64 evaluation beside the plain version's (reported);
+    the unfused leaves through the ADC at both row counts. Each leaf's
+    error goes into ``worst["paligemma"]``."""
+    from repro_torch.kernels import autotune, ref
+    from repro_torch.kernels import crossbar_mvm as C
+    from repro_torch.kernels import dora_linear as K
+
+    f64, errs = {}, {}
+    worst["paligemma"] = {"max_abs_err": errs, "k16384_vs_f64": f64}
+    for m in VLM_M:
+        for name, k, n, r in VLM_LEAVES:
+            ops = operands(m, k, n, r, device, seed=m + k + n + 1)
+            kind = "dora_linear_gemv" if autotune.use_gemv(m) else "dora_linear"
+            fn = getattr(K, kind)
+            for accum in autotune.ACCUMS:
+                got, again = fn(*ops, accum=accum), fn(*ops, accum=accum)
+                torch.cuda.synchronize()
+                err, ok, note = _vs_plain(got, ops, accum)
+                same = torch.equal(got, again)
+                if accum == "f32" and k == 16384:
+                    f64[kind] = f64_errors(got, ops)
+                    note += (f" (vs float64: kernel {f64[kind][0]:.3e}, plain "
+                             f"{f64[kind][1]:.3e})")
+                ok = ok and same
+                key = K.counter(kind, accum)
+                log(f"[kernels] {key:22s} paligemma {name:7s} M={m:4d} K={k:5d} N={n:6d} "
+                    f"r={r:2d} max|err|={err:.3e}{note} repeat "
+                    f"{'bitwise' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    _fail(f"{key} at paligemma {(m, k, n, r)}",
+                          f"max|err| {err}, repeat bitwise {same}")
+                worst[key] = max(worst[key], err)
+                errs[f"{key} {name} M={m}"] = err
+            del ops, got, again
+    for m in VLM_M:
+        for name, k, n in VLM_ADC_LEAVES:
+            x, gp, gn, scale, *_ = operands(m, k, n, 1, device, seed=m + k + 1)
+            want = ref.crossbar_mvm_ref(x, gp, gn, scale)
+            got, again = C.crossbar_mvm(x, gp, gn, scale), C.crossbar_mvm(x, gp, gn, scale)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            bad, flips = ref.adc_disagreement(got, want, x, scale, rtol=ADC_RTOL, atol=ADC_ATOL)
+            same = torch.equal(got, again)
+            ok = bad == 0 and flips <= ADC_FLIP_SHARE * got.numel() and same
+            log(f"[kernels] crossbar_mvm           paligemma {name:7s} M={m:4d} K={k:5d} "
+                f"N={n:6d} parts {autotune.adc_plan(m, k, n)} max|err|={err:.3e} one-step "
+                f"flips {flips}/{got.numel()} repeat {'bitwise' if same else 'DIFFERS'} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                _fail(f"crossbar_mvm at paligemma {(m, k, n)}",
+                      f"{bad} off, {flips} flips, repeat bitwise {same}")
+            worst["crossbar_mvm"] = max(worst["crossbar_mvm"], err)
+            errs[f"crossbar_mvm {name} M={m}"] = err
+            del x, gp, gn, want, got, again
 
 
 def encdec_checks(device, worst):
@@ -1457,8 +1589,10 @@ def phase_timing(device):
     timed += [(("s-" + name, k, n, r), (SLOTS, *ENCDEC_ENC_M))
               for name, k, n, r in ENCDEC_LEAVES]
     timed += [(("s-" + ENCDEC_HEAD[0], *ENCDEC_HEAD[1:]), (SLOTS,))]
+    # paligemma-3b's (phase 14): at the decode tick and a vision admission
+    timed += [(("p-" + name, k, n, r), VLM_M) for name, k, n, r in VLM_LEAVES]
     for (name, k, n, r), row_counts in timed:
-        kup = name == KUP_VUP[0] or name.startswith("s-")
+        kup = name == KUP_VUP[0] or name.startswith(("s-", "p-"))
         for m in row_counts:
             ops = [operands(m, k, n, r, device, seed=i)
                    for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
@@ -1486,7 +1620,9 @@ def phase_timing(device):
                                      + [(ADC_KUP, KUP_VUP_M[:1])]
                                      + [(("s-" + leaf[0], *leaf[1:]), (SLOTS, *ENCDEC_ENC_M))
                                         for leaf in ENCDEC_ADC_LEAVES]
-                                     + [(("s-" + ENCDEC_HEAD[0], *ENCDEC_HEAD[1:3]), (SLOTS,))]):
+                                     + [(("s-" + ENCDEC_HEAD[0], *ENCDEC_HEAD[1:3]), (SLOTS,))]
+                                     + [(("p-" + leaf[0], *leaf[1:]), VLM_M)
+                                        for leaf in VLM_ADC_LEAVES]):
         for m in row_counts:
             ops = [operands(m, k, n, 1, device, seed=i)[:4]
                    for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
@@ -1651,16 +1787,16 @@ def serving_inputs(vocab, seed, device):
     return prompts, tokens, g
 
 
-def time_prefill(session, tokens, reps=1, enc=None):
+def time_prefill(session, tokens, reps=1, enc=None, patches=None, max_len=PREFILL_MAX_LEN):
     """Wall time of each of ``reps`` fused prefills (after the encoder over
-    ``enc``, for an encoder-decoder config) on the device's clock (CUDA
-    events around the whole eager call, host launch gaps included), and
-    the last one's logits."""
+    ``enc``, for an encoder-decoder config; behind ``patches``, for a vision
+    config) on the device's clock (CUDA events around the whole eager
+    call, host launch gaps included), and the last one's logits."""
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     times = []
     for _ in range(reps):
         start.record()
-        logits, _ = session.prefill(tokens, PREFILL_MAX_LEN, enc)
+        logits, _ = session.prefill(tokens, max_len, enc, patches)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
@@ -1688,11 +1824,13 @@ def eager_steps():
         serving.CompiledStep.__call__ = call
 
 
-def engine_run(session, prompts, max_new, max_len=ENGINE_MAX_LEN, encs=None, src_len=0):
+def engine_run(session, prompts, max_new, max_len=ENGINE_MAX_LEN, encs=None, src_len=0,
+               pes=None):
     """Phase 5's engine traffic once: ragged greedy requests through a
     4-slot ServeEngine (submitted one per tick; with ``encs``, each with its
-    encoder input, in cross lines of ``src_len``), the launch counters reset
-    just before and read just after."""
+    encoder input, in cross lines of ``src_len``; with ``pes``, each behind
+    its image or none), the launch counters reset just before and read
+    just after."""
     from repro_torch.deploy import ServeEngine
 
     engine = ServeEngine(session, max_slots=SLOTS, max_len=max_len, src_len=src_len)
@@ -1702,7 +1840,8 @@ def engine_run(session, prompts, max_new, max_len=ENGINE_MAX_LEN, encs=None, src
     t0 = time.perf_counter()
     for i, p in enumerate(prompts):
         reqs.append(engine.submit(p.numpy(), max_new=max_new,
-                                  enc_embeds=None if encs is None else encs[i]))
+                                  enc_embeds=None if encs is None else encs[i],
+                                  patch_embeds=None if pes is None else pes[i]))
         engine.step()
     engine.run()
     torch.cuda.synchronize()
@@ -1742,7 +1881,7 @@ def replay_vs_eager(session, seed=3, decode_pos=None):
         if kind == "decode":
             pos = torch.arange(batch) * 10 + 40 if decode_pos is None else decode_pos
             host = torch.stack([torch.randint(0, vocab, (batch,), generator=g), pos])
-        elif kind == "encode":  # fresh frames; the output is enc_len, the cache its lines
+        elif kind in ("encode", "prefill_vision"):  # fresh frames or patches
             host = torch.randn(tuple(step.inputs.shape), generator=g)
         else:
             host = torch.cat([torch.randint(0, vocab, (width,), generator=g),
@@ -1821,7 +1960,8 @@ def memory():
 
 
 def drive(session, prompts, tokens, max_new, max_len=ENGINE_MAX_LEN, compiled=None,
-          decode_pos=None, encs=None, src_len=0, prefill_enc=None):
+          decode_pos=None, encs=None, src_len=0, prefill_enc=None, pes=None,
+          prefill_patches=None, prefill_max_len=PREFILL_MAX_LEN):
     """The phase-5 traffic on one session: the engine traffic through the
     compiled steps (the first call of each step eager, then captured), then
     one fused prefill (eager), the launch counters reset before and read
@@ -1832,18 +1972,21 @@ def drive(session, prompts, tokens, max_new, max_len=ENGINE_MAX_LEN, compiled=No
     ``max_len`` is the engines' cache length; ``compiled`` the steps the
     traffic compiles (phase 5's ``COMPILED_STEPS`` by default); ``encs``
     the requests' encoder inputs, ``src_len`` their cross lines' extent and
-    ``prefill_enc`` the fused prefill's (an encoder-decoder config)."""
+    ``prefill_enc`` the fused prefill's (an encoder-decoder config); ``pes``
+    the requests' images, ``prefill_patches`` the fused prefill's and
+    ``prefill_max_len`` its cache length (a vision config)."""
     compiled = COMPILED_STEPS if compiled is None else compiled
-    runs = dict(max_len=max_len, encs=encs, src_len=src_len)
+    runs = dict(max_len=max_len, encs=encs, src_len=src_len, pes=pes)
+    prefill = dict(enc=prefill_enc, patches=prefill_patches, max_len=prefill_max_len)
     mem0 = memory()
     cold = engine_run(session, prompts, max_new, **runs)
     mem1 = memory()
     reset_counts()
-    (prefill_ms,), logits = time_prefill(session, tokens, enc=prefill_enc)
+    (prefill_ms,), logits = time_prefill(session, tokens, **prefill)
     prefill_counts = read_counts()
     counts = {k: cold["launches"][k] + n for k, n in prefill_counts.items()}
     # again, uncounted, now that every shape has been seen once
-    warm_prefill, _ = time_prefill(session, tokens, reps=3, enc=prefill_enc)
+    warm_prefill, _ = time_prefill(session, tokens, reps=3, **prefill)
     assert torch.isfinite(logits.float()).all()
     assert cold["compile_count"] == session.compile_count() == compiled
 
@@ -1904,20 +2047,25 @@ def compare_logits(label, a, b, bound=None):
     return {"max_abs_diff": err, "absmax": scale, "rel": err / scale, "top1_agree": top1}
 
 
-def codes_vs_dequant(session, logits, tokens, g, device, enc=None):
+def codes_vs_dequant(session, logits, tokens, g, device, enc=None, patches=None,
+                     max_len=PREFILL_MAX_LEN):
     """The session's fused-prefill ``logits`` (codes) against the same
     prefill under ``dequant``, then one admission chunk per GEMV row bucket
     the engine pads to (5, 9 and 17 valid tokens -> 8, 16 and 32 rows),
     codes vs dequant, each within ``LOGITS_BOUND``. An encoder-decoder
     config's prefill runs its encoder over ``enc`` and each chunk follows
-    the encoder admission of ``enc``'s first row, under the same backend."""
+    the encoder admission of ``enc``'s first row, under the same backend;
+    a vision config's prefill runs behind ``patches`` and each chunk
+    follows the vision admission of ``patches``' first row, at its
+    positions. ``max_len`` is the caches' length."""
     from repro_torch import substrate
     from repro_torch.models import transformer as T
 
     cfg = session.cfg
     src = 0 if enc is None else enc.shape[1]
+    pos0 = 0 if patches is None else patches.shape[1]
     with substrate.use_backend("dequant"), torch.no_grad():
-        ref_logits, _ = T.prefill(session.params, tokens, cfg, PREFILL_MAX_LEN, enc)
+        ref_logits, _ = T.prefill(session.params, tokens, cfg, max_len, enc, patches)
     prefill = compare_logits("codes vs dequant prefill logits", logits, ref_logits,
                              LOGITS_BOUND)
     del ref_logits
@@ -1928,13 +2076,15 @@ def codes_vs_dequant(session, logits, tokens, g, device, enc=None):
         toks[0, :n] = torch.randint(0, cfg.vocab, (n,), generator=g)
         out = {}
         for backend in ("codes", "dequant"):
-            cache = T.init_cache(cfg, 1, PREFILL_MAX_LEN, device, src)
+            cache = T.init_cache(cfg, 1, max_len, device, src)
             with substrate.use_backend(backend), torch.no_grad():
                 if enc is not None:
                     T.encode_into_cache(session.params, cache, enc[:1], cfg)
+                if patches is not None:
+                    T.prefill_vision(session.params, patches[:1], cache, cfg, max_len)
                 out[backend], _ = T.prefill_chunk(
-                    session.params, toks, cache, torch.tensor([0], device=device),
-                    torch.tensor([n], device=device), cfg, PREFILL_MAX_LEN)
+                    session.params, toks, cache, torch.tensor([pos0], device=device),
+                    torch.tensor([n], device=device), cfg, max_len)
         chunk_errs[width] = compare_logits(
             f"codes vs dequant admission chunk of {n} tokens ({width} rows)",
             out["codes"], out["dequant"], LOGITS_BOUND)["rel"]
@@ -3838,7 +3988,7 @@ def phase_moe(device, seed, cell):
 
 # ---------------------------------------------------------------------------
 # phase 13: the encoder-decoder family, seamless-m4t-large-v2 at its full
-# 24 + 24 layers
+# widths and 8 + 8 layers
 # ---------------------------------------------------------------------------
 
 # kernel classes of a decode tick's and an encoder admission's profile
@@ -4012,39 +4162,39 @@ def encdec_alone(session, prompts, encs, streams, gated):
     return out
 
 
-def encdec_prefix(session, prompt, enc, other):
-    """A request (``prompt`` with encoder input ``enc``) admitted cold on an
-    engine with the prefix cache, then again: a full hit that runs no chunk
-    and no encoder admission, bitwise the cold admission (the staged cache,
-    cross lines and ``enc_len`` included, and the admission logits); then
-    the same prompt with the encoder input ``other``: no hit, and a hash
-    chain that shares no key with the first."""
+def prefix_full_hit(session, tag, prompt, x, other, field, unit, **engine_kw):
+    """A request (``prompt`` with the input ``x`` as its ``field``: an
+    encoder input or an image) admitted cold on an engine with the prefix
+    cache, then again: a full hit that runs no chunk and not the engine's
+    ``unit`` (its encoder or vision admission), bitwise the cold admission
+    (the staged cache, the admission logits; the same tokens); then the
+    same prompt with the input ``other``: no hit, and a hash chain that
+    shares no key with the first. ``engine_kw`` sizes the engine."""
     from repro_torch.deploy import ServeEngine
 
-    engine = ServeEngine(session, max_slots=SLOTS, max_len=ENGINE_MAX_LEN,
-                         src_len=ENCDEC_SRC_LEN)
+    engine = ServeEngine(session, max_slots=SLOTS, **engine_kw)
     staged, finalize = [], engine._finalize_admission
-    encodes, encode = [], engine._encode
+    units, run_unit = [], getattr(engine, unit)
     engine._finalize_admission = lambda slot, req: (
         staged.append((engine._staging_flat.clone(), req._logits.clone())), finalize(slot, req))
-    engine._encode = lambda req: (encodes.append(req.rid), encode(req))
+    setattr(engine, unit, lambda req: (units.append(req.rid), run_unit(req)))
     reqs = []
-    for e in (enc, enc, other):
-        reqs.append(engine.submit(prompt.numpy(), max_new=MAX_NEW, enc_embeds=e))
+    for e in (x, x, other):
+        reqs.append(engine.submit(prompt.numpy(), max_new=MAX_NEW, **{field: e}))
         engine.run()
     chains = [set(engine._hash_chain(r)) for r in (reqs[0], reqs[2])]
     hits = [r.prefix_hit_tokens for r in reqs]
     bitwise = (all(torch.equal(a, b) for a, b in zip(staged[0], staged[1]))
                and reqs[0].tokens == reqs[1].tokens)
-    result = {"prefix_hit_tokens": hits, "encodes": len(encodes), "full_hit_bitwise": bitwise,
+    result = {"prefix_hit_tokens": hits, "units": len(units), "full_hit_bitwise": bitwise,
               "chains_disjoint": not chains[0] & chains[1],
               "prefix_cache_bytes": engine.prefix_cache_bytes()}
-    log(f"[encdec] {session.options or 'f32'} {session.backend}: prefix cache, the same request "
-        f"twice then another encoder input: reused tokens {hits}, {len(encodes)} encoder "
-        f"admissions, full hit {'bitwise' if bitwise else 'DIFFERS from'} the cold admission, "
-        f"chains {'disjoint' if result['chains_disjoint'] else 'SHARE keys'}; cache "
+    log(f"[{tag}] {session.options or 'f32'} {session.backend}: prefix cache, the same request "
+        f"twice then another {field}: reused tokens {hits}, {len(units)} {unit} units, full hit "
+        f"{'bitwise' if bitwise else 'DIFFERS from'} the cold admission, chains "
+        f"{'disjoint' if result['chains_disjoint'] else 'SHARE keys'}; cache "
         f"{result['prefix_cache_bytes'] / 2**20:.1f} MiB")
-    assert hits == [0, len(prompt), 0] and len(encodes) == 2, result
+    assert hits == [0, len(prompt), 0] and len(units) == 2, result
     assert bitwise and result["chains_disjoint"], result
     del engine, staged
     return result
@@ -4092,7 +4242,7 @@ def encdec_serve_checked(dep, seed):
     dequant within ``LOGITS_BOUND``, int8 vs f32 within
     ``INT8_LOGITS_BOUND``, ADC vs f32 reported; the slots' cross lines
     (``encdec_admissions``), the streams against the requests served alone
-    (``encdec_alone``), a full prefix hit (``encdec_prefix``) and the
+    (``encdec_alone``), a full prefix hit (``prefix_full_hit``) and the
     profiles (``encdec_profiles``)."""
     from repro_torch.deploy import Deployment
 
@@ -4136,7 +4286,9 @@ def encdec_serve_checked(dep, seed):
         run["admissions"] = encdec_admissions(session, prompts, encs)
         run["alone"] = encdec_alone(session, prompts, encs, run["streams"],
                                     gated=body != "codes_adc")
-        run["prefix"] = encdec_prefix(session, prompts[2], encs[2], -encs[2])
+        run["prefix"] = prefix_full_hit(session, "encdec", prompts[2], encs[2], -encs[2],
+                                        "enc_embeds", "_encode", max_len=ENGINE_MAX_LEN,
+                                        src_len=ENCDEC_SRC_LEN)
         run["trace"] = encdec_profiles(session, body)
         assert session.compile_count() == ENCDEC_COMPILED_STEPS, session.compile_count()
         run["retained_bytes"] = memory()
@@ -4157,8 +4309,9 @@ def encdec_serve_checked(dep, seed):
 
 
 def phase_encdec(device, seed):
-    """Phase 13: seamless-m4t-large-v2 at its FULL config (all 24 + 24
-    layers). ``Deployment.program(codes)`` -> ``advance(24)`` ->
+    """Phase 13: seamless-m4t-large-v2 at its FULL widths, the depth cut to
+    ``ENCDEC_LAYERS`` + ``ENCDEC_LAYERS`` layers (from 24 + 24).
+    ``Deployment.program(codes)`` -> ``advance(24)`` ->
     ``calibrate(10, steps=20)`` (encoder inputs at the calibration length)
     -> the three sessions' serving checks. Every check raises."""
     from repro_torch.configs import get_arch
@@ -4168,6 +4321,7 @@ def phase_encdec(device, seed):
     t_phase = time.perf_counter()
     cfg = get_arch(ENCDEC_CELL.arch).full
     assert (cfg.encoder_layers, cfg.n_layers) == (24, 24)
+    cfg = dataclasses.replace(cfg, n_layers=ENCDEC_LAYERS, encoder_layers=ENCDEC_LAYERS)
     memory()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4181,7 +4335,7 @@ def phase_encdec(device, seed):
               "rram_bytes": dep.rram_bytes(), "sram_bytes": dep.sram_bytes(),
               "teacher_bytes": tree_bytes(dep.teacher_base),
               "resident_allocated_bytes": allocated, "resident_reserved_bytes": reserved}
-    log(f"[encdec] {cfg.name} at all {cfg.encoder_layers} + {cfg.n_layers} layers: {n_base:,} "
+    log(f"[encdec] {cfg.name} at {cfg.encoder_layers} + {cfg.n_layers} layers: {n_base:,} "
         f"weights, {n_adapters:,} side-car parameters; program + advance(24) {t_setup:.2f} s; "
         f"resident {allocated / 2**30:.2f} GiB (teacher {result['teacher_bytes'] / 2**30:.2f}, "
         f"codes {result['rram_bytes'] / 2**30:.2f})")
@@ -4198,23 +4352,343 @@ def phase_encdec(device, seed):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the vision prefix, paligemma-3b at its full 18 layers
+# ---------------------------------------------------------------------------
+
+VLM_CELL = dataclasses.make_dataclass("VlmCell", ["tag", "arch"])("vlm", "paligemma-3b")
+
+
+def vlm_counts(cfg, steps, visions, prefill, body):
+    """The exact launches of ``steps`` engine steps (decode ticks and text
+    chunks, at most 32 rows: the GEMV launcher), ``visions`` vision
+    admissions (256 rows: tiled) and, with ``prefill``, one fused prefill
+    (3 x (256 + 32) rows: tiled). Each runs per layer the fused qkv, o,
+    gate_up and down; the head is tied, a plain matmul. codes_adc runs
+    every leaf unfused: q, k, v, o, gate, up and down."""
+    forwards = steps + visions + prefill
+    if body == "codes_adc":
+        return {"crossbar_mvm": 7 * cfg.n_layers * forwards}
+    sfx = "" if body == "f32" else "/int8"
+    return {f"dora_linear_gemv{sfx}": 4 * cfg.n_layers * steps,
+            f"dora_linear{sfx}": 4 * cfg.n_layers * (visions + prefill)}
+
+
+def vlm_traffic(cfg, seed, device):
+    """Phase 14's traffic, drawn from ``seed``: phase 5's ragged prompts,
+    the requests' images (``cfg.vision_tokens`` patches, bf16 values as
+    numpy f32: the bytes the engine's hash chain reads; None for the
+    text-only request), the fused prefill's tokens and patches, and the
+    generator."""
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in PROMPT_LENS]
+    pes = [torch.randn((cfg.vision_tokens, cfg.d_model), generator=g).to(torch.bfloat16)
+           .float().numpy() if image else None for image in VLM_IMAGES]
+    tokens = torch.randint(0, cfg.vocab, (3, PREFILL_ROWS // 3), generator=g).to(device)
+    patches = torch.randn((3, cfg.vision_tokens, cfg.d_model), generator=g)
+    return prompts, pes, tokens, patches.to(device, torch.bfloat16), g
+
+
+def vlm_admissions(session, prompts, pes):
+    """The traffic once more through a 4-slot engine (warm graphs), each
+    request's vision unit timed apart (CUDA events around the engine's
+    ``_vision``), and each image slot's K/V at [0, P) in the first and the
+    last layer, as admitted, against ``prefill_vision`` of its patches
+    alone, run eagerly on a fresh batch-1 cache: bitwise."""
+    from repro_torch.deploy import ServeEngine
+    from repro_torch.interop import to_tensor
+    from repro_torch.models import transformer as T
+
+    cfg, p_ = session.cfg, session.cfg.vision_tokens
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=VLM_MAX_LEN)
+    vision, finalize = engine._vision, engine._finalize_admission
+    vision_ms, rows = {}, {}
+
+    def timed_vision(req):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        vision(req)
+        end.record()
+        torch.cuda.synchronize()
+        vision_ms[req.rid] = start.elapsed_time(end)
+
+    def record(slot, req):
+        finalize(slot, req)
+        layers = T._cache_layers(engine.cache, cfg)
+        rows[req.rid] = [layers[i][name][slot, :p_].clone()
+                         for i in (0, -1) for name in ("k", "v")]
+
+    engine._vision, engine._finalize_admission = timed_vision, record
+    reqs = []
+    for p, pe in zip(prompts, pes):
+        reqs.append(engine.submit(p.numpy(), max_new=MAX_NEW, patch_embeds=pe))
+        engine.step()
+    engine.run()
+    del engine, vision, finalize, timed_vision, record
+    gc.collect()
+    equal = []
+    for req, pe in zip(reqs, pes):
+        if pe is None:
+            continue
+        cache = T.init_cache(cfg, 1, VLM_MAX_LEN, session.device)
+        with session.scope(), torch.no_grad():
+            T.prefill_vision(session.params, to_tensor(pe, session.device)[None], cache, cfg,
+                             VLM_MAX_LEN)
+        layers = T._cache_layers(cache, cfg)
+        want = [layers[i][name][0, :p_] for i in (0, -1) for name in ("k", "v")]
+        equal.append(all(torch.equal(a, b) for a, b in zip(rows[req.rid], want)))
+        del cache, layers, want
+    log(f"[vlm] {session.options or 'f32'} {session.backend}: vision admissions "
+        + ", ".join(f"{vision_ms[r.rid]:.2f} ms" for r in reqs if r.rid in vision_ms)
+        + " (warm graphs); each image slot's K/V at [0, P) vs prefill_vision alone: "
+        + ", ".join("bitwise" if ok else "DIFFER" for ok in equal))
+    assert all(equal) and len(vision_ms) == sum(VLM_IMAGES), (equal, vision_ms)
+    return {"vision_ms": [vision_ms.get(r.rid) for r in reqs],
+            "ttft_s": [r.ttft_seconds for r in reqs], "prefix_rows_bitwise": equal}
+
+
+def vlm_alone(session, prompts, pes, streams, gated):
+    """Each image stream against its request served alone. Alone, eagerly:
+    a fused prefill behind its patches, then batch-1 ``decode_step`` calls
+    fed the engine's tokens; the engine's admission logits (recorded in a
+    warm engine run) against the prefill's within ``LOGITS_BOUND`` of
+    absmax. Through ``ServeSession.generate(patch_embeds=)``: its tokens
+    equal to the engine's, or, at the first split, both tokens within
+    ``LOGITS_BOUND`` of absmax below the top logit of the eager alone row
+    there (a near-tie; the two streams share their history up to it).
+    ``gated`` False (codes_adc: the ADC digitizes a tile of rows at one
+    step from their max |x|, so a row served with others is another
+    computation) reports them."""
+    from repro_torch.deploy import ServeEngine
+    from repro_torch.interop import to_tensor
+    from repro_torch.models import transformer as T
+
+    cfg, device, p_ = session.cfg, session.device, session.cfg.vision_tokens
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=VLM_MAX_LEN)
+    admitted, finalize = {}, engine._finalize_admission
+    engine._finalize_admission = lambda slot, req: (
+        admitted.__setitem__(req.rid, req._logits[0, -1].float().clone()), finalize(slot, req))
+    for p, pe in zip(prompts, pes):
+        engine.submit(p.numpy(), max_new=MAX_NEW, patch_embeds=pe)
+        engine.step()
+    engine.run()
+    del engine, finalize
+    gc.collect()
+    out = []
+    for rid, (p, pe, stream) in enumerate(zip(prompts, pes, streams)):
+        if pe is None:
+            continue
+        label = f"paligemma {session.options or 'f32'} {session.backend} request {rid}"
+        rows = []
+        with session.scope(), torch.no_grad():
+            logits, cache = T.prefill(session.params, p[None].to(device), cfg, VLM_MAX_LEN,
+                                      patch_embeds=to_tensor(pe, device)[None])
+            versus = compare_logits(f"{label} ({len(p)} tokens behind {p_} patches): engine "
+                                    "admission vs served alone", admitted[rid],
+                                    logits[0, -1], LOGITS_BOUND if gated else None)
+            for i, want in enumerate(stream):
+                rows.append(logits[0, -1].float().cpu())
+                if i + 1 < len(stream):
+                    tok_in = torch.tensor([[want]], device=device)
+                    logits, cache = T.decode_step(session.params, cache, tok_in,
+                                                  p_ + len(p) + i, cfg)
+        del cache, logits
+        alone, _ = session.generate(p[None], gen_len=MAX_NEW, patch_embeds=pe[None])
+        alone = [int(t) for t in alone[0]]
+        split = next((i for i, (a, b) in enumerate(zip(alone, stream)) if a != b), None)
+        tie = None
+        if split is not None:
+            row = rows[split]
+            top = float(row.max())
+            tie = {"index": split, "generate": alone[split], "engine": stream[split],
+                   "gaps": [top - float(row[alone[split]]), top - float(row[stream[split]])],
+                   "absmax": float(row.abs().max())}
+            assert not gated or max(tie["gaps"]) <= LOGITS_BOUND * tie["absmax"], (label, tie)
+        out.append({"request": rid, "admission_logits": versus, "generate_tokens": alone,
+                    "tokens_equal": split is None, "split": tie})
+    log(f"[vlm] {session.options or 'f32'} {session.backend}: engine streams vs served alone "
+        f"through generate(patch_embeds=): " + "; ".join(
+            f"request {o['request']} "
+            + ("equal" if o["tokens_equal"] else f"split at a near-tie {o['split']}")
+            for o in out))
+    return out
+
+
+def vlm_profiles(session, label):
+    """The captured decode tick (4 live slots) and one vision admission
+    (its captured step), each profiled over a few replays: device time by
+    class (``ENCDEC_CLASSES``)."""
+    from repro_torch.deploy import ServeEngine
+
+    gc.collect()  # the drive's engines hand their lease back
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=VLM_MAX_LEN)  # the warm step
+    step = engine._decode
+    host = torch.stack([torch.arange(SLOTS) + 7, torch.arange(SLOTS) * 10 + 290])
+    for _ in range(2):
+        step(host)
+    torch.cuda.synchronize()
+    tick = profile_window("vlm", "tick", 4, lambda: torch.argmax(step(host)[:, -1], -1).cpu(),
+                          classes=ENCDEC_CLASSES)
+    vision = session.prefill_vision_fn(VLM_MAX_LEN)
+    patches = torch.randn(tuple(vision.inputs.shape), generator=torch.Generator().manual_seed(5))
+    vision(patches)
+    torch.cuda.synchronize()
+    log(f"[vlm] {label}: profile of 2 vision admissions of {session.cfg.vision_tokens} patches")
+    admission = profile_window("vlm", "admission", 2, lambda: vision(patches),
+                               classes=ENCDEC_CLASSES)
+    del engine
+    return {"tick": tick, "admission": admission}
+
+
+def vlm_serve_checked(dep, seed):
+    """Phase 5's per-session checks on paligemma: ``serve()``,
+    ``serve(accum="int8")`` and a codes_adc deployment over the same
+    teacher, codes and side-cars, each through ``drive`` with the image
+    traffic (first drive captures, a warm drive and an eager one with the
+    same launches and streams, ``compile_count`` the decode tick, three
+    chunk buckets and the vision admission, flat; every graph's replay
+    bitwise its eager step, the vision step's included; the tick captured
+    vs eager); exact launch counts (``vlm_counts``: ticks and chunks, vision
+    admissions and the fused prefill apart); codes vs dequant within
+    ``LOGITS_BOUND``, int8 vs f32 within ``INT8_LOGITS_BOUND``, ADC vs f32
+    reported; the image slots' prefix rows (``vlm_admissions``), a full
+    prefix hit (``prefix_full_hit``), the profiles (``vlm_profiles``) and, last
+    (its throwaway engines compile steps of their own lengths), the
+    streams against the requests served alone (``vlm_alone``)."""
+    from repro_torch.deploy import Deployment
+
+    cfg, device = dep.cfg, dep.device
+    prompts, pes, tokens, patches, g = vlm_traffic(cfg, seed, device)
+    visions = sum(VLM_IMAGES)
+    runs, logits = {}, {}
+    makers = (("f32", lambda: dep.serve()), ("int8", lambda: dep.serve(accum="int8")),
+              ("codes_adc", lambda: Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes,
+                                               dep.adapters, dep.teacher_seed,
+                                               dep.program_seed, dep.drift_hours).serve()))
+    for body, make in makers:
+        memory()
+        torch.cuda.reset_peak_memory_stats()
+        session = make()
+        run, logits[body] = drive(session, prompts, tokens, MAX_NEW, max_len=VLM_MAX_LEN,
+                                  compiled=VLM_COMPILED_STEPS, decode_pos=torch.tensor(
+                                      [261, 296, 273, VLM_MAX_LEN - 1]),
+                                  pes=pes, prefill_patches=patches,
+                                  prefill_max_len=VLM_PREFILL_MAX_LEN)
+        chunks = sum(-(-n // 32) for n in PROMPT_LENS)
+        assert run["prefix_hit_tokens"] == [0] * len(prompts), run["prefix_hit_tokens"]
+        assert run["prefill_chunks"] == chunks + visions, run
+        steps = chunks + run["decode_steps"]
+        expect_counts(run["launches_engine"], vlm_counts(cfg, steps, visions, 0, body))
+        expect_counts(run["launches"], vlm_counts(cfg, steps, visions, 1, body))
+        assert {k[0] for k in (s.key for s in session.steps)} == {
+            "decode", "prefill_chunk", "prefill_vision"}
+        run["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        if body == "f32":
+            run["codes_vs_dequant"], run["chunk_logits_rel_diff"] = codes_vs_dequant(
+                session, logits["f32"], tokens, g, device, patches=patches,
+                max_len=VLM_PREFILL_MAX_LEN)
+        elif body == "int8":
+            run["int8_vs_f32"] = compare_logits("paligemma calibrated int8 vs f32 codes prefill "
+                                                "logits", logits["int8"], logits["f32"],
+                                                INT8_LOGITS_BOUND)
+        else:
+            run["adc_vs_f32"] = compare_logits("paligemma calibrated codes_adc vs f32 codes "
+                                               "prefill logits", logits["codes_adc"],
+                                               logits["f32"])
+            same = sum(a == b for ra, rb in zip(run["streams"], runs["f32"]["streams"])
+                       for a, b in zip(ra, rb))
+            run["greedy_tokens_equal_f32"] = same / sum(len(r) for r in run["streams"])
+        run["admissions"] = vlm_admissions(session, prompts, pes)
+        run["prefix"] = prefix_full_hit(session, "vlm", prompts[2], pes[2], -pes[2],
+                                        "patch_embeds", "_vision", max_len=VLM_MAX_LEN)
+        run["trace"] = vlm_profiles(session, body)
+        assert session.compile_count() == VLM_COMPILED_STEPS, session.compile_count()
+        run["alone"] = vlm_alone(session, prompts, pes, run["streams"],
+                                 gated=body != "codes_adc")
+        run["retained_bytes"] = memory()
+        log(f"[vlm] {body}: tick captured {run['tick']['captured']:.3f} ms vs eager "
+            f"{run['tick']['eager']:.3f} ms; engine {run['warm']['decode_tok_per_s']:.1f} tok/s "
+            f"captured vs {run['eager']['decode_tok_per_s']:.1f} eager; TTFT warm "
+            + ", ".join(f"{t:.4f}" for t in run["warm"]["ttft_s"])
+            + " s (vision admissions "
+            + ", ".join(f"{x:.2f}" for x in run["admissions"]["vision_ms"] if x is not None)
+            + f" ms); compile_count {run['compile_count']}; peak "
+            f"{run['peak_mem_bytes'] / 2**30:.2f} GiB; after the drive the registry holds "
+            f"+{run['registry_allocated_bytes'] / 2**30:.2f} GiB allocated, "
+            f"+{run['registry_reserved_bytes'] / 2**30:.2f} reserved; launches "
+            f"{run['launches']}")
+        runs[body] = run
+        del session
+    return runs
+
+
+def phase_vlm(device, seed):
+    """Phase 14: paligemma-3b at its FULL config (all 18 layers).
+    ``Deployment.program(codes)`` -> ``advance(24)`` -> ``calibrate(10,
+    steps=20)`` (each 32-token sample behind its own 256 patches) -> the
+    three sessions' serving checks. Every check raises."""
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(VLM_CELL.arch).full
+    assert (cfg.n_layers, cfg.vision_tokens) == (18, 256)
+    memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dep = Deployment.program(cfg, seed, backend="codes", device=device)
+    dep.advance(24)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    n_base, n_adapters = T.count_params({"base": dep.codes, "adapters": dep.adapters})
+    allocated, reserved = memory()
+    result = {"setup_seconds": t_setup, "base_params": n_base, "adapter_params": n_adapters,
+              "rram_bytes": dep.rram_bytes(), "sram_bytes": dep.sram_bytes(),
+              "teacher_bytes": tree_bytes(dep.teacher_base),
+              "resident_allocated_bytes": allocated, "resident_reserved_bytes": reserved}
+    log(f"[vlm] {cfg.name} at all {cfg.n_layers} layers: {n_base:,} weights, {n_adapters:,} "
+        f"side-car parameters; program + advance(24) {t_setup:.2f} s; resident "
+        f"{allocated / 2**30:.2f} GiB (teacher {result['teacher_bytes'] / 2**30:.2f}, codes "
+        f"{result['rram_bytes'] / 2**30:.2f})")
+    result["calibration"] = moe_calibrate(dep, VLM_CELL)
+    result["serving"] = vlm_serve_checked(dep, seed)
+    result["peak_mem_bytes"] = max(result["calibration"]["peak_mem_bytes"],
+                                   *(r["peak_mem_bytes"] for r in result["serving"].values()))
+    del dep
+    result["retained_bytes"] = memory()
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[vlm] phase 14 took {result['phase_seconds']:.2f} s; peak "
+        f"{result['peak_mem_bytes'] / 2**30:.2f} GiB (calibration "
+        f"{result['calibration']['peak_mem_bytes'] / 2**30:.2f})")
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     args = ap.parse_args()
+    # wall seconds of each phase (host clock, from the previous mark)
+    seconds, marks = {}, [time.perf_counter()]
+
+    def lap(name):
+        marks.append(time.perf_counter())
+        seconds[name] = marks[-1] - marks[-2]
+
     smi = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in exact f32
     device = torch.device("cuda")
     phase_build()
-    t0 = time.perf_counter()
+    lap("1-2 card, build")
     worst = phase_kernels(device)
-    log(f"[kernels] phase 3 took {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
+    lap("3 kernels")
+    log(f"[kernels] phase 3 took {seconds['3 kernels']:.2f} s")
     rows = phase_timing(device)
-    log(f"[timing] phase 4 took {time.perf_counter() - t0:.2f} s")
     breakdown = phase_breakdown(device)
+    lap("4 timing, breakdown")
+    log(f"[timing] phase 4 took {seconds['4 timing, breakdown']:.2f} s")
     serving, sessions, dep = phase_serving(device, args.seed)
     for body, run in (("f32", serving), ("int8", serving["int8"]),
                       ("codes_adc", serving["codes_adc"])):
@@ -4230,8 +4704,11 @@ def main():
                 f"{run['tick']['captured']:.3f} ms ({busy / run['tick']['captured']:.1%})")
     gc.collect()
     torch.cuda.empty_cache()
+    lap("5-6 serve, trace")
     calibration = phase_calibrate(dep, device, args.seed)
+    lap("7 calibrate")
     faults = phase_faults(dep, device, args.seed, serving)
+    lap("8 faults")
     workdir = tempfile.mkdtemp(prefix="chip_smoke_persist_")
     try:
         persist, restored = phase_persist(dep, device, workdir)
@@ -4242,16 +4719,27 @@ def main():
     finally:
         shutil.rmtree(workdir)
     memory()
+    lap("9 persist")
     faults["study"] = phase_study(device, args.seed)
     memory()
+    lap("8 study")
     paper = phase_paper(device, args.seed)
     memory()
+    lap("10 paper")
     moe = phase_moe(device, args.seed, MOE_CELL)
     memory()
+    lap("11 moe")
     mla = phase_moe(device, args.seed, MLA_CELL)
     memory()
+    lap("12 mla")
     encdec = phase_encdec(device, args.seed)
-    zoo = (moe, mla, encdec)
+    memory()
+    lap("13 encdec")
+    vlm = phase_vlm(device, args.seed)
+    lap("14 vlm")
+    seconds["total"] = marks[-1] - marks[0]
+    log("[smoke] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    zoo = (moe, mla, encdec, vlm)
 
     # one transformer layer: the four fused leaves at the decode tick (GEMV)
     # or the fused prefill (tiled), the seven unfused leaves at the decode
@@ -4259,8 +4747,8 @@ def main():
     session_of = {"dora_linear_gemv": serving, "dora_linear": serving,
                   "dora_linear_gemv/int8": serving["int8"],
                   "dora_linear/int8": serving["int8"], "crossbar_mvm": serving["codes_adc"]}
-    # phase 5's main path and those of phases 11, 12 and 13 (the mixtral,
-    # deepseek and seamless sessions of each body)
+    # phase 5's main path and those of phases 11, 12, 13 and 14 (the mixtral,
+    # deepseek, seamless and paligemma sessions of each body)
     moe_of = {"dora_linear_gemv": "f32", "dora_linear": "f32", "dora_linear_gemv/int8": "int8",
               "dora_linear/int8": "int8", "crossbar_mvm": "codes_adc"}
     launches = {name: run["launches"][name] + sum(z["serving"][moe_of[name]]["launches"][name]
@@ -4298,7 +4786,8 @@ def main():
     for name, source, replaces, m, leaf, timed in table:
         timed = timed or name
         mine = [r for r in rows if r["kernel"] == timed and r["m"] == m
-                and (r["leaf"] == leaf if leaf else not r["leaf"].startswith(("router", "s-")))]
+                and (r["leaf"] == leaf if leaf
+                     else not r["leaf"].startswith(("router", "s-", "p-")))]
         library = [r["library_ms"] for r in mine]
         kernels.append({
             "name": name, "route": "cuda",
@@ -4315,10 +4804,11 @@ def main():
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "timing": rows, "breakdown": breakdown,
+            json.dump({"card": smi, "seconds": seconds, "timing": rows, "breakdown": breakdown,
                        "serving": serving, "calibration": calibration, "faults": faults,
                        "persist": persist, "paper": paper, "moe": moe, "mla": mla,
-                       "encdec": encdec, "kernels": kernels},
+                       "encdec": encdec, "vlm": vlm, "paligemma_kernels": worst["paligemma"],
+                       "kernels": kernels},
                       f,
                       indent=1, default=str)
     log(json.dumps({"kernels": kernels}))

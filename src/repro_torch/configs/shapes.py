@@ -1,7 +1,8 @@
 """Architecture spec: the published (full) config and its reduced smoke
-config, and an encoder-decoder arch's source length. Port of the part of
-``repro/configs/shapes.py`` the serving slice needs (the dry-run input
-specs wait)."""
+config, and an encoder-decoder arch's source length (a vision arch's
+patch count is its config's ``vision_tokens``, as in the reference). Port
+of the part of ``repro/configs/shapes.py`` the serving slice needs (the
+dry-run input specs wait)."""
 from __future__ import annotations
 
 import dataclasses

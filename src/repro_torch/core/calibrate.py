@@ -328,7 +328,9 @@ class CalibState:
 def teacher_features(teacher_base: Pytree, batch: Dict, cfg) -> Dict[str, torch.Tensor]:
     """Algorithm 1 line 3: run the frozen teacher once over the
     calibration batch and keep every block's input and the last block's
-    output: ``"dec"`` (L+1, B, S, d) in the config's dtype; for an
+    output: ``"dec"`` (L+1, B, S, d) in the config's dtype (a vision
+    config's S counts the P patches ahead of the tokens, which every block
+    reads under the prefix-LM mask); for an
     encoder-decoder config also ``"enc"`` (Le+1, B, S_src, d), the encoder
     blocks' inputs and the last one's (pre-norm) output, and ``"enc_out"``
     (B, S_src, d), the normed output every decoder block reads; for an
@@ -338,6 +340,7 @@ def teacher_features(teacher_base: Pytree, batch: Dict, cfg) -> Dict[str, torch.
 
     h = T.L.embed(batch["tokens"], teacher_base["embed"],
                   scale_by_sqrt_dim=cfg.embed_scale)
+    h, mask, _ = T._with_patches(h, T._batch_patches(batch, cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None]
     out = {}
     enc_out = None
@@ -354,7 +357,8 @@ def teacher_features(teacher_base: Pytree, batch: Dict, cfg) -> Dict[str, torch.
     feats = [h]
     for _, b, _, (mixer, ffn) in T._layers(teacher_base, T._empty_adapters(teacher_base),
                                            cfg):
-        h = T.block_forward(h, b, {}, cfg, mixer, ffn, positions=positions, enc_out=enc_out)
+        h = T.block_forward(h, b, {}, cfg, mixer, ffn, positions=positions, mask=mask,
+                            enc_out=enc_out)
         feats.append(h)
     out["dec"] = torch.stack(feats)
     if not cfg.tie_lm_head:
@@ -371,13 +375,16 @@ def make_cached_calib_loss(cfg):
     1``; decoder blocks cross-attend to ``feats["enc_out"]``. It mirrors
     ``feature_calibration_loss`` term for term (the encoder's blocks, the
     decoder's, then the untied lm_head's logits), averaged over the same
-    ``n_terms``. ``batch`` is unused by these stacks; it is kept for the
-    reference's signature."""
+    ``n_terms``. ``batch`` gives only a vision config's patch count (a
+    static shape), which places the prefix-LM mask."""
     from repro_torch.models import transformer as T
 
     def loss_fn(adapters, sbase, feats, batch):
         dec = feats["dec"]
         positions = torch.arange(dec.shape[2], device=dec.device)[None]
+        patches = T._batch_patches(batch, cfg)
+        mask = None if patches is None else T._prefix_mask(dec.shape[2], patches.shape[1],
+                                                           dec.device)
         loss = torch.zeros((), dtype=torch.float32, device=dec.device)
         n_terms = 0
         enc_out = feats.get("enc_out")
@@ -391,7 +398,7 @@ def make_cached_calib_loss(cfg):
             n_terms += cfg.encoder_layers
         for i, b, a_, (mixer, ffn) in T._layers(sbase, adapters, cfg):
             s_out = T.block_forward(dec[i], b, a_, cfg, mixer, ffn, positions=positions,
-                                    enc_out=enc_out)
+                                    mask=mask, enc_out=enc_out)
             loss = loss + T._mse(dec[i + 1], s_out)
             n_terms += 1
         if not cfg.tie_lm_head:

@@ -156,18 +156,21 @@ def calibration_batch(cfg, batch_or_samples, seq_len: int) -> Dict:
     """The deterministic calibration batch for ``cfg``: a batch dict passes
     through as it is; an int is a calibration-set size (paper: 10
     samples), drawn by the data pipeline at step 0 on the CPU, with an
-    encoder-decoder config's encoder inputs at ``seq_len`` frames in bf16,
-    as the reference's. The same arguments always give the same batch."""
+    encoder-decoder config's encoder inputs at ``seq_len`` frames and a
+    vision config's ``vision_tokens`` patches, both in bf16, as the
+    reference's. The same arguments always give the same batch."""
     if isinstance(batch_or_samples, dict):
         return batch_or_samples
     n = int(batch_or_samples)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=n,
                       n_calibration_samples=n,
                       enc_src_len=seq_len if cfg.encoder_layers else 0,
-                      d_model=cfg.d_model if cfg.encoder_layers else 0)
+                      d_model=cfg.d_model if (cfg.encoder_layers or cfg.vision_tokens) else 0,
+                      vision_tokens=cfg.vision_tokens)
     batch = global_batch_at_step(dcfg, 0)
-    if "enc_embeds" in batch:  # as the reference's batch carries them: bf16
-        batch["enc_embeds"] = batch["enc_embeds"].to(torch.bfloat16)
+    for name in ("enc_embeds", "patch_embeds"):  # as the reference's batch carries them
+        if name in batch:
+            batch[name] = batch[name].to(torch.bfloat16)
     return batch
 
 

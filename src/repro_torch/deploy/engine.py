@@ -1,6 +1,6 @@
 """Continuous-batching serve engine over the batched decode step. Port
-of ``repro/deploy/engine.py`` for attention stacks, decoder-only or
-encoder-decoder (``remesh`` and the vision slots wait).
+of ``repro/deploy/engine.py`` for attention stacks: decoder-only,
+encoder-decoder, or behind a vision prefix (``remesh`` waits).
 
 * **Slots.** A fixed ``(max_slots, max_len)`` decode cache; each
   in-flight request owns one row, finished rows are recycled.
@@ -17,14 +17,24 @@ encoder-decoder (``remesh`` and the vision slots wait).
   cross-attention K/V lines over ``src_len`` positions and ``enc_len``;
   they travel with the staging cache into the slot, where each row is
   masked past its own ``enc_len``. Decode ticks never run the encoder.
+* **Vision-prefix slots.** A request may carry ``patch_embeds`` (P, d):
+  its cold admission starts with a vision unit, a tick of its own
+  (counted in ``prefill_chunks``), which zeroes the staging cache, writes
+  the P patch positions' K/V there (``ServeSession.prefill_vision_fn``,
+  bidirectional among themselves) and saves it into ``Request._cache``,
+  since another slot's chunk may use the staging cache before this
+  slot's next; the text chunks then load it and run at positions ``P +
+  [a, b)``, and the slot's clock starts at ``P + prompt_len``. A vision
+  config admits text-only requests too (``vision_len`` 0).
 * **Shared prefix cache.** After every admission chunk the staging
   cache and the chunk's logits are cloned under a token-hash chain key
   (the reference's chain, byte for byte, seeded with the encoder input's
-  bytes), LRU-capped at
+  bytes, then the patches'), LRU-capped at
   ``prefix_cache_entries``. A request whose prompt starts with a stored
   prefix resumes from it: a full hit copies the snapshot into the
   staging cache and runs no chunk; a partial hit at ``k`` loads a fresh
-  copy of it into ``Request._cache`` and runs the chunks from ``k``.
+  copy of it into ``Request._cache`` and runs the chunks from ``k``
+  (either skips the vision unit: the snapshot holds the patches' rows).
   Every snapshot is a copy, since the staging cache, ``Request._cache``
   and a graph's logits are written in place. A full hit, or a partial hit
   at a multiple of ``prefill_chunk``, runs the chunks a cold admission
@@ -79,6 +89,7 @@ class Request:
     key: Optional[torch.Generator] = None
     eos_id: Optional[int] = None
     enc_embeds: Optional[np.ndarray] = None   # (s_src, d) [enc-dec]
+    patch_embeds: Optional[np.ndarray] = None  # (P, d) [vision prefix]
     tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     slot: Optional[int] = None
@@ -90,10 +101,15 @@ class Request:
     _logits: Optional[torch.Tensor] = dataclasses.field(default=None, repr=False)
     _chain: Optional[List[bytes]] = dataclasses.field(default=None, repr=False)
     _spans: List[Tuple[int, int]] = dataclasses.field(default_factory=list, repr=False)
+    _vision_pending: bool = dataclasses.field(default=False, repr=False)
 
     @property
     def prompt_len(self) -> int:
         return int(self.prompt.shape[0])
+
+    @property
+    def vision_len(self) -> int:
+        return 0 if self.patch_embeds is None else int(self.patch_embeds.shape[0])
 
 
 def _pow2_ceil(n: int) -> int:
@@ -162,22 +178,20 @@ class ServeEngine:
 
     def submit(self, prompt, *, max_new: int = 16, temperature: float = 0.0,
                key: Optional[torch.Generator] = None,
-               eos_id: Optional[int] = None, enc_embeds=None) -> Request:
+               eos_id: Optional[int] = None, enc_embeds=None, patch_embeds=None) -> Request:
         """Enqueue a request; admission starts at once if a slot is free
         (a one-chunk prompt has its first token before this returns).
         ``enc_embeds`` (s_src, d), a numpy array (a leading batch axis of 1
-        accepted), is an encoder-decoder request's encoder input; its
-        bytes, in the dtype given, seed the prefix cache's hash chain."""
+        accepted), is an encoder-decoder request's encoder input;
+        ``patch_embeds`` (P, d), likewise, a vision request's image (P =
+        ``cfg.vision_tokens``), counted against ``max_len``. Their bytes,
+        in the dtype given, seed the prefix cache's hash chain."""
         serving._check_sampling_args(temperature, key)
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
-        if prompt.size + max_new > self.max_len:
-            raise ValueError(
-                f"prompt ({prompt.size}) + max_new ({max_new}) exceeds engine "
-                f"max_len ({self.max_len})")
         if prompt.min() < 0 or prompt.max() >= self.cfg.vocab:
             raise ValueError(f"prompt tokens must lie in [0, {self.cfg.vocab})")
         if self.cfg.encoder_layers:
@@ -193,9 +207,24 @@ class ServeEngine:
                 raise ValueError("empty enc_embeds")
         elif enc_embeds is not None:
             raise ValueError("enc_embeds passed to a decoder-only config")
+        if patch_embeds is not None:
+            if not self.cfg.vision_tokens:
+                raise ValueError("patch_embeds passed to a config without vision_tokens")
+            patch_embeds = np.asarray(patch_embeds)
+            if patch_embeds.ndim == 3:
+                patch_embeds = patch_embeds[0]
+            if patch_embeds.shape[0] != self.cfg.vision_tokens:
+                raise ValueError(f"expected {self.cfg.vision_tokens} vision tokens, got "
+                                 f"{patch_embeds.shape[0]}")
+        prefix = 0 if patch_embeds is None else patch_embeds.shape[0]
+        if prefix + prompt.size + max_new > self.max_len:
+            raise ValueError(
+                f"prompt ({prefix + prompt.size}) + max_new ({max_new}) exceeds engine "
+                f"max_len ({self.max_len})")
         req = Request(rid=self._next_rid, prompt=prompt, max_new=int(max_new),
                       temperature=float(temperature), key=key, eos_id=eos_id,
-                      enc_embeds=enc_embeds, submitted_at=time.perf_counter())
+                      enc_embeds=enc_embeds, patch_embeds=patch_embeds,
+                      submitted_at=time.perf_counter())
         self._next_rid += 1
         self.pending.append(req)
         self._admit_pending()
@@ -227,19 +256,29 @@ class ServeEngine:
 
     def _start_admission(self, req: Request, slot: int) -> None:
         """Bind ``req`` to ``slot``, look its prompt up in the prefix cache
-        and plan the chunks from the tokens it covers."""
+        and plan the chunks from the tokens it covers, behind a vision unit
+        when a cold image request starts from nothing."""
         req.slot = slot
         self.slot_req[slot] = req
         req._chain = self._hash_chain(req)
-        req._spans = self._spans(self._prefix_lookup(req), req.prompt_len)
+        hit = self._prefix_lookup(req)
+        req._vision_pending = hit == 0 and req.patch_embeds is not None
+        req._spans = self._spans(hit, req.prompt_len)
 
     def _advance_admission(self, slot: int) -> None:
-        """Run one prompt chunk for the slot, snapshot the result, and
-        finalize after the last (at once after a full prefix hit)."""
+        """Run one admission unit for the slot (the vision prefix, or one
+        prompt chunk, snapshotted), and finalize after the last (at once
+        after a full prefix hit)."""
         req = self.slot_req[slot]
         if req is None or self.active[slot] or req.done:
             return
-        if req._spans:
+        if req._vision_pending:
+            self._vision(req)
+            req._vision_pending = False
+            self.prefill_chunks += 1
+            if req._spans:
+                return
+        elif req._spans:
             a, b_ = req._spans.pop(0)
             req._logits = self._chunk_call(req, a, b_)
             self.prefill_chunks += 1
@@ -250,19 +289,20 @@ class ServeEngine:
 
     @torch.no_grad()
     def _chunk_call(self, req: Request, a: int, b_: int) -> torch.Tensor:
-        """Tokens [a, b_) at positions [a, b_), zero-padded to the bucket,
-        through the bucket's step on the staging cache: zeroed for a first
-        chunk (then, for an encoder-decoder request, filled by its encoder
-        admission), else loaded from ``req._cache``; saved back there
-        unless this is the last chunk (the staging cache then holds the
-        prompt until ``_finalize_admission`` copies it into the slot)."""
+        """Tokens [a, b_) at positions ``vision_len + [a, b_)``, zero-padded
+        to the bucket, through the bucket's step on the staging cache:
+        zeroed for a first chunk without a vision prefix (then, for an
+        encoder-decoder request, filled by its encoder admission), else
+        loaded from ``req._cache``; saved back there unless this is the
+        last chunk (the staging cache then holds the prompt until
+        ``_finalize_admission`` copies it into the slot)."""
         n = b_ - a
         width = self._bucket(n)
         step = self.session.prefill_chunk_fn(width, self.max_len, self.src_len)
         host = np.zeros(width + 2, np.int64)
         host[:n] = req.prompt[a:b_]
-        host[width:] = (a, n)
-        if a == 0:
+        host[width:] = (req.vision_len + a, n)
+        if a == 0 and req.patch_embeds is None:
             step.flat.zero_()
             if req.enc_embeds is not None:
                 self._encode(req)
@@ -270,10 +310,26 @@ class ServeEngine:
             step.flat.copy_(req._cache)
         logits = step(torch.from_numpy(host))
         if req._spans:
-            if req._cache is None:
-                req._cache = torch.empty_like(step.flat)
-            req._cache.copy_(step.flat)
+            self._save(req, step.flat)
         return logits
+
+    @staticmethod
+    def _save(req: Request, flat: torch.Tensor) -> None:
+        """Keep the staging cache in ``req._cache`` until its next unit."""
+        if req._cache is None:
+            req._cache = torch.empty_like(flat)
+        req._cache.copy_(flat)
+
+    @torch.no_grad()
+    def _vision(self, req: Request) -> None:
+        """The request's vision unit: the staging cache zeroed, the
+        patches' K/V written at [0, P), then saved into ``req._cache``."""
+        from repro_torch.interop import to_tensor
+
+        step = self.session.prefill_vision_fn(self.max_len)
+        step.flat.zero_()
+        step(to_tensor(req.patch_embeds, "cpu")[None])
+        self._save(req, step.flat)
 
     @torch.no_grad()
     def _encode(self, req: Request) -> None:
@@ -304,7 +360,7 @@ class ServeEngine:
             return
         T.write_cache_slot(self.cache, self._staging, slot)
         self.active[slot] = True
-        self.pos[slot] = req.prompt_len
+        self.pos[slot] = req.vision_len + req.prompt_len
         self.last_tok[slot, 0] = first
 
     # -- prefix cache --------------------------------------------------------
@@ -312,14 +368,15 @@ class ServeEngine:
     @staticmethod
     def _hash_chain(req: Request) -> List[bytes]:
         """``chain[k]`` names the request's first ``k`` prompt tokens (and
-        the whole encoder input, part of position 0's context): the key of
-        a snapshot with exactly ``k`` tokens admitted (the reference's
-        chain, byte for byte: the encoder input's bytes as numpy's
-        ``tobytes`` lays them out, in the dtype the caller gave)."""
+        the whole encoder input and image, part of position 0's context):
+        the key of a snapshot with exactly ``k`` tokens admitted (the
+        reference's chain, byte for byte: the encoder input's bytes, then
+        the patches', as numpy's ``tobytes`` lays them out, in the dtype the
+        caller gave)."""
         h = hashlib.sha1(b"rimc-prefix-v1")
-        enc = getattr(req, "enc_embeds", None)
-        if enc is not None:
-            h.update(np.ascontiguousarray(enc).tobytes())
+        for inputs in (getattr(req, "enc_embeds", None), getattr(req, "patch_embeds", None)):
+            if inputs is not None:
+                h.update(np.ascontiguousarray(inputs).tobytes())
         chain = [h.digest()]
         for t in req.prompt:
             h = hashlib.sha1(chain[-1])

@@ -3,9 +3,10 @@ prefill, the reference generation loop, the compiled-step registry and
 ``ServeSession``. Port of ``repro/deploy/serving.py``.
 
 The registry's twin of the reference's jitted steps is a CUDA graph: a
-session builds its decode tick, its admission chunk and, for an
-encoder-decoder config, its encoder admission (``"encode"``, one per
-source length, as the reference's jit retraces per shape) once per
+session builds its decode tick, its admission chunk, for an
+encoder-decoder config its encoder admission (``"encode"``, one per
+source length, as the reference's jit retraces per shape) and for a
+vision config its vision admission (``"prefill_vision"``) once per
 ``(kind, active_backend_key(), batch, width, max_len, src_len)``
 (``StepRegistry``, ``CompiledStep``) and replays them. The fused prefill and the module-level
 ``generate`` loop stay eager. Everything runs under ``torch.no_grad()``.
@@ -37,15 +38,17 @@ def backend_scope(backend: str, cfg=None, **options):
 
 
 @torch.no_grad()
-def prefill_and_cache(params, tokens: torch.Tensor, cfg, max_len: int, enc_embeds=None):
+def prefill_and_cache(params, tokens: torch.Tensor, cfg, max_len: int, enc_embeds=None,
+                      patch_embeds=None):
     """Fused prefill: ONE forward over the prompt fills every layer's K/V
-    (and, after the encoder over ``enc_embeds``, its cross lines).
+    (and, after the encoder over ``enc_embeds``, its cross lines; with
+    ``patch_embeds`` (B, P, d), the vision prefix's K/V at [0, P) first).
     Returns ``(last_logits (B, 1, V), cache)``."""
     from repro_torch.models import transformer as T
 
     if cfg.encoder_layers and enc_embeds is None:
         raise ValueError("encoder-decoder config needs enc_embeds")
-    return T.prefill(params, tokens, cfg, int(max_len), enc_embeds)
+    return T.prefill(params, tokens, cfg, int(max_len), enc_embeds, patch_embeds)
 
 
 def _next_token(logits: torch.Tensor, temperature: float,
@@ -73,24 +76,28 @@ def _check_sampling_args(temperature: float, generator) -> None:
 @torch.no_grad()
 def generate(params, prompt: torch.Tensor, cfg, *, gen_len: int = 16,
              temperature: float = 0.0, key: Optional[torch.Generator] = None,
-             enc_embeds: Optional[torch.Tensor] = None) -> Tuple[np.ndarray, float]:
+             enc_embeds: Optional[torch.Tensor] = None,
+             patch_embeds: Optional[torch.Tensor] = None) -> Tuple[np.ndarray, float]:
     """Reference single-stream loop: fused prefill, then ``gen_len - 1``
     decode steps. Returns ``(tokens (B, gen_len), dt)``; ``dt`` covers
     the decode steps only (each ends in a device-to-host token copy).
-    The plain parity loop over bare params: it stays eager (no registry,
-    no graph)."""
+    ``patch_embeds`` (B, P, d) puts a vision prefix ahead of the prompt;
+    the decode clock then starts at ``P + S``. The plain parity loop over
+    bare params: it stays eager (no registry, no graph)."""
     from repro_torch.models import transformer as T
 
     _check_sampling_args(temperature, key)
     if gen_len < 1:
         raise ValueError(f"gen_len must be >= 1, got {gen_len}")
     b, s = prompt.shape
-    logits, cache = prefill_and_cache(params, prompt, cfg, s + gen_len, enc_embeds)
+    prefix = 0 if patch_embeds is None else patch_embeds.shape[1]
+    logits, cache = prefill_and_cache(params, prompt, cfg, prefix + s + gen_len, enc_embeds,
+                                      patch_embeds)
     tok, key = _next_token(logits, temperature, key)
     out = [tok.cpu().numpy()]
     t0 = time.perf_counter()
     for i in range(gen_len - 1):
-        pos = torch.full((b,), s + i, dtype=torch.int64, device=prompt.device)
+        pos = torch.full((b,), prefix + s + i, dtype=torch.int64, device=prompt.device)
         logits, cache = T.decode_step(params, cache, tok, pos, cfg)
         tok, key = _next_token(logits, temperature, key)
         out.append(tok.cpu().numpy())
@@ -117,9 +124,10 @@ class CompiledStep:
     """One registry entry: a step function over static buffers.
 
     ``inputs`` is one tensor on the step's device whose views are the
-    step's arguments (int64; the encoder admission's frames in the
-    config's dtype); ``fn()`` runs the step on them, advances
-    ``cache`` (views of ``flat``) in place and returns the logits.
+    step's arguments (int64; the encoder admission's frames and the
+    vision admission's patches in the config's dtype); ``fn()`` runs the
+    step on them, advances ``cache`` (views of ``flat``) in place and
+    returns the logits.
     ``step(host)`` copies ``host`` (the layout of ``inputs``) in and runs
     the step. On the CPU every call runs ``fn``. On the card the first
     call runs ``fn`` eagerly on the registry's capture stream (the warm-up,
@@ -364,6 +372,34 @@ class ServeSession:
         key = self._key("encode", 1, s_src, max_len, src_len)
         return self.steps.get(key, build)
 
+    def prefill_vision_fn(self, max_len: int) -> CompiledStep:
+        """The vision admission: the ``cfg.vision_tokens`` patches through
+        every layer at positions [0, P), attending to each other
+        bidirectionally, their K/V written into ``staging_cache(max_len)``
+        (``transformer.prefill_vision``). Inputs: the (1, P, d) patches in
+        the config's dtype. It returns the staging buffer itself: the step
+        computes no logits."""
+        from repro_torch.models import transformer as T
+
+        p_ = self.cfg.vision_tokens
+        if not p_:
+            raise ValueError(f"{self.cfg.name} has no vision prefix (vision_tokens 0)")
+
+        def build():
+            flat, cache = self.staging_cache(max_len)
+            inputs = torch.zeros((1, p_, self.cfg.d_model), dtype=self.cfg.dtype,
+                                 device=self.device)
+
+            @torch.no_grad()
+            def fn():
+                with self.scope():
+                    T.prefill_vision(self.params, inputs, cache, self.cfg, max_len)
+                return flat
+            return CompiledStep(self.steps, key, fn, inputs, flat, cache)
+
+        key = self._key("prefill_vision", 1, p_, max_len)
+        return self.steps.get(key, build)
+
     def prefill_chunk_fn(self, width: int, max_len: int, src_len: int = 0) -> CompiledStep:
         """The admission chunk of bucket ``width``: advances
         ``staging_cache(max_len, src_len)`` by tokens at ``pos0 .. pos0 +
@@ -392,28 +428,32 @@ class ServeSession:
         built on the CPU. Flat across repeated same-shape requests."""
         return self.steps.compile_count()
 
-    def prefill(self, tokens, max_len: int, enc_embeds=None):
+    def prefill(self, tokens, max_len: int, enc_embeds=None, patch_embeds=None):
         with self.scope():
-            return prefill_and_cache(self.params, tokens, self.cfg, max_len, enc_embeds)
+            return prefill_and_cache(self.params, tokens, self.cfg, max_len, enc_embeds,
+                                     patch_embeds)
 
     def generate(self, prompt, *, gen_len: int = 16, temperature: float = 0.0,
-                 key: Optional[torch.Generator] = None, enc_embeds=None
+                 key: Optional[torch.Generator] = None, enc_embeds=None, patch_embeds=None
                  ) -> Tuple[np.ndarray, float]:
         """Each prompt row becomes one request on a throwaway engine, all
         admitted at tick 0 — the production serving path; an
-        encoder-decoder config takes ``enc_embeds`` (B, S_src, d), a numpy
-        array: row ``i`` is request ``i``'s encoder input."""
+        encoder-decoder config takes ``enc_embeds`` (B, S_src, d) and a
+        vision config ``patch_embeds`` (B, P, d), numpy arrays: row ``i`` is
+        request ``i``'s encoder input or image."""
         from repro_torch.deploy.engine import ServeEngine
 
         key = self._sampling_key(temperature, key)
         prompt = np.asarray(torch.as_tensor(prompt).cpu())
         b, s = prompt.shape
         src_len = 0 if enc_embeds is None else enc_embeds.shape[1]
-        engine = ServeEngine(self, max_slots=b, max_len=s + gen_len, src_len=src_len)
+        prefix = 0 if patch_embeds is None else patch_embeds.shape[1]
+        engine = ServeEngine(self, max_slots=b, max_len=prefix + s + gen_len, src_len=src_len)
         reqs = [engine.submit(
                     prompt[i], max_new=gen_len, temperature=temperature,
                     key=None if key is None else _fold(key, i),
-                    enc_embeds=None if enc_embeds is None else enc_embeds[i])
+                    enc_embeds=None if enc_embeds is None else enc_embeds[i],
+                    patch_embeds=None if patch_embeds is None else patch_embeds[i])
                 for i in range(b)]
         engine.run()
         toks = np.stack([np.asarray(r.tokens, np.int32) for r in reqs])

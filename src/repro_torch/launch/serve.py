@@ -14,6 +14,8 @@ card raises).
     python -m repro_torch.launch.serve --arch deepseek-v2-lite --smoke --device cpu
     python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --backend codes
     python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --smoke --device cpu
+    python -m repro_torch.launch.serve --arch paligemma-3b --backend codes
+    python -m repro_torch.launch.serve --arch paligemma-3b --smoke --device cpu
 
 ``--layers`` cuts the depth and keeps every width: mixtral-8x22b's 56
 layers (141 G weights) do not fit one 80 GB card; 2 layers take ~22 GB.
@@ -23,6 +25,9 @@ two MoE layers) take ~1.7 G weights. seamless-m4t-large-v2 (24 encoder
 and 24 decoder layers, 1.63 G weights) fits whole; its requests carry
 random encoder inputs of ``--prompt-len`` frames, drawn from a stream of
 their own, as the reference's driver draws them.
+paligemma-3b (18 layers, 1.98 G weights) fits whole; each of its
+requests carries a random image of 256 patch embeddings, drawn from a
+third stream.
 """
 from __future__ import annotations
 
@@ -73,8 +78,13 @@ def main(argv=None):
         g_enc = make_generator("cpu", args.seed, 2)
         enc = torch.randn((args.batch, args.prompt_len, cfg.d_model), generator=g_enc)
         enc = enc.to(torch.bfloat16).float().numpy()
-    toks, dt = session.generate(prompt, gen_len=args.gen,
-                                temperature=args.temperature, enc_embeds=enc)
+    patches = None
+    if cfg.vision_tokens:  # the vision tower's stub: bf16 patches, likewise
+        g_patch = make_generator("cpu", args.seed, 3)
+        patches = torch.randn((args.batch, cfg.vision_tokens, cfg.d_model), generator=g_patch)
+        patches = patches.to(torch.bfloat16).float().numpy()
+    toks, dt = session.generate(prompt, gen_len=args.gen, temperature=args.temperature,
+                                enc_embeds=enc, patch_embeds=patches)
     # dt times exactly the decode ticks; first tokens come from prefill
     decode_toks = args.batch * max(args.gen - 1, 0)
     tps = decode_toks / dt if dt > 0 else float("nan")

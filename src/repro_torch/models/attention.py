@@ -1,6 +1,7 @@
 """Attention over RimcLinear projections. Port of
-``repro/models/attention.py`` without the vision prefix: MHA/GQA with
-optional qk-norm (qwen3), causal and sliding-window masks, the per-slot
+``repro/models/attention.py``: MHA/GQA with optional qk-norm (qwen3),
+causal and sliding-window masks, the prefix-LM mask of a vision prefix
+(paligemma: keys below the prefix open to every query), the per-slot
 KV cache (rolling for sliding-window layers), decode and chunked
 prefill; cross-attention over an encoder's output (seamless-m4t), whose
 K/V the serving cache holds once per decoder layer (``"xk"``/``"xv"``),
@@ -439,10 +440,12 @@ def _chunk_write(cache: Dict, new: Dict, pos0: torch.Tensor,
 
 def chunk_attention(x, cache: Dict, pos0, n_valid, base, adapters,
                     cfg: AttentionConfig, acfg: AdapterConfig, *,
-                    max_len: int) -> Tuple[torch.Tensor, Dict]:
+                    max_len: int, prefix: int = 0) -> Tuple[torch.Tensor, Dict]:
     """Advance the cache by one C-token chunk (padded tail allowed):
     write the valid rows' K/V at their absolute positions, attend each
-    query against everything written so far.
+    query against everything written so far. ``prefix`` (static) opens
+    keys ``j < prefix`` to every query: the vision prefix's bidirectional
+    block (a rolling cache refuses it, as the reference's does).
 
     A rolling (sliding-window) cache shorter than ``max_len`` cannot take
     the chunk directly: a chunk longer than the window, or one across the
@@ -463,9 +466,11 @@ def chunk_attention(x, cache: Dict, pos0, n_valid, base, adapters,
     i = torch.arange(c, device=x.device)[None, :]
     positions = pos0[:, None] + i                      # (B, C)
     if cfg.mla:
-        return _mla_chunk(x, cache, positions, pos0, n_valid, base, a, cfg, acfg)
+        return _mla_chunk(x, cache, positions, pos0, n_valid, base, a, cfg, acfg, prefix)
     length = cache["k"].shape[1]
     rolling = length < max_len
+    if prefix and rolling:
+        raise ValueError("prefix-LM chunks need a non-rolling cache")
     q, k, v = _project(x, base, a, cfg, acfg, positions)
     if rolling:
         canvas_at = torch.arange(max_len, device=x.device) % length
@@ -477,6 +482,8 @@ def chunk_attention(x, cache: Dict, pos0, n_valid, base, adapters,
     allow = j <= positions[:, :, None]                 # (B, C, T)
     if cfg.window is not None:
         allow = allow & (j > positions[:, :, None] - cfg.window)
+    if prefix:
+        allow = allow | (j < prefix)
     out = _sdpa(q, kv["k"], kv["v"], cfg.scale, allow[:, None, None])
     if rolling:
         pos_max = (pos0 + n_valid - 1)[:, None]        # (B, 1)
@@ -490,7 +497,7 @@ def chunk_attention(x, cache: Dict, pos0, n_valid, base, adapters,
 
 
 def _mla_chunk(x, cache: Dict, positions, pos0, n_valid, base, a, cfg: AttentionConfig,
-               acfg) -> Tuple[torch.Tensor, Dict]:
+               acfg, prefix: int = 0) -> Tuple[torch.Tensor, Dict]:
     """The MLA chunk step: write the valid rows' latents and rope keys at
     their absolute positions (in place), then up-project the whole buffer
     as ``_mla_decode`` does and attend causally. The MLA cache never
@@ -501,6 +508,8 @@ def _mla_chunk(x, cache: Dict, positions, pos0, n_valid, base, a, cfg: Attention
     k, v = _mla_expand(cache["c_kv"], cache["k_rope"], base, a, cfg, acfg)
     j = torch.arange(cache["c_kv"].shape[1], device=x.device)[None, None, :]
     allow = j <= positions[:, :, None]                 # (B, C, T)
+    if prefix:
+        allow = allow | (j < prefix)
     out = _sdpa(q, k, v, cfg.scale, allow[:, None, None])
     y = L.linear(out.reshape(b_, c, -1), base["o"], a.get("o"), acfg)
     return y, {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"]}

@@ -1,10 +1,13 @@
 """Model assembly. Port of ``repro/models/transformer.py``: attention
 mixers, MLA among them, with MLP or MoE FFNs, and the encoder-decoder
 family (a bidirectional encoder over precomputed frame embeddings, then
-decoder layers with cross-attention over its normed output); the
-forward, the feature-KD calibration loss and the serving steps (the
-encoder admission writes each decoder layer's cross-attention K/V into
-the cache once). SSM, RG-LRU and the vision prefix wait.
+decoder layers with cross-attention over its normed output), and the
+prefix-LM vision prefix (paligemma: precomputed patch embeddings ahead of
+the text, attending to each other bidirectionally); the forward, the
+feature-KD calibration loss and the serving steps (the encoder admission
+writes each decoder layer's cross-attention K/V into the cache once; the
+vision admission writes the patches' K/V at positions [0, P)). SSM and
+RG-LRU wait.
 
 The parameter layout is the reference's: ``prologue`` (list) + ``body``
 (a list of ``scan_period`` layer trees whose leaves are stacked on axis
@@ -53,6 +56,9 @@ class ModelConfig:
     # encoder-decoder (seamless-m4t): the encoder's input arrives as
     # precomputed frame embeddings (the audio frontend is a stub)
     encoder_layers: int = 0
+    # prefix-LM (paligemma): the first ``vision_tokens`` positions are
+    # precomputed patch embeddings attending bidirectionally
+    vision_tokens: int = 0
     unroll: bool = False
 
     @property
@@ -80,9 +86,10 @@ class ModelConfig:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Attention mixers (MLA ones global) with MLP, MoE or no FFN, and an
-    encoder; the other kinds (SSM, RG-LRU, vision) are not ported."""
-    for attr in ("ssm", "rglru", "vision_tokens"):
+    """Attention mixers (MLA ones global) with MLP, MoE or no FFN, an
+    encoder and a vision prefix; the other kinds (SSM, RG-LRU) are not
+    ported."""
+    for attr in ("ssm", "rglru"):
         if getattr(cfg, attr, None):
             raise NotImplementedError(f"{cfg.name}: {attr} is not ported")
     mla = cfg.attn is not None and cfg.attn.mla
@@ -279,23 +286,49 @@ def encode(base: Dict, adapters: Dict, enc_embeds: torch.Tensor, cfg: ModelConfi
     return _norm(h, base["enc_norm"], cfg)
 
 
+def _prefix_mask(s: int, prefix: int, device=None) -> torch.Tensor:
+    """Prefix-LM mask (s, s): bidirectional over [0, prefix), causal after."""
+    q = torch.arange(s, device=device)[:, None]
+    k = torch.arange(s, device=device)[None, :]
+    return (k <= q) | (k < prefix)
+
+
+def _batch_patches(batch: Dict, cfg: ModelConfig) -> Optional[torch.Tensor]:
+    """A vision config's ``batch["patch_embeds"]`` (B, P, d), else None."""
+    return batch.get("patch_embeds") if cfg.vision_tokens else None
+
+
+def _with_patches(h, patches: Optional[torch.Tensor]):
+    """``(h, mask, prefix)``: ``patches`` (B, P, d) concatenated ahead of
+    the embedded tokens ``h``, with the prefix-LM mask over both; ``h``,
+    None and 0 without patches."""
+    if patches is None:
+        return h, None, 0
+    h = torch.cat([patches.to(h.dtype), h], dim=1)
+    prefix = patches.shape[1]
+    return h, _prefix_mask(h.shape[1], prefix, h.device), prefix
+
+
 def forward(params: Dict, batch: Dict, cfg: ModelConfig, *,
             use_adapters: bool = True) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, vocab); ``use_adapters=False``
     runs the base alone (the teacher, or the drifted array without its
     side-cars). An encoder-decoder config also takes ``batch["enc_embeds"]``
-    (B, S_src, d)."""
+    (B, S_src, d); a vision config ``batch["patch_embeds"]`` (B, P, d),
+    whose positions take no logits."""
     base = params["base"]
     adapters = _adapters_or_empty(params) if use_adapters else _empty_adapters(base)
     h = L.embed(batch["tokens"], base["embed"], scale_by_sqrt_dim=cfg.embed_scale)
+    h, mask, prefix = _with_patches(h, _batch_patches(batch, cfg))
     enc_out = None
     if cfg.encoder_layers:
         enc_out = encode(base, adapters, batch["enc_embeds"].to(h.dtype), cfg)
     positions = torch.arange(h.shape[1], device=h.device)[None]
     for _, b, a_, (mixer, ffn) in _layers(base, adapters, cfg):
-        h = block_forward(h, b, a_, cfg, mixer, ffn, positions=positions, enc_out=enc_out)
+        h = block_forward(h, b, a_, cfg, mixer, ffn, positions=positions, mask=mask,
+                          enc_out=enc_out)
     h = _norm(h, base["final_norm"], cfg)
-    return _lm_head(h, base, adapters, cfg)
+    return _lm_head(h, base, adapters, cfg)[:, prefix:]
 
 
 def _lm_head(h, base, adapters, cfg: ModelConfig):
@@ -320,10 +353,12 @@ def feature_calibration_loss(teacher_base: Dict, student_base: Dict, adapters: D
     """Mean over blocks (the encoder's first, then the decoder's, and the
     untied lm_head's logits) of the teacher/student MSE; returns ``(loss,
     {"feature_mse": loss})``. Every decoder block, the student's too, reads
-    the teacher's normed encoder output."""
+    the teacher's normed encoder output; a vision config's blocks run over
+    the patches and the tokens under the prefix-LM mask."""
     with torch.no_grad():
         h = L.embed(batch["tokens"], teacher_base["embed"],
                     scale_by_sqrt_dim=cfg.embed_scale)
+        h, mask, _ = _with_patches(h, _batch_patches(batch, cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None]
     loss = torch.zeros((), dtype=torch.float32, device=h.device)
     n_terms = 0
@@ -348,8 +383,8 @@ def feature_calibration_loss(teacher_base: Dict, student_base: Dict, adapters: D
             teacher, _layers(student_base, adapters, cfg)):
         with torch.no_grad():
             t_out = block_forward(h, tb, {}, cfg, mixer, ffn, positions=positions,
-                                  enc_out=enc_out)
-        s_out = block_forward(h, sb, sa, cfg, mixer, ffn, positions=positions,
+                                  mask=mask, enc_out=enc_out)
+        s_out = block_forward(h, sb, sa, cfg, mixer, ffn, positions=positions, mask=mask,
                               enc_out=enc_out)
         loss = loss + _mse(t_out, s_out)
         n_terms += 1
@@ -491,18 +526,20 @@ def encode_into_cache(params: Dict, cache: Dict, enc_embeds: torch.Tensor,
 
 
 def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
-            max_len: int, enc_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, Dict]:
+            max_len: int, enc_embeds: Optional[torch.Tensor] = None,
+            patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
     """One forward over the whole prompt: last-position logits
     (B, 1, vocab) and a decode cache ready at ``pos = S``. An
     encoder-decoder config runs its encoder over ``enc_embeds`` first; the
     cache then holds each layer's cross lines at the exact source length
-    and ``enc_len``."""
+    and ``enc_len``. ``patch_embeds`` (B, P, d) puts a prefix-LM vision
+    prefix at positions [0, P); the decode clock then starts at ``P + S``."""
     base = params["base"]
     adapters = _adapters_or_empty(params)
-    b, s = tokens.shape
+    b = tokens.shape[0]
     h = L.embed(tokens, base["embed"], scale_by_sqrt_dim=cfg.embed_scale)
-    positions = torch.arange(s, device=h.device)[None]
+    h, mask, _ = _with_patches(h, patch_embeds)
+    positions = torch.arange(h.shape[1], device=h.device)[None]
     enc_out = None
     if cfg.encoder_layers:
         enc_out = encode(base, adapters, enc_embeds.to(h.dtype), cfg)
@@ -516,7 +553,7 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
         acfg = _attn_cfg(cfg, mixer)
         x = _norm(h, lb["norm1"], cfg)
         mix, kv = A.attention(x, lb["mixer"], la.get("mixer"), acfg, cfg.adapter,
-                              positions=positions, return_kv=True)
+                              positions=positions, mask=mask, return_kv=True)
         layer = A.prefill_kv_cache(kv, b, max_len, acfg, cfg.dtype)
         for name, buf in layer.items():
             layer_caches[i][name].copy_(buf)
@@ -575,31 +612,37 @@ def _cross_cached(h, cache_l, enc_len, b, a_, cfg: ModelConfig):
 
 
 def _chunk_block(h, cache_l, pos0, n_valid, b, a_, cfg: ModelConfig, mixer: str,
-                 ffn: str, *, max_len: int, enc_len=None):
+                 ffn: str, *, max_len: int, enc_len=None, prefix: int = 0):
     a_ = a_ or {}
     x = _norm(h, b["norm1"], cfg)
     mix, new_kv = A.chunk_attention(x, cache_l, pos0, n_valid, b["mixer"],
                                     a_.get("mixer"), _attn_cfg(cfg, mixer),
-                                    cfg.adapter, max_len=max_len)
+                                    cfg.adapter, max_len=max_len, prefix=prefix)
     h = _cross_cached(h + mix, cache_l, enc_len, b, a_, cfg)
     return _ffn(h, b, a_, cfg, ffn), new_kv
 
 
-def _chunk_stack(params, h, cache, pos0, n_valid, cfg: ModelConfig, max_len: int):
-    """Walk the layer stack with ``_chunk_block``; final norm applied."""
+def _chunk_stack(params, h, cache, pos0, n_valid, cfg: ModelConfig, max_len: int,
+                 prefix: int = 0):
+    """Walk the layer stack with ``_chunk_block``; final norm applied.
+    ``prefix`` (static) is the vision prefix's extent: keys below it are
+    open to every query."""
     base = params["base"]
     adapters = _adapters_or_empty(params)
     layer_caches = _cache_layers(cache, cfg)
     for i, lb, la, kind in _layers(base, adapters, cfg):
         h, _ = _chunk_block(h, layer_caches[i], pos0, n_valid, lb, la, cfg,
-                            *kind, max_len=max_len, enc_len=cache.get("enc_len"))
+                            *kind, max_len=max_len, enc_len=cache.get("enc_len"),
+                            prefix=prefix)
     return _norm(h, base["final_norm"], cfg), cache
 
 
 def prefill_chunk(params: Dict, tokens: torch.Tensor, cache: Dict, pos0, n_valid,
                   cfg: ModelConfig, max_len: int) -> Tuple[torch.Tensor, Dict]:
     """Advance a decode cache by one prompt chunk (zero-padded tail):
-    logits at the chunk's last valid position (B, 1, vocab)."""
+    logits at the chunk's last valid position (B, 1, vocab). A text chunk
+    after a vision prefix sits at ``pos0 >= P``, where the causal mask
+    already opens the patches to it."""
     base = params["base"]
     b, _ = tokens.shape
     pos0 = A._as_pos_vector(pos0, b, tokens.device)
@@ -609,6 +652,19 @@ def prefill_chunk(params: Dict, tokens: torch.Tensor, cache: Dict, pos0, n_valid
     rows = torch.arange(b, device=h.device)
     h_last = h[rows, n_valid - 1][:, None]
     return _lm_head(h_last, base, _adapters_or_empty(params), cfg), cache
+
+
+def prefill_vision(params: Dict, patch_embeds: torch.Tensor, cache: Dict,
+                   cfg: ModelConfig, max_len: int) -> Dict:
+    """Admit a vision prefix into a decode cache (in place): the P patch
+    positions (B, P, d), at [0, P), attend to each other bidirectionally;
+    text chunks and decode ticks then start at ``pos0 = P``. No logits."""
+    b, p_, _ = patch_embeds.shape
+    h = patch_embeds.to(cfg.dtype)
+    pos0 = torch.zeros((b,), dtype=torch.int64, device=h.device)
+    n_valid = torch.full((b,), p_, dtype=torch.int64, device=h.device)
+    _, cache = _chunk_stack(params, h, cache, pos0, n_valid, cfg, max_len, prefix=p_)
+    return cache
 
 
 # ---------------------------------------------------------------------------

@@ -62,6 +62,13 @@ full-width leaves and at ragged shapes:
   unfused leaves there, and an engine drive of the full-width model at 2 +
   2 layers with encoder inputs of four lengths on each body: exact
   launches, ``compile_count`` 8 and flat.
+* the vision prefix (paligemma-3b): both tiled tensor-core bodies at its
+  fused leaves for a vision admission's 256 rows (``down`` at K 16384)
+  against their plain versions, the ADC at its unfused leaves at 4 and
+  256 rows, and an engine drive of the full-width model at 2 layers with
+  three image requests and a text-only one on each body: exact launches,
+  ``compile_count`` 5 and flat, every graph (the vision admission's
+  included) replayed bitwise equal to its eager step.
 
 This file imports no jax, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -1935,3 +1942,97 @@ def test_seamless_engine_drive_exact_launches(cuda, body):
     counts = runs[0][1]
     assert counts == {name: want.get(name, 0) for name in counts}, (counts, want)
     assert runs[0][2] == 8 and runs[1] == runs[0]
+
+
+# -- paligemma-3b: its leaves at a vision admission's rows, and an engine
+# drive of the vision-prefix model at 2 layers -------------------------------
+
+# its fused leaves (name, K, N, fused rank): down at K 16384, gate_up at N
+# 32768; and its unfused ones (ADC)
+PALIGEMMA_LEAVES = [("qkv", 2048, 2560, 24), ("o", 2048, 2048, 8), ("gate_up", 2048, 32768, 16),
+                    ("down", 16384, 2048, 8)]
+PALIGEMMA_ADC = [("qo", 2048, 2048), ("kv", 2048, 256), ("gate", 2048, 16384),
+                 ("down", 16384, 2048)]
+VISION_M = 256  # a vision admission's rows: the 256 patches
+
+
+@pytest.mark.parametrize("accum", ["f32", "int8"])
+@pytest.mark.parametrize("leaf", PALIGEMMA_LEAVES, ids=[lf[0] for lf in PALIGEMMA_LEAVES])
+def test_tiled_at_the_vision_admission(cuda, leaf, accum):
+    """Both tensor-core tiled bodies at the vision admission's 256 rows (K
+    up to 16384) against their plain versions, and bitwise repeatable."""
+    _, k, n, r = leaf
+    ops = operands(VISION_M, k, n, r, cuda, seed=k + n)
+    (_check if accum == "f32" else _check_int8)(K.dora_linear, ops)
+    assert torch.equal(K.dora_linear(*ops, accum=accum), K.dora_linear(*ops, accum=accum))
+
+
+@pytest.mark.parametrize("m", [4, VISION_M])
+@pytest.mark.parametrize("leaf", PALIGEMMA_ADC, ids=[lf[0] for lf in PALIGEMMA_ADC])
+def test_adc_at_the_vision_admission(cuda, leaf, m):
+    _, k, n = leaf
+    _check_adc(*operands(m, k, n, 1, cuda, seed=m + k)[:4])
+
+
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_vision_engine_drive_replays_and_exact_launches(cuda, body):
+    """paligemma-3b at its widths and 2 layers: STEP_PROMPTS, the first
+    three behind an image of 256 patches and the last text-only, through a
+    4-slot engine of 320 positions, twice: exact launches (a tick or text
+    chunk: 2 x (qkv, o, gate_up, down) through the GEMV; a vision
+    admission the same tiled; codes_adc every leaf unfused),
+    ``compile_count`` 5 (decode, three chunk buckets, the vision
+    admission) and flat, the same streams and launches on the second
+    drive; then every graph, the vision admission's included, replayed
+    bitwise equal to its eager step."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment, ServeEngine
+
+    cfg = dataclasses.replace(get_arch("paligemma-3b").full, n_layers=2)
+    dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24)
+    if body == "codes_adc":
+        dep = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
+                         dep.teacher_seed, dep.program_seed, dep.drift_hours)
+    session = dep.serve(accum="int8") if body == "int8" else dep.serve()
+    g = torch.Generator().manual_seed(1)
+    pes = [torch.randn((cfg.vision_tokens, cfg.d_model), generator=g).numpy() for _ in range(3)]
+    pes.append(None)
+    runs = []
+    for _ in range(2):
+        engine = ServeEngine(session, max_slots=4, max_len=320, prefix_cache_entries=0)
+        K.reset_launch_counts()
+        C.reset_launch_counts()
+        reqs = []
+        for n, pe in zip(STEP_PROMPTS, pes):
+            reqs.append(engine.submit(torch.arange(n) % cfg.vocab, max_new=6, patch_embeds=pe))
+            engine.step()
+        engine.run()
+        torch.cuda.synchronize()
+        assert all(r.done and len(r.tokens) == 6 for r in reqs)
+        stats = engine.stats()
+        runs.append(([list(r.tokens) for r in reqs], {**K.launch_counts(), **C.launch_counts()},
+                     session.compile_count(), stats["prefill_chunks"]))
+        del engine
+    steps = runs[0][3] - 3 + stats["decode_steps"]
+    assert runs[0][3] == 3 + 5  # three vision units, chunks 5 -> 8, 9 -> 16, 17 -> 32, 40 -> 32 + 8
+    if body == "codes_adc":
+        want = {"crossbar_mvm": (steps + 3) * 7 * 2}
+    else:
+        sfx = "" if body == "f32" else "/int8"
+        want = {f"dora_linear_gemv{sfx}": steps * 4 * 2, f"dora_linear{sfx}": 3 * 4 * 2}
+    counts = runs[0][1]
+    assert counts == {name: want.get(name, 0) for name in counts}, (counts, want)
+    assert runs[0][2] == 5 and runs[1] == runs[0]
+    for step in session.steps:
+        kind, width, max_len = step.key[0], step.key[3], step.key[4]
+        if kind == "decode":
+            host = torch.stack([torch.randint(0, cfg.vocab, (4,), generator=g),
+                                torch.tensor([261, 290, 300, max_len - 1])])
+        elif kind == "prefill_vision":
+            host = torch.randn(tuple(step.inputs.shape), generator=g)
+        else:
+            host = torch.cat([torch.randint(0, cfg.vocab, (width,), generator=g),
+                              torch.tensor([max_len - width // 2 - 1, width // 2 + 1])])
+        assert _replay_equals_eager(step, host) == (True, True), step.key

@@ -440,24 +440,27 @@ def test_counts_match_reference(model):
 
 
 def test_unported_kinds_still_raise():
-    """MoE, MLA (deepseek-v2-lite) and the encoder (seamless-m4t) are
-    ported; SSM, RG-LRU and vision are not."""
+    """MoE, MLA (deepseek-v2-lite), the encoder (seamless-m4t) and the
+    vision prefix (paligemma) are ported; SSM and RG-LRU are not, as a
+    mixer or as a config field the reference's configs carry."""
     cfg = t_arch("mixtral_8x22b").smoke
     TT._check_supported(cfg)
     for mixer in ("ssm", "rglru"):
         with pytest.raises(NotImplementedError, match="not ported"):
             TT._check_supported(dataclasses.replace(cfg, mixer_pattern=(mixer,)))
-    bad = dataclasses.make_dataclass("Cfg", [("vision_tokens", int, dataclasses.field(default=2))],
+    bad = dataclasses.make_dataclass("Cfg", [("ssm", int, dataclasses.field(default=2))],
                                      bases=(type(cfg),), frozen=True)
     with pytest.raises(NotImplementedError, match="not ported"):
         TT._check_supported(bad(**_fields(cfg)))
 
-    for size in ("full", "smoke"):  # deepseek-v2-lite and seamless-m4t are accepted
+    for size in ("full", "smoke"):  # deepseek-v2-lite, seamless-m4t, paligemma accepted
         mla = getattr(t_arch("deepseek-v2-lite"), size)
         assert mla.attn.mla
         TT._check_supported(mla)
         TT._check_supported(dataclasses.replace(cfg, encoder_layers=2))
         TT._check_supported(getattr(t_arch("seamless-m4t-large-v2"), size))
+        TT._check_supported(dataclasses.replace(cfg, vision_tokens=2))
+        TT._check_supported(getattr(t_arch("paligemma-3b"), size))
 
 
 def _fields(obj):

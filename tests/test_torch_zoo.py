@@ -1,11 +1,15 @@
 """Port parity: the dense configs of the zoo that need no new layer kind,
 deepseek-coder-33b (llama-arch: GQA 8 / 2 heads of 8, gated SiLU MLP,
-untied head) and minitron-8b (LayerNorm, ungated ReLU MLP, untied head),
-against ``repro`` at their smoke configs on the reference's teacher
-params (key 0) carried across: the full forward, and a token-by-token
-``decode_step`` loop against the reference's loop. The FULL configs
-carry the published widths; those of mixtral-8x22b and deepseek-v2-lite
-(whose models ``test_torch_moe`` and ``test_torch_mla`` hold) too.
+untied head), minitron-8b (LayerNorm, ungated ReLU MLP, untied head) and
+gemma3-12b (5:1 local:global, a window of 8 at smoke, gated tanh-GELU
+MLP, ``embed_scale``, tied head), against ``repro`` at their smoke
+configs on the reference's teacher params (key 0) carried across: the
+full forward, and a token-by-token ``decode_step`` loop against the
+reference's loop (gemma3's of 20 tokens, so its local layers' rolling
+caches wrap twice). The FULL configs carry the published widths; those
+of mixtral-8x22b, deepseek-v2-lite, seamless-m4t-large-v2 and
+paligemma-3b (whose models ``test_torch_moe``, ``test_torch_mla``,
+``test_torch_encdec`` and ``test_torch_vision`` hold) too.
 
 Bounds (``test_torch_model``'s, relative to the reference's absmax):
 ``F32_BOUND`` in f32 (only summation orders differ) and ``BF16_BOUND``
@@ -27,8 +31,9 @@ from repro_torch.models import transformer as TT
 
 from test_torch_model import BF16_BOUND, F32_BOUND, np_tree
 
-ARCHS = ("deepseek_coder_33b", "minitron_8b")
+ARCHS = ("deepseek_coder_33b", "minitron_8b", "gemma3_12b")
 B, S = 2, 10
+LOOP = {"gemma3_12b": 20}  # tokens of the forward and the decode loop, else S
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,7 +45,7 @@ def _one_thread():
 
 
 @pytest.mark.parametrize("arch", ARCHS + ("mixtral_8x22b", "deepseek_v2_lite_16b",
-                                          "seamless_m4t_large_v2"))
+                                          "seamless_m4t_large_v2", "paligemma_3b"))
 def test_full_config_is_the_reference_s(arch):
     """Registered under both spellings, with the reference's FULL and
     SMOKE fields (the reference's ``remat`` and the layer kinds the port
@@ -79,7 +84,8 @@ def _pair(arch, dtype):
 def test_forward_and_decode_loop_match_reference(arch, dtype):
     cfg_j, cfg_t, pj, pt = _pair(arch, dtype)
     bound = F32_BOUND if dtype == "float32" else BF16_BOUND
-    tokens = np.random.default_rng(1).integers(0, cfg_j.vocab, (B, S)).astype(np.int32)
+    n = LOOP.get(arch, S)
+    tokens = np.random.default_rng(1).integers(0, cfg_j.vocab, (B, n)).astype(np.int32)
     want = np.asarray(JT.forward(pj, {"tokens": jnp.asarray(tokens)}, cfg_j), np.float32)
     with torch.no_grad():
         got = TT.forward(pt, {"tokens": torch.from_numpy(tokens).long()}, cfg_t)
@@ -87,9 +93,9 @@ def test_forward_and_decode_loop_match_reference(arch, dtype):
     assert np.abs(got - want).max() <= bound * np.abs(want).max()
 
     step = jax.jit(lambda p, c, tok, i: JT.decode_step(p, c, tok, i, cfg_j))
-    cache_j = JT.init_cache(cfg_j, B, S)
-    cache_t = TT.init_cache(cfg_t, B, S, "cpu")
-    for i in range(S):
+    cache_j = JT.init_cache(cfg_j, B, n)
+    cache_t = TT.init_cache(cfg_t, B, n, "cpu")
+    for i in range(n):
         lj, cache_j = step(pj, cache_j, jnp.asarray(tokens[:, i:i + 1]), jnp.int32(i))
         with torch.no_grad():
             lt, cache_t = TT.decode_step(pt, cache_t, torch.from_numpy(tokens[:, i:i + 1]).long(),
