@@ -355,6 +355,40 @@ Phases (any failure exits non-zero; no failure is caught):
                 bodies at 256 rows, down at K 16384 also against float64,
                 and both GEMVs at 4; the unfused ones through the ADC at 4
                 and 256) and phase 4 times them.
+  15. ssm    — falcon-mamba-7b at its published widths (d 4096, d_inner
+                8192, state 16, conv 4, dt rank 256, scan chunks of 256,
+                no FFN, an untied head of 65024, DoRA rank 8) and
+                SSM_LAYERS (16) of its 64 layers: program -> advance(24) ->
+                calibrate(10, steps=20) (phase 11's gates; the SSM blocks
+                recomputed in the backward) -> serve(), serve(accum="int8")
+                and a codes_adc deployment, each through phase 5's drive
+                with prompts of 5, 40, 17 and 300 tokens in an engine of 512
+                positions, every admission one eager exact-length fused
+                prefill (an SSM stack does not chunk): exact launch counts
+                (65 GEMV launches a tick, 16 x (in_proj, x_proj, dt_proj,
+                out_proj) + the head; an admission the 64 at its rows,
+                tiled above 64, + the head at one row; codes_adc the same
+                65 through the ADC), no chunk, compile_count 1 (the decode
+                tick) and flat, the tick's replay bitwise its eager step (h
+                and conv compared by their bytes), each slot's state as
+                admitted bitwise its prompt's prefill alone, codes vs
+                dequant within LOGITS_BOUND, int8 vs f32 within
+                INT8_LOGITS_BOUND, the 300-token fused prefill vs a
+                token-by-token decode loop (last logits and the first and
+                last layers' h within SSM_LOOP_BOUND, the greedy
+                continuation equal or split at a near-tie), each stream
+                against its request served alone through generate (equal
+                or a near-tie; codes_adc reported), a full prefix hit
+                bitwise the cold admission (its state and logits; its
+                tokens equal but under codes_adc, whose tick digitizes the
+                idle slots' advancing rows with the live one) and no
+                partial hit. Reported:
+                the tick captured vs eager, tok/s, each admission's ms, the
+                tick's and the 300-token admission's device time by class,
+                calibrate seconds and step ms, peak and retained memory.
+                Phase 3 holds its five leaves through both GEMVs at 4 rows,
+                both tiled bodies at 300 and the ADC at both, and phase 4
+                times them.
 The last line is the contract line; the line before it the kernel table,
 where ``dora_linear_narrow`` is the fused linear's narrow body: its
 launches are the f32 body's f32-x launches of phases 5, 11 and 12 (the
@@ -364,9 +398,9 @@ count, and its times are mixtral's router at the decode tick (M = 4);
 are the ``crossbar_mvm`` f32-x launches of phases 5, 11 and 12, which the
 ``crossbar_mvm`` row does not count. The launches of ``dora_linear`` and
 ``dora_linear/int8`` include phase 12's tiled _kup_vup launches in every
-decode tick and chunk, phase 13's encoder admissions and phase 14's vision
-admissions and fused prefill; every entry's, phases 13's and 14's
-launches.
+decode tick and chunk, phase 13's encoder admissions, phase 14's vision
+admissions and fused prefill, and phase 15's 300-token admissions and
+fused prefill; every entry's, phases 13's to 15's launches.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -597,6 +631,30 @@ VLM_ADC_LEAVES = [("q/o", 2048, 2048), ("k/v", 2048, 256), ("gate/up", 2048, 163
                   ("down", 16384, 2048)]
 # the rows of the decode tick and of a vision admission
 VLM_M = (SLOTS, 256)
+# phase 15: falcon-mamba-7b at its published widths and SSM_LAYERS of its 64
+# layers (all 64 are 7.26 G weights: 14.5 GB of codes beside a 14.5 GB bf16
+# teacher, three sessions and calibration; 16 are 1.68 G + the embedding and
+# the untied head's 0.53 G, paligemma's size); phase 5's traffic with the
+# last request 300 tokens long (two scan chunks of 256, the second padded;
+# its admission through the tiled bodies), in an engine of 512 positions
+SSM_LAYERS = 16
+SSM_MAX_LEN = 512
+SSM_PROMPT_LENS = (5, 40, 17, 300)
+# the steps the traffic compiles per session: the decode tick alone (an SSM
+# stack admits each prompt by one eager fused prefill)
+SSM_COMPILED_STEPS = 1
+# the 300-token fused prefill vs a token-by-token decode loop, relative to
+# the absmax of the last logits and of the first and last layers' states:
+# the prefill rounds the conv to bf16 before the SiLU and runs the tiled
+# bodies, the loop applies the SiLU in f32 and runs the GEMV bodies, and
+# the scan regroups its products (LOGITS_BOUND's reasoning, over 300 steps)
+SSM_LOOP_BOUND = LOGITS_BOUND
+# its unfused serve leaves (name, K, N, rank), every one also an ADC leaf:
+# x_proj's N 288 is not a multiple of 64, dt_proj's K 256 one array tile
+SSM_LEAVES = [("in_proj", 4096, 16384, 8), ("x_proj", 8192, 288, 8), ("dt_proj", 256, 8192, 8),
+              ("out_proj", 8192, 4096, 8), ("head", 4096, 65024, 8)]
+# the rows of the decode tick and of the 300-token admission
+SSM_M = (SLOTS, SSM_PROMPT_LENS[-1])
 # phase 7: the paper's calibration set (10 samples of 32 tokens) and the
 # reference's calibrate defaults (20 steps, lr 1e-3)
 CALIB_SAMPLES, CALIB_SEQ, CALIB_STEPS = 10, 32, 20
@@ -1070,6 +1128,7 @@ def phase_kernels(device):
     kup_vup_checks(device, worst)
     encdec_checks(device, worst)
     vlm_checks(device, worst)
+    ssm_checks(device, worst)
     return worst
 
 
@@ -1092,14 +1151,37 @@ def vlm_checks(device, worst):
     against a float64 evaluation beside the plain version's (reported);
     the unfused leaves through the ADC at both row counts. Each leaf's
     error goes into ``worst["paligemma"]``."""
+    zoo_checks(device, worst, "paligemma", VLM_LEAVES, VLM_ADC_LEAVES, VLM_M, f64_k=16384)
+
+
+def ssm_checks(device, worst):
+    """falcon-mamba-7b's leaves (phase 15) against their plain versions:
+    in_proj, x_proj (N 288, not a multiple of the 64-column strip),
+    dt_proj (K 256, one ADC array tile), out_proj and the untied head
+    through both GEMV bodies at the decode tick's 4 rows and both tiled
+    bodies at the 300-token admission, each twice and bitwise equal; the
+    same five through the ADC at both row counts. Each leaf's error goes
+    into ``worst["falcon"]``."""
+    zoo_checks(device, worst, "falcon", SSM_LEAVES, [leaf[:3] for leaf in SSM_LEAVES], SSM_M)
+
+
+def zoo_checks(device, worst, model, leaves, adc_leaves, rows, f64_k=None):
+    """A zoo model's leaves against their plain versions: ``leaves`` (name,
+    K, N, rank) through the GEMV bodies or the tiled ones, by row count,
+    at each of ``rows``, each twice and bitwise equal (the f32 results at K
+    ``f64_k`` also against a float64 evaluation, reported); ``adc_leaves``
+    (name, K, N) through the ADC at each of ``rows``. Each leaf's error
+    goes into ``worst[model]``."""
     from repro_torch.kernels import autotune, ref
     from repro_torch.kernels import crossbar_mvm as C
     from repro_torch.kernels import dora_linear as K
 
     f64, errs = {}, {}
-    worst["paligemma"] = {"max_abs_err": errs, "k16384_vs_f64": f64}
-    for m in VLM_M:
-        for name, k, n, r in VLM_LEAVES:
+    worst[model] = {"max_abs_err": errs}
+    if f64_k:
+        worst[model][f"k{f64_k}_vs_f64"] = f64
+    for m in rows:
+        for name, k, n, r in leaves:
             ops = operands(m, k, n, r, device, seed=m + k + n + 1)
             kind = "dora_linear_gemv" if autotune.use_gemv(m) else "dora_linear"
             fn = getattr(K, kind)
@@ -1108,23 +1190,23 @@ def vlm_checks(device, worst):
                 torch.cuda.synchronize()
                 err, ok, note = _vs_plain(got, ops, accum)
                 same = torch.equal(got, again)
-                if accum == "f32" and k == 16384:
+                if accum == "f32" and k == f64_k:
                     f64[kind] = f64_errors(got, ops)
                     note += (f" (vs float64: kernel {f64[kind][0]:.3e}, plain "
                              f"{f64[kind][1]:.3e})")
                 ok = ok and same
                 key = K.counter(kind, accum)
-                log(f"[kernels] {key:22s} paligemma {name:7s} M={m:4d} K={k:5d} N={n:6d} "
+                log(f"[kernels] {key:22s} {model} {name:8s} M={m:4d} K={k:5d} N={n:6d} "
                     f"r={r:2d} max|err|={err:.3e}{note} repeat "
                     f"{'bitwise' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    _fail(f"{key} at paligemma {(m, k, n, r)}",
+                    _fail(f"{key} at {model} {(m, k, n, r)}",
                           f"max|err| {err}, repeat bitwise {same}")
                 worst[key] = max(worst[key], err)
                 errs[f"{key} {name} M={m}"] = err
             del ops, got, again
-    for m in VLM_M:
-        for name, k, n in VLM_ADC_LEAVES:
+    for m in rows:
+        for name, k, n in adc_leaves:
             x, gp, gn, scale, *_ = operands(m, k, n, 1, device, seed=m + k + 1)
             want = ref.crossbar_mvm_ref(x, gp, gn, scale)
             got, again = C.crossbar_mvm(x, gp, gn, scale), C.crossbar_mvm(x, gp, gn, scale)
@@ -1133,12 +1215,12 @@ def vlm_checks(device, worst):
             bad, flips = ref.adc_disagreement(got, want, x, scale, rtol=ADC_RTOL, atol=ADC_ATOL)
             same = torch.equal(got, again)
             ok = bad == 0 and flips <= ADC_FLIP_SHARE * got.numel() and same
-            log(f"[kernels] crossbar_mvm           paligemma {name:7s} M={m:4d} K={k:5d} "
+            log(f"[kernels] crossbar_mvm           {model} {name:8s} M={m:4d} K={k:5d} "
                 f"N={n:6d} parts {autotune.adc_plan(m, k, n)} max|err|={err:.3e} one-step "
                 f"flips {flips}/{got.numel()} repeat {'bitwise' if same else 'DIFFERS'} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                _fail(f"crossbar_mvm at paligemma {(m, k, n)}",
+                _fail(f"crossbar_mvm at {model} {(m, k, n)}",
                       f"{bad} off, {flips} flips, repeat bitwise {same}")
             worst["crossbar_mvm"] = max(worst["crossbar_mvm"], err)
             errs[f"crossbar_mvm {name} M={m}"] = err
@@ -1591,8 +1673,10 @@ def phase_timing(device):
     timed += [(("s-" + ENCDEC_HEAD[0], *ENCDEC_HEAD[1:]), (SLOTS,))]
     # paligemma-3b's (phase 14): at the decode tick and a vision admission
     timed += [(("p-" + name, k, n, r), VLM_M) for name, k, n, r in VLM_LEAVES]
+    # falcon-mamba-7b's (phase 15): at the decode tick and the 300-token admission
+    timed += [(("m-" + name, k, n, r), SSM_M) for name, k, n, r in SSM_LEAVES]
     for (name, k, n, r), row_counts in timed:
-        kup = name == KUP_VUP[0] or name.startswith(("s-", "p-"))
+        kup = name == KUP_VUP[0] or name.startswith(("s-", "p-", "m-"))
         for m in row_counts:
             ops = [operands(m, k, n, r, device, seed=i)
                    for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
@@ -1622,7 +1706,9 @@ def phase_timing(device):
                                         for leaf in ENCDEC_ADC_LEAVES]
                                      + [(("s-" + ENCDEC_HEAD[0], *ENCDEC_HEAD[1:3]), (SLOTS,))]
                                      + [(("p-" + leaf[0], *leaf[1:]), VLM_M)
-                                        for leaf in VLM_ADC_LEAVES]):
+                                        for leaf in VLM_ADC_LEAVES]
+                                     + [(("m-" + leaf[0], *leaf[1:3]), SSM_M)
+                                        for leaf in SSM_LEAVES]):
         for m in row_counts:
             ops = [operands(m, k, n, 1, device, seed=i)[:4]
                    for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
@@ -1894,7 +1980,7 @@ def replay_vs_eager(session, seed=3, decode_pos=None):
         torch.cuda.synchronize()
         label = f"{kind}/{width}"
         out[label] = {"logits_equal": torch.equal(got, want),
-                      "cache_equal": torch.equal(got_cache, step.flat),
+                      "cache_equal": same_bytes(got_cache, step.flat),
                       "max_abs_diff": float((got.float() - want.float()).abs().max()),
                       "greedy_equal": torch.equal(got.argmax(-1), want.argmax(-1))}
         step.flat.copy_(saved)
@@ -1904,6 +1990,13 @@ def replay_vs_eager(session, seed=3, decode_pos=None):
         f"{'bitwise' if v['cache_equal'] else 'DIFFERS'}" for k, v in out.items()))
     assert all(v["logits_equal"] and v["cache_equal"] for v in out.values()), out
     return out
+
+
+def same_bytes(a, b):
+    """Bitwise, by bytes: a flat cache holds leaves of other dtypes as views
+    of its bytes (the f32 SSM state in a bf16 buffer reads as NaNs there,
+    which never compare equal as bf16)."""
+    return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
 def tick_times(session, ticks=20, rounds=2, max_len=ENGINE_MAX_LEN, src_len=0):
@@ -4184,7 +4277,7 @@ def prefix_full_hit(session, tag, prompt, x, other, field, unit, **engine_kw):
         engine.run()
     chains = [set(engine._hash_chain(r)) for r in (reqs[0], reqs[2])]
     hits = [r.prefix_hit_tokens for r in reqs]
-    bitwise = (all(torch.equal(a, b) for a, b in zip(staged[0], staged[1]))
+    bitwise = (all(same_bytes(a, b) for a, b in zip(staged[0], staged[1]))
                and reqs[0].tokens == reqs[1].tokens)
     result = {"prefix_hit_tokens": hits, "units": len(units), "full_hit_bitwise": bitwise,
               "chains_disjoint": not chains[0] & chains[1],
@@ -4664,6 +4757,406 @@ def phase_vlm(device, seed):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the selective SSM, falcon-mamba-7b at its published widths
+# ---------------------------------------------------------------------------
+
+SSM_CELL = dataclasses.make_dataclass("SsmCell", ["tag", "arch"])("ssm", "falcon-mamba-7b")
+# the tick's and an admission's device time by class: the crossbar kernels
+# (GEMV, tiled and ADC bodies), PyTorch's elementwise kernels, reductions and
+# concatenations (the scan's, the conv's and SiLU's, and the two RMS norms a
+# layer: ~30 small kernels a layer at the tick), and the rest (the ADC
+# session's side-car products, the head's cast, the argmax)
+SSM_CLASSES = {
+    "crossbar_kernels": r"dora_|adc_|row_scale_kernel|prep_tile_kernel|xa_finish_kernel"
+                        r"|splitk_epilogue_kernel",
+    "elementwise_reductions": r"elementwise|reduce_kernel|CatArray|[Cc]opy|fill",
+}
+
+
+def ssm_counts(cfg, ticks, admissions, prefill, body):
+    """The exact launches of ``ticks`` decode ticks (4 rows), of one
+    admission per prompt length in ``admissions`` (each an eager fused
+    prefill at batch 1) and, with ``prefill``, one fused prefill of 3 x 32
+    rows. A forward runs per layer in_proj, x_proj, dt_proj and out_proj,
+    unfused, at its rows (the GEMV launcher up to 64, the tiled one above),
+    and the untied head at its last positions (a tick's 4 rows, one row an
+    admission, 3 the prefill: the GEMV). codes_adc runs the same leaves
+    through the ADC."""
+    from repro_torch.kernels import autotune
+
+    per = 4 * cfg.n_layers
+    forwards = ticks + len(admissions) + prefill
+    if body == "codes_adc":
+        return {"crossbar_mvm": forwards * (per + 1)}
+    sfx = "" if body == "f32" else "/int8"
+    rows = list(admissions) + [PREFILL_ROWS] * prefill
+    tiled = sum(not autotune.use_gemv(n) for n in rows)
+    return {f"dora_linear_gemv{sfx}": ticks * (per + 1) + (len(rows) - tiled) * per
+            + len(rows),
+            f"dora_linear{sfx}": tiled * per}
+
+
+def ssm_traffic(cfg, seed, device):
+    """Phase 15's traffic, drawn from ``seed``: the engine prompts, a
+    prompt sharing the 40-token one's tokens and going on (the prefix
+    check's), the fused prefill's tokens and the generator."""
+    g = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in SSM_PROMPT_LENS]
+    longer = torch.cat([prompts[1], torch.randint(0, cfg.vocab, (9,), generator=g)])
+    tokens = torch.randint(0, cfg.vocab, (3, PREFILL_ROWS // 3), generator=g).to(device)
+    return prompts, longer, tokens, g
+
+
+def ssm_admissions(session, prompts):
+    """The traffic once more through a 4-slot engine, each admission (one
+    eager fused prefill, ``ServeEngine._prefill``) timed apart by CUDA
+    events, and each slot's state as admitted (``h`` and ``conv`` of the
+    first and the last layer) against ``prefill`` of its prompt alone on a
+    fresh cache: bitwise. The slots were used by earlier drives, so this
+    also shows that admission overwrites a recycled slot's state."""
+    from repro_torch.deploy import ServeEngine
+    from repro_torch.models import transformer as T
+
+    cfg, device = session.cfg, session.device
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=SSM_MAX_LEN)
+    prefill, finalize = engine._prefill, engine._finalize_admission
+    ms, rows = {}, {}
+
+    def timed(req):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        prefill(req)
+        end.record()
+        torch.cuda.synchronize()
+        ms[req.rid] = start.elapsed_time(end)
+
+    def record(slot, req):
+        finalize(slot, req)
+        layers = T._cache_layers(engine.cache, cfg)
+        rows[req.rid] = [layers[i][name][slot].clone() for i in (0, -1) for name in ("h", "conv")]
+
+    engine._prefill, engine._finalize_admission = timed, record
+    reqs = []
+    for p in prompts:
+        reqs.append(engine.submit(p.numpy(), max_new=MAX_NEW))
+        engine.step()
+    engine.run()
+    del engine, prefill, finalize, timed, record
+    gc.collect()
+    equal = []
+    for req, p in zip(reqs, prompts):
+        with session.scope(), torch.no_grad():
+            _, cache = T.prefill(session.params, p[None].to(device), cfg, SSM_MAX_LEN)
+        layers = T._cache_layers(cache, cfg)
+        want = [layers[i][name][0] for i in (0, -1) for name in ("h", "conv")]
+        equal.append(all(torch.equal(a, b) for a, b in zip(rows[req.rid], want)))
+        del cache, layers, want
+    log(f"[ssm] {session.options or 'f32'} {session.backend}: admissions of "
+        + ", ".join(f"{len(p)} tokens {ms[r.rid]:.2f} ms" for p, r in zip(prompts, reqs))
+        + " (eager fused prefills); each slot's h and conv as admitted vs prefill alone: "
+        + ", ".join("bitwise" if ok else "DIFFER" for ok in equal))
+    assert all(equal) and len(ms) == len(prompts), (equal, ms)
+    return {"admission_ms": [ms[r.rid] for r in reqs], "ttft_s": [r.ttft_seconds for r in reqs],
+            "state_rows_bitwise": equal}
+
+
+def ssm_prefix_hit(session, prompt, longer):
+    """The prefix cache of an unchunked stack: ``prompt`` admitted cold,
+    then again (a full hit: no prefill; the staged state's bytes and the
+    admission logits bitwise the cold admission's; the same tokens, but
+    under codes_adc, where they are reported), then ``longer``, which
+    starts with ``prompt``: no hit (no partial hit is served), a prefill of
+    its own. An idle slot's SSM state goes on advancing every tick, so the
+    second request's tick sees other idle rows than the first's, and the
+    ADC digitizes the tick's rows together (a tile's step from their max
+    |x|): its tokens are another computation there."""
+    from repro_torch.deploy import ServeEngine
+
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=SSM_MAX_LEN)
+    staged, finalize = [], engine._finalize_admission
+    prefills, prefill = [], engine._prefill
+    engine._finalize_admission = lambda slot, req: (
+        staged.append((engine._staging_flat.clone(), req._logits.clone())), finalize(slot, req))
+    engine._prefill = lambda req: (prefills.append(req.rid), prefill(req))
+    reqs = []
+    for p in (prompt, prompt, longer):
+        reqs.append(engine.submit(p.numpy(), max_new=MAX_NEW))
+        engine.run()
+    hits = [r.prefix_hit_tokens for r in reqs]
+    bitwise = all(same_bytes(a, b) for a, b in zip(staged[0], staged[1]))
+    same_tokens = reqs[0].tokens == reqs[1].tokens
+    result = {"prefix_hit_tokens": hits, "prefills": len(prefills), "full_hit_bitwise": bitwise,
+              "tokens_equal": same_tokens, "partial_hits": engine.prefix_partial_hits,
+              "prefix_cache_bytes": engine.prefix_cache_bytes()}
+    log(f"[ssm] {session.options or 'f32'} {session.backend}: prefix cache, a {len(prompt)}-token "
+        f"prompt twice then a {len(longer)}-token one starting with it: reused tokens {hits}, "
+        f"{len(prefills)} prefills, full hit {'bitwise' if bitwise else 'DIFFERS from'} the "
+        f"cold admission (state and logits), tokens {'equal' if same_tokens else 'differ'}; "
+        f"cache {result['prefix_cache_bytes'] / 2**20:.1f} MiB")
+    assert hits == [0, len(prompt), 0] and len(prefills) == 2, result
+    assert bitwise and result["partial_hits"] == 0, result
+    assert same_tokens or session.backend == "codes_adc", result
+    del engine, staged
+    return result
+
+
+def near_tie(label, a, b, rows, gated, bound=LOGITS_BOUND):
+    """Two greedy streams: equal, or at their first split both tokens within
+    ``bound`` of absmax below the top of ``rows[split]`` (a near-tie; the two
+    share their history up to it). ``gated`` False reports only."""
+    split = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if split is None:
+        return None
+    row = rows[split]
+    top = float(row.max())
+    tie = {"index": split, "a": a[split], "b": b[split],
+           "gaps": [top - float(row[a[split]]), top - float(row[b[split]])],
+           "absmax": float(row.abs().max())}
+    assert not gated or max(tie["gaps"]) <= bound * tie["absmax"], (label, tie)
+    return tie
+
+
+def ssm_prefill_vs_loop(session, prompt, extra=8):
+    """The 300-token prompt through the fused prefill (the tiled bodies, the
+    chunked scan) and through a token-by-token ``decode_step`` loop (the
+    GEMV bodies, the recurrence), eagerly from a zeroed cache: the last
+    logits and the first and last layers' ``h`` within ``SSM_LOOP_BOUND``
+    of their absmax; then ``extra`` greedy tokens from each cache, equal or
+    split at a near-tie (``LOGITS_BOUND``)."""
+    from repro_torch.models import transformer as T
+
+    cfg, device = session.cfg, session.device
+    p = prompt[None].to(device)
+    n = p.shape[1]
+    t0 = time.perf_counter()
+    with session.scope(), torch.no_grad():
+        lf, cf = T.prefill(session.params, p, cfg, SSM_MAX_LEN)
+        cl = T.init_cache(cfg, 1, SSM_MAX_LEN, device)
+        for i in range(n):
+            ll, cl = T.decode_step(session.params, cl, p[:, i:i + 1], i, cfg)
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter() - t0
+        errs = {"logits": compare_logits(f"falcon {n}-token fused prefill vs decode loop: last "
+                                         "logits", lf[0, -1], ll[0, -1], SSM_LOOP_BOUND)}
+        for i in (0, -1):
+            a, b = T._cache_layers(cf, cfg)[i]["h"], T._cache_layers(cl, cfg)[i]["h"]
+            rel = float((a - b).abs().max()) / float(b.abs().max())
+            errs[f"h layer {i % cfg.n_layers}"] = rel
+            log(f"[ssm] fused prefill vs decode loop: layer {i % cfg.n_layers}'s h max|diff| "
+                f"{rel:.3e} of absmax (bound {SSM_LOOP_BOUND:g})")
+            assert rel <= SSM_LOOP_BOUND, (i, rel)
+        streams, rows = {"prefill": [], "loop": []}, []
+        for name, logits, cache in (("prefill", lf, cf), ("loop", ll, cl)):
+            for j in range(extra):
+                if name == "loop":
+                    rows.append(logits[0, -1].float().cpu())
+                tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+                streams[name].append(int(tok))
+                logits, cache = T.decode_step(session.params, cache, tok, n + j, cfg)
+    tie = near_tie("falcon prefill vs loop continuation", streams["prefill"], streams["loop"],
+                   rows, True)
+    log(f"[ssm] greedy continuation from the prefill's cache vs the loop's: "
+        + ("equal" if tie is None else f"split at a near-tie {tie}")
+        + f" ({extra} tokens; the {n}-step loop took {t_loop:.2f} s)")
+    return {"errors": errs, "streams": streams, "split": tie, "loop_seconds": t_loop}
+
+
+def ssm_alone(session, prompts, streams, gated):
+    """Each stream against its request served alone: an eager batch-1 fused
+    prefill and ``decode_step`` calls fed the engine's tokens (the logits
+    rows a split is judged on), and ``ServeSession.generate`` (an engine of
+    one slot): its tokens equal to the engine's, or split at a near-tie
+    within ``LOGITS_BOUND``. ``gated`` False (codes_adc: a tile's ADC step
+    comes from the max |x| of all its rows, so a row served beside others
+    is another computation) reports them."""
+    from repro_torch.models import transformer as T
+
+    cfg, device = session.cfg, session.device
+    out = []
+    for rid, (p, stream) in enumerate(zip(prompts, streams)):
+        rows = []
+        with session.scope(), torch.no_grad():
+            logits, cache = T.prefill(session.params, p[None].to(device), cfg, SSM_MAX_LEN)
+            for i, want in enumerate(stream):
+                rows.append(logits[0, -1].float().cpu())
+                if i + 1 < len(stream):
+                    logits, cache = T.decode_step(session.params, cache,
+                                                  torch.tensor([[want]], device=device),
+                                                  len(p) + i, cfg)
+        del cache, logits
+        alone, _ = session.generate(p[None], gen_len=MAX_NEW)
+        alone = [int(t) for t in alone[0]]
+        tie = near_tie(f"falcon {session.options or 'f32'} {session.backend} request {rid}",
+                       alone, stream, rows, gated)
+        out.append({"request": rid, "generate_tokens": alone, "tokens_equal": tie is None,
+                    "split": tie})
+    log(f"[ssm] {session.options or 'f32'} {session.backend}: engine streams vs served alone "
+        "through generate: " + "; ".join(
+            f"request {o['request']} "
+            + ("equal" if o["tokens_equal"] else f"split at a near-tie {o['split']}")
+            for o in out))
+    return out
+
+
+def ssm_profiles(session, label, prompt):
+    """The captured decode tick (4 live slots) and the eager admission of
+    ``prompt`` (one fused prefill), each profiled over a few calls: device
+    time by class (``SSM_CLASSES``)."""
+    from repro_torch.deploy import ServeEngine
+
+    gc.collect()  # the drive's engines hand their lease back
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=SSM_MAX_LEN)  # the warm step
+    step = engine._decode
+    host = torch.stack([torch.arange(SLOTS) + 7, torch.arange(SLOTS) * 10 + 40])
+    for _ in range(2):
+        step(host)
+    torch.cuda.synchronize()
+    tick = profile_window("ssm", "tick", 4, lambda: torch.argmax(step(host)[:, -1], -1).cpu(),
+                          classes=SSM_CLASSES)
+    p = prompt[None].to(session.device)
+    session.prefill(p, SSM_MAX_LEN)
+    torch.cuda.synchronize()
+    log(f"[ssm] {label}: profile of 2 admissions of {p.shape[1]} tokens")
+    admission = profile_window("ssm", "admission", 2,
+                               lambda: session.prefill(p, SSM_MAX_LEN),
+                               classes=SSM_CLASSES)
+    del engine
+    return {"tick": tick, "admission": admission}
+
+
+def ssm_codes_vs_dequant(session, logits, tokens):
+    """The session's fused-prefill ``logits`` (3 x 32 rows through the
+    tiled bodies) against the same prefill under ``dequant``, within
+    ``LOGITS_BOUND``."""
+    from repro_torch import substrate
+    from repro_torch.models import transformer as T
+
+    with substrate.use_backend("dequant"), torch.no_grad():
+        ref_logits, _ = T.prefill(session.params, tokens, session.cfg, PREFILL_MAX_LEN)
+    return compare_logits("falcon codes vs dequant prefill logits", logits, ref_logits,
+                          LOGITS_BOUND)
+
+
+def ssm_serve_checked(dep, seed):
+    """Phase 5's per-session checks on falcon-mamba: ``serve()``,
+    ``serve(accum="int8")`` and a codes_adc deployment over the same
+    teacher, codes and side-cars, each through ``drive`` (first drive
+    captures, a warm drive and an eager one with the same launches and
+    streams, ``compile_count`` 1 (the decode tick) and flat, the tick's
+    replay bitwise its eager step, ``h`` and ``conv`` included, the tick
+    captured vs eager); exact launch counts (``ssm_counts``); codes vs
+    dequant within ``LOGITS_BOUND``, int8 vs f32 within
+    ``INT8_LOGITS_BOUND``, ADC vs f32 reported; the admissions timed and
+    each slot's state bitwise its prompt's prefill alone
+    (``ssm_admissions``), a full prefix hit and no partial one
+    (``ssm_prefix_hit``), the profiles, on the f32 session the 300-token
+    prefill vs the decode loop (``ssm_prefill_vs_loop``) and, last (its
+    throwaway engines capture ticks of their own lengths), the streams
+    against the requests served alone (``ssm_alone``)."""
+    from repro_torch.deploy import Deployment
+
+    cfg, device = dep.cfg, dep.device
+    prompts, longer, tokens, _ = ssm_traffic(cfg, seed, device)
+    runs, logits = {}, {}
+    makers = (("f32", lambda: dep.serve()), ("int8", lambda: dep.serve(accum="int8")),
+              ("codes_adc", lambda: Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes,
+                                               dep.adapters, dep.teacher_seed,
+                                               dep.program_seed, dep.drift_hours).serve()))
+    for body, make in makers:
+        memory()
+        torch.cuda.reset_peak_memory_stats()
+        session = make()
+        run, logits[body] = drive(session, prompts, tokens, MAX_NEW, max_len=SSM_MAX_LEN,
+                                  compiled=SSM_COMPILED_STEPS)
+        assert run["prefix_hit_tokens"] == [0] * len(prompts), run["prefix_hit_tokens"]
+        assert run["prefill_chunks"] == 0, run
+        ticks = run["decode_steps"]
+        expect_counts(run["launches_engine"], ssm_counts(cfg, ticks, SSM_PROMPT_LENS, 0, body))
+        expect_counts(run["launches"], ssm_counts(cfg, ticks, SSM_PROMPT_LENS, 1, body))
+        assert {s.key[0] for s in session.steps} == {"decode"}
+        run["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        if body == "f32":
+            run["codes_vs_dequant"] = ssm_codes_vs_dequant(session, logits["f32"], tokens)
+        elif body == "int8":
+            run["int8_vs_f32"] = compare_logits("falcon calibrated int8 vs f32 codes prefill "
+                                                "logits", logits["int8"], logits["f32"],
+                                                INT8_LOGITS_BOUND)
+        else:
+            run["adc_vs_f32"] = compare_logits("falcon calibrated codes_adc vs f32 codes "
+                                               "prefill logits", logits["codes_adc"],
+                                               logits["f32"])
+            same = sum(a == b for ra, rb in zip(run["streams"], runs["f32"]["streams"])
+                       for a, b in zip(ra, rb))
+            run["greedy_tokens_equal_f32"] = same / sum(len(r) for r in run["streams"])
+        run["admissions"] = ssm_admissions(session, prompts)
+        run["prefix"] = ssm_prefix_hit(session, prompts[1], longer)
+        run["trace"] = ssm_profiles(session, body, prompts[-1])
+        assert session.compile_count() == SSM_COMPILED_STEPS, session.compile_count()
+        if body == "f32":
+            run["prefill_vs_loop"] = ssm_prefill_vs_loop(session, prompts[-1])
+        run["alone"] = ssm_alone(session, prompts, run["streams"], gated=body != "codes_adc")
+        run["retained_bytes"] = memory()
+        log(f"[ssm] {body}: tick captured {run['tick']['captured']:.3f} ms vs eager "
+            f"{run['tick']['eager']:.3f} ms; engine {run['warm']['decode_tok_per_s']:.1f} tok/s "
+            f"captured vs {run['eager']['decode_tok_per_s']:.1f} eager; TTFT warm "
+            + ", ".join(f"{t:.4f}" for t in run["warm"]["ttft_s"])
+            + " s (admissions "
+            + ", ".join(f"{x:.2f}" for x in run["admissions"]["admission_ms"])
+            + f" ms); compile_count {run['compile_count']}; peak "
+            f"{run['peak_mem_bytes'] / 2**30:.2f} GiB; after the drive the registry holds "
+            f"+{run['registry_allocated_bytes'] / 2**30:.2f} GiB allocated, "
+            f"+{run['registry_reserved_bytes'] / 2**30:.2f} reserved; launches "
+            f"{run['launches']}")
+        runs[body] = run
+        del session
+    return runs
+
+
+def phase_ssm(device, seed):
+    """Phase 15: falcon-mamba-7b at its published widths and ``SSM_LAYERS``
+    of its 64 layers. ``Deployment.program(codes)`` -> ``advance(24)`` ->
+    ``calibrate(10, steps=20)`` -> the three sessions' serving checks.
+    Every check raises."""
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    full = get_arch(SSM_CELL.arch).full
+    assert (full.n_layers, full.d_model, full.ssm.d_inner) == (64, 4096, 8192)
+    cfg = dataclasses.replace(full, n_layers=SSM_LAYERS)
+    memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dep = Deployment.program(cfg, seed, backend="codes", device=device)
+    dep.advance(24)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    n_base, n_adapters = T.count_params({"base": dep.codes, "adapters": dep.adapters})
+    allocated, reserved = memory()
+    result = {"layers": SSM_LAYERS, "of_layers": full.n_layers, "setup_seconds": t_setup,
+              "base_params": n_base, "adapter_params": n_adapters,
+              "rram_bytes": dep.rram_bytes(), "sram_bytes": dep.sram_bytes(),
+              "teacher_bytes": tree_bytes(dep.teacher_base),
+              "resident_allocated_bytes": allocated, "resident_reserved_bytes": reserved}
+    log(f"[ssm] {cfg.name} at {SSM_LAYERS} of its {full.n_layers} layers: {n_base:,} weights, "
+        f"{n_adapters:,} side-car parameters; program + advance(24) {t_setup:.2f} s; resident "
+        f"{allocated / 2**30:.2f} GiB (teacher {result['teacher_bytes'] / 2**30:.2f}, codes "
+        f"{result['rram_bytes'] / 2**30:.2f})")
+    result["calibration"] = moe_calibrate(dep, SSM_CELL)
+    result["serving"] = ssm_serve_checked(dep, seed)
+    result["peak_mem_bytes"] = max(result["calibration"]["peak_mem_bytes"],
+                                   *(r["peak_mem_bytes"] for r in result["serving"].values()))
+    del dep
+    result["retained_bytes"] = memory()
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[ssm] phase 15 took {result['phase_seconds']:.2f} s; peak "
+        f"{result['peak_mem_bytes'] / 2**30:.2f} GiB (calibration "
+        f"{result['calibration']['peak_mem_bytes'] / 2**30:.2f})")
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4736,10 +5229,13 @@ def main():
     memory()
     lap("13 encdec")
     vlm = phase_vlm(device, args.seed)
+    memory()
     lap("14 vlm")
+    ssm = phase_ssm(device, args.seed)
+    lap("15 ssm")
     seconds["total"] = marks[-1] - marks[0]
     log("[smoke] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
-    zoo = (moe, mla, encdec, vlm)
+    zoo = (moe, mla, encdec, vlm, ssm)
 
     # one transformer layer: the four fused leaves at the decode tick (GEMV)
     # or the fused prefill (tiled), the seven unfused leaves at the decode
@@ -4747,8 +5243,8 @@ def main():
     session_of = {"dora_linear_gemv": serving, "dora_linear": serving,
                   "dora_linear_gemv/int8": serving["int8"],
                   "dora_linear/int8": serving["int8"], "crossbar_mvm": serving["codes_adc"]}
-    # phase 5's main path and those of phases 11, 12, 13 and 14 (the mixtral,
-    # deepseek, seamless and paligemma sessions of each body)
+    # phase 5's main path and those of phases 11 to 15 (the mixtral,
+    # deepseek, seamless, paligemma and falcon-mamba sessions of each body)
     moe_of = {"dora_linear_gemv": "f32", "dora_linear": "f32", "dora_linear_gemv/int8": "int8",
               "dora_linear/int8": "int8", "crossbar_mvm": "codes_adc"}
     launches = {name: run["launches"][name] + sum(z["serving"][moe_of[name]]["launches"][name]
@@ -4787,7 +5283,7 @@ def main():
         timed = timed or name
         mine = [r for r in rows if r["kernel"] == timed and r["m"] == m
                 and (r["leaf"] == leaf if leaf
-                     else not r["leaf"].startswith(("router", "s-", "p-")))]
+                     else not r["leaf"].startswith(("router", "s-", "p-", "m-")))]
         library = [r["library_ms"] for r in mine]
         kernels.append({
             "name": name, "route": "cuda",
@@ -4808,6 +5304,7 @@ def main():
                        "serving": serving, "calibration": calibration, "faults": faults,
                        "persist": persist, "paper": paper, "moe": moe, "mla": mla,
                        "encdec": encdec, "vlm": vlm, "paligemma_kernels": worst["paligemma"],
+                       "ssm": ssm, "falcon_kernels": worst["falcon"],
                        "kernels": kernels},
                       f,
                       indent=1, default=str)

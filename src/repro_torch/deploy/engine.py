@@ -1,6 +1,7 @@
 """Continuous-batching serve engine over the batched decode step. Port
-of ``repro/deploy/engine.py`` for attention stacks: decoder-only,
-encoder-decoder, or behind a vision prefix (``remesh`` waits).
+of ``repro/deploy/engine.py`` for attention stacks (decoder-only,
+encoder-decoder, or behind a vision prefix) and SSM stacks (``remesh``
+waits).
 
 * **Slots.** A fixed ``(max_slots, max_len)`` decode cache; each
   in-flight request owns one row, finished rows are recycled.
@@ -10,6 +11,13 @@ encoder-decoder, or behind a vision prefix (``remesh`` waits).
   chunks (pow-2 bucketed width, masked tail), one chunk per engine tick
   interleaved with decode ticks; the first token comes from the last
   chunk's logits and the batch-1 cache is copied into the slot's row.
+* **Unchunked admission (SSM stacks).** A recurrence's scan regroups its
+  products by length, so an SSM stack does not chunk (``self.chunked``
+  False): a cold request runs one eager exact-length fused prefill
+  (``ServeSession.prefill``), whose cache is copied into the staging
+  views; then, as after a last chunk, it is snapshotted and finalized at
+  once. The prefix cache serves only full hits: the snapshot of a whole
+  prompt.
 * **Encoder-decoder slots.** A request carries ``enc_embeds`` (S_src, d):
   its cold admission zeroes the staging cache and runs the session's
   encoder step (``ServeSession.encode_fn``, one per source length) just
@@ -72,6 +80,7 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.deploy import serving
 from repro_torch.models import moe as M
 
@@ -129,8 +138,7 @@ class ServeEngine:
                  prefix_cache_entries: int = 16):
         self.session = session
         self.cfg = session.cfg
-        if not all(m in _CHUNKABLE for m in self.cfg.mixer_pattern):
-            raise NotImplementedError("the engine admits attention stacks only")
+        self.chunked = all(m in _CHUNKABLE for m in self.cfg.mixer_pattern)
         if self.cfg.encoder_layers and src_len <= 0:
             raise ValueError("encoder-decoder engine needs src_len > 0 (the cross-"
                              "attention cache extent; requests may be shorter)")
@@ -257,11 +265,17 @@ class ServeEngine:
     def _start_admission(self, req: Request, slot: int) -> None:
         """Bind ``req`` to ``slot``, look its prompt up in the prefix cache
         and plan the chunks from the tokens it covers, behind a vision unit
-        when a cold image request starts from nothing."""
+        when a cold image request starts from nothing. An unchunked stack's
+        cold request runs its whole prompt here (``_prefill``) and plans
+        no unit."""
         req.slot = slot
         self.slot_req[slot] = req
         req._chain = self._hash_chain(req)
         hit = self._prefix_lookup(req)
+        if not self.chunked:
+            if hit < req.prompt_len:
+                self._prefill(req)
+            return
         req._vision_pending = hit == 0 and req.patch_embeds is not None
         req._spans = self._spans(hit, req.prompt_len)
 
@@ -312,6 +326,19 @@ class ServeEngine:
         if req._spans:
             self._save(req, step.flat)
         return logits
+
+    @torch.no_grad()
+    def _prefill(self, req: Request) -> None:
+        """An unchunked stack's cold admission: one eager fused prefill of
+        the whole prompt at batch 1, its cache copied into the staging
+        views, snapshotted for the prefix cache."""
+        from repro_torch.interop import to_tensor
+
+        prompt = to_tensor(req.prompt, self.device)[None]
+        req._logits, cache = self.session.prefill(prompt, self.max_len)
+        for dst, src in zip(tree_lib.tensors(self._staging), tree_lib.tensors(cache)):
+            dst.copy_(src)
+        self._store_prefix(req, req.prompt_len)
 
     @staticmethod
     def _save(req: Request, flat: torch.Tensor) -> None:
@@ -386,7 +413,8 @@ class ServeEngine:
 
     def _prefix_lookup(self, req: Request) -> int:
         """The longest stored prefix of the request's prompt (under
-        ``codes_adc`` the whole prompt or a multiple of ``prefill_chunk``):
+        ``codes_adc`` the whole prompt or a multiple of ``prefill_chunk``;
+        for an unchunked stack the whole prompt only):
         the number of prompt tokens it covers (0 when cold). A full hit
         copies the snapshot into the staging cache, which
         ``_finalize_admission`` copies into the slot next; a partial hit
@@ -396,7 +424,7 @@ class ServeEngine:
             return 0
         self.prefix_lookups += 1
         n = req.prompt_len
-        for k in range(n, 0, -1):
+        for k in range(n, 0, -1) if self.chunked else (n,):
             if k < n and k % self.prefill_chunk and not self._resume_off_boundary:
                 continue
             entry = self._prefix_cache.get(req._chain[k])

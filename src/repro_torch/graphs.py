@@ -9,6 +9,7 @@ and returns them; the caller adds them per replay (``add_launch_counts``).
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -36,13 +37,22 @@ def capture(fn: Callable, stream: torch.cuda.Stream, pool=None
     """Capture ``fn()`` on ``stream`` into a CUDA graph of ``pool`` (a
     private pool of its own when None): ``(graph, fn's result, kernel
     launches per replay)``. The counters read afterwards as before, also
-    when the capture raises; an error propagates."""
+    when the capture raises; an error propagates. Python's cyclic garbage
+    is collected first and the collector is off while capturing: a step
+    of a session no longer referenced holds its CUDA graph in a cycle
+    (the session's registry and the step's function), and destroying a
+    graph while a stream captures invalidates the capture."""
     before = launch_counts()
     graph = torch.cuda.CUDAGraph()
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.graph(graph, pool=pool, stream=stream):
             out = fn()
     finally:
+        if enabled:
+            gc.enable()
         after = launch_counts()
         captured = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         add_launch_counts({k: -n for k, n in captured.items()})

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the correctness
 contract). Port of ``repro/kernels/ref.py`` and of the jnp helpers of
 ``repro/kernels/dora_linear.py``: the CPU path of every kernel wrapper,
-and what ``chip_smoke.py`` holds each CUDA kernel against on the card."""
+and what ``chip_smoke.py`` holds each CUDA kernel against on the card;
+and the step-by-step selective-scan oracle that ``models/ssm.py``'s
+chunked scan is held against."""
 from __future__ import annotations
 
 import torch
@@ -127,3 +129,24 @@ def adc_disagreement(got, want, x, scale, *, code_max=255, adc_bits=8, bm=128,
     off = (diff[idx][:, None] - one).abs() <= 1e-4 * one
     flips = int(off.any(dim=1).sum())
     return int(idx[0].numel()) - flips, flips
+
+
+def selective_scan_ref(x, dt, a_log, b_sel, c_sel, d_skip, h0=None):
+    """Sequential (step-by-step) selective scan in f32: ``(y (B, S, D),
+    h_final (B, D, N))``. Shapes: x/dt (B, S, D), a_log (D, N), b_sel/c_sel
+    (B, S, N), d_skip (D,), h0 (B, D, N) or None (zeros)."""
+    bsz, s, d = x.shape
+    n = a_log.shape[-1]
+    f32 = torch.float32
+    neg_a = -torch.exp(a_log.to(f32))
+    h = torch.zeros((bsz, d, n), dtype=f32, device=x.device) if h0 is None else h0.to(f32)
+    ys = []
+    for t in range(s):
+        dt_t = dt[:, t].to(f32)
+        x_t = x[:, t].to(f32)
+        a_t = torch.exp(dt_t[..., None] * neg_a[None])
+        b_t = (dt_t * x_t)[..., None] * b_sel[:, t, None, :].to(f32)
+        h = a_t * h + b_t
+        y = torch.sum(h * c_sel[:, t, None, :].to(f32), dim=-1)
+        ys.append(y + x_t * d_skip[None].to(f32))
+    return torch.stack(ys, dim=1), h

@@ -16,6 +16,9 @@ card raises).
     python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 --smoke --device cpu
     python -m repro_torch.launch.serve --arch paligemma-3b --backend codes
     python -m repro_torch.launch.serve --arch paligemma-3b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --layers 16 \
+        --backend codes
+    python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke --device cpu
 
 ``--layers`` cuts the depth and keeps every width: mixtral-8x22b's 56
 layers (141 G weights) do not fit one 80 GB card; 2 layers take ~22 GB.
@@ -28,6 +31,10 @@ their own, as the reference's driver draws them.
 paligemma-3b (18 layers, 1.98 G weights) fits whole; each of its
 requests carries a random image of 256 patch embeddings, drawn from a
 third stream.
+falcon-mamba-7b's 64 layers (7.26 G weights) fit one card as codes, but
+not beside a teacher, three sessions and calibration; 16 layers take
+~2.2 G weights. Its engine admits each prompt by one exact-length fused
+prefill (an SSM stack does not chunk).
 """
 from __future__ import annotations
 

@@ -6,15 +6,19 @@ prefix-LM vision prefix (paligemma: precomputed patch embeddings ahead of
 the text, attending to each other bidirectionally); the forward, the
 feature-KD calibration loss and the serving steps (the encoder admission
 writes each decoder layer's cross-attention K/V into the cache once; the
-vision admission writes the patches' K/V at positions [0, P)). SSM and
-RG-LRU wait.
+vision admission writes the patches' K/V at positions [0, P)), and the
+attention-free Mamba-1 stack (falcon-mamba: ``ssm`` mixers, no FFN),
+whose decode cache is each layer's recurrent state ``h`` and conv window
+``conv``, both f32. RG-LRU waits.
 
 The parameter layout is the reference's: ``prologue`` (list) + ``body``
 (a list of ``scan_period`` layer trees whose leaves are stacked on axis
 0 over the scan groups) + ``epilogue`` (list). Where the reference runs
 the body under ``lax.scan``, the port loops over the stacked axis.
 
-Decode and chunk steps update the KV cache in place and return it.
+Decode and chunk steps update the KV cache (and the SSM state) in place
+and return it. Only attention stacks chunk: an SSM stack is admitted by
+one exact-length fused prefill, as the reference admits it.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.core.rram import CrossbarWeight, DEFAULT_RRAM, RramConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
 _ATTN = ("attn", "local", "swa")
 
@@ -42,6 +47,7 @@ class ModelConfig:
     attn: Optional[A.AttentionConfig] = None
     mlp: Optional[L.MlpConfig] = None
     moe: Optional[M.MoeConfig] = None
+    ssm: Optional[S.SsmConfig] = None
     mixer_pattern: Tuple[str, ...] = ("attn",)
     local_window: int = 1024
     ffn_pattern: Tuple[str, ...] = ("mlp",)
@@ -86,15 +92,15 @@ class ModelConfig:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Attention mixers (MLA ones global) with MLP, MoE or no FFN, an
-    encoder and a vision prefix; the other kinds (SSM, RG-LRU) are not
-    ported."""
-    for attr in ("ssm", "rglru"):
-        if getattr(cfg, attr, None):
-            raise NotImplementedError(f"{cfg.name}: {attr} is not ported")
+    """Attention mixers (MLA ones global) and SSM mixers with MLP, MoE or
+    no FFN, an encoder and a vision prefix; RG-LRU is not ported."""
+    if getattr(cfg, "rglru", None):
+        raise NotImplementedError(f"{cfg.name}: rglru is not ported")
     mla = cfg.attn is not None and cfg.attn.mla
     for mixer, ffn in cfg.layer_kinds():
-        if mixer not in _ATTN or ffn not in ("mlp", "moe", "none"):
+        if mixer == "ssm" and cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: an ssm mixer needs cfg.ssm")
+        if mixer not in _ATTN + ("ssm",) or ffn not in ("mlp", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: layer kind ({mixer}, {ffn}) is not ported"
             )
@@ -130,8 +136,12 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, mixer: str,
     device = generator.device
     base: Dict = {"norm1": _norm_init(cfg, device)}
     adapters: Dict = {}
-    base["mixer"], adapters["mixer"] = A.init_attention(
-        generator, _attn_cfg(cfg, mixer), cfg.adapter, cfg.dtype)
+    if mixer == "ssm":
+        base["mixer"], adapters["mixer"] = S.init_ssm(generator, cfg.ssm, cfg.adapter,
+                                                      cfg.dtype)
+    else:
+        base["mixer"], adapters["mixer"] = A.init_attention(
+            generator, _attn_cfg(cfg, mixer), cfg.adapter, cfg.dtype)
     if cross:
         base["norm_x"] = _norm_init(cfg, device)
         base["xattn"], adapters["xattn"] = A.init_attention(
@@ -263,8 +273,11 @@ def block_forward(h, base, adapters, cfg: ModelConfig, mixer: str, ffn: str, *,
                   positions=None, mask=None, enc_out=None):
     a_ = adapters or {}
     x = _norm(h, base["norm1"], cfg)
-    h = h + A.attention(x, base["mixer"], a_.get("mixer"), _attn_cfg(cfg, mixer),
-                        cfg.adapter, positions=positions, mask=mask)
+    if mixer == "ssm":
+        h = h + S.ssm_block(x, base["mixer"], a_.get("mixer"), cfg.ssm, cfg.adapter)
+    else:
+        h = h + A.attention(x, base["mixer"], a_.get("mixer"), _attn_cfg(cfg, mixer),
+                            cfg.adapter, positions=positions, mask=mask)
     h = _cross(h, base, a_, cfg, enc_out)
     return _ffn(h, base, a_, cfg, ffn)
 
@@ -412,7 +425,9 @@ def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, src_len: int = 0) -> Dict:
-    """The decode cache. An encoder-decoder config adds to each layer's
+    """The decode cache. An SSM layer's is its state ``"h"`` (B, d_inner,
+    N) and conv window ``"conv"`` (B, K-1, d_inner), both f32, whatever
+    ``max_len``. An encoder-decoder config adds to each layer's
     cache its cross-attention lines over ``src_len`` source positions
     (``"xk"``/``"xv"``, written once at admission) and to the cache the
     per-slot valid source length ``"enc_len"`` (int32)."""
@@ -421,6 +436,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, src_len: int 
     p = cfg.scan_period
 
     def layer_cache(mixer):
+        if mixer == "ssm":
+            return S.init_ssm_cache(batch, cfg.ssm, device)
         c = A.init_kv_cache(batch, max_len, _attn_cfg(cfg, mixer), device, cfg.dtype)
         if cfg.encoder_layers:
             c.update(A.init_cross_cache(batch, max(src_len, 1),
@@ -467,8 +484,8 @@ def flat_views(like: Dict, flat: torch.Tensor) -> Dict:
 def init_flat_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                     src_len: int = 0) -> Tuple[torch.Tensor, Dict]:
     """``init_cache``'s tree as views of ONE zeroed buffer, returned with
-    it: a whole cache (the int32 ``enc_len`` included) is then zeroed,
-    saved or restored by one op."""
+    it: a whole cache (the int32 ``enc_len`` and the f32 SSM state
+    included) is then zeroed, saved or restored by one op."""
     like = init_cache(cfg, batch, max_len, "meta", src_len)
     unit = torch.empty((), dtype=cfg.dtype).element_size()
     flat = torch.zeros(_flat_layout(like, unit)[1], dtype=cfg.dtype, device=device)
@@ -548,13 +565,17 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     if enc_out is not None:
         cache["enc_len"].fill_(enc_out.shape[1])
     layer_caches = _cache_layers(cache, cfg)
-    xcfg = _attn_cfg(cfg, "attn", cross=True)
+    xcfg = _attn_cfg(cfg, "attn", cross=True) if enc_out is not None else None
     for i, lb, la, (mixer, ffn) in _layers(base, adapters, cfg):
-        acfg = _attn_cfg(cfg, mixer)
         x = _norm(h, lb["norm1"], cfg)
-        mix, kv = A.attention(x, lb["mixer"], la.get("mixer"), acfg, cfg.adapter,
-                              positions=positions, mask=mask, return_kv=True)
-        layer = A.prefill_kv_cache(kv, b, max_len, acfg, cfg.dtype)
+        if mixer == "ssm":
+            mix, layer = S.ssm_block(x, lb["mixer"], la.get("mixer"), cfg.ssm, cfg.adapter,
+                                     return_state=True)
+        else:
+            acfg = _attn_cfg(cfg, mixer)
+            mix, kv = A.attention(x, lb["mixer"], la.get("mixer"), acfg, cfg.adapter,
+                                  positions=positions, mask=mask, return_kv=True)
+            layer = A.prefill_kv_cache(kv, b, max_len, acfg, cfg.dtype)
         for name, buf in layer.items():
             layer_caches[i][name].copy_(buf)
         h = h + mix
@@ -588,8 +609,12 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos,
     layer_caches = _cache_layers(cache, cfg)
     for i, lb, la, (mixer, ffn) in _layers(base, adapters, cfg):
         x = _norm(h, lb["norm1"], cfg)
-        mix, _ = A.decode_attention(x, layer_caches[i], pos, lb["mixer"],
-                                    la.get("mixer"), _attn_cfg(cfg, mixer), cfg.adapter)
+        if mixer == "ssm":  # the state is per row: no clock
+            mix, _ = S.ssm_decode(x, layer_caches[i], lb["mixer"], la.get("mixer"), cfg.ssm,
+                                  cfg.adapter)
+        else:
+            mix, _ = A.decode_attention(x, layer_caches[i], pos, lb["mixer"],
+                                        la.get("mixer"), _attn_cfg(cfg, mixer), cfg.adapter)
         h = _cross_cached(h + mix, layer_caches[i], cache.get("enc_len"), lb, la, cfg)
         h = _ffn(h, lb, la, cfg, ffn)
     h = _norm(h, base["final_norm"], cfg)
@@ -614,6 +639,8 @@ def _cross_cached(h, cache_l, enc_len, b, a_, cfg: ModelConfig):
 def _chunk_block(h, cache_l, pos0, n_valid, b, a_, cfg: ModelConfig, mixer: str,
                  ffn: str, *, max_len: int, enc_len=None, prefix: int = 0):
     a_ = a_ or {}
+    if mixer not in _ATTN:  # a recurrence's scan regroups by length: no chunks
+        raise ValueError(f"chunked prefill supports attention mixers only, got {mixer!r}")
     x = _norm(h, b["norm1"], cfg)
     mix, new_kv = A.chunk_attention(x, cache_l, pos0, n_valid, b["mixer"],
                                     a_.get("mixer"), _attn_cfg(cfg, mixer),

@@ -119,7 +119,8 @@ def model():
 def test_config_and_registry():
     """Both spellings resolve; the reference's source length; the encoder
     stacked over its layers as the reference's scan stacks it (a list under
-    ``unroll``); an SSM mixer is still refused."""
+    ``unroll``); an RG-LRU mixer is still refused, an SSM one (with its
+    config) accepted."""
     arch = t_arch("seamless-m4t-large-v2")
     assert arch is t_arch(ARCH) and arch.enc_src_len == j_arch(ARCH).enc_src_len == 4096
     assert (arch.full.encoder_layers, arch.full.n_layers) == (24, 24)
@@ -132,8 +133,10 @@ def test_config_and_registry():
     unrolled = TT.init_params(torch.Generator().manual_seed(0),
                               dataclasses.replace(arch.smoke, unroll=True))
     assert len(unrolled["base"]["encoder"]) == 2
-    with pytest.raises(NotImplementedError, match="ssm"):
-        TT._check_supported(dataclasses.replace(arch.smoke, mixer_pattern=("ssm",)))
+    with pytest.raises(NotImplementedError, match="rglru"):
+        TT._check_supported(dataclasses.replace(arch.smoke, mixer_pattern=("rglru",)))
+    TT._check_supported(dataclasses.replace(arch.smoke, mixer_pattern=("ssm",),
+                                            ssm=t_arch("falcon-mamba-7b").smoke.ssm))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

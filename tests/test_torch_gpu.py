@@ -69,6 +69,12 @@ full-width leaves and at ragged shapes:
   three image requests and a text-only one on each body: exact launches,
   ``compile_count`` 5 and flat, every graph (the vision admission's
   included) replayed bitwise equal to its eager step.
+* the selective SSM (falcon-mamba-7b) at smoke: an engine drive on each
+  body (every admission one eager fused prefill, ``compile_count`` 1: the
+  decode tick), the decode graph's replay bitwise its eager step (logits,
+  and the f32 ``h`` and ``conv`` compared by their bytes), and
+  ``calibrate``'s graph bitwise the eager steps (the SSM blocks recomputed
+  in the backward).
 
 This file imports no jax, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -2036,3 +2042,106 @@ def test_vision_engine_drive_replays_and_exact_launches(cuda, body):
             host = torch.cat([torch.randint(0, cfg.vocab, (width,), generator=g),
                               torch.tensor([max_len - width // 2 - 1, width // 2 + 1])])
         assert _replay_equals_eager(step, host) == (True, True), step.key
+
+
+# -- falcon-mamba-7b at smoke: the decode graph and the calibration graph --
+
+
+def _bytes_equal(a, b):
+    """Bitwise, by bytes: the f32 SSM state in a bf16 buffer reads as NaNs
+    there, which never compare equal as bf16."""
+    return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_ssm_decode_graph_replays_bitwise(cuda, body):
+    """falcon-mamba's smoke stack: STEP_PROMPTS through a 4-slot engine
+    (each admission one eager fused prefill, no chunk), greedy: exact
+    launches (an admission 4 x 4 leaves at its rows and the head at one;
+    a tick 4 x 4 + 1 at 4 rows), ``compile_count`` 1, the same streams on
+    a second drive; the decode graph replayed bitwise equal to its eager
+    step, logits and cache (``h`` and ``conv`` included)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment, ServeEngine
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch("falcon-mamba-7b").smoke
+    dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24)
+    if body == "codes_adc":
+        dep = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
+                         dep.teacher_seed, dep.program_seed, dep.drift_hours)
+    session = dep.serve(accum="int8") if body == "int8" else dep.serve()
+    runs = []
+    for _ in range(2):
+        engine = ServeEngine(session, max_slots=4, max_len=64, prefix_cache_entries=0)
+        K.reset_launch_counts()
+        C.reset_launch_counts()
+        reqs = []
+        for n in STEP_PROMPTS:
+            reqs.append(engine.submit(torch.arange(n) % cfg.vocab, max_new=6))
+            engine.step()
+        engine.run()
+        torch.cuda.synchronize()
+        assert all(r.done and len(r.tokens) == 6 for r in reqs)
+        stats = engine.stats()
+        assert stats["prefill_chunks"] == 0
+        runs.append(([list(r.tokens) for r in reqs], {**K.launch_counts(), **C.launch_counts()},
+                     session.compile_count()))
+        ticks = stats["decode_steps"]
+        del engine
+    per = 4 * cfg.n_layers
+    if body == "codes_adc":
+        want = {"crossbar_mvm": (ticks + len(STEP_PROMPTS)) * (per + 1)}
+    else:
+        sfx = "" if body == "f32" else "/int8"
+        want = {f"dora_linear_gemv{sfx}": ticks * (per + 1) + len(STEP_PROMPTS) * (per + 1)}
+    counts = runs[0][1]
+    assert counts == {name: want.get(name, 0) for name in counts}, (counts, want)
+    assert runs[0][2] == 1 and runs[1] == runs[0]
+    (step,) = session.steps
+    g = torch.Generator().manual_seed(2)
+    host = torch.stack([torch.randint(0, cfg.vocab, (4,), generator=g), torch.tensor([3, 17, 40, 62])])
+    step.flat.copy_(torch.randn(step.flat.shape, generator=g).to(step.flat.dtype))
+    layers = T._cache_layers(step.cache, cfg)
+    for c in layers:  # a finite state: random f32 values, not bf16 bits read as f32
+        c["h"].copy_(torch.randn(c["h"].shape, generator=g))
+        c["conv"].copy_(torch.randn(c["conv"].shape, generator=g))
+    saved = step.flat.clone()
+    got = step(host).clone()
+    got_cache = step.flat.clone()
+    assert not _bytes_equal(got_cache, saved)  # the tick advanced the state in place
+    step.flat.copy_(saved)
+    want = step.fn()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and _bytes_equal(got_cache, step.flat)
+
+
+def test_ssm_calibrate_graph_is_bitwise_the_eager_steps(cuda, monkeypatch):
+    """falcon-mamba's smoke deployment: ``calibrate`` through its CUDA
+    graph against the eager cached step functions from the same start:
+    losses, adapters and AdamW state bitwise; no kernel launch; one
+    capture; the loss falls."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment, calibration_batch
+    from repro_torch.deploy import deployment as D
+    from repro_torch.optim.adam import adamw_init
+
+    cfg = get_arch("falcon-mamba-7b").smoke
+    dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24)
+    batch = calibration_batch(cfg, 4, 24)  # 24 tokens: two scan chunks of 16
+    start = tree_lib.map_tensors(torch.clone, dep.adapters)
+    start = (start, adamw_init(start))
+    captures = _count_captures(monkeypatch)
+    K.reset_launch_counts()
+    C.reset_launch_counts()
+    report = dep.calibrate(batch, steps=6)
+    torch.cuda.synchronize()
+    assert set(K.launch_counts().values()) == {0} and C.launch_counts() == {"crossbar_mvm": 0}
+    assert len(captures) == 1 and report.final_loss < report.initial_loss
+    losses, state = _eager_calibration(dep, start, D._device_batch(batch, cuda), 6, True,
+                                       dep._calib_stream())
+    assert report.losses == losses, (report.losses, losses)
+    for want, got in ((state.adapters, dep.adapters), ([*state.opt_state], [*dep.opt_state])):
+        assert all(torch.equal(a, b) for a, b in zip(tree_lib.tensors(want),
+                                                     tree_lib.tensors(got)))

@@ -440,15 +440,17 @@ def test_counts_match_reference(model):
 
 
 def test_unported_kinds_still_raise():
-    """MoE, MLA (deepseek-v2-lite), the encoder (seamless-m4t) and the
-    vision prefix (paligemma) are ported; SSM and RG-LRU are not, as a
-    mixer or as a config field the reference's configs carry."""
+    """MoE, MLA (deepseek-v2-lite), the encoder (seamless-m4t), the vision
+    prefix (paligemma) and the SSM (falcon-mamba) are ported; RG-LRU is
+    not, as a mixer or as a config field the reference's configs carry. An
+    ssm mixer is accepted with its config."""
     cfg = t_arch("mixtral_8x22b").smoke
     TT._check_supported(cfg)
-    for mixer in ("ssm", "rglru"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TT._check_supported(dataclasses.replace(cfg, mixer_pattern=(mixer,)))
-    bad = dataclasses.make_dataclass("Cfg", [("ssm", int, dataclasses.field(default=2))],
+    ssm = t_arch("falcon-mamba-7b").smoke.ssm
+    TT._check_supported(dataclasses.replace(cfg, mixer_pattern=("ssm",), ssm=ssm))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TT._check_supported(dataclasses.replace(cfg, mixer_pattern=("rglru",)))
+    bad = dataclasses.make_dataclass("Cfg", [("rglru", int, dataclasses.field(default=2))],
                                      bases=(type(cfg),), frozen=True)
     with pytest.raises(NotImplementedError, match="not ported"):
         TT._check_supported(bad(**_fields(cfg)))

@@ -7,9 +7,10 @@ configs on the reference's teacher params (key 0) carried across: the
 full forward, and a token-by-token ``decode_step`` loop against the
 reference's loop (gemma3's of 20 tokens, so its local layers' rolling
 caches wrap twice). The FULL configs carry the published widths; those
-of mixtral-8x22b, deepseek-v2-lite, seamless-m4t-large-v2 and
-paligemma-3b (whose models ``test_torch_moe``, ``test_torch_mla``,
-``test_torch_encdec`` and ``test_torch_vision`` hold) too.
+of mixtral-8x22b, deepseek-v2-lite, seamless-m4t-large-v2,
+paligemma-3b and falcon-mamba-7b (whose models ``test_torch_moe``,
+``test_torch_mla``, ``test_torch_encdec``, ``test_torch_vision`` and
+``test_torch_ssm`` hold) too.
 
 Bounds (``test_torch_model``'s, relative to the reference's absmax):
 ``F32_BOUND`` in f32 (only summation orders differ) and ``BF16_BOUND``
@@ -45,7 +46,8 @@ def _one_thread():
 
 
 @pytest.mark.parametrize("arch", ARCHS + ("mixtral_8x22b", "deepseek_v2_lite_16b",
-                                          "seamless_m4t_large_v2", "paligemma_3b"))
+                                          "seamless_m4t_large_v2", "paligemma_3b",
+                                          "falcon_mamba_7b"))
 def test_full_config_is_the_reference_s(arch):
     """Registered under both spellings, with the reference's FULL and
     SMOKE fields (the reference's ``remat`` and the layer kinds the port
