@@ -358,24 +358,24 @@ Phases (any failure exits non-zero; no failure is caught):
   15. ssm    — falcon-mamba-7b at its published widths (d 4096, d_inner
                 8192, state 16, conv 4, dt rank 256, scan chunks of 256,
                 no FFN, an untied head of 65024, DoRA rank 8) and
-                SSM_LAYERS (16) of its 64 layers: program -> advance(24) ->
+                SSM_LAYERS (8) of its 64 layers: program -> advance(24) ->
                 calibrate(10, steps=20) (phase 11's gates; the SSM blocks
                 recomputed in the backward) -> serve(), serve(accum="int8")
                 and a codes_adc deployment, each through phase 5's drive
                 with prompts of 5, 40, 17 and 300 tokens in an engine of 512
                 positions, every admission one eager exact-length fused
                 prefill (an SSM stack does not chunk): exact launch counts
-                (65 GEMV launches a tick, 16 x (in_proj, x_proj, dt_proj,
-                out_proj) + the head; an admission the 64 at its rows,
+                (33 GEMV launches a tick, 8 x (in_proj, x_proj, dt_proj,
+                out_proj) + the head; an admission the 32 at its rows,
                 tiled above 64, + the head at one row; codes_adc the same
-                65 through the ADC), no chunk, compile_count 1 (the decode
+                33 through the ADC), no chunk, compile_count 1 (the decode
                 tick) and flat, the tick's replay bitwise its eager step (h
                 and conv compared by their bytes), each slot's state as
                 admitted bitwise its prompt's prefill alone, codes vs
                 dequant within LOGITS_BOUND, int8 vs f32 within
                 INT8_LOGITS_BOUND, the 300-token fused prefill vs a
                 token-by-token decode loop (last logits and the first and
-                last layers' h within SSM_LOOP_BOUND, the greedy
+                last layers' h within LOOP_BOUND, the greedy
                 continuation equal or split at a near-tie), each stream
                 against its request served alone through generate (equal
                 or a near-tie; codes_adc reported), a full prefix hit
@@ -389,6 +389,44 @@ Phases (any failure exits non-zero; no failure is caught):
                 Phase 3 holds its five leaves through both GEMVs at 4 rows,
                 both tiled bodies at 300 and the ADC at both, and phase 4
                 times them.
+  16. rglru  — recurrentgemma-9b at its published widths (d 4096, d_rnn
+                4096, conv 4, 16 query heads of 256 and one KV head, a
+                local window of 2048 in a rolling cache, a gated tanh-GELU
+                MLP of 12288, a tied head of 256000, DoRA rank 8) and
+                RGLRU_LAYERS (8) of its 38 layers (two (rglru, rglru, local)
+                groups and the two epilogue rglru layers: body_layout
+                (0, 2, 2), as the whole model's (0, 12, 2)): phase 15's
+                lifecycle and checks (the same helpers, over its cell) with
+                prompts of 5, 40, 17 and 2100 tokens in an engine of 2304
+                positions: the 2100-token admission writes the local
+                layers' rolling buffers past the window through the tiled
+                bodies and its ticks run at clocks 2100-2115 against the
+                wrapped buffers. Exact launch counts (50 GEMV launches a
+                tick, 6 x (in_x, in_y, gate_a, gate_x, out, gate_up, down)
+                + 2 x (qkv, o, gate_up, down); an admission the 50 at its
+                rows, tiled above 64; the tied head through torch.matmul;
+                codes_adc 62 a forward, unfused), no chunk, compile_count
+                1 and flat, the tick's replay bitwise its eager step at
+                clocks 2040, 2047, 2048 and 2110 (h and conv by their
+                bytes, the rolling k and v), each slot's cache row as
+                admitted bitwise its prompt's prefill alone, codes vs
+                dequant within LOGITS_BOUND, int8 vs f32 within
+                INT8_LOGITS_BOUND; the wrap check: the 2100-token fused
+                prefill against the fused prefill of its first 2036 tokens
+                and 64 teacher-forced decode steps (clocks 2036-2099, across
+                the first wrap), the last logits, the first rglru layer's
+                h, the first local layer's k and v and the last layer's h
+                within LOOP_BOUND, 8 greedy tokens from each cache equal or
+                split at a near-tie; each stream against its request served
+                alone (equal or a near-tie; codes_adc reported); a full
+                prefix hit bitwise the cold admission and no partial hit.
+                Reported as phase 15's, the device time by class with the
+                cuBLAS products (the attention einsums and the tied head)
+                apart. Phase 3 holds its leaves (the 4096 -> 4096 leaf, qkv
+                4096 -> 4608, gate_up 4096 -> 24576 and down 12288 -> 4096
+                through both GEMVs at 4 rows and both tiled bodies at 2100;
+                the unfused ones through the ADC at both) and phase 4 times
+                them.
 The last line is the contract line; the line before it the kernel table,
 where ``dora_linear_narrow`` is the fused linear's narrow body: its
 launches are the f32 body's f32-x launches of phases 5, 11 and 12 (the
@@ -399,8 +437,9 @@ are the ``crossbar_mvm`` f32-x launches of phases 5, 11 and 12, which the
 ``crossbar_mvm`` row does not count. The launches of ``dora_linear`` and
 ``dora_linear/int8`` include phase 12's tiled _kup_vup launches in every
 decode tick and chunk, phase 13's encoder admissions, phase 14's vision
-admissions and fused prefill, and phase 15's 300-token admissions and
-fused prefill; every entry's, phases 13's to 15's launches.
+admissions and fused prefill, and phase 15's 300-token and phase 16's
+2100-token admissions and their fused prefills; every entry's, phases
+13's to 16's launches.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -633,28 +672,61 @@ VLM_ADC_LEAVES = [("q/o", 2048, 2048), ("k/v", 2048, 256), ("gate/up", 2048, 163
 VLM_M = (SLOTS, 256)
 # phase 15: falcon-mamba-7b at its published widths and SSM_LAYERS of its 64
 # layers (all 64 are 7.26 G weights: 14.5 GB of codes beside a 14.5 GB bf16
-# teacher, three sessions and calibration; 16 are 1.68 G + the embedding and
-# the untied head's 0.53 G, paligemma's size); phase 5's traffic with the
-# last request 300 tokens long (two scan chunks of 256, the second padded;
-# its admission through the tiled bodies), in an engine of 512 positions
-SSM_LAYERS = 16
+# teacher, three sessions and calibration; 8 are 0.84 G + the embedding and
+# the untied head's 0.53 G: 16 layers, as before phase 16, took ~40 s more
+# of the script's 1200 s); phase 5's traffic with the last request 300
+# tokens long (two scan chunks of 256, the second padded; its admission
+# through the tiled bodies), in an engine of 512 positions
+SSM_LAYERS = 8
 SSM_MAX_LEN = 512
 SSM_PROMPT_LENS = (5, 40, 17, 300)
-# the steps the traffic compiles per session: the decode tick alone (an SSM
-# stack admits each prompt by one eager fused prefill)
-SSM_COMPILED_STEPS = 1
-# the 300-token fused prefill vs a token-by-token decode loop, relative to
-# the absmax of the last logits and of the first and last layers' states:
-# the prefill rounds the conv to bf16 before the SiLU and runs the tiled
-# bodies, the loop applies the SiLU in f32 and runs the GEMV bodies, and
-# the scan regroups its products (LOGITS_BOUND's reasoning, over 300 steps)
-SSM_LOOP_BOUND = LOGITS_BOUND
+# the steps the traffic compiles per session (phases 15 and 16): the decode
+# tick alone (a recurrent stack admits each prompt by one eager fused
+# prefill)
+RECURRENT_COMPILED_STEPS = 1
+# the longest prompt's fused prefill vs a token-by-token decode loop
+# (phases 15 and 16), relative to the absmax of the last logits and of the
+# checked layers' states and rolling K/V: the prefill runs the tiled bodies
+# and the whole scan (and falcon's rounds the conv to bf16 before the SiLU),
+# the loop the GEMV bodies and the recurrence (LOGITS_BOUND's reasoning,
+# over 64-300 steps)
+LOOP_BOUND = LOGITS_BOUND
 # its unfused serve leaves (name, K, N, rank), every one also an ADC leaf:
 # x_proj's N 288 is not a multiple of 64, dt_proj's K 256 one array tile
 SSM_LEAVES = [("in_proj", 4096, 16384, 8), ("x_proj", 8192, 288, 8), ("dt_proj", 256, 8192, 8),
               ("out_proj", 8192, 4096, 8), ("head", 4096, 65024, 8)]
 # the rows of the decode tick and of the 300-token admission
 SSM_M = (SLOTS, SSM_PROMPT_LENS[-1])
+# phase 16: recurrentgemma-9b at its published widths and RGLRU_LAYERS of its
+# 38 layers (all 38 are 8.35 G weights: 16.7 GB of codes beside a 16.7 GB
+# bf16 teacher, three sessions and calibration; 8 are two (rglru, rglru,
+# local) groups and the two epilogue rglru layers, body_layout (0, 2, 2) as
+# the whole model's (0, 12, 2): 1.78 G + the tied embedding's 1.05 G);
+# phase 5's traffic with the last request 2100 tokens long (its admission,
+# through the tiled bodies, writes the local layers' rolling buffers past
+# their 2048-token window; its ticks run at clocks 2100-2115 against the
+# wrapped buffers), in an engine of 2304 positions (a rolling buffer keeps
+# min(window, max_len) positions: the engine must be longer than 2048)
+RGLRU_LAYERS = 8
+RGLRU_MAX_LEN = 2304
+RGLRU_PROMPT_LENS = (5, 40, 17, 2100)
+# the wrap check: the 2100-token prompt's fused prefill against the fused
+# prefill of its first 2036 tokens and a 64-step decode loop over the rest
+# (clocks 2036-2099, across the first wrap at 2048)
+RGLRU_WRAP_SPLIT = 2036
+# the decode tick's replay at clocks before, at and past the wrap
+RGLRU_DECODE_POS = (2040, 2047, 2048, 2110)
+# its serve leaves (name, K, N, rank) through the f32 and int8 bodies:
+# "rnn" is each of an RG-LRU layer's five leaves (in_x, in_y, gate_a,
+# gate_x, out; never fused) and a local layer's o; the local layers' fused
+# qkv (16 heads of 256, one KV head) and the MLPs' gate_up and down
+RGLRU_LEAVES = [("rnn", 4096, 4096, 8), ("qkv", 4096, 4608, 24), ("gate_up", 4096, 24576, 16),
+                ("down", 12288, 4096, 8)]
+# and the unfused (name, K, N) through the ADC
+RGLRU_ADC_LEAVES = [("rnn/q/o", 4096, 4096), ("k/v", 4096, 256), ("gate/up", 4096, 12288),
+                    ("down", 12288, 4096)]
+# the rows of the decode tick and of the 2100-token admission
+RGLRU_M = (SLOTS, RGLRU_PROMPT_LENS[-1])
 # phase 7: the paper's calibration set (10 samples of 32 tokens) and the
 # reference's calibrate defaults (20 steps, lr 1e-3)
 CALIB_SAMPLES, CALIB_SEQ, CALIB_STEPS = 10, 32, 20
@@ -1129,6 +1201,7 @@ def phase_kernels(device):
     encdec_checks(device, worst)
     vlm_checks(device, worst)
     ssm_checks(device, worst)
+    rglru_checks(device, worst)
     return worst
 
 
@@ -1163,6 +1236,18 @@ def ssm_checks(device, worst):
     same five through the ADC at both row counts. Each leaf's error goes
     into ``worst["falcon"]``."""
     zoo_checks(device, worst, "falcon", SSM_LEAVES, [leaf[:3] for leaf in SSM_LEAVES], SSM_M)
+
+
+def rglru_checks(device, worst):
+    """recurrentgemma-9b's leaves (phase 16) against their plain versions:
+    the 4096 -> 4096 leaf (every RG-LRU projection and the local layers'
+    o), the local layers' fused qkv (N 4608), the MLP's gate_up (N 24576)
+    and down (K 12288) through both GEMV bodies at the decode tick's 4 rows
+    and both tiled bodies at the 2100-token admission, each twice and
+    bitwise equal; the unfused leaves (4096 -> 4096, k/v 4096 -> 256,
+    gate/up 4096 -> 12288, down) through the ADC at both row counts. Each
+    leaf's error goes into ``worst["recurrentgemma"]``."""
+    zoo_checks(device, worst, "recurrentgemma", RGLRU_LEAVES, RGLRU_ADC_LEAVES, RGLRU_M)
 
 
 def zoo_checks(device, worst, model, leaves, adc_leaves, rows, f64_k=None):
@@ -1656,6 +1741,11 @@ def _copies(per_copy):
     return max(2, -(-2 * L2_BYTES // per_copy))
 
 
+# the prefixes of the zoo's timed rows: seamless-m4t, paligemma,
+# falcon-mamba, recurrentgemma
+ZOO_PREFIXES = ("s-", "p-", "m-", "g-")
+
+
 def phase_timing(device):
     from repro_torch.kernels import crossbar_mvm as C
     from repro_torch.kernels import dora_linear as K
@@ -1675,8 +1765,10 @@ def phase_timing(device):
     timed += [(("p-" + name, k, n, r), VLM_M) for name, k, n, r in VLM_LEAVES]
     # falcon-mamba-7b's (phase 15): at the decode tick and the 300-token admission
     timed += [(("m-" + name, k, n, r), SSM_M) for name, k, n, r in SSM_LEAVES]
+    # recurrentgemma-9b's (phase 16): at the decode tick and the 2100-token admission
+    timed += [(("g-" + name, k, n, r), RGLRU_M) for name, k, n, r in RGLRU_LEAVES]
     for (name, k, n, r), row_counts in timed:
-        kup = name == KUP_VUP[0] or name.startswith(("s-", "p-", "m-"))
+        kup = name == KUP_VUP[0] or name.startswith(ZOO_PREFIXES)
         for m in row_counts:
             ops = [operands(m, k, n, r, device, seed=i)
                    for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
@@ -1708,7 +1800,9 @@ def phase_timing(device):
                                      + [(("p-" + leaf[0], *leaf[1:]), VLM_M)
                                         for leaf in VLM_ADC_LEAVES]
                                      + [(("m-" + leaf[0], *leaf[1:3]), SSM_M)
-                                        for leaf in SSM_LEAVES]):
+                                        for leaf in SSM_LEAVES]
+                                     + [(("g-" + leaf[0], *leaf[1:]), RGLRU_M)
+                                        for leaf in RGLRU_ADC_LEAVES]):
         for m in row_counts:
             ops = [operands(m, k, n, 1, device, seed=i)[:4]
                    for i in range(_copies(2 * k * n + 2 * m * k + 4 * m * n))]
@@ -4758,68 +4852,109 @@ def phase_vlm(device, seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the selective SSM, falcon-mamba-7b at its published widths
+# phases 15-16: the recurrent stacks, each admitted by one fused prefill:
+# the selective SSM (falcon-mamba-7b) and RG-LRU beside local attention
+# (recurrentgemma-9b), at their published widths
 # ---------------------------------------------------------------------------
 
-SSM_CELL = dataclasses.make_dataclass("SsmCell", ["tag", "arch"])("ssm", "falcon-mamba-7b")
 # the tick's and an admission's device time by class: the crossbar kernels
 # (GEMV, tiled and ADC bodies), PyTorch's elementwise kernels, reductions and
-# concatenations (the scan's, the conv's and SiLU's, and the two RMS norms a
-# layer: ~30 small kernels a layer at the tick), and the rest (the ADC
+# concatenations (the scans', the convs' and the gates', and the RMS norms:
+# ~20-30 small kernels a layer at the tick), and the rest (the ADC
 # session's side-car products, the head's cast, the argmax)
 SSM_CLASSES = {
     "crossbar_kernels": r"dora_|adc_|row_scale_kernel|prep_tile_kernel|xa_finish_kernel"
                         r"|splitk_epilogue_kernel",
     "elementwise_reductions": r"elementwise|reduce_kernel|CatArray|[Cc]opy|fill",
 }
+# recurrentgemma's also the cuBLAS products (the local layers' attention
+# einsums, the tied head's torch.matmul, and under codes_adc the side-cars'
+# f32 products), matched before the reductions (cuBLAS's splitKreduce)
+RGLRU_CLASSES = {"crossbar_kernels": SSM_CLASSES["crossbar_kernels"],
+                 "cublas_matmuls": r"gemm|Gemm|xmma|cutlass|nvjet|sm90_|splitK",
+                 "elementwise_reductions": SSM_CLASSES["elementwise_reductions"]}
+# a recurrent cell: its phase, log tag, arch and short name; its depth of
+# the published one (the published widths as (got, want) from the config);
+# the engine's cache length, the traffic's prompt lengths; the decode
+# tick's replay clocks (None: phase 5's); the prefill-vs-loop check's split
+# (the loop runs the prompt's tokens from there); the profile's classes
+RecurrentCell = dataclasses.make_dataclass("RecurrentCell", [
+    "phase", "tag", "arch", "name", "layers", "of_layers", "widths", "max_len", "prompt_lens",
+    "decode_pos", "loop_split", "classes"])
+SSM_CELL = RecurrentCell(
+    15, "ssm", "falcon-mamba-7b", "falcon", SSM_LAYERS, 64,
+    lambda c: ((c.d_model, c.ssm.d_inner, c.ssm.state_dim), (4096, 8192, 16)),
+    SSM_MAX_LEN, SSM_PROMPT_LENS, None, 0, SSM_CLASSES)
+RGLRU_CELL = RecurrentCell(
+    16, "rglru", "recurrentgemma-9b", "recurrentgemma", RGLRU_LAYERS, 38,
+    lambda c: ((c.d_model, c.rglru.d_rnn, c.local_window, c.mlp.d_ff, c.body_layout()),
+               (4096, 4096, 2048, 12288, (0, 2, 2))),
+    RGLRU_MAX_LEN, RGLRU_PROMPT_LENS, RGLRU_DECODE_POS, RGLRU_WRAP_SPLIT, RGLRU_CLASSES)
 
 
-def ssm_counts(cfg, ticks, admissions, prefill, body):
+def forward_leaves(cfg, fused):
+    """The crossbar launches of one forward of ``cfg``'s layer stack: an
+    SSM layer's four leaves and an RG-LRU layer's five (never fused), an
+    attention layer's qkv and o (unfused q, k, v, o), a gated MLP's gate_up
+    and down (unfused gate, up, down)."""
+    from repro_torch.models import rglru as R
+    from repro_torch.models import ssm as S
+
+    n = 0
+    for mixer, ffn in cfg.layer_kinds():
+        n += {"ssm": len(S._LEAVES), "rglru": len(R._LEAVES)}.get(mixer) or (2 if fused else 4)
+        if ffn == "mlp":
+            n += 3 if cfg.mlp.gated and not fused else 2
+    return n
+
+
+def recurrent_counts(cfg, ticks, admissions, prefill, body):
     """The exact launches of ``ticks`` decode ticks (4 rows), of one
     admission per prompt length in ``admissions`` (each an eager fused
     prefill at batch 1) and, with ``prefill``, one fused prefill of 3 x 32
-    rows. A forward runs per layer in_proj, x_proj, dt_proj and out_proj,
-    unfused, at its rows (the GEMV launcher up to 64, the tiled one above),
-    and the untied head at its last positions (a tick's 4 rows, one row an
-    admission, 3 the prefill: the GEMV). codes_adc runs the same leaves
+    rows. A forward runs ``forward_leaves`` at its rows (the GEMV launcher
+    up to 64, the tiled one above) and an untied head at its last positions
+    (a tick's 4 rows, one row an admission, 3 the prefill: the GEMV); a
+    tied head runs ``torch.matmul``. codes_adc runs every leaf unfused
     through the ADC."""
     from repro_torch.kernels import autotune
 
-    per = 4 * cfg.n_layers
+    head = 0 if cfg.tie_lm_head else 1
     forwards = ticks + len(admissions) + prefill
     if body == "codes_adc":
-        return {"crossbar_mvm": forwards * (per + 1)}
+        return {"crossbar_mvm": forwards * (forward_leaves(cfg, False) + head)}
+    per = forward_leaves(cfg, True)
     sfx = "" if body == "f32" else "/int8"
     rows = list(admissions) + [PREFILL_ROWS] * prefill
     tiled = sum(not autotune.use_gemv(n) for n in rows)
-    return {f"dora_linear_gemv{sfx}": ticks * (per + 1) + (len(rows) - tiled) * per
-            + len(rows),
+    return {f"dora_linear_gemv{sfx}": ticks * (per + head) + (len(rows) - tiled) * per
+            + len(rows) * head,
             f"dora_linear{sfx}": tiled * per}
 
 
-def ssm_traffic(cfg, seed, device):
-    """Phase 15's traffic, drawn from ``seed``: the engine prompts, a
-    prompt sharing the 40-token one's tokens and going on (the prefix
-    check's), the fused prefill's tokens and the generator."""
+def recurrent_traffic(cfg, seed, device, cell):
+    """The cell's traffic, drawn from ``seed``: the engine prompts, a prompt
+    sharing the 40-token one's tokens and going on (the prefix check's),
+    the fused prefill's tokens and the generator."""
     g = torch.Generator().manual_seed(seed)
-    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in SSM_PROMPT_LENS]
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g) for n in cell.prompt_lens]
     longer = torch.cat([prompts[1], torch.randint(0, cfg.vocab, (9,), generator=g)])
     tokens = torch.randint(0, cfg.vocab, (3, PREFILL_ROWS // 3), generator=g).to(device)
     return prompts, longer, tokens, g
 
 
-def ssm_admissions(session, prompts):
+def recurrent_admissions(session, prompts, cell):
     """The traffic once more through a 4-slot engine, each admission (one
     eager fused prefill, ``ServeEngine._prefill``) timed apart by CUDA
-    events, and each slot's state as admitted (``h`` and ``conv`` of the
-    first and the last layer) against ``prefill`` of its prompt alone on a
-    fresh cache: bitwise. The slots were used by earlier drives, so this
-    also shows that admission overwrites a recycled slot's state."""
+    events, and each slot's cache row as admitted (every layer's state,
+    conv window and rolling K/V) against ``prefill`` of its prompt alone on
+    a fresh cache: bitwise. The slots were used by earlier drives, so this
+    also shows that admission overwrites a recycled slot's row."""
     from repro_torch.deploy import ServeEngine
     from repro_torch.models import transformer as T
 
     cfg, device = session.cfg, session.device
-    engine = ServeEngine(session, max_slots=SLOTS, max_len=SSM_MAX_LEN)
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=cell.max_len)
     prefill, finalize = engine._prefill, engine._finalize_admission
     ms, rows = {}, {}
 
@@ -4833,8 +4968,8 @@ def ssm_admissions(session, prompts):
 
     def record(slot, req):
         finalize(slot, req)
-        layers = T._cache_layers(engine.cache, cfg)
-        rows[req.rid] = [layers[i][name][slot].clone() for i in (0, -1) for name in ("h", "conv")]
+        rows[req.rid] = [t[slot].clone() for layer in T._cache_layers(engine.cache, cfg)
+                         for t in layer.values()]
 
     engine._prefill, engine._finalize_admission = timed, record
     reqs = []
@@ -4847,33 +4982,33 @@ def ssm_admissions(session, prompts):
     equal = []
     for req, p in zip(reqs, prompts):
         with session.scope(), torch.no_grad():
-            _, cache = T.prefill(session.params, p[None].to(device), cfg, SSM_MAX_LEN)
-        layers = T._cache_layers(cache, cfg)
-        want = [layers[i][name][0] for i in (0, -1) for name in ("h", "conv")]
-        equal.append(all(torch.equal(a, b) for a, b in zip(rows[req.rid], want)))
-        del cache, layers, want
-    log(f"[ssm] {session.options or 'f32'} {session.backend}: admissions of "
+            _, cache = T.prefill(session.params, p[None].to(device), cfg, cell.max_len)
+        want = [t[0] for layer in T._cache_layers(cache, cfg) for t in layer.values()]
+        equal.append(len(want) == len(rows[req.rid])
+                     and all(same_bytes(a, b) for a, b in zip(rows[req.rid], want)))
+        del cache, want
+    log(f"[{cell.tag}] {session.options or 'f32'} {session.backend}: admissions of "
         + ", ".join(f"{len(p)} tokens {ms[r.rid]:.2f} ms" for p, r in zip(prompts, reqs))
-        + " (eager fused prefills); each slot's h and conv as admitted vs prefill alone: "
+        + " (eager fused prefills); each slot's cache row as admitted vs prefill alone: "
         + ", ".join("bitwise" if ok else "DIFFER" for ok in equal))
     assert all(equal) and len(ms) == len(prompts), (equal, ms)
     return {"admission_ms": [ms[r.rid] for r in reqs], "ttft_s": [r.ttft_seconds for r in reqs],
             "state_rows_bitwise": equal}
 
 
-def ssm_prefix_hit(session, prompt, longer):
+def recurrent_prefix_hit(session, prompt, longer, cell):
     """The prefix cache of an unchunked stack: ``prompt`` admitted cold,
-    then again (a full hit: no prefill; the staged state's bytes and the
+    then again (a full hit: no prefill; the staged cache's bytes and the
     admission logits bitwise the cold admission's; the same tokens, but
     under codes_adc, where they are reported), then ``longer``, which
     starts with ``prompt``: no hit (no partial hit is served), a prefill of
-    its own. An idle slot's SSM state goes on advancing every tick, so the
-    second request's tick sees other idle rows than the first's, and the
-    ADC digitizes the tick's rows together (a tile's step from their max
-    |x|): its tokens are another computation there."""
+    its own. An idle slot's recurrent state goes on advancing every tick,
+    so the second request's tick sees other idle rows than the first's,
+    and the ADC digitizes the tick's rows together (a tile's step from
+    their max |x|): its tokens are another computation there."""
     from repro_torch.deploy import ServeEngine
 
-    engine = ServeEngine(session, max_slots=SLOTS, max_len=SSM_MAX_LEN)
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=cell.max_len)
     staged, finalize = [], engine._finalize_admission
     prefills, prefill = [], engine._prefill
     engine._finalize_admission = lambda slot, req: (
@@ -4889,11 +5024,12 @@ def ssm_prefix_hit(session, prompt, longer):
     result = {"prefix_hit_tokens": hits, "prefills": len(prefills), "full_hit_bitwise": bitwise,
               "tokens_equal": same_tokens, "partial_hits": engine.prefix_partial_hits,
               "prefix_cache_bytes": engine.prefix_cache_bytes()}
-    log(f"[ssm] {session.options or 'f32'} {session.backend}: prefix cache, a {len(prompt)}-token "
-        f"prompt twice then a {len(longer)}-token one starting with it: reused tokens {hits}, "
-        f"{len(prefills)} prefills, full hit {'bitwise' if bitwise else 'DIFFERS from'} the "
-        f"cold admission (state and logits), tokens {'equal' if same_tokens else 'differ'}; "
-        f"cache {result['prefix_cache_bytes'] / 2**20:.1f} MiB")
+    log(f"[{cell.tag}] {session.options or 'f32'} {session.backend}: prefix cache, a "
+        f"{len(prompt)}-token prompt twice then a {len(longer)}-token one starting with it: "
+        f"reused tokens {hits}, {len(prefills)} prefills, full hit "
+        f"{'bitwise' if bitwise else 'DIFFERS from'} the cold admission (cache and logits), "
+        f"tokens {'equal' if same_tokens else 'differ'}; cache "
+        f"{result['prefix_cache_bytes'] / 2**20:.1f} MiB")
     assert hits == [0, len(prompt), 0] and len(prefills) == 2, result
     assert bitwise and result["partial_hits"] == 0, result
     assert same_tokens or session.backend == "codes_adc", result
@@ -4917,52 +5053,63 @@ def near_tie(label, a, b, rows, gated, bound=LOGITS_BOUND):
     return tie
 
 
-def ssm_prefill_vs_loop(session, prompt, extra=8):
-    """The 300-token prompt through the fused prefill (the tiled bodies, the
-    chunked scan) and through a token-by-token ``decode_step`` loop (the
-    GEMV bodies, the recurrence), eagerly from a zeroed cache: the last
-    logits and the first and last layers' ``h`` within ``SSM_LOOP_BOUND``
-    of their absmax; then ``extra`` greedy tokens from each cache, equal or
-    split at a near-tie (``LOGITS_BOUND``)."""
+def prefill_vs_loop(session, prompt, cell, extra=8):
+    """The longest prompt through one fused prefill (the tiled bodies, the
+    whole scan) against the fused prefill of its first ``cell.loop_split``
+    tokens (none: a zeroed cache) then a teacher-forced ``decode_step``
+    loop over the rest (the GEMV bodies, the recurrence, the rolling
+    writes), eagerly: the last logits and, in the first layer of each mixer
+    kind and the last layer, the state ``h`` or the rolling ``k`` and ``v``
+    within ``LOOP_BOUND`` of their absmax; then ``extra`` greedy tokens
+    from each cache, equal or split at a near-tie (``LOGITS_BOUND``)."""
     from repro_torch.models import transformer as T
 
     cfg, device = session.cfg, session.device
     p = prompt[None].to(device)
-    n = p.shape[1]
+    n, split = p.shape[1], cell.loop_split
+    kinds = [m for m, _ in cfg.layer_kinds()]
+    checked = sorted({kinds.index(k) for k in kinds} | {len(kinds) - 1})
     t0 = time.perf_counter()
     with session.scope(), torch.no_grad():
-        lf, cf = T.prefill(session.params, p, cfg, SSM_MAX_LEN)
-        cl = T.init_cache(cfg, 1, SSM_MAX_LEN, device)
-        for i in range(n):
+        lf, cf = T.prefill(session.params, p, cfg, cell.max_len)
+        if split:
+            ll, cl = T.prefill(session.params, p[:, :split], cfg, cell.max_len)
+        else:
+            cl = T.init_cache(cfg, 1, cell.max_len, device)
+        for i in range(split, n):
             ll, cl = T.decode_step(session.params, cl, p[:, i:i + 1], i, cfg)
         torch.cuda.synchronize()
         t_loop = time.perf_counter() - t0
-        errs = {"logits": compare_logits(f"falcon {n}-token fused prefill vs decode loop: last "
-                                         "logits", lf[0, -1], ll[0, -1], SSM_LOOP_BOUND)}
-        for i in (0, -1):
-            a, b = T._cache_layers(cf, cfg)[i]["h"], T._cache_layers(cl, cfg)[i]["h"]
-            rel = float((a - b).abs().max()) / float(b.abs().max())
-            errs[f"h layer {i % cfg.n_layers}"] = rel
-            log(f"[ssm] fused prefill vs decode loop: layer {i % cfg.n_layers}'s h max|diff| "
-                f"{rel:.3e} of absmax (bound {SSM_LOOP_BOUND:g})")
-            assert rel <= SSM_LOOP_BOUND, (i, rel)
+        errs = {"logits": compare_logits(
+            f"{cell.name} {n}-token fused prefill vs {split} + a {n - split}-step decode loop: "
+            "last logits", lf[0, -1], ll[0, -1], LOOP_BOUND)}
+        for i in checked:
+            for name in ("k", "v") if kinds[i] in T._ATTN else ("h",):
+                a = T._cache_layers(cf, cfg)[i][name].float()
+                b = T._cache_layers(cl, cfg)[i][name].float()
+                rel = float((a - b).abs().max()) / float(b.abs().max())
+                errs[f"{name} layer {i}"] = rel
+                log(f"[{cell.tag}] fused prefill vs decode loop: layer {i}'s ({kinds[i]}) "
+                    f"{name} max|diff| {rel:.3e} of absmax (bound {LOOP_BOUND:g})")
+                assert rel <= LOOP_BOUND, (i, name, rel)
         streams, rows = {"prefill": [], "loop": []}, []
-        for name, logits, cache in (("prefill", lf, cf), ("loop", ll, cl)):
+        for label, logits, cache in (("prefill", lf, cf), ("loop", ll, cl)):
             for j in range(extra):
-                if name == "loop":
+                if label == "loop":
                     rows.append(logits[0, -1].float().cpu())
                 tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-                streams[name].append(int(tok))
+                streams[label].append(int(tok))
                 logits, cache = T.decode_step(session.params, cache, tok, n + j, cfg)
-    tie = near_tie("falcon prefill vs loop continuation", streams["prefill"], streams["loop"],
-                   rows, True)
-    log(f"[ssm] greedy continuation from the prefill's cache vs the loop's: "
+    tie = near_tie(f"{cell.name} prefill vs loop continuation", streams["prefill"],
+                   streams["loop"], rows, True)
+    log(f"[{cell.tag}] greedy continuation from the prefill's cache vs the loop's: "
         + ("equal" if tie is None else f"split at a near-tie {tie}")
-        + f" ({extra} tokens; the {n}-step loop took {t_loop:.2f} s)")
-    return {"errors": errs, "streams": streams, "split": tie, "loop_seconds": t_loop}
+        + f" ({extra} tokens; the {n - split}-step loop took {t_loop:.2f} s with its prefill)")
+    return {"errors": errs, "streams": streams, "split": tie, "loop_seconds": t_loop,
+            "loop_from": split}
 
 
-def ssm_alone(session, prompts, streams, gated):
+def recurrent_alone(session, prompts, streams, gated, cell):
     """Each stream against its request served alone: an eager batch-1 fused
     prefill and ``decode_step`` calls fed the engine's tokens (the logits
     rows a split is judged on), and ``ServeSession.generate`` (an engine of
@@ -4977,7 +5124,7 @@ def ssm_alone(session, prompts, streams, gated):
     for rid, (p, stream) in enumerate(zip(prompts, streams)):
         rows = []
         with session.scope(), torch.no_grad():
-            logits, cache = T.prefill(session.params, p[None].to(device), cfg, SSM_MAX_LEN)
+            logits, cache = T.prefill(session.params, p[None].to(device), cfg, cell.max_len)
             for i, want in enumerate(stream):
                 rows.append(logits[0, -1].float().cpu())
                 if i + 1 < len(stream):
@@ -4987,45 +5134,46 @@ def ssm_alone(session, prompts, streams, gated):
         del cache, logits
         alone, _ = session.generate(p[None], gen_len=MAX_NEW)
         alone = [int(t) for t in alone[0]]
-        tie = near_tie(f"falcon {session.options or 'f32'} {session.backend} request {rid}",
+        tie = near_tie(f"{cell.name} {session.options or 'f32'} {session.backend} request {rid}",
                        alone, stream, rows, gated)
         out.append({"request": rid, "generate_tokens": alone, "tokens_equal": tie is None,
                     "split": tie})
-    log(f"[ssm] {session.options or 'f32'} {session.backend}: engine streams vs served alone "
-        "through generate: " + "; ".join(
+    log(f"[{cell.tag}] {session.options or 'f32'} {session.backend}: engine streams vs served "
+        "alone through generate: " + "; ".join(
             f"request {o['request']} "
             + ("equal" if o["tokens_equal"] else f"split at a near-tie {o['split']}")
             for o in out))
     return out
 
 
-def ssm_profiles(session, label, prompt):
+def recurrent_profiles(session, label, prompt, cell):
     """The captured decode tick (4 live slots) and the eager admission of
     ``prompt`` (one fused prefill), each profiled over a few calls: device
-    time by class (``SSM_CLASSES``)."""
+    time by class (``cell.classes``)."""
     from repro_torch.deploy import ServeEngine
 
     gc.collect()  # the drive's engines hand their lease back
-    engine = ServeEngine(session, max_slots=SLOTS, max_len=SSM_MAX_LEN)  # the warm step
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=cell.max_len)  # the warm step
     step = engine._decode
     host = torch.stack([torch.arange(SLOTS) + 7, torch.arange(SLOTS) * 10 + 40])
     for _ in range(2):
         step(host)
     torch.cuda.synchronize()
-    tick = profile_window("ssm", "tick", 4, lambda: torch.argmax(step(host)[:, -1], -1).cpu(),
-                          classes=SSM_CLASSES)
+    tick = profile_window(cell.tag, "tick", 4,
+                          lambda: torch.argmax(step(host)[:, -1], -1).cpu(),
+                          classes=cell.classes)
     p = prompt[None].to(session.device)
-    session.prefill(p, SSM_MAX_LEN)
+    session.prefill(p, cell.max_len)
     torch.cuda.synchronize()
-    log(f"[ssm] {label}: profile of 2 admissions of {p.shape[1]} tokens")
-    admission = profile_window("ssm", "admission", 2,
-                               lambda: session.prefill(p, SSM_MAX_LEN),
-                               classes=SSM_CLASSES)
+    log(f"[{cell.tag}] {label}: profile of 2 admissions of {p.shape[1]} tokens")
+    admission = profile_window(cell.tag, "admission", 2,
+                               lambda: session.prefill(p, cell.max_len),
+                               classes=cell.classes)
     del engine
     return {"tick": tick, "admission": admission}
 
 
-def ssm_codes_vs_dequant(session, logits, tokens):
+def recurrent_codes_vs_dequant(session, logits, tokens, cell):
     """The session's fused-prefill ``logits`` (3 x 32 rows through the
     tiled bodies) against the same prefill under ``dequant``, within
     ``LOGITS_BOUND``."""
@@ -5034,30 +5182,31 @@ def ssm_codes_vs_dequant(session, logits, tokens):
 
     with substrate.use_backend("dequant"), torch.no_grad():
         ref_logits, _ = T.prefill(session.params, tokens, session.cfg, PREFILL_MAX_LEN)
-    return compare_logits("falcon codes vs dequant prefill logits", logits, ref_logits,
+    return compare_logits(f"{cell.name} codes vs dequant prefill logits", logits, ref_logits,
                           LOGITS_BOUND)
 
 
-def ssm_serve_checked(dep, seed):
-    """Phase 5's per-session checks on falcon-mamba: ``serve()``,
+def recurrent_serve_checked(dep, seed, cell):
+    """Phase 5's per-session checks on a recurrent cell: ``serve()``,
     ``serve(accum="int8")`` and a codes_adc deployment over the same
     teacher, codes and side-cars, each through ``drive`` (first drive
     captures, a warm drive and an eager one with the same launches and
     streams, ``compile_count`` 1 (the decode tick) and flat, the tick's
-    replay bitwise its eager step, ``h`` and ``conv`` included, the tick
-    captured vs eager); exact launch counts (``ssm_counts``); codes vs
-    dequant within ``LOGITS_BOUND``, int8 vs f32 within
-    ``INT8_LOGITS_BOUND``, ADC vs f32 reported; the admissions timed and
-    each slot's state bitwise its prompt's prefill alone
-    (``ssm_admissions``), a full prefix hit and no partial one
-    (``ssm_prefix_hit``), the profiles, on the f32 session the 300-token
-    prefill vs the decode loop (``ssm_prefill_vs_loop``) and, last (its
-    throwaway engines capture ticks of their own lengths), the streams
-    against the requests served alone (``ssm_alone``)."""
+    replay bitwise its eager step at ``cell.decode_pos``, the recurrent
+    state included, the tick captured vs eager); exact launch counts
+    (``recurrent_counts``); codes vs dequant within ``LOGITS_BOUND``, int8
+    vs f32 within ``INT8_LOGITS_BOUND``, ADC vs f32 reported; the
+    admissions timed and each slot's cache row bitwise its prompt's prefill
+    alone (``recurrent_admissions``), a full prefix hit and no partial one
+    (``recurrent_prefix_hit``), the profiles, on the f32 session the
+    longest prompt's prefill vs the decode loop (``prefill_vs_loop``) and,
+    last (its throwaway engines capture ticks of their own lengths), the
+    streams against the requests served alone (``recurrent_alone``)."""
     from repro_torch.deploy import Deployment
 
     cfg, device = dep.cfg, dep.device
-    prompts, longer, tokens, _ = ssm_traffic(cfg, seed, device)
+    prompts, longer, tokens, _ = recurrent_traffic(cfg, seed, device, cell)
+    decode_pos = None if cell.decode_pos is None else torch.tensor(cell.decode_pos)
     runs, logits = {}, {}
     makers = (("f32", lambda: dep.serve()), ("int8", lambda: dep.serve(accum="int8")),
               ("codes_adc", lambda: Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes,
@@ -5067,37 +5216,40 @@ def ssm_serve_checked(dep, seed):
         memory()
         torch.cuda.reset_peak_memory_stats()
         session = make()
-        run, logits[body] = drive(session, prompts, tokens, MAX_NEW, max_len=SSM_MAX_LEN,
-                                  compiled=SSM_COMPILED_STEPS)
+        run, logits[body] = drive(session, prompts, tokens, MAX_NEW, max_len=cell.max_len,
+                                  compiled=RECURRENT_COMPILED_STEPS, decode_pos=decode_pos)
         assert run["prefix_hit_tokens"] == [0] * len(prompts), run["prefix_hit_tokens"]
         assert run["prefill_chunks"] == 0, run
         ticks = run["decode_steps"]
-        expect_counts(run["launches_engine"], ssm_counts(cfg, ticks, SSM_PROMPT_LENS, 0, body))
-        expect_counts(run["launches"], ssm_counts(cfg, ticks, SSM_PROMPT_LENS, 1, body))
+        expect_counts(run["launches_engine"],
+                      recurrent_counts(cfg, ticks, cell.prompt_lens, 0, body))
+        expect_counts(run["launches"], recurrent_counts(cfg, ticks, cell.prompt_lens, 1, body))
         assert {s.key[0] for s in session.steps} == {"decode"}
         run["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         if body == "f32":
-            run["codes_vs_dequant"] = ssm_codes_vs_dequant(session, logits["f32"], tokens)
+            run["codes_vs_dequant"] = recurrent_codes_vs_dequant(session, logits["f32"], tokens,
+                                                                 cell)
         elif body == "int8":
-            run["int8_vs_f32"] = compare_logits("falcon calibrated int8 vs f32 codes prefill "
-                                                "logits", logits["int8"], logits["f32"],
+            run["int8_vs_f32"] = compare_logits(f"{cell.name} calibrated int8 vs f32 codes "
+                                                "prefill logits", logits["int8"], logits["f32"],
                                                 INT8_LOGITS_BOUND)
         else:
-            run["adc_vs_f32"] = compare_logits("falcon calibrated codes_adc vs f32 codes "
+            run["adc_vs_f32"] = compare_logits(f"{cell.name} calibrated codes_adc vs f32 codes "
                                                "prefill logits", logits["codes_adc"],
                                                logits["f32"])
             same = sum(a == b for ra, rb in zip(run["streams"], runs["f32"]["streams"])
                        for a, b in zip(ra, rb))
             run["greedy_tokens_equal_f32"] = same / sum(len(r) for r in run["streams"])
-        run["admissions"] = ssm_admissions(session, prompts)
-        run["prefix"] = ssm_prefix_hit(session, prompts[1], longer)
-        run["trace"] = ssm_profiles(session, body, prompts[-1])
-        assert session.compile_count() == SSM_COMPILED_STEPS, session.compile_count()
+        run["admissions"] = recurrent_admissions(session, prompts, cell)
+        run["prefix"] = recurrent_prefix_hit(session, prompts[1], longer, cell)
+        run["trace"] = recurrent_profiles(session, body, prompts[-1], cell)
+        assert session.compile_count() == RECURRENT_COMPILED_STEPS, session.compile_count()
         if body == "f32":
-            run["prefill_vs_loop"] = ssm_prefill_vs_loop(session, prompts[-1])
-        run["alone"] = ssm_alone(session, prompts, run["streams"], gated=body != "codes_adc")
+            run["prefill_vs_loop"] = prefill_vs_loop(session, prompts[-1], cell)
+        run["alone"] = recurrent_alone(session, prompts, run["streams"],
+                                       gated=body != "codes_adc", cell=cell)
         run["retained_bytes"] = memory()
-        log(f"[ssm] {body}: tick captured {run['tick']['captured']:.3f} ms vs eager "
+        log(f"[{cell.tag}] {body}: tick captured {run['tick']['captured']:.3f} ms vs eager "
             f"{run['tick']['eager']:.3f} ms; engine {run['warm']['decode_tok_per_s']:.1f} tok/s "
             f"captured vs {run['eager']['decode_tok_per_s']:.1f} eager; TTFT warm "
             + ", ".join(f"{t:.4f}" for t in run["warm"]["ttft_s"])
@@ -5113,19 +5265,21 @@ def ssm_serve_checked(dep, seed):
     return runs
 
 
-def phase_ssm(device, seed):
-    """Phase 15: falcon-mamba-7b at its published widths and ``SSM_LAYERS``
-    of its 64 layers. ``Deployment.program(codes)`` -> ``advance(24)`` ->
-    ``calibrate(10, steps=20)`` -> the three sessions' serving checks.
-    Every check raises."""
+def phase_recurrent(device, seed, cell):
+    """Phase 15 or 16: a recurrent cell at its published widths and
+    ``cell.layers`` of its layers. ``Deployment.program(codes)`` ->
+    ``advance(24)`` -> ``calibrate(10, steps=20)`` -> the three sessions'
+    serving checks. Every check raises."""
     from repro_torch.configs import get_arch
     from repro_torch.deploy import Deployment
     from repro_torch.models import transformer as T
 
     t_phase = time.perf_counter()
-    full = get_arch(SSM_CELL.arch).full
-    assert (full.n_layers, full.d_model, full.ssm.d_inner) == (64, 4096, 8192)
-    cfg = dataclasses.replace(full, n_layers=SSM_LAYERS)
+    full = get_arch(cell.arch).full
+    assert full.n_layers == cell.of_layers, full.n_layers
+    cfg = dataclasses.replace(full, n_layers=cell.layers)
+    got, want = cell.widths(cfg)
+    assert got == want, (got, want)
     memory()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -5135,23 +5289,23 @@ def phase_ssm(device, seed):
     t_setup = time.perf_counter() - t0
     n_base, n_adapters = T.count_params({"base": dep.codes, "adapters": dep.adapters})
     allocated, reserved = memory()
-    result = {"layers": SSM_LAYERS, "of_layers": full.n_layers, "setup_seconds": t_setup,
+    result = {"layers": cell.layers, "of_layers": full.n_layers, "setup_seconds": t_setup,
               "base_params": n_base, "adapter_params": n_adapters,
               "rram_bytes": dep.rram_bytes(), "sram_bytes": dep.sram_bytes(),
               "teacher_bytes": tree_bytes(dep.teacher_base),
               "resident_allocated_bytes": allocated, "resident_reserved_bytes": reserved}
-    log(f"[ssm] {cfg.name} at {SSM_LAYERS} of its {full.n_layers} layers: {n_base:,} weights, "
-        f"{n_adapters:,} side-car parameters; program + advance(24) {t_setup:.2f} s; resident "
-        f"{allocated / 2**30:.2f} GiB (teacher {result['teacher_bytes'] / 2**30:.2f}, codes "
-        f"{result['rram_bytes'] / 2**30:.2f})")
-    result["calibration"] = moe_calibrate(dep, SSM_CELL)
-    result["serving"] = ssm_serve_checked(dep, seed)
+    log(f"[{cell.tag}] {cfg.name} at {cell.layers} of its {full.n_layers} layers: {n_base:,} "
+        f"weights, {n_adapters:,} side-car parameters; program + advance(24) {t_setup:.2f} s; "
+        f"resident {allocated / 2**30:.2f} GiB (teacher {result['teacher_bytes'] / 2**30:.2f}, "
+        f"codes {result['rram_bytes'] / 2**30:.2f})")
+    result["calibration"] = moe_calibrate(dep, cell)
+    result["serving"] = recurrent_serve_checked(dep, seed, cell)
     result["peak_mem_bytes"] = max(result["calibration"]["peak_mem_bytes"],
                                    *(r["peak_mem_bytes"] for r in result["serving"].values()))
     del dep
     result["retained_bytes"] = memory()
     result["phase_seconds"] = time.perf_counter() - t_phase
-    log(f"[ssm] phase 15 took {result['phase_seconds']:.2f} s; peak "
+    log(f"[{cell.tag}] phase {cell.phase} took {result['phase_seconds']:.2f} s; peak "
         f"{result['peak_mem_bytes'] / 2**30:.2f} GiB (calibration "
         f"{result['calibration']['peak_mem_bytes'] / 2**30:.2f})")
     return result
@@ -5231,11 +5385,14 @@ def main():
     vlm = phase_vlm(device, args.seed)
     memory()
     lap("14 vlm")
-    ssm = phase_ssm(device, args.seed)
+    ssm = phase_recurrent(device, args.seed, SSM_CELL)
+    memory()
     lap("15 ssm")
+    rglru = phase_recurrent(device, args.seed, RGLRU_CELL)
+    lap("16 rglru")
     seconds["total"] = marks[-1] - marks[0]
     log("[smoke] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
-    zoo = (moe, mla, encdec, vlm, ssm)
+    zoo = (moe, mla, encdec, vlm, ssm, rglru)
 
     # one transformer layer: the four fused leaves at the decode tick (GEMV)
     # or the fused prefill (tiled), the seven unfused leaves at the decode
@@ -5243,8 +5400,9 @@ def main():
     session_of = {"dora_linear_gemv": serving, "dora_linear": serving,
                   "dora_linear_gemv/int8": serving["int8"],
                   "dora_linear/int8": serving["int8"], "crossbar_mvm": serving["codes_adc"]}
-    # phase 5's main path and those of phases 11 to 15 (the mixtral,
-    # deepseek, seamless, paligemma and falcon-mamba sessions of each body)
+    # phase 5's main path and those of phases 11 to 16 (the mixtral,
+    # deepseek, seamless, paligemma, falcon-mamba and recurrentgemma
+    # sessions of each body)
     moe_of = {"dora_linear_gemv": "f32", "dora_linear": "f32", "dora_linear_gemv/int8": "int8",
               "dora_linear/int8": "int8", "crossbar_mvm": "codes_adc"}
     launches = {name: run["launches"][name] + sum(z["serving"][moe_of[name]]["launches"][name]
@@ -5283,7 +5441,7 @@ def main():
         timed = timed or name
         mine = [r for r in rows if r["kernel"] == timed and r["m"] == m
                 and (r["leaf"] == leaf if leaf
-                     else not r["leaf"].startswith(("router", "s-", "p-", "m-")))]
+                     else not r["leaf"].startswith(("router", *ZOO_PREFIXES)))]
         library = [r["library_ms"] for r in mine]
         kernels.append({
             "name": name, "route": "cuda",
@@ -5304,7 +5462,8 @@ def main():
                        "serving": serving, "calibration": calibration, "faults": faults,
                        "persist": persist, "paper": paper, "moe": moe, "mla": mla,
                        "encdec": encdec, "vlm": vlm, "paligemma_kernels": worst["paligemma"],
-                       "ssm": ssm, "falcon_kernels": worst["falcon"],
+                       "ssm": ssm, "falcon_kernels": worst["falcon"], "rglru": rglru,
+                       "recurrentgemma_kernels": worst["recurrentgemma"],
                        "kernels": kernels},
                       f,
                       indent=1, default=str)

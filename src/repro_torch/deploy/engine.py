@@ -1,7 +1,7 @@
 """Continuous-batching serve engine over the batched decode step. Port
 of ``repro/deploy/engine.py`` for attention stacks (decoder-only,
-encoder-decoder, or behind a vision prefix) and SSM stacks (``remesh``
-waits).
+encoder-decoder, or behind a vision prefix) and recurrent stacks (the
+SSM, and RG-LRU beside local attention) (``remesh`` waits).
 
 * **Slots.** A fixed ``(max_slots, max_len)`` decode cache; each
   in-flight request owns one row, finished rows are recycled.
@@ -11,13 +11,13 @@ waits).
   chunks (pow-2 bucketed width, masked tail), one chunk per engine tick
   interleaved with decode ticks; the first token comes from the last
   chunk's logits and the batch-1 cache is copied into the slot's row.
-* **Unchunked admission (SSM stacks).** A recurrence's scan regroups its
-  products by length, so an SSM stack does not chunk (``self.chunked``
-  False): a cold request runs one eager exact-length fused prefill
-  (``ServeSession.prefill``), whose cache is copied into the staging
-  views; then, as after a last chunk, it is snapshotted and finalized at
-  once. The prefix cache serves only full hits: the snapshot of a whole
-  prompt.
+* **Unchunked admission (recurrent stacks).** A recurrence's scan
+  regroups its products by length, so a stack with an SSM or RG-LRU
+  mixer does not chunk (``self.chunked`` False): a cold request runs one
+  eager exact-length fused prefill (``ServeSession.prefill``), whose
+  cache is copied into the staging views; then, as after a last chunk,
+  it is snapshotted and finalized at once. The prefix cache serves only
+  full hits: the snapshot of a whole prompt.
 * **Encoder-decoder slots.** A request carries ``enc_embeds`` (S_src, d):
   its cold admission zeroes the staging cache and runs the session's
   encoder step (``ServeSession.encode_fn``, one per source length) just

@@ -2,8 +2,8 @@
 contract). Port of ``repro/kernels/ref.py`` and of the jnp helpers of
 ``repro/kernels/dora_linear.py``: the CPU path of every kernel wrapper,
 and what ``chip_smoke.py`` holds each CUDA kernel against on the card;
-and the step-by-step selective-scan oracle that ``models/ssm.py``'s
-chunked scan is held against."""
+and the step-by-step oracles that ``models/ssm.py``'s chunked selective
+scan and ``models/rglru.py``'s log-depth RG-LRU scan are held against."""
 from __future__ import annotations
 
 import torch
@@ -150,3 +150,17 @@ def selective_scan_ref(x, dt, a_log, b_sel, c_sel, d_skip, h0=None):
         y = torch.sum(h * c_sel[:, t, None, :].to(f32), dim=-1)
         ys.append(y + x_t * d_skip[None].to(f32))
     return torch.stack(ys, dim=1), h
+
+
+def rglru_scan_ref(a_t, b_t, h0=None):
+    """Sequential (step-by-step) RG-LRU recurrence ``h_t = a_t * h_{t-1} +
+    b_t`` in f32: ``(h (B, S, D), h_final (B, D))``. Shapes: a_t/b_t (B, S,
+    D), h0 (B, D) or None (zeros)."""
+    bsz, s, d = a_t.shape
+    f32 = torch.float32
+    h = torch.zeros((bsz, d), dtype=f32, device=a_t.device) if h0 is None else h0.to(f32)
+    hs = []
+    for t in range(s):
+        h = a_t[:, t].to(f32) * h + b_t[:, t].to(f32)
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

@@ -19,6 +19,9 @@ card raises).
     python -m repro_torch.launch.serve --arch falcon-mamba-7b --layers 16 \
         --backend codes
     python -m repro_torch.launch.serve --arch falcon-mamba-7b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --layers 8 \
+        --backend codes
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --smoke --device cpu
 
 ``--layers`` cuts the depth and keeps every width: mixtral-8x22b's 56
 layers (141 G weights) do not fit one 80 GB card; 2 layers take ~22 GB.
@@ -35,6 +38,11 @@ falcon-mamba-7b's 64 layers (7.26 G weights) fit one card as codes, but
 not beside a teacher, three sessions and calibration; 16 layers take
 ~2.2 G weights. Its engine admits each prompt by one exact-length fused
 prefill (an SSM stack does not chunk).
+recurrentgemma-9b's 38 layers (8.35 G weights) fit as codes but not beside
+a teacher and calibration; 8 layers (two (rglru, rglru, local) groups and
+the two epilogue rglru layers) take 1.78 G weights beside the 1.05 G tied
+embedding. Its engine admits by one fused prefill too (a recurrent stack
+does not chunk); the local layers keep a rolling window of 2048.
 """
 from __future__ import annotations
 

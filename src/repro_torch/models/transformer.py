@@ -8,17 +8,19 @@ feature-KD calibration loss and the serving steps (the encoder admission
 writes each decoder layer's cross-attention K/V into the cache once; the
 vision admission writes the patches' K/V at positions [0, P)), and the
 attention-free Mamba-1 stack (falcon-mamba: ``ssm`` mixers, no FFN),
-whose decode cache is each layer's recurrent state ``h`` and conv window
-``conv``, both f32. RG-LRU waits.
+and the RG-LRU hybrid (recurrentgemma: ``rglru`` mixers beside ``local``
+attention with a rolling cache). A recurrent layer's decode cache is its
+state ``h`` and conv window ``conv``, both f32.
 
 The parameter layout is the reference's: ``prologue`` (list) + ``body``
 (a list of ``scan_period`` layer trees whose leaves are stacked on axis
 0 over the scan groups) + ``epilogue`` (list). Where the reference runs
 the body under ``lax.scan``, the port loops over the stacked axis.
 
-Decode and chunk steps update the KV cache (and the SSM state) in place
-and return it. Only attention stacks chunk: an SSM stack is admitted by
-one exact-length fused prefill, as the reference admits it.
+Decode and chunk steps update the KV cache (and the recurrent state) in
+place and return it. Only attention stacks chunk: a stack with a
+recurrent mixer is admitted by one exact-length fused prefill, as the
+reference admits it.
 """
 from __future__ import annotations
 
@@ -33,9 +35,11 @@ from repro_torch.core.rram import CrossbarWeight, DEFAULT_RRAM, RramConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
 _ATTN = ("attn", "local", "swa")
+_RECURRENT = ("ssm", "rglru")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +52,7 @@ class ModelConfig:
     mlp: Optional[L.MlpConfig] = None
     moe: Optional[M.MoeConfig] = None
     ssm: Optional[S.SsmConfig] = None
+    rglru: Optional[R.RglruConfig] = None
     mixer_pattern: Tuple[str, ...] = ("attn",)
     local_window: int = 1024
     ffn_pattern: Tuple[str, ...] = ("mlp",)
@@ -92,15 +97,14 @@ class ModelConfig:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Attention mixers (MLA ones global) and SSM mixers with MLP, MoE or
-    no FFN, an encoder and a vision prefix; RG-LRU is not ported."""
-    if getattr(cfg, "rglru", None):
-        raise NotImplementedError(f"{cfg.name}: rglru is not ported")
+    """Attention mixers (MLA ones global), SSM and RG-LRU mixers with MLP,
+    MoE or no FFN, an encoder and a vision prefix; a recurrent mixer needs
+    its config."""
     mla = cfg.attn is not None and cfg.attn.mla
     for mixer, ffn in cfg.layer_kinds():
-        if mixer == "ssm" and cfg.ssm is None:
-            raise ValueError(f"{cfg.name}: an ssm mixer needs cfg.ssm")
-        if mixer not in _ATTN + ("ssm",) or ffn not in ("mlp", "moe", "none"):
+        if mixer in _RECURRENT and getattr(cfg, mixer) is None:
+            raise ValueError(f"{cfg.name}: an {mixer} mixer needs cfg.{mixer}")
+        if mixer not in _ATTN + _RECURRENT or ffn not in ("mlp", "moe", "none"):
             raise NotImplementedError(
                 f"{cfg.name}: layer kind ({mixer}, {ffn}) is not ported"
             )
@@ -139,6 +143,9 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, mixer: str,
     if mixer == "ssm":
         base["mixer"], adapters["mixer"] = S.init_ssm(generator, cfg.ssm, cfg.adapter,
                                                       cfg.dtype)
+    elif mixer == "rglru":
+        base["mixer"], adapters["mixer"] = R.init_rglru(generator, cfg.rglru, cfg.adapter,
+                                                        cfg.dtype)
     else:
         base["mixer"], adapters["mixer"] = A.init_attention(
             generator, _attn_cfg(cfg, mixer), cfg.adapter, cfg.dtype)
@@ -275,6 +282,8 @@ def block_forward(h, base, adapters, cfg: ModelConfig, mixer: str, ffn: str, *,
     x = _norm(h, base["norm1"], cfg)
     if mixer == "ssm":
         h = h + S.ssm_block(x, base["mixer"], a_.get("mixer"), cfg.ssm, cfg.adapter)
+    elif mixer == "rglru":
+        h = h + R.rglru_block(x, base["mixer"], a_.get("mixer"), cfg.rglru, cfg.adapter)
     else:
         h = h + A.attention(x, base["mixer"], a_.get("mixer"), _attn_cfg(cfg, mixer),
                             cfg.adapter, positions=positions, mask=mask)
@@ -427,10 +436,12 @@ def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, src_len: int = 0) -> Dict:
     """The decode cache. An SSM layer's is its state ``"h"`` (B, d_inner,
     N) and conv window ``"conv"`` (B, K-1, d_inner), both f32, whatever
-    ``max_len``. An encoder-decoder config adds to each layer's
-    cache its cross-attention lines over ``src_len`` source positions
-    (``"xk"``/``"xv"``, written once at admission) and to the cache the
-    per-slot valid source length ``"enc_len"`` (int32)."""
+    ``max_len``; an RG-LRU layer's ``"h"`` (B, d_rnn) and ``"conv"`` (B,
+    K-1, d_rnn), both f32; a local layer's K/V only its window. An
+    encoder-decoder config adds to each layer's cache its cross-attention
+    lines over ``src_len`` source positions (``"xk"``/``"xv"``, written
+    once at admission) and to the cache the per-slot valid source length
+    ``"enc_len"`` (int32)."""
     kinds = cfg.layer_kinds()
     pro, n_groups, epi = cfg.body_layout()
     p = cfg.scan_period
@@ -438,6 +449,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, src_len: int 
     def layer_cache(mixer):
         if mixer == "ssm":
             return S.init_ssm_cache(batch, cfg.ssm, device)
+        if mixer == "rglru":
+            return R.init_rglru_cache(batch, cfg.rglru, device)
         c = A.init_kv_cache(batch, max_len, _attn_cfg(cfg, mixer), device, cfg.dtype)
         if cfg.encoder_layers:
             c.update(A.init_cross_cache(batch, max(src_len, 1),
@@ -484,7 +497,7 @@ def flat_views(like: Dict, flat: torch.Tensor) -> Dict:
 def init_flat_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                     src_len: int = 0) -> Tuple[torch.Tensor, Dict]:
     """``init_cache``'s tree as views of ONE zeroed buffer, returned with
-    it: a whole cache (the int32 ``enc_len`` and the f32 SSM state
+    it: a whole cache (the int32 ``enc_len`` and the f32 recurrent state
     included) is then zeroed, saved or restored by one op."""
     like = init_cache(cfg, batch, max_len, "meta", src_len)
     unit = torch.empty((), dtype=cfg.dtype).element_size()
@@ -571,6 +584,9 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
         if mixer == "ssm":
             mix, layer = S.ssm_block(x, lb["mixer"], la.get("mixer"), cfg.ssm, cfg.adapter,
                                      return_state=True)
+        elif mixer == "rglru":
+            mix, layer = R.rglru_block(x, lb["mixer"], la.get("mixer"), cfg.rglru,
+                                       cfg.adapter, return_state=True)
         else:
             acfg = _attn_cfg(cfg, mixer)
             mix, kv = A.attention(x, lb["mixer"], la.get("mixer"), acfg, cfg.adapter,
@@ -609,9 +625,12 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor, pos,
     layer_caches = _cache_layers(cache, cfg)
     for i, lb, la, (mixer, ffn) in _layers(base, adapters, cfg):
         x = _norm(h, lb["norm1"], cfg)
-        if mixer == "ssm":  # the state is per row: no clock
+        if mixer == "ssm":  # a recurrent state is per row: no clock
             mix, _ = S.ssm_decode(x, layer_caches[i], lb["mixer"], la.get("mixer"), cfg.ssm,
                                   cfg.adapter)
+        elif mixer == "rglru":
+            mix, _ = R.rglru_decode(x, layer_caches[i], lb["mixer"], la.get("mixer"),
+                                    cfg.rglru, cfg.adapter)
         else:
             mix, _ = A.decode_attention(x, layer_caches[i], pos, lb["mixer"],
                                         la.get("mixer"), _attn_cfg(cfg, mixer), cfg.adapter)

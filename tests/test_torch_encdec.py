@@ -119,8 +119,8 @@ def model():
 def test_config_and_registry():
     """Both spellings resolve; the reference's source length; the encoder
     stacked over its layers as the reference's scan stacks it (a list under
-    ``unroll``); an RG-LRU mixer is still refused, an SSM one (with its
-    config) accepted."""
+    ``unroll``); an RG-LRU mixer is refused without its config and
+    accepted with it, as an SSM one is."""
     arch = t_arch("seamless-m4t-large-v2")
     assert arch is t_arch(ARCH) and arch.enc_src_len == j_arch(ARCH).enc_src_len == 4096
     assert (arch.full.encoder_layers, arch.full.n_layers) == (24, 24)
@@ -133,8 +133,10 @@ def test_config_and_registry():
     unrolled = TT.init_params(torch.Generator().manual_seed(0),
                               dataclasses.replace(arch.smoke, unroll=True))
     assert len(unrolled["base"]["encoder"]) == 2
-    with pytest.raises(NotImplementedError, match="rglru"):
+    with pytest.raises(ValueError, match="needs cfg.rglru"):
         TT._check_supported(dataclasses.replace(arch.smoke, mixer_pattern=("rglru",)))
+    TT._check_supported(dataclasses.replace(arch.smoke, mixer_pattern=("rglru",),
+                                            rglru=t_arch("recurrentgemma-9b").smoke.rglru))
     TT._check_supported(dataclasses.replace(arch.smoke, mixer_pattern=("ssm",),
                                             ssm=t_arch("falcon-mamba-7b").smoke.ssm))
 

@@ -2053,19 +2053,16 @@ def _bytes_equal(a, b):
     return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
-@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
-def test_ssm_decode_graph_replays_bitwise(cuda, body):
-    """falcon-mamba's smoke stack: STEP_PROMPTS through a 4-slot engine
-    (each admission one eager fused prefill, no chunk), greedy: exact
-    launches (an admission 4 x 4 leaves at its rows and the head at one;
-    a tick 4 x 4 + 1 at 4 rows), ``compile_count`` 1, the same streams on
-    a second drive; the decode graph replayed bitwise equal to its eager
-    step, logits and cache (``h`` and ``conv`` included)."""
-    from repro_torch.configs import get_arch
+def _recurrent_decode_graph(cfg, body, cuda, counts, pos):
+    """A recurrent smoke stack's drive: STEP_PROMPTS through a 4-slot
+    engine (each admission one eager fused prefill, no chunk), greedy,
+    twice: launches equal to ``counts(ticks, admissions)``, ``compile_count``
+    1, the same streams on the second drive; then the decode graph, from a
+    random cache with the slots at clocks ``pos``, replayed bitwise equal to
+    its eager step, logits and cache (the recurrent state by its bytes)."""
     from repro_torch.deploy import Deployment, ServeEngine
     from repro_torch.models import transformer as T
 
-    cfg = get_arch("falcon-mamba-7b").smoke
     dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24)
     if body == "codes_adc":
         dep = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
@@ -2089,23 +2086,18 @@ def test_ssm_decode_graph_replays_bitwise(cuda, body):
                      session.compile_count()))
         ticks = stats["decode_steps"]
         del engine
-    per = 4 * cfg.n_layers
-    if body == "codes_adc":
-        want = {"crossbar_mvm": (ticks + len(STEP_PROMPTS)) * (per + 1)}
-    else:
-        sfx = "" if body == "f32" else "/int8"
-        want = {f"dora_linear_gemv{sfx}": ticks * (per + 1) + len(STEP_PROMPTS) * (per + 1)}
-    counts = runs[0][1]
-    assert counts == {name: want.get(name, 0) for name in counts}, (counts, want)
+    want = counts(ticks, len(STEP_PROMPTS))
+    launched = runs[0][1]
+    assert launched == {name: want.get(name, 0) for name in launched}, (launched, want)
     assert runs[0][2] == 1 and runs[1] == runs[0]
     (step,) = session.steps
     g = torch.Generator().manual_seed(2)
-    host = torch.stack([torch.randint(0, cfg.vocab, (4,), generator=g), torch.tensor([3, 17, 40, 62])])
+    host = torch.stack([torch.randint(0, cfg.vocab, (4,), generator=g), torch.tensor(pos)])
     step.flat.copy_(torch.randn(step.flat.shape, generator=g).to(step.flat.dtype))
-    layers = T._cache_layers(step.cache, cfg)
-    for c in layers:  # a finite state: random f32 values, not bf16 bits read as f32
-        c["h"].copy_(torch.randn(c["h"].shape, generator=g))
-        c["conv"].copy_(torch.randn(c["conv"].shape, generator=g))
+    for c in T._cache_layers(step.cache, cfg):
+        for name in ("h", "conv"):  # a finite state: random f32 values, not bf16 bits read as f32
+            if name in c:
+                c[name].copy_(torch.randn(c[name].shape, generator=g))
     saved = step.flat.clone()
     got = step(host).clone()
     got_cache = step.flat.clone()
@@ -2116,20 +2108,68 @@ def test_ssm_decode_graph_replays_bitwise(cuda, body):
     assert torch.equal(got, want) and _bytes_equal(got_cache, step.flat)
 
 
-def test_ssm_calibrate_graph_is_bitwise_the_eager_steps(cuda, monkeypatch):
-    """falcon-mamba's smoke deployment: ``calibrate`` through its CUDA
-    graph against the eager cached step functions from the same start:
-    losses, adapters and AdamW state bitwise; no kernel launch; one
-    capture; the loss falls."""
-    from repro_torch import tree as tree_lib
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_ssm_decode_graph_replays_bitwise(cuda, body):
+    """falcon-mamba's smoke stack through ``_recurrent_decode_graph``:
+    exact launches (an admission 4 x 4 leaves at its rows and the head at
+    one; a tick 4 x 4 + 1 at 4 rows), ``compile_count`` 1, the same streams
+    on a second drive; the decode graph replayed bitwise equal to its eager
+    step, logits and cache (``h`` and ``conv`` included)."""
     from repro_torch.configs import get_arch
+
+    cfg = get_arch("falcon-mamba-7b").smoke
+    per = 4 * cfg.n_layers + 1
+
+    def counts(ticks, admissions):
+        if body == "codes_adc":
+            return {"crossbar_mvm": (ticks + admissions) * per}
+        sfx = "" if body == "f32" else "/int8"
+        return {f"dora_linear_gemv{sfx}": (ticks + admissions) * per}
+
+    _recurrent_decode_graph(cfg, body, cuda, counts, [3, 17, 40, 62])
+
+
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_rglru_decode_graph_replays_bitwise_across_the_window(cuda, body):
+    """recurrentgemma's smoke stack (6 rglru and 2 local layers, window 8,
+    a tied head through ``torch.matmul``) through
+    ``_recurrent_decode_graph``: exact launches (a forward per tick and per
+    admission: an rglru layer's 5 leaves, unfused, and the MLP's
+    ``gate_up`` and ``down``; a local layer's ``qkv``, ``o``, ``gate_up``
+    and ``down``; the ADC 5 + 3 and 4 + 3 unfused), ``compile_count`` 1;
+    the streams run past the window, so the rolling buffers wrap; the
+    decode graph, its slots at clocks 3, 17, 40 and 62 (three past the
+    window), replayed bitwise equal to its eager step, logits and cache
+    (``h`` and ``conv`` by their bytes, the rolling ``k``/``v``)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("recurrentgemma-9b").smoke
+    kinds = [m for m, _ in cfg.layer_kinds()]
+    fused = sum(5 + 2 if m == "rglru" else 2 + 2 for m in kinds)
+    unfused = sum(5 + 3 if m == "rglru" else 4 + 3 for m in kinds)
+
+    def counts(ticks, admissions):
+        if body == "codes_adc":
+            return {"crossbar_mvm": (ticks + admissions) * unfused}
+        sfx = "" if body == "f32" else "/int8"
+        return {f"dora_linear_gemv{sfx}": (ticks + admissions) * fused}
+
+    assert (fused, unfused) == (50, 62)
+    _recurrent_decode_graph(cfg, body, cuda, counts, [3, 17, 40, 62])
+
+
+def _recurrent_calibration(cfg, cuda, monkeypatch, seq):
+    """A recurrent smoke deployment: ``calibrate`` (4 samples of ``seq``
+    tokens, 6 steps) through its CUDA graph against the eager cached step
+    functions from the same start: losses, adapters and AdamW state
+    bitwise; no kernel launch; one capture; the loss falls."""
+    from repro_torch import tree as tree_lib
     from repro_torch.deploy import Deployment, calibration_batch
     from repro_torch.deploy import deployment as D
     from repro_torch.optim.adam import adamw_init
 
-    cfg = get_arch("falcon-mamba-7b").smoke
     dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24)
-    batch = calibration_batch(cfg, 4, 24)  # 24 tokens: two scan chunks of 16
+    batch = calibration_batch(cfg, 4, seq)
     start = tree_lib.map_tensors(torch.clone, dep.adapters)
     start = (start, adamw_init(start))
     captures = _count_captures(monkeypatch)
@@ -2145,3 +2185,19 @@ def test_ssm_calibrate_graph_is_bitwise_the_eager_steps(cuda, monkeypatch):
     for want, got in ((state.adapters, dep.adapters), ([*state.opt_state], [*dep.opt_state])):
         assert all(torch.equal(a, b) for a, b in zip(tree_lib.tensors(want),
                                                      tree_lib.tensors(got)))
+
+
+def test_ssm_calibrate_graph_is_bitwise_the_eager_steps(cuda, monkeypatch):
+    """falcon-mamba's smoke deployment through ``_recurrent_calibration``,
+    24 tokens a sample: two scan chunks of 16."""
+    from repro_torch.configs import get_arch
+
+    _recurrent_calibration(get_arch("falcon-mamba-7b").smoke, cuda, monkeypatch, 24)
+
+
+def test_rglru_calibrate_graph_is_bitwise_the_eager_steps(cuda, monkeypatch):
+    """recurrentgemma's smoke deployment through ``_recurrent_calibration``,
+    20 tokens a sample: past the local window of 8."""
+    from repro_torch.configs import get_arch
+
+    _recurrent_calibration(get_arch("recurrentgemma-9b").smoke, cuda, monkeypatch, 20)

@@ -441,19 +441,23 @@ def test_counts_match_reference(model):
 
 def test_unported_kinds_still_raise():
     """MoE, MLA (deepseek-v2-lite), the encoder (seamless-m4t), the vision
-    prefix (paligemma) and the SSM (falcon-mamba) are ported; RG-LRU is
-    not, as a mixer or as a config field the reference's configs carry. An
-    ssm mixer is accepted with its config."""
+    prefix (paligemma), the SSM (falcon-mamba) and RG-LRU (recurrentgemma)
+    are ported: an ssm or rglru mixer is accepted with its config and
+    refused without it (``ValueError``), and a config that carries the
+    ``rglru`` field is accepted. A mixer or FFN kind the port does not know
+    still raises ``NotImplementedError``."""
     cfg = t_arch("mixtral_8x22b").smoke
     TT._check_supported(cfg)
     ssm = t_arch("falcon-mamba-7b").smoke.ssm
     TT._check_supported(dataclasses.replace(cfg, mixer_pattern=("ssm",), ssm=ssm))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    rglru = t_arch("recurrentgemma-9b").smoke.rglru
+    TT._check_supported(dataclasses.replace(cfg, mixer_pattern=("rglru",), rglru=rglru))
+    TT._check_supported(dataclasses.replace(cfg, rglru=rglru))
+    with pytest.raises(ValueError, match="an rglru mixer needs cfg.rglru"):
         TT._check_supported(dataclasses.replace(cfg, mixer_pattern=("rglru",)))
-    bad = dataclasses.make_dataclass("Cfg", [("rglru", int, dataclasses.field(default=2))],
-                                     bases=(type(cfg),), frozen=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TT._check_supported(bad(**_fields(cfg)))
+    for kinds in ({"mixer_pattern": ("mamba2",)}, {"ffn_pattern": ("glu",)}):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TT._check_supported(dataclasses.replace(cfg, **kinds))
 
     for size in ("full", "smoke"):  # deepseek-v2-lite, seamless-m4t, paligemma accepted
         mla = getattr(t_arch("deepseek-v2-lite"), size)
@@ -463,10 +467,6 @@ def test_unported_kinds_still_raise():
         TT._check_supported(getattr(t_arch("seamless-m4t-large-v2"), size))
         TT._check_supported(dataclasses.replace(cfg, vision_tokens=2))
         TT._check_supported(getattr(t_arch("paligemma-3b"), size))
-
-
-def _fields(obj):
-    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
 # ---------------------------------------------------------------------------

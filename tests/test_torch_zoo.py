@@ -47,7 +47,7 @@ def _one_thread():
 
 @pytest.mark.parametrize("arch", ARCHS + ("mixtral_8x22b", "deepseek_v2_lite_16b",
                                           "seamless_m4t_large_v2", "paligemma_3b",
-                                          "falcon_mamba_7b"))
+                                          "falcon_mamba_7b", "recurrentgemma_9b"))
 def test_full_config_is_the_reference_s(arch):
     """Registered under both spellings, with the reference's FULL and
     SMOKE fields (the reference's ``remat`` and the layer kinds the port
