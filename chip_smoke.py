@@ -363,15 +363,20 @@ Phases (any failure exits non-zero; no failure is caught):
                 recomputed in the backward) -> serve(), serve(accum="int8")
                 and a codes_adc deployment, each through phase 5's drive
                 with prompts of 5, 40, 17 and 300 tokens in an engine of 512
-                positions, every admission one eager exact-length fused
-                prefill (an SSM stack does not chunk): exact launch counts
+                positions, every admission one exact-length fused prefill
+                (an SSM stack does not chunk), replayed from the CUDA graph
+                of its prompt length (the first of a length eager, then
+                captured): exact launch counts
                 (33 GEMV launches a tick, 8 x (in_proj, x_proj, dt_proj,
                 out_proj) + the head; an admission the 32 at its rows,
                 tiled above 64, + the head at one row; codes_adc the same
-                33 through the ADC), no chunk, compile_count 1 (the decode
-                tick) and flat, the tick's replay bitwise its eager step (h
-                and conv compared by their bytes), each slot's state as
-                admitted bitwise its prompt's prefill alone, codes vs
+                33 through the ADC), no chunk, compile_count 5 (the decode
+                tick and a fused-prefill step per prompt length) and flat,
+                the tick's replay bitwise its eager step (h and conv
+                compared by their bytes), each prefill step's replay on a
+                staging cache of random values bitwise its eager function
+                (logits and cache), each slot's state as admitted (a
+                replay) bitwise its prompt's eager prefill alone, codes vs
                 dequant within LOGITS_BOUND, int8 vs f32 within
                 INT8_LOGITS_BOUND, the 300-token fused prefill vs a
                 token-by-token decode loop (last logits and the first and
@@ -383,8 +388,10 @@ Phases (any failure exits non-zero; no failure is caught):
                 tokens equal but under codes_adc, whose tick digitizes the
                 idle slots' advancing rows with the live one) and no
                 partial hit. Reported:
-                the tick captured vs eager, tok/s, each admission's ms, the
-                tick's and the 300-token admission's device time by class,
+                the tick captured vs eager, tok/s, each admission's ms
+                replayed beside the eager prefill's (CUDA events), the
+                tick's and the 300-token captured admission's device time
+                by class,
                 calibrate seconds and step ms, peak and retained memory.
                 Phase 3 holds its five leaves through both GEMVs at 4 rows,
                 both tiled bodies at 300 and the ADC at both, and phase 4
@@ -406,10 +413,12 @@ Phases (any failure exits non-zero; no failure is caught):
                 + 2 x (qkv, o, gate_up, down); an admission the 50 at its
                 rows, tiled above 64; the tied head through torch.matmul;
                 codes_adc 62 a forward, unfused), no chunk, compile_count
-                1 and flat, the tick's replay bitwise its eager step at
+                5 and flat, the tick's replay bitwise its eager step at
                 clocks 2040, 2047, 2048 and 2110 (h and conv by their
-                bytes, the rolling k and v), each slot's cache row as
-                admitted bitwise its prompt's prefill alone, codes vs
+                bytes, the rolling k and v), each prefill step's replay
+                bitwise its eager function (the 2100-token one's rolling
+                buffers wrapped), each slot's cache row as admitted
+                bitwise its prompt's prefill alone, codes vs
                 dequant within LOGITS_BOUND, int8 vs f32 within
                 INT8_LOGITS_BOUND; the wrap check: the 2100-token fused
                 prefill against the fused prefill of its first 2036 tokens
@@ -681,9 +690,10 @@ SSM_LAYERS = 8
 SSM_MAX_LEN = 512
 SSM_PROMPT_LENS = (5, 40, 17, 300)
 # the steps the traffic compiles per session (phases 15 and 16): the decode
-# tick alone (a recurrent stack admits each prompt by one eager fused
-# prefill)
-RECURRENT_COMPILED_STEPS = 1
+# tick and one fused-prefill step per distinct prompt length (a recurrent
+# stack admits each prompt by one fused prefill, replayed from the CUDA
+# graph of its length)
+RECURRENT_COMPILED_STEPS = 1 + len(set(SSM_PROMPT_LENS))
 # the longest prompt's fused prefill vs a token-by-token decode loop
 # (phases 15 and 16), relative to the absmax of the last logits and of the
 # checked layers' states and rolling K/V: the prefill runs the tiled bodies
@@ -2047,11 +2057,13 @@ def engine_run(session, prompts, max_new, max_len=ENGINE_MAX_LEN, encs=None, src
 
 def replay_vs_eager(session, seed=3, decode_pos=None):
     """Every captured step of the session (the decode tick, the chunk
-    buckets 8, 16 and 32) replayed on fresh inputs, then its function run
-    eagerly from a copy of the same cache: logits and cache bitwise equal.
-    The decode tick at clocks 40-70 (or ``decode_pos``); each chunk with a
-    bucket that runs past max_len (pos0 + width > max_len, pos0 + n_valid
-    = max_len)."""
+    buckets 8, 16 and 32, a recurrent stack's fused prefill per prompt
+    length) replayed on fresh inputs, then its function run eagerly from a
+    copy of the same cache: logits and cache bitwise equal. The decode tick
+    at clocks 40-70 (or ``decode_pos``); each chunk with a bucket that runs
+    past max_len (pos0 + width > max_len, pos0 + n_valid = max_len); each
+    fused prefill on a staging cache of random values, which it must
+    overwrite."""
     g = torch.Generator().manual_seed(seed)
     vocab = session.cfg.vocab
     out = {}
@@ -2063,6 +2075,9 @@ def replay_vs_eager(session, seed=3, decode_pos=None):
             host = torch.stack([torch.randint(0, vocab, (batch,), generator=g), pos])
         elif kind in ("encode", "prefill_vision"):  # fresh frames or patches
             host = torch.randn(tuple(step.inputs.shape), generator=g)
+        elif kind == "prefill":  # fresh tokens into a staging cache dirtied first
+            host = torch.randint(0, vocab, (1, width), generator=g)
+            step.flat.copy_(torch.randn(step.flat.shape, generator=g).to(step.flat.dtype))
         else:
             host = torch.cat([torch.randint(0, vocab, (width,), generator=g),
                               torch.tensor([max_len - width // 2 - 1, width // 2 + 1])])
@@ -4944,11 +4959,13 @@ def recurrent_traffic(cfg, seed, device, cell):
 
 
 def recurrent_admissions(session, prompts, cell):
-    """The traffic once more through a 4-slot engine, each admission (one
-    eager fused prefill, ``ServeEngine._prefill``) timed apart by CUDA
-    events, and each slot's cache row as admitted (every layer's state,
-    conv window and rolling K/V) against ``prefill`` of its prompt alone on
-    a fresh cache: bitwise. The slots were used by earlier drives, so this
+    """The traffic once more through a 4-slot engine, each admission (the
+    replay of its prompt length's fused-prefill graph, ``ServeEngine.
+    _prefill``, with its snapshot for the prefix cache) timed apart by
+    CUDA events, and each slot's cache row as admitted (every layer's
+    state, conv window and rolling K/V) against the eager allocating
+    ``prefill`` of its prompt alone: bitwise; that eager call timed the
+    same way beside it. The slots were used by earlier drives, so this
     also shows that admission overwrites a recycled slot's row."""
     from repro_torch.deploy import ServeEngine
     from repro_torch.models import transformer as T
@@ -4979,21 +4996,29 @@ def recurrent_admissions(session, prompts, cell):
     engine.run()
     del engine, prefill, finalize, timed, record
     gc.collect()
-    equal = []
+    equal, eager_ms = [], []
     for req, p in zip(reqs, prompts):
+        tokens = p[None].to(device)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         with session.scope(), torch.no_grad():
-            _, cache = T.prefill(session.params, p[None].to(device), cfg, cell.max_len)
+            start.record()
+            _, cache = T.prefill(session.params, tokens, cfg, cell.max_len)
+            end.record()
+        torch.cuda.synchronize()
+        eager_ms.append(start.elapsed_time(end))
         want = [t[0] for layer in T._cache_layers(cache, cfg) for t in layer.values()]
         equal.append(len(want) == len(rows[req.rid])
                      and all(same_bytes(a, b) for a, b in zip(rows[req.rid], want)))
         del cache, want
     log(f"[{cell.tag}] {session.options or 'f32'} {session.backend}: admissions of "
-        + ", ".join(f"{len(p)} tokens {ms[r.rid]:.2f} ms" for p, r in zip(prompts, reqs))
-        + " (eager fused prefills); each slot's cache row as admitted vs prefill alone: "
+        + ", ".join(f"{len(p)} tokens {ms[r.rid]:.2f} ms replayed vs {e:.2f} ms eager"
+                    for p, r, e in zip(prompts, reqs, eager_ms))
+        + " (CUDA events); each slot's cache row as admitted vs prefill alone: "
         + ", ".join("bitwise" if ok else "DIFFER" for ok in equal))
     assert all(equal) and len(ms) == len(prompts), (equal, ms)
-    return {"admission_ms": [ms[r.rid] for r in reqs], "ttft_s": [r.ttft_seconds for r in reqs],
-            "state_rows_bitwise": equal}
+    return {"prompt_lens": [len(p) for p in prompts],
+            "admission_ms": [ms[r.rid] for r in reqs], "admission_eager_ms": eager_ms,
+            "ttft_s": [r.ttft_seconds for r in reqs], "state_rows_bitwise": equal}
 
 
 def recurrent_prefix_hit(session, prompt, longer, cell):
@@ -5147,9 +5172,9 @@ def recurrent_alone(session, prompts, streams, gated, cell):
 
 
 def recurrent_profiles(session, label, prompt, cell):
-    """The captured decode tick (4 live slots) and the eager admission of
-    ``prompt`` (one fused prefill), each profiled over a few calls: device
-    time by class (``cell.classes``)."""
+    """The captured decode tick (4 live slots) and the captured admission
+    of ``prompt`` (the replay of its length's fused-prefill step), each
+    profiled over a few calls: device time by class (``cell.classes``)."""
     from repro_torch.deploy import ServeEngine
 
     gc.collect()  # the drive's engines hand their lease back
@@ -5162,12 +5187,13 @@ def recurrent_profiles(session, label, prompt, cell):
     tick = profile_window(cell.tag, "tick", 4,
                           lambda: torch.argmax(step(host)[:, -1], -1).cpu(),
                           classes=cell.classes)
-    p = prompt[None].to(session.device)
-    session.prefill(p, cell.max_len)
+    admit = session.prefill_fn(len(prompt), cell.max_len)  # the warm step
+    assert admit.graph is not None, admit.key
+    p = prompt[None]
+    admit(p)
     torch.cuda.synchronize()
-    log(f"[{cell.tag}] {label}: profile of 2 admissions of {p.shape[1]} tokens")
-    admission = profile_window(cell.tag, "admission", 2,
-                               lambda: session.prefill(p, cell.max_len),
+    log(f"[{cell.tag}] {label}: profile of 2 captured admissions of {len(prompt)} tokens")
+    admission = profile_window(cell.tag, "admission", 2, lambda: admit(p),
                                classes=cell.classes)
     del engine
     return {"tick": tick, "admission": admission}
@@ -5191,9 +5217,11 @@ def recurrent_serve_checked(dep, seed, cell):
     ``serve(accum="int8")`` and a codes_adc deployment over the same
     teacher, codes and side-cars, each through ``drive`` (first drive
     captures, a warm drive and an eager one with the same launches and
-    streams, ``compile_count`` 1 (the decode tick) and flat, the tick's
-    replay bitwise its eager step at ``cell.decode_pos``, the recurrent
-    state included, the tick captured vs eager); exact launch counts
+    streams, ``compile_count`` ``RECURRENT_COMPILED_STEPS`` (the decode
+    tick and a fused-prefill step per prompt length) and flat, every
+    step's replay bitwise its eager function (the tick at
+    ``cell.decode_pos``, the recurrent state included; each prefill on a
+    dirtied staging cache), the tick captured vs eager); exact launch counts
     (``recurrent_counts``); codes vs dequant within ``LOGITS_BOUND``, int8
     vs f32 within ``INT8_LOGITS_BOUND``, ADC vs f32 reported; the
     admissions timed and each slot's cache row bitwise its prompt's prefill
@@ -5207,6 +5235,7 @@ def recurrent_serve_checked(dep, seed, cell):
     cfg, device = dep.cfg, dep.device
     prompts, longer, tokens, _ = recurrent_traffic(cfg, seed, device, cell)
     decode_pos = None if cell.decode_pos is None else torch.tensor(cell.decode_pos)
+    assert RECURRENT_COMPILED_STEPS == 1 + len(set(cell.prompt_lens)), cell.prompt_lens
     runs, logits = {}, {}
     makers = (("f32", lambda: dep.serve()), ("int8", lambda: dep.serve(accum="int8")),
               ("codes_adc", lambda: Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes,
@@ -5224,7 +5253,7 @@ def recurrent_serve_checked(dep, seed, cell):
         expect_counts(run["launches_engine"],
                       recurrent_counts(cfg, ticks, cell.prompt_lens, 0, body))
         expect_counts(run["launches"], recurrent_counts(cfg, ticks, cell.prompt_lens, 1, body))
-        assert {s.key[0] for s in session.steps} == {"decode"}
+        assert {s.key[0] for s in session.steps} == {"decode", "prefill"}
         run["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
         if body == "f32":
             run["codes_vs_dequant"] = recurrent_codes_vs_dequant(session, logits["f32"], tokens,
@@ -5243,7 +5272,8 @@ def recurrent_serve_checked(dep, seed, cell):
         run["admissions"] = recurrent_admissions(session, prompts, cell)
         run["prefix"] = recurrent_prefix_hit(session, prompts[1], longer, cell)
         run["trace"] = recurrent_profiles(session, body, prompts[-1], cell)
-        assert session.compile_count() == RECURRENT_COMPILED_STEPS, session.compile_count()
+        # the prefix check's longer prompt is a length of its own
+        assert session.compile_count() == RECURRENT_COMPILED_STEPS + 1, session.compile_count()
         if body == "f32":
             run["prefill_vs_loop"] = prefill_vs_loop(session, prompts[-1], cell)
         run["alone"] = recurrent_alone(session, prompts, run["streams"],
@@ -5255,7 +5285,9 @@ def recurrent_serve_checked(dep, seed, cell):
             + ", ".join(f"{t:.4f}" for t in run["warm"]["ttft_s"])
             + " s (admissions "
             + ", ".join(f"{x:.2f}" for x in run["admissions"]["admission_ms"])
-            + f" ms); compile_count {run['compile_count']}; peak "
+            + " ms replayed, "
+            + ", ".join(f"{x:.2f}" for x in run["admissions"]["admission_eager_ms"])
+            + f" ms eager); compile_count {run['compile_count']}; peak "
             f"{run['peak_mem_bytes'] / 2**30:.2f} GiB; after the drive the registry holds "
             f"+{run['registry_allocated_bytes'] / 2**30:.2f} GiB allocated, "
             f"+{run['registry_reserved_bytes'] / 2**30:.2f} reserved; launches "
@@ -5390,6 +5422,12 @@ def main():
     lap("15 ssm")
     rglru = phase_recurrent(device, args.seed, RGLRU_CELL)
     lap("16 rglru")
+    for cell, result in ((SSM_CELL, ssm), (RGLRU_CELL, rglru)):
+        for body, run in result["serving"].items():
+            adm = run["admissions"]
+            log(f"[admissions] {smi}: {cell.arch} {body}: " + ", ".join(
+                f"{n} tokens {r:.2f} ms replayed vs {e:.2f} ms eager" for n, r, e in
+                zip(adm["prompt_lens"], adm["admission_ms"], adm["admission_eager_ms"])))
     seconds["total"] = marks[-1] - marks[0]
     log("[smoke] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     zoo = (moe, mla, encdec, vlm, ssm, rglru)

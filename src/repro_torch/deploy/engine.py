@@ -14,10 +14,11 @@ SSM, and RG-LRU beside local attention) (``remesh`` waits).
 * **Unchunked admission (recurrent stacks).** A recurrence's scan
   regroups its products by length, so a stack with an SSM or RG-LRU
   mixer does not chunk (``self.chunked`` False): a cold request runs one
-  eager exact-length fused prefill (``ServeSession.prefill``), whose
-  cache is copied into the staging views; then, as after a last chunk,
-  it is snapshotted and finalized at once. The prefix cache serves only
-  full hits: the snapshot of a whole prompt.
+  exact-length fused prefill, the session's compiled step of its prompt
+  length (``ServeSession.prefill_fn``, a CUDA graph per length on the
+  card), which writes the staging views itself; then, as after a last
+  chunk, it is snapshotted and finalized at once. The prefix cache serves
+  only full hits: the snapshot of a whole prompt.
 * **Encoder-decoder slots.** A request carries ``enc_embeds`` (S_src, d):
   its cold admission zeroes the staging cache and runs the session's
   encoder step (``ServeSession.encode_fn``, one per source length) just
@@ -58,9 +59,10 @@ SSM, and RG-LRU beside local attention) (``remesh`` waits).
 * **One decode step for everyone.** ``step()`` advances every active
   slot with one ``decode_step``; idle rows ride along and their writes
   stay masked.
-* **Compiled steps.** The decode tick and each chunk bucket are the
-  session's registry entries (``ServeSession.decode_step_fn`` /
-  ``prefill_chunk_fn``): CUDA graphs on the card, replayed on the
+* **Compiled steps.** The decode tick, each chunk bucket and each
+  unchunked prompt length are the session's registry entries
+  (``ServeSession.decode_step_fn`` / ``prefill_chunk_fn`` /
+  ``prefill_fn``): CUDA graphs on the card, replayed on the
   current stream. The engine leases a decode step of its own (its cache
   is the slots' cache); every chunk advances the session's batch-1
   staging cache, and a prompt of several chunks keeps its cache between
@@ -80,7 +82,6 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import tree as tree_lib
 from repro_torch.deploy import serving
 from repro_torch.models import moe as M
 
@@ -266,8 +267,8 @@ class ServeEngine:
         """Bind ``req`` to ``slot``, look its prompt up in the prefix cache
         and plan the chunks from the tokens it covers, behind a vision unit
         when a cold image request starts from nothing. An unchunked stack's
-        cold request runs its whole prompt here (``_prefill``) and plans
-        no unit."""
+        cold request runs its whole prompt here (``_prefill``, one compiled
+        step) and plans no unit."""
         req.slot = slot
         self.slot_req[slot] = req
         req._chain = self._hash_chain(req)
@@ -329,15 +330,13 @@ class ServeEngine:
 
     @torch.no_grad()
     def _prefill(self, req: Request) -> None:
-        """An unchunked stack's cold admission: one eager fused prefill of
-        the whole prompt at batch 1, its cache copied into the staging
-        views, snapshotted for the prefix cache."""
-        from repro_torch.interop import to_tensor
-
-        prompt = to_tensor(req.prompt, self.device)[None]
-        req._logits, cache = self.session.prefill(prompt, self.max_len)
-        for dst, src in zip(tree_lib.tensors(self._staging), tree_lib.tensors(cache)):
-            dst.copy_(src)
+        """An unchunked stack's cold admission: the fused prefill of the
+        whole prompt at batch 1, the session's step of its length, which
+        fills the staging cache; snapshotted for the prefix cache. Its
+        logits are the step's own, valid until the next admission of that
+        length (``_finalize_admission`` follows at once)."""
+        step = self.session.prefill_fn(req.prompt_len, self.max_len)
+        req._logits = step(torch.tensor(req.prompt)[None])
         self._store_prefix(req, req.prompt_len)
 
     @staticmethod

@@ -3,13 +3,16 @@ prefill, the reference generation loop, the compiled-step registry and
 ``ServeSession``. Port of ``repro/deploy/serving.py``.
 
 The registry's twin of the reference's jitted steps is a CUDA graph: a
-session builds its decode tick, its admission chunk, for an
-encoder-decoder config its encoder admission (``"encode"``, one per
-source length, as the reference's jit retraces per shape) and for a
-vision config its vision admission (``"prefill_vision"``) once per
-``(kind, active_backend_key(), batch, width, max_len, src_len)``
-(``StepRegistry``, ``CompiledStep``) and replays them. The fused prefill and the module-level
-``generate`` loop stay eager. Everything runs under ``torch.no_grad()``.
+session builds its decode tick, its admission chunk, the fused prefill of
+an unchunked (recurrent) stack's admission (``"prefill"``, one per prompt
+length), for an encoder-decoder config its encoder admission
+(``"encode"``, one per source length, as the reference's jit retraces per
+shape) and for a vision config its vision admission
+(``"prefill_vision"``) once per ``(kind, active_backend_key(), batch,
+width, max_len, src_len)`` (``StepRegistry``, ``CompiledStep``) and
+replays them. ``ServeSession.prefill``, the module-level
+``prefill_and_cache`` and ``generate`` loop stay eager. Everything runs
+under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -307,8 +310,9 @@ class ServeSession:
         _check_sampling_args(temperature, key)
         return key
 
-    # -- compiled steps (the reference's decode_step_fn / prefill_chunk_fn /
-    # encode_fn); ``src_len`` is the cross lines' extent, 0 without an encoder
+    # -- compiled steps (the reference's decode_step_fn / prefill_fn /
+    # prefill_chunk_fn / encode_fn); ``src_len`` is the cross lines' extent,
+    # 0 without an encoder
 
     def _key(self, kind: str, batch: int, width: int, max_len: int, src_len: int = 0) -> tuple:
         with self.scope():
@@ -398,6 +402,35 @@ class ServeSession:
             return CompiledStep(self.steps, key, fn, inputs, flat, cache)
 
         key = self._key("prefill_vision", 1, p_, max_len)
+        return self.steps.get(key, build)
+
+    def prefill_fn(self, seq: int, max_len: int) -> CompiledStep:
+        """The fused prefill of a ``seq``-token prompt (the reference's
+        ``prefill_fn``, one step per prompt length as its jit retraces per
+        shape): one forward over the whole prompt writes every layer's
+        cache into ``staging_cache(max_len)``, every byte of it
+        (``transformer.prefill(cache=)``). Inputs: the (1, seq) tokens. It
+        returns the (1, 1, vocab) last logits. An encoder-decoder or vision
+        config is refused: the engine admits those in chunks."""
+        from repro_torch.models import transformer as T
+
+        if self.cfg.encoder_layers or self.cfg.vision_tokens:
+            raise ValueError(f"{self.cfg.name} admits in chunks: prefill_fn takes no "
+                             "encoder input or vision prefix")
+        if not 0 < seq <= max_len:
+            raise ValueError(f"a prompt of {seq} tokens does not fit max_len {max_len}")
+
+        def build():
+            flat, cache = self.staging_cache(max_len)
+            inputs = torch.zeros((1, seq), dtype=torch.int64, device=self.device)
+
+            @torch.no_grad()
+            def fn():
+                with self.scope():
+                    return T.prefill(self.params, inputs, self.cfg, max_len, cache=cache)[0]
+            return CompiledStep(self.steps, key, fn, inputs, flat, cache)
+
+        key = self._key("prefill", 1, seq, max_len)
         return self.steps.get(key, build)
 
     def prefill_chunk_fn(self, width: int, max_len: int, src_len: int = 0) -> CompiledStep:

@@ -369,19 +369,24 @@ def _cache_mask(pos: torch.Tensor, length: int, window: Optional[int]) -> torch.
 
 
 def prefill_kv_cache(kv: Dict, batch: int, max_len: int, cfg: AttentionConfig,
-                     dtype=torch.bfloat16) -> Dict:
-    """A fresh decode cache holding full-sequence prefill K/V (or MLA
-    latents); rolling buffers keep the last ``length`` positions at their
-    wrapped slots."""
+                     dtype=torch.bfloat16, cache: Optional[Dict] = None) -> Dict:
+    """A decode cache holding full-sequence prefill K/V (or MLA latents);
+    rolling buffers keep the last ``length`` positions at their wrapped
+    slots. A fresh one, or ``cache`` (one layer's ``init_kv_cache``
+    buffers) written in place, every byte of it: the slots the prompt does
+    not fill get zeros, as a fresh buffer holds them. The indices are
+    static, so a CUDA graph can capture the write."""
     first = next(iter(kv.values()))
-    cache = init_kv_cache(batch, max_len, cfg, first.device, dtype)
+    if cache is None:
+        cache = init_kv_cache(batch, max_len, cfg, first.device, dtype)
     s = first.shape[1]
-    device = first.device
-    for name, buf in cache.items():
+    for name in kv:
+        buf = cache[name]
         length = buf.shape[1]
         start = max(0, s - length)
-        idx = torch.arange(start, s, device=device)
+        idx = torch.arange(start, s, device=buf.device)
         buf[:, idx % length] = kv[name][:, start:].to(buf.dtype)
+        buf[:, s:].zero_()  # empty once the prompt fills the buffer
     return cache
 
 

@@ -557,13 +557,20 @@ def encode_into_cache(params: Dict, cache: Dict, enc_embeds: torch.Tensor,
 
 def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: int, enc_embeds: Optional[torch.Tensor] = None,
-            patch_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+            patch_embeds: Optional[torch.Tensor] = None, *,
+            cache: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
     """One forward over the whole prompt: last-position logits
     (B, 1, vocab) and a decode cache ready at ``pos = S``. An
     encoder-decoder config runs its encoder over ``enc_embeds`` first; the
     cache then holds each layer's cross lines at the exact source length
     and ``enc_len``. ``patch_embeds`` (B, P, d) puts a prefix-LM vision
-    prefix at positions [0, P); the decode clock then starts at ``P + S``."""
+    prefix at positions [0, P); the decode clock then starts at ``P + S``.
+    ``cache``, a tree of ``init_flat_cache``'s views at batch B and
+    ``max_len`` (its cross lines may run past the source), is filled in
+    place and returned, every byte of every leaf as a fresh cache would
+    hold it (nothing it held before survives), with static shapes and no
+    host sync, so a CUDA graph can capture the call. Without it the call
+    allocates the cache."""
     base = params["base"]
     adapters = _adapters_or_empty(params)
     b = tokens.shape[0]
@@ -573,8 +580,9 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     enc_out = None
     if cfg.encoder_layers:
         enc_out = encode(base, adapters, enc_embeds.to(h.dtype), cfg)
-    cache = init_cache(cfg, b, max_len, h.device,
-                       0 if enc_out is None else enc_out.shape[1])
+    if cache is None:
+        cache = init_cache(cfg, b, max_len, h.device,
+                           0 if enc_out is None else enc_out.shape[1])
     if enc_out is not None:
         cache["enc_len"].fill_(enc_out.shape[1])
     layer_caches = _cache_layers(cache, cfg)
@@ -582,17 +590,18 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     for i, lb, la, (mixer, ffn) in _layers(base, adapters, cfg):
         x = _norm(h, lb["norm1"], cfg)
         if mixer == "ssm":
-            mix, layer = S.ssm_block(x, lb["mixer"], la.get("mixer"), cfg.ssm, cfg.adapter,
+            mix, state = S.ssm_block(x, lb["mixer"], la.get("mixer"), cfg.ssm, cfg.adapter,
                                      return_state=True)
         elif mixer == "rglru":
-            mix, layer = R.rglru_block(x, lb["mixer"], la.get("mixer"), cfg.rglru,
+            mix, state = R.rglru_block(x, lb["mixer"], la.get("mixer"), cfg.rglru,
                                        cfg.adapter, return_state=True)
         else:
             acfg = _attn_cfg(cfg, mixer)
             mix, kv = A.attention(x, lb["mixer"], la.get("mixer"), acfg, cfg.adapter,
                                   positions=positions, mask=mask, return_kv=True)
-            layer = A.prefill_kv_cache(kv, b, max_len, acfg, cfg.dtype)
-        for name, buf in layer.items():
+            A.prefill_kv_cache(kv, b, max_len, acfg, cfg.dtype, cache=layer_caches[i])
+            state = {}
+        for name, buf in state.items():
             layer_caches[i][name].copy_(buf)
         h = h + mix
         if enc_out is not None and "xattn" in lb:
@@ -600,8 +609,10 @@ def prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
             xa, xkv = A.attention(x, lb["xattn"], la.get("xattn"), xcfg, cfg.adapter,
                                   kv_input=enc_out, return_kv=True)
             h = h + xa
-            layer_caches[i]["xk"].copy_(xkv["k"])
-            layer_caches[i]["xv"].copy_(xkv["v"])
+            for name in ("k", "v"):  # zeros past the source, as a fresh cache's
+                lines, n = layer_caches[i]["x" + name], enc_out.shape[1]
+                lines[:, :n] = xkv[name]
+                lines[:, n:].zero_()
         h = _ffn(h, lb, la, cfg, ffn)
     h = _norm(h, base["final_norm"], cfg)
     logits = _lm_head(h[:, -1:], base, adapters, cfg)

@@ -2053,21 +2053,32 @@ def _bytes_equal(a, b):
     return torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
-def _recurrent_decode_graph(cfg, body, cuda, counts, pos):
-    """A recurrent smoke stack's drive: STEP_PROMPTS through a 4-slot
-    engine (each admission one eager fused prefill, no chunk), greedy,
-    twice: launches equal to ``counts(ticks, admissions)``, ``compile_count``
-    1, the same streams on the second drive; then the decode graph, from a
-    random cache with the slots at clocks ``pos``, replayed bitwise equal to
-    its eager step, logits and cache (the recurrent state by its bytes)."""
-    from repro_torch.deploy import Deployment, ServeEngine
-    from repro_torch.models import transformer as T
+def _recurrent_session(cfg, body, cuda):
+    """A recurrent smoke stack's session on the card (24 h of drift): f32
+    codes, int8 codes or codes_adc."""
+    from repro_torch.deploy import Deployment
 
     dep = Deployment.program(cfg, 0, backend="codes", device=cuda).advance(24)
     if body == "codes_adc":
         dep = Deployment(cfg, "codes_adc", dep.teacher_base, dep.codes, dep.adapters,
                          dep.teacher_seed, dep.program_seed, dep.drift_hours)
-    session = dep.serve(accum="int8") if body == "int8" else dep.serve()
+    return dep.serve(accum="int8") if body == "int8" else dep.serve()
+
+
+def _recurrent_decode_graph(cfg, body, cuda, counts, pos):
+    """A recurrent smoke stack's drive: STEP_PROMPTS through a 4-slot
+    engine (each admission one fused prefill, the step of its prompt
+    length: the first of a length eager, then captured; no chunk), greedy,
+    twice: launches equal to ``counts(ticks, admissions)`` (a replay adds
+    the launches its capture recorded), ``compile_count`` 1 + the distinct
+    prompt lengths, the same streams on the second drive; then the decode
+    graph, from a random cache with the slots at clocks ``pos``, replayed
+    bitwise equal to its eager step, logits and cache (the recurrent state
+    by its bytes)."""
+    from repro_torch.deploy import ServeEngine
+    from repro_torch.models import transformer as T
+
+    session = _recurrent_session(cfg, body, cuda)
     runs = []
     for _ in range(2):
         engine = ServeEngine(session, max_slots=4, max_len=64, prefix_cache_entries=0)
@@ -2089,8 +2100,8 @@ def _recurrent_decode_graph(cfg, body, cuda, counts, pos):
     want = counts(ticks, len(STEP_PROMPTS))
     launched = runs[0][1]
     assert launched == {name: want.get(name, 0) for name in launched}, (launched, want)
-    assert runs[0][2] == 1 and runs[1] == runs[0]
-    (step,) = session.steps
+    assert runs[0][2] == 1 + len(set(STEP_PROMPTS)) and runs[1] == runs[0]
+    (step,) = [s for s in session.steps if s.key[0] == "decode"]
     g = torch.Generator().manual_seed(2)
     host = torch.stack([torch.randint(0, cfg.vocab, (4,), generator=g), torch.tensor(pos)])
     step.flat.copy_(torch.randn(step.flat.shape, generator=g).to(step.flat.dtype))
@@ -2108,16 +2119,48 @@ def _recurrent_decode_graph(cfg, body, cuda, counts, pos):
     assert torch.equal(got, want) and _bytes_equal(got_cache, step.flat)
 
 
-@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
-def test_ssm_decode_graph_replays_bitwise(cuda, body):
-    """falcon-mamba's smoke stack through ``_recurrent_decode_graph``:
-    exact launches (an admission 4 x 4 leaves at its rows and the head at
-    one; a tick 4 x 4 + 1 at 4 rows), ``compile_count`` 1, the same streams
-    on a second drive; the decode graph replayed bitwise equal to its eager
-    step, logits and cache (``h`` and ``conv`` included)."""
-    from repro_torch.configs import get_arch
+def _recurrent_prefill_graphs(cfg, body, cuda, counts):
+    """A recurrent smoke stack's admissions: STEP_PROMPTS through a 4-slot
+    engine capture one fused-prefill step per prompt length; then each
+    step, on a staging cache of random values (the dirt it must
+    overwrite), replayed bitwise equal to its eager function from a copy
+    of the same cache (logits and every byte of the cache), a replay
+    launching one forward's kernels (``counts(0, 1)``)."""
+    from repro_torch.deploy import ServeEngine
 
-    cfg = get_arch("falcon-mamba-7b").smoke
+    session = _recurrent_session(cfg, body, cuda)
+    engine = ServeEngine(session, max_slots=4, max_len=64, prefix_cache_entries=0)
+    for n in STEP_PROMPTS:
+        engine.submit(torch.arange(n) % cfg.vocab, max_new=2)
+        engine.step()
+    engine.run()
+    steps = {s.key[3]: s for s in session.steps if s.key[0] == "prefill"}
+    assert sorted(steps) == sorted(set(STEP_PROMPTS)), steps
+    want_counts = counts(0, 1)
+    g = torch.Generator().manual_seed(3)
+    for n, step in steps.items():
+        assert step.graph is not None and step.key[4] == 64, step.key
+        host = torch.randint(0, cfg.vocab, (1, n), generator=g)
+        step.flat.copy_(torch.randn(step.flat.shape, generator=g).to(step.flat.dtype))
+        saved = step.flat.clone()
+        K.reset_launch_counts()
+        C.reset_launch_counts()
+        got = step(host).clone()
+        torch.cuda.synchronize()
+        launched = {**K.launch_counts(), **C.launch_counts()}
+        got_cache = step.flat.clone()
+        assert not _bytes_equal(got_cache, saved), n
+        step.flat.copy_(saved)
+        want = step.fn()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and _bytes_equal(got_cache, step.flat), n
+        assert launched == {name: want_counts.get(name, 0) for name in launched}, (
+            n, launched, want_counts)
+
+
+def _ssm_counts(cfg, body):
+    """falcon-mamba's smoke launches: a forward is 4 x 4 leaves at its rows
+    and the untied head at its last ones, through one body."""
     per = 4 * cfg.n_layers + 1
 
     def counts(ticks, admissions):
@@ -2125,37 +2168,76 @@ def test_ssm_decode_graph_replays_bitwise(cuda, body):
             return {"crossbar_mvm": (ticks + admissions) * per}
         sfx = "" if body == "f32" else "/int8"
         return {f"dora_linear_gemv{sfx}": (ticks + admissions) * per}
+    return counts
 
-    _recurrent_decode_graph(cfg, body, cuda, counts, [3, 17, 40, 62])
 
-
-@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
-def test_rglru_decode_graph_replays_bitwise_across_the_window(cuda, body):
-    """recurrentgemma's smoke stack (6 rglru and 2 local layers, window 8,
-    a tied head through ``torch.matmul``) through
-    ``_recurrent_decode_graph``: exact launches (a forward per tick and per
-    admission: an rglru layer's 5 leaves, unfused, and the MLP's
-    ``gate_up`` and ``down``; a local layer's ``qkv``, ``o``, ``gate_up``
-    and ``down``; the ADC 5 + 3 and 4 + 3 unfused), ``compile_count`` 1;
-    the streams run past the window, so the rolling buffers wrap; the
-    decode graph, its slots at clocks 3, 17, 40 and 62 (three past the
-    window), replayed bitwise equal to its eager step, logits and cache
-    (``h`` and ``conv`` by their bytes, the rolling ``k``/``v``)."""
-    from repro_torch.configs import get_arch
-
-    cfg = get_arch("recurrentgemma-9b").smoke
+def _rglru_counts(cfg, body):
+    """recurrentgemma's smoke launches: a forward is an rglru layer's 5
+    leaves (unfused) and the MLP's ``gate_up`` and ``down``, a local
+    layer's ``qkv``, ``o``, ``gate_up`` and ``down`` (the ADC 5 + 3 and 4
+    + 3 unfused); the tied head runs ``torch.matmul``."""
     kinds = [m for m, _ in cfg.layer_kinds()]
     fused = sum(5 + 2 if m == "rglru" else 2 + 2 for m in kinds)
     unfused = sum(5 + 3 if m == "rglru" else 4 + 3 for m in kinds)
+    assert (fused, unfused) == (50, 62)
 
     def counts(ticks, admissions):
         if body == "codes_adc":
             return {"crossbar_mvm": (ticks + admissions) * unfused}
         sfx = "" if body == "f32" else "/int8"
         return {f"dora_linear_gemv{sfx}": (ticks + admissions) * fused}
+    return counts
 
-    assert (fused, unfused) == (50, 62)
-    _recurrent_decode_graph(cfg, body, cuda, counts, [3, 17, 40, 62])
+
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_ssm_decode_graph_replays_bitwise(cuda, body):
+    """falcon-mamba's smoke stack through ``_recurrent_decode_graph``:
+    exact launches (an admission 4 x 4 leaves at its rows and the head at
+    one; a tick 4 x 4 + 1 at 4 rows), ``compile_count`` 1 + 4 prompt
+    lengths, the same streams on a second drive; the decode graph replayed
+    bitwise equal to its eager step, logits and cache (``h`` and ``conv``
+    included)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("falcon-mamba-7b").smoke
+    _recurrent_decode_graph(cfg, body, cuda, _ssm_counts(cfg, body), [3, 17, 40, 62])
+
+
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_rglru_decode_graph_replays_bitwise_across_the_window(cuda, body):
+    """recurrentgemma's smoke stack (6 rglru and 2 local layers, window 8,
+    a tied head through ``torch.matmul``) through
+    ``_recurrent_decode_graph``: exact launches (``_rglru_counts``: a
+    forward per tick and per admission), ``compile_count`` 1 + 4 prompt
+    lengths; the streams run past the window, so the rolling buffers wrap;
+    the decode graph, its slots at clocks 3, 17, 40 and 62 (three past the
+    window), replayed bitwise equal to its eager step, logits and cache
+    (``h`` and ``conv`` by their bytes, the rolling ``k``/``v``)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("recurrentgemma-9b").smoke
+    _recurrent_decode_graph(cfg, body, cuda, _rglru_counts(cfg, body), [3, 17, 40, 62])
+
+
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_ssm_prefill_graphs_replay_bitwise(cuda, body):
+    """falcon-mamba's smoke stack through ``_recurrent_prefill_graphs``:
+    the 17- and 40-token steps run two scan chunks of 16 and three."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("falcon-mamba-7b").smoke
+    _recurrent_prefill_graphs(cfg, body, cuda, _ssm_counts(cfg, body))
+
+
+@pytest.mark.parametrize("body", ["f32", "int8", "codes_adc"])
+def test_rglru_prefill_graphs_replay_bitwise_across_the_window(cuda, body):
+    """recurrentgemma's smoke stack through ``_recurrent_prefill_graphs``:
+    the 9-, 17- and 40-token steps wrap the local layers' rolling buffers
+    of 8; the 5-token one leaves 3 of their slots zero."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("recurrentgemma-9b").smoke
+    _recurrent_prefill_graphs(cfg, body, cuda, _rglru_counts(cfg, body))
 
 
 def _recurrent_calibration(cfg, cuda, monkeypatch, seq):

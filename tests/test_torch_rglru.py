@@ -514,7 +514,8 @@ def test_engine_streams_match_generate_and_reference(model, backend):
     ``serving.generate`` loop at batch 1; each admission is one fused
     prefill (no chunk counted); the counters and admission ticks are the
     reference engine's and its tokens equal or split at a near-tie; the
-    session compiled only its decode tick."""
+    session compiled its decode tick and one fused-prefill step per prompt
+    length."""
     dep_j, dep_t = _deployments(model, backend)
     s_j, s_t = dep_j.serve(), dep_t.serve()
     vocab = model["cfg"][0].vocab
@@ -546,7 +547,7 @@ def test_engine_streams_match_generate_and_reference(model, backend):
             alone, _ = tserving.generate(s_t.params, torch.as_tensor(p)[None], s_t.cfg,
                                          gen_len=6)
         assert list(alone[0]) == g
-    assert {s.key[0] for s in s_t.steps} == {"decode"}
+    assert {s.key[0] for s in s_t.steps} == {"decode", "prefill"}
 
 
 def test_prefix_full_hit_is_bitwise_cold_and_no_partial_hit():
