@@ -14,7 +14,9 @@ experts, sliding window) at its full widths and 1 layer, then
 deepseek-v2-lite (multi-head latent attention, a dense first layer,
 shared experts) at its full widths and 3 layers, then the encoder-decoder
 seamless-m4t-large-v2 at its full widths and 8 + 8 layers, then the
-vision-prefix paligemma-3b at its full widths and all 18 layers.
+vision-prefix paligemma-3b at its full widths and all 18 layers, then
+falcon-mamba-7b and recurrentgemma-9b at a cut depth, and last a fleet of
+four qwen3-1.7b chips with its calibration registry and scheduler.
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
@@ -436,6 +438,40 @@ Phases (any failure exits non-zero; no failure is caught):
                 through both GEMVs at 4 rows and both tiled bodies at 2100;
                 the unfused ones through the ADC at both) and phase 4 times
                 them.
+  17. fleet  — four qwen3-1.7b chips at full width and all 28 layers in
+                one Fleet (backend codes: the stacked codes 11.3 GB, one
+                shared teacher): program (chips 0 and 3 bitwise their solo
+                Deployment.program(cfg, (teacher_seed, chip_seed))'s codes,
+                by code_digest), advance by 6, 24, 168 and 300 h (chip 3
+                bitwise its solo after the same advance; the drift proxy 0
+                at programming, then ordered like the hours), calibrate the
+                four at once (10 x 32 tokens, 20 steps, one teacher pass,
+                one CUDA graph a step: no launch, one capture, the codes
+                unchanged, each chip's MSE falling and its logit MSE below
+                its drifted one, chip 3's losses, adapters and AdamW state
+                bitwise its solo calibrate), each chip recorded into a
+                registry (the first version of each key promoted), chips 0
+                and 3 served through ServeEngine (f32 body, phase 5's
+                requests and fused prefill: exact launches, compile_count
+                4 for each session, chip 3's prefill logits bitwise its
+                solo session's); after 24 h more and reset_adapters a
+                cold and a warm-started 3-step calibration from the same
+                codes (the cold one's graph bitwise the eager steps from
+                the same start; the warm one's mean loss below the cold
+                one's at its first and last step, its sources named), three
+                RecalibrationScheduler ticks with the threshold between the
+                youngest and the oldest chip's first proxies (it
+                recalibrates exactly the chips above it), a snapshot and a
+                restore of the whole fleet (bitwise: per-chip code
+                digests, adapters, AdamW state, proxy baselines); last a
+                fleet at 2 of 28 layers (FLEET_FAULT_LAYERS) with stuck
+                cells on chips 1 and 2: each chip's view bitwise its solo
+                inject(spec.for_chip(i)), hard_fault_proxy and the
+                scheduler's hard path flag exactly chips 1 and 2, the map's
+                bytes. Reported: program seconds (the fleet vs one chip),
+                teacher-feature seconds, the fleet's step ms captured vs
+                eager beside one solo chip's, capture seconds, peak and
+                retained memory, snapshot and restore seconds.
 The last line is the contract line; the line before it the kernel table,
 where ``dora_linear_narrow`` is the fused linear's narrow body: its
 launches are the f32 body's f32-x launches of phases 5, 11 and 12 (the
@@ -448,7 +484,8 @@ are the ``crossbar_mvm`` f32-x launches of phases 5, 11 and 12, which the
 decode tick and chunk, phase 13's encoder admissions, phase 14's vision
 admissions and fused prefill, and phase 15's 300-token and phase 16's
 2100-token admissions and their fused prefills; every entry's, phases
-13's to 16's launches.
+13's to 16's launches. The launches of ``dora_linear_gemv`` and
+``dora_linear`` also count phase 17's f32 sessions of fleet chips 0 and 3.
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -466,10 +503,12 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -737,6 +776,24 @@ RGLRU_ADC_LEAVES = [("rnn/q/o", 4096, 4096), ("k/v", 4096, 256), ("gate/up", 409
                     ("down", 12288, 4096)]
 # the rows of the decode tick and of the 2100-token admission
 RGLRU_M = (SLOTS, RGLRU_PROMPT_LENS[-1])
+# phase 17: four qwen3-1.7b chips at full width and all 28 layers in one
+# fleet (the stacked codes 11.3 GB beside a 3.4 GB teacher), aged by
+# heterogeneous hours; chips 0 and 3 held against solo deployments
+FLEET_CHIPS = 4
+FLEET_HOURS = (6.0, 24.0, 168.0, 300.0)
+FLEET_SOLO = (0, 3)
+# the registry's cold and warm starts after 24 more hours, 3 steps each
+FLEET_REGISTRY_HOURS = 24.0
+FLEET_WARM_STEPS = 3
+# the scheduler: three ticks of FLEET_HOURS, one step a recalibration
+FLEET_TICKS = 3
+FLEET_TICK_STEPS = 1
+# the fleet's faults at a cut depth (a fault map costs 4 B a weight for
+# stuck cells, 14 for all four classes: at 28 layers a row is 5-18 GiB a
+# chip): 2 of 28 layers, stuck cells on chips 1 and 2
+FLEET_FAULT_LAYERS = 2
+FLEET_FAULT_CHIPS = (1, 2)
+FLEET_FAULT_RATE = 0.05
 # phase 7: the paper's calibration set (10 samples of 32 tokens) and the
 # reference's calibrate defaults (20 steps, lr 1e-3)
 CALIB_SAMPLES, CALIB_SEQ, CALIB_STEPS = 10, 32, 20
@@ -2509,17 +2566,19 @@ def profile_window(tag, unit, n, fn, classes=None):
 
 @contextlib.contextmanager
 def timed_calibration():
-    """Time ``Deployment.calibrate``'s phases from outside: its
-    ``teacher_features`` call (seconds) and each call of its compiled step
-    (ms) and each capture (seconds), each closed by a synchronize; keep,
-    per step built, the storages of its static leaves and AdamW state, its
-    stream and a weak reference (holding the step would hold its memory).
+    """Time ``Deployment.calibrate``'s and ``Fleet.calibrate``'s phases from
+    outside: the ``teacher_features`` call (seconds), each call of the
+    compiled step (ms) and each capture (seconds), each closed by a
+    synchronize; keep, per step built, the storages of its members' static
+    leaves and AdamW state, its stream and a weak reference (holding the
+    step would hold its memory).
     The program is not changed; the wrappers are removed on exit."""
     import weakref
 
     from repro_torch import graphs
     from repro_torch.core import calibrate as calib
     from repro_torch.deploy import deployment as D
+    from repro_torch.fleet import fleet as FL
 
     times = {"teacher_s": [], "step_ms": [], "capture_s": [], "steps": []}
     feats_fn, call, capture = D.teacher_features, calib.CompiledCalibStep.__call__, graphs.capture
@@ -2538,17 +2597,18 @@ def timed_calibration():
         if step.calls == 0:
             times["steps"].append({
                 "ref": weakref.ref(step), "stream": step.stream,
-                "storages": storages([step.leaves, *step.opt_state])})
+                "storages": storages([[m.leaves, *m.opt_state] for m in step.members])})
 
     timed_call = timed(call, "step_ms", 1e3)
     counted = timed(capture, "capture_s", 1.0)
-    D.teacher_features = timed(feats_fn, "teacher_s", 1.0)
+    D.teacher_features = FL.teacher_features = timed(feats_fn, "teacher_s", 1.0)
     calib.CompiledCalibStep.__call__ = lambda self: first_call(self) or timed_call(self)
     graphs.capture = counted
     try:
         yield times
     finally:
-        D.teacher_features, calib.CompiledCalibStep.__call__ = feats_fn, call
+        D.teacher_features = FL.teacher_features = feats_fn
+        calib.CompiledCalibStep.__call__ = call
         graphs.capture = capture
 
 
@@ -5343,6 +5403,344 @@ def phase_recurrent(device, seed, cell):
     return result
 
 
+def rows_equal(a, b):
+    """Every tensor of two trees (an ``AdamState`` as its fields) with the
+    same dtype, shape and bytes."""
+    from repro_torch import tree as tree_lib
+
+    ta, tb = (tree_lib.tensors(list(t) if isinstance(t, tuple) else t) for t in (a, b))
+    return len(ta) == len(tb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and same_bytes(x.reshape(-1), y.reshape(-1))
+        for x, y in zip(ta, tb))
+
+
+def chip_digests(fleet):
+    """``code_digest`` of each chip's codes (its rows and the shared leaves)."""
+    from repro_torch.deploy.deployment import code_digest
+    from repro_torch.fleet import fleet as FL
+
+    return [code_digest(FL._take(fleet.codes, c)) for c in range(fleet.n_chips)]
+
+
+def synced(fn):
+    """``(fn(), seconds)``, the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fleet_serve(fleet, solo, seed):
+    """Chips 0 and 3 of the calibrated fleet through ``ServeEngine`` (f32
+    body, phase 5's requests) and one fused prefill each: exact launches,
+    each session the compiled steps of chip 0's; chip 3's prefill logits
+    bitwise its solo deployment's session's. Returns the sessions' summed
+    launches and each chip's run."""
+    cfg, device = fleet.cfg, fleet.device
+    prompts, tokens, _ = serving_inputs(cfg.vocab, seed, device)
+    n_leaves = 4 * cfg.n_layers
+    launches, runs = {}, {}
+    for chip in FLEET_SOLO:
+        session = fleet.serve(chip)
+        run = engine_run(session, prompts, MAX_NEW)
+        steps = run["prefill_chunks"] + run["decode_steps"]
+        expect_counts(run["launches"], {"dora_linear_gemv": n_leaves * steps})
+        reset_counts()
+        (run["prefill_ms"],), logits = time_prefill(session, tokens)
+        expect_counts(read_counts(), {"dora_linear": n_leaves})
+        assert run["compile_count"] == session.compile_count() == COMPILED_STEPS, run
+        for name, n in run["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+        launches["dora_linear"] = launches.get("dora_linear", 0) + n_leaves
+        if chip == FLEET_SOLO[-1]:
+            want, _ = solo.serve().prefill(tokens, PREFILL_MAX_LEN)
+            assert same_bytes(want, logits), "fleet.serve(3)'s prefill is not the solo session's"
+            run["prefill_bitwise_solo"] = True
+        del session, logits
+        memory()
+        run.pop("streams")
+        runs[chip] = run
+        log(f"[fleet] serve({chip}): {run['decode_steps']} ticks, {run['prefill_chunks']} "
+            f"chunks, {run['tick_ms']:.2f} ms a tick, compile_count {run['compile_count']}; "
+            f"launches {run['launches']['dora_linear_gemv']} GEMV + {n_leaves} tiled"
+            + (" | prefill logits bitwise the solo session's" if chip == FLEET_SOLO[-1] else ""))
+    return launches, runs
+
+
+def fleet_faults(device, seed, smi):
+    """A fleet of FLEET_FAULT_LAYERS layers at full width: stuck cells on
+    chips 1 and 2. Each chip's view bitwise its solo ``inject(spec.for_chip(
+    i))``; ``hard_fault_proxy`` and the scheduler's hard path flag exactly
+    chips 1 and 2. Returns the map's bytes and the proxies."""
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+    from repro_torch.faults import stuck_at
+    from repro_torch.fleet import Fleet, RecalibrationScheduler
+    from repro_torch.fleet import fleet as FL
+
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b").full, n_layers=FLEET_FAULT_LAYERS)
+    fleet = Fleet.program(cfg, seed, n_chips=FLEET_CHIPS, backend="codes", device=device)
+    spec = stuck_at(seed + 7, rate=FLEET_FAULT_RATE)
+    _, t_inject = synced(lambda: fleet.inject(spec, chips=FLEET_FAULT_CHIPS))
+    for c in range(FLEET_CHIPS):
+        dep = Deployment.program(cfg, (fleet.teacher_seed, fleet.chip_seed(c)), backend="codes",
+                                 device=device)
+        if c in FLEET_FAULT_CHIPS:
+            dep.inject(spec.for_chip(c))
+        assert rows_equal(dep.codes_view, FL._take(fleet.codes_view, c)), c
+        del dep
+    hard = fleet.hard_fault_proxy()
+    flagged = [int(c) for c in np.flatnonzero(hard > 0)]
+    assert flagged == list(FLEET_FAULT_CHIPS), hard
+    hard_threshold = 0.5 * float(hard[list(FLEET_FAULT_CHIPS)].min())
+    sched = RecalibrationScheduler(
+        fleet, threshold=0.5 * hard_threshold, hard_threshold=hard_threshold,
+        calib_args={"batch_or_samples": CALIB_SAMPLES, "seq_len": CALIB_SEQ,
+                    "steps": FLEET_TICK_STEPS})
+    rec = sched.tick(0.0)
+    assert rec.hard_faulted == list(FLEET_FAULT_CHIPS) and rec.recalibrated == [], rec
+    assert rec.hard_report.epochs_run == 2 * FLEET_TICK_STEPS
+    report = sched.report()
+    assert report.hard_faulted_chips == list(FLEET_FAULT_CHIPS)
+    out = {"layers": FLEET_FAULT_LAYERS, "map_bytes": fleet.fault_map_bytes(),
+           "weights_per_chip": sum(ts[0].numel()
+                                   for ts in FL._rram_tensors(FL._take(fleet.codes, 0))),
+           "inject_seconds": t_inject, "hard_proxy": hard.tolist(),
+           "hard_threshold": hard_threshold, "hard_faulted": rec.hard_faulted,
+           "hard_losses": rec.hard_report.losses.tolist()}
+    log(f"[fleet] faults at {FLEET_FAULT_LAYERS} of 28 layers, {FLEET_CHIPS} chips, stuck_at "
+        f"rate {FLEET_FAULT_RATE} on chips {list(FLEET_FAULT_CHIPS)}: inject {t_inject:.3f} s, "
+        f"the map {out['map_bytes'] / 2**30:.3f} GiB "
+        f"({out['map_bytes'] / (FLEET_CHIPS * out['weights_per_chip']):.2f} B a weight, every "
+        f"chip's row); each chip's view bitwise its solo injection; hard-fault proxy "
+        f"{', '.join(f'{x:.4f}' for x in hard)}: the hard path took exactly chips "
+        f"{rec.hard_faulted} ({2 * FLEET_TICK_STEPS} steps), the drift path none")
+    return out
+
+
+def phase_fleet(device, seed, smi):
+    """Four qwen3-1.7b chips at full width and all 28 layers as one fleet
+    (``backend="codes"``): program (chips 0 and 3 bitwise their solo
+    deployments' codes), age by FLEET_HOURS (chip 3 bitwise its solo after
+    the same advance; the drift proxy 0 at programming, then ordered like
+    the hours), calibrate the four at once (10 x 32 tokens, 20 steps; no
+    launch, one capture, the codes unchanged; each chip's MSE falling and
+    its logit MSE below its drifted one; chip 3 bitwise its solo
+    ``Deployment.calibrate``), each chip recorded into a registry (the
+    first version of each key promoted), serve chips 0 and 3
+    (``fleet_serve``), then after FLEET_REGISTRY_HOURS and
+    ``reset_adapters`` a cold and a warm-started calibration of
+    FLEET_WARM_STEPS steps from the same codes (the cold one's graph
+    bitwise the eager steps from the same start; the warm one's mean loss
+    over the chips below the cold one's at the first and the last step,
+    each chip's reported, its sources named), FLEET_TICKS
+    scheduler ticks (it recalibrates exactly the chips above its
+    threshold), a snapshot and a restore of the whole fleet (bitwise:
+    per-chip code digests, adapters, AdamW state, proxy baselines), and
+    ``fleet_faults`` at a cut depth. Reported: program seconds (fleet vs
+    one chip), teacher-feature seconds, the fleet's step ms captured vs
+    eager beside one solo step's, capture seconds, peak and retained
+    memory, snapshot and restore seconds."""
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment, calibration_batch
+    from repro_torch.deploy.deployment import code_digest
+    from repro_torch.fleet import Fleet, RecalibrationScheduler, fleet_compile_count
+    from repro_torch.fleet import fleet as FL
+    from repro_torch.registry import CalibrationRegistry
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("qwen3-1.7b").full
+    memory()
+    torch.cuda.reset_peak_memory_stats()
+    fleet, t_program = synced(lambda: Fleet.program(cfg, seed, n_chips=FLEET_CHIPS,
+                                                   backend="codes", device=device))
+    program_peak = torch.cuda.max_memory_allocated()
+    held = memory()[0]
+    digests = chip_digests(fleet)
+    solos = {}
+    for c in FLEET_SOLO:
+        dep, t_solo = synced(lambda: Deployment.program(
+            cfg, (fleet.teacher_seed, fleet.chip_seed(c)), backend="codes", device=device))
+        assert code_digest(dep.codes) == digests[c], f"chip {c}'s codes are not its solo's"
+        solos[c] = dep
+    del solos[FLEET_SOLO[0]]
+    solo = solos.pop(FLEET_SOLO[-1])
+    log(f"[fleet] {smi}: program {FLEET_CHIPS} chips of {cfg.name} ({cfg.n_layers} layers, "
+        f"rram_bytes {fleet.rram_bytes()}, sram_bytes {fleet.sram_bytes()}): {t_program:.3f} s "
+        f"vs {t_solo:.3f} s for one solo chip; the fleet holds {held / 2**30:.2f} GiB (peak "
+        f"{program_peak / 2**30:.2f}); chips {list(FLEET_SOLO)} bitwise their solo "
+        f"deployments' codes")
+
+    # age
+    zero = fleet.drift_proxy()
+    assert not zero.any(), zero
+    _, t_advance = synced(lambda: fleet.advance(list(FLEET_HOURS)))
+    solo.advance(FLEET_HOURS[FLEET_SOLO[-1]])
+    assert code_digest(solo.codes) == chip_digests(fleet)[FLEET_SOLO[-1]]
+    proxy = fleet.drift_proxy()
+    assert all(a < b for a, b in zip(proxy, proxy[1:])) and proxy[0] > 0, proxy
+    batch = calibration_batch(cfg, CALIB_SAMPLES, CALIB_SEQ)
+    mse_drift = fleet.logit_mse(batch, use_adapters=False)
+    log(f"[fleet] advance {list(FLEET_HOURS)} h: {t_advance:.3f} s; chip 3 bitwise its solo; "
+        f"drift proxy 0 at programming, then {', '.join(f'{x:.5f}' for x in proxy)}; logit "
+        f"MSE drifted {', '.join(f'{x:.3f}' for x in mse_drift)}")
+
+    # calibrate the four at once, recorded into a registry
+    registry_dir = tempfile.mkdtemp(prefix="chip_smoke_registry_")
+    registry = CalibrationRegistry(registry_dir)
+    codes_before = chip_digests(fleet)
+    builds = fleet_compile_count(cfg)
+    memory()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = memory()[0]
+    reset_counts()
+    with timed_calibration() as times:
+        report, t_calibrate = synced(lambda: fleet.calibrate(
+            CALIB_SAMPLES, steps=CALIB_STEPS, seq_len=CALIB_SEQ, registry=registry))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    allocated_after = memory()[0]
+    expect_counts(counts, {})
+    # one capture a call on the card (the CPU runs the step without one)
+    one = int(device.type == "cuda")
+    assert len(times["capture_s"]) == one and fleet_compile_count(cfg) == builds + 1
+    assert chip_digests(fleet) == codes_before, "calibrate changed the codes"
+    assert np.isfinite(report.losses).all() and (report.final_loss < report.initial_loss).all()
+    mse_after = fleet.logit_mse(batch)
+    assert (mse_after < mse_drift).all(), (mse_after, mse_drift)
+    for c in range(FLEET_CHIPS):
+        key = registry.key_for(cfg, fleet.backend, fleet.chip_signature(c))
+        ref = registry.reference(key)
+        assert registry.versions(key) == [1] and ref.version == 1 and ref.meta["chip"] == c
+    with timed_calibration() as solo_times:
+        solo_report = solo.calibrate(CALIB_SAMPLES, steps=CALIB_STEPS, seq_len=CALIB_SEQ)
+    c = FLEET_SOLO[-1]
+    assert np.asarray(solo_report.losses, np.float32).tolist() == report.losses[:, c].tolist()
+    chip = fleet.chip(c)
+    assert rows_equal(solo.adapters, chip.adapters) and rows_equal(solo.opt_state,
+                                                                    chip.opt_state)
+    del chip
+    step_ms = times["step_ms"]
+    fleet_ms = statistics.median(step_ms[2:])
+    solo_ms = statistics.median(solo_times["step_ms"][2:])
+    log(f"[fleet] calibrate {FLEET_CHIPS} chips ({CALIB_SAMPLES} x {CALIB_SEQ} tokens, "
+        f"{CALIB_STEPS} steps, recorded): {t_calibrate:.3f} s, teacher features "
+        f"{times['teacher_s'][0]:.3f} s once, step 1 (eager) {step_ms[0]:.1f} ms, step 2 "
+        f"(capture {1e3 * sum(times['capture_s']):.1f} ms + replay) {step_ms[1]:.1f} ms, steps "
+        f"3-{CALIB_STEPS} {fleet_ms:.2f} ms a step ({fleet_ms / FLEET_CHIPS:.2f} a chip) vs "
+        f"{solo_ms:.2f} ms for one solo chip's captured step; no launch, one capture, codes "
+        f"unchanged; peak {peak / 2**30:.2f} GiB, retained +{(allocated_after - allocated_before) / 2**20:.1f}"
+        f" MiB; chip 3 bitwise its solo calibrate (losses, adapters, AdamW state)")
+    log("[fleet] losses first -> last: " + ", ".join(
+        f"{a:.5f} -> {b:.5f}" for a, b in zip(report.initial_loss, report.final_loss))
+        + "; logit MSE calibrated " + ", ".join(f"{x:.3f}" for x in mse_after))
+
+    # serve chips 0 and 3
+    launches, served = fleet_serve(fleet, solo, seed)
+    del solo
+    memory()
+
+    # the registry: a cold and a warm start from the same codes
+    fleet.advance(FLEET_REGISTRY_HOURS)
+    fleet.reset_adapters()
+    start = [(FL._clone(FL._rows(fleet.adapters, c)),
+              FL._clone(FL._rows(fleet.optimizer_state(), c))) for c in range(FLEET_CHIPS)]
+    with timed_calibration() as cold_times:
+        cold = fleet.calibrate(CALIB_SAMPLES, steps=FLEET_WARM_STEPS, seq_len=CALIB_SEQ,
+                               record=False)
+    assert len(cold_times["capture_s"]) == one
+    eager_ms = []
+    for c in range(FLEET_CHIPS):
+        view = types.SimpleNamespace(cfg=cfg, teacher_base=fleet.teacher_base,
+                                     base=FL._take(fleet.base, c), device=device)
+        losses, state, ms = eager_calibration(view, start[c], batch, True,
+                                              cold_times["steps"][0]["stream"], FLEET_WARM_STEPS)
+        assert losses == cold.losses[:, c].tolist(), (c, losses, cold.losses[:, c])
+        assert rows_equal(state.adapters, FL._rows(fleet.adapters, c))
+        assert rows_equal(state.opt_state, FL._rows(fleet.opt_state, c))
+        eager_ms.append(statistics.median(ms[1:]))
+        del state
+    del start
+    fleet.reset_adapters()
+    warm = fleet.calibrate(CALIB_SAMPLES, steps=FLEET_WARM_STEPS, seq_len=CALIB_SEQ,
+                           registry=registry, warm_start=True)
+    assert warm.warm_started_chips == list(range(FLEET_CHIPS)) and len(warm.warm_sources) == 4
+    # the fleet's calibration as a whole starts and ends lower warm than cold
+    # (a chip's own reference may be a poor seed once it drifted far past
+    # it: reported per chip)
+    assert warm.initial_loss.mean() < cold.initial_loss.mean(), (warm.losses, cold.losses)
+    assert warm.final_loss.mean() < cold.final_loss.mean(), (warm.losses, cold.losses)
+    log(f"[fleet] +{FLEET_REGISTRY_HOURS:g} h, reset_adapters: cold {FLEET_WARM_STEPS} steps "
+        + ", ".join(f"{a:.5f} -> {b:.5f}" for a, b in zip(cold.initial_loss, cold.final_loss))
+        + f" (its graph bitwise the eager steps from the same start, {sum(eager_ms):.1f} ms "
+        f"an eager step for the four = {sum(eager_ms) / FLEET_CHIPS:.1f} a chip); warm from "
+        f"the registry " + ", ".join(
+            f"{a:.5f} -> {b:.5f}" for a, b in zip(warm.initial_loss, warm.final_loss))
+        + f"; sources {warm.warm_sources}")
+
+    # the scheduler
+    threshold = math.sqrt(float(proxy[0]) * float(proxy[-1]))
+    sched = RecalibrationScheduler(fleet, threshold=threshold, calib_args={
+        "batch_or_samples": CALIB_SAMPLES, "seq_len": CALIB_SEQ, "steps": FLEET_TICK_STEPS})
+    ticks = []
+    for _ in range(FLEET_TICKS):
+        rec, t_tick = synced(lambda: sched.tick(list(FLEET_HOURS)))
+        due = [int(c) for c in np.flatnonzero(rec.proxy > threshold)]
+        assert rec.recalibrated == due, (rec.recalibrated, rec.proxy, threshold)
+        ticks.append({"proxy": rec.proxy.tolist(), "recalibrated": rec.recalibrated,
+                      "seconds": t_tick})
+    sched_report = sched.report()
+    log(f"[fleet] scheduler, threshold {threshold:.5f} (between the youngest and the oldest "
+        f"chip's proxies after the first aging), {FLEET_TICKS} ticks of {list(FLEET_HOURS)} h: "
+        + "; ".join(f"proxies {', '.join(f'{x:.5f}' for x in t['proxy'])} -> recalibrated "
+                    f"{t['recalibrated']} ({t['seconds']:.2f} s)" for t in ticks)
+        + f" | {sched_report.summary()}")
+
+    # snapshot and restore the whole fleet
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    try:
+        _, t_snapshot = synced(lambda: fleet.snapshot(workdir))
+        snap_bytes = dir_bytes(workdir)
+        restored, t_restore = synced(lambda: Fleet.restore(cfg, workdir, device=device))
+    finally:
+        shutil.rmtree(workdir)
+    assert chip_digests(restored) == chip_digests(fleet)
+    assert rows_equal(restored.adapters, fleet.adapters)
+    assert rows_equal(restored.opt_state, fleet.opt_state)
+    assert rows_equal(restored._proxy_ref, fleet._proxy_ref)
+    assert restored.steps == fleet.steps and restored.drift_hours == fleet.drift_hours
+    log(f"[fleet] snapshot {t_snapshot:.3f} s ({snap_bytes} bytes on disk), restore "
+        f"{t_restore:.3f} s (program and {sum(len(h) for h in fleet.drift_hours)} drift "
+        f"events replayed): bitwise per-chip code digests, adapters, AdamW state, proxy "
+        f"baselines, steps {restored.steps}")
+    del restored, fleet
+    shutil.rmtree(registry_dir)
+    memory()
+
+    faults = fleet_faults(device, seed, smi)
+    result = {
+        "chips": FLEET_CHIPS, "hours": list(FLEET_HOURS), "program_seconds": t_program,
+        "solo_program_seconds": t_solo, "held_bytes": held, "program_peak_bytes": program_peak,
+        "advance_seconds": t_advance, "proxy": proxy.tolist(),
+        "logit_mse_drifted": mse_drift.tolist(), "logit_mse_calibrated": mse_after.tolist(),
+        "losses": report.losses.tolist(), "calibrate_seconds": t_calibrate,
+        "teacher_features_seconds": times["teacher_s"][0], "step_ms": step_ms,
+        "step_ms_median_3_on": fleet_ms, "solo_step_ms_median_3_on": solo_ms,
+        "eager_step_ms_per_chip": eager_ms, "capture_seconds": sum(times["capture_s"]),
+        "peak_mem_bytes": peak, "retained_bytes": allocated_after - allocated_before,
+        "launches": launches, "serving": served,
+        "cold": cold.losses.tolist(), "warm": warm.losses.tolist(),
+        "warm_sources": warm.warm_sources, "ticks": ticks,
+        "scheduler": json.loads(sched_report.to_json()),
+        "snapshot_seconds": t_snapshot, "snapshot_bytes": snap_bytes,
+        "restore_seconds": t_restore, "faults": faults,
+        "phase_seconds": time.perf_counter() - t_phase,
+    }
+    log(f"[fleet] phase 17 took {result['phase_seconds']:.2f} s")
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5421,7 +5819,11 @@ def main():
     memory()
     lap("15 ssm")
     rglru = phase_recurrent(device, args.seed, RGLRU_CELL)
+    memory()
     lap("16 rglru")
+    fleet = phase_fleet(device, args.seed, smi)
+    memory()
+    lap("17 fleet")
     for cell, result in ((SSM_CELL, ssm), (RGLRU_CELL, rglru)):
         for body, run in result["serving"].items():
             adm = run["admissions"]
@@ -5461,6 +5863,12 @@ def main():
     launches["crossbar_mvm"] -= adc_narrow
     launches["crossbar_mvm_narrow"] = adc_narrow
     assert adc_narrow > 0, adc_narrow
+    # phase 17's f32 sessions of fleet chips 0 and 3: rows 1 and 2 only
+    # (qwen3-1.7b has no router: no f32-x launch)
+    assert set(n for k, n in fleet["launches"].items()
+               if k not in ("dora_linear_gemv", "dora_linear")) <= {0}, fleet["launches"]
+    for name in ("dora_linear_gemv", "dora_linear"):
+        launches[name] += fleet["launches"][name]
     # (name, source, TPU kernel, rows, leaf of the timed rows, timed kernel)
     table = (
         ("dora_linear_gemv", "dora_linear.cu", "dora_linear.py:194", SLOTS, None, None),
@@ -5501,7 +5909,7 @@ def main():
                        "persist": persist, "paper": paper, "moe": moe, "mla": mla,
                        "encdec": encdec, "vlm": vlm, "paligemma_kernels": worst["paligemma"],
                        "ssm": ssm, "falcon_kernels": worst["falcon"], "rglru": rglru,
-                       "recurrentgemma_kernels": worst["recurrentgemma"],
+                       "recurrentgemma_kernels": worst["recurrentgemma"], "fleet": fleet,
                        "kernels": kernels},
                       f,
                       indent=1, default=str)

@@ -455,6 +455,20 @@ def make_calib_step(cfg, opt: AdamW = AdamW(lr=1e-3)):
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
+class _Member:
+    """One student of a ``CompiledCalibStep``: its frozen base, its static
+    adapter leaves (and the tree over them), its AdamW state, its step at
+    the start, and the zeros made once for leaves that take no part."""
+
+    student_base: Pytree
+    leaves: list
+    adapters: Pytree
+    opt_state: AdamState
+    start: int
+    zeros: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+
 class CompiledCalibStep:
     """One calibration step over static buffers: the counterpart of
     ``jax.jit(make_cached_calib_step(cfg, opt))`` (``feats`` given) and of
@@ -476,6 +490,14 @@ class CompiledCalibStep:
     (``"loss"``, and ``"feature_mse"`` for the fused loss), valid until the
     next call.
 
+    ``state`` may also be a list of states over one teacher (a fleet's
+    chips, each with its own student base, adapters and AdamW state): a
+    call then runs each member's step in turn, the very operations of its
+    step alone, so each member's trajectory is bitwise its own step's, and
+    the metrics hold one value per member. One graph holds every member's
+    step, and a member's intermediates are freed before the next one's
+    are made.
+
     On the CPU every call runs the step. On the card the first call runs
     it eagerly on ``stream``, after the current stream's work: the real
     first step, which also fills lazily made caches (``rope_frequencies``,
@@ -488,37 +510,48 @@ class CompiledCalibStep:
     runs eagerly instead. Capturing launches no kernel and counts none
     (``graphs.capture``); calibration runs under ``dequant``, so a step
     launches none. ``state()`` returns detached copies of the trained
-    adapters and AdamW state; ``release()`` drops the graph and its pool.
+    adapters and AdamW state (a list of states for a list);
+    ``release()`` drops the graph and its pool.
     """
 
-    def __init__(self, cfg, opt: AdamW, state: CalibState, batch: Dict,
+    def __init__(self, cfg, opt: AdamW, state, batch: Dict,
                  feats: Optional[Dict[str, torch.Tensor]] = None, *,
                  stream: Optional["torch.cuda.Stream"] = None):
         from repro_torch import substrate
         from repro_torch.models import transformer as T
 
         self.opt = opt
-        tbase, sbase = state.teacher_base, state.student_base
-        self.teacher_base, self.student_base = tbase, sbase
+        self.batched = isinstance(state, (list, tuple))
+        states = list(state) if self.batched else [state]
+        tbase = states[0].teacher_base
+        self.teacher_base = tbase
         self.batch, self.feats = batch, feats
-        self.leaves = [t.detach().clone().requires_grad_(True)
-                       for t in tree_lib.tensors(state.adapters)]
-        self.adapters = tree_lib.unflatten(state.adapters, self.leaves)
-        self.opt_state = AdamState(*(tree_lib.map_tensors(torch.clone, s)
-                                     for s in state.opt_state))
-        self.device = self.opt_state.step.device
+        self.members = []
+        for st in states:
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in tree_lib.tensors(st.adapters)]
+            self.members.append(_Member(
+                st.student_base, leaves, tree_lib.unflatten(st.adapters, leaves),
+                AdamState(*(tree_lib.map_tensors(torch.clone, s) for s in st.opt_state)),
+                st.step))
+        if not self.batched:
+            one = self.members[0]
+            self.student_base, self.start = one.student_base, one.start
+            self.leaves, self.adapters, self.opt_state = one.leaves, one.adapters, one.opt_state
+        self.calls = 0
+        self.device = self.members[0].opt_state.step.device
         self.betas = adam_betas(opt, self.device)
-        self.start, self.calls = state.step, 0
         if feats is not None:
             cached = make_cached_calib_loss(cfg)
-            self._loss = lambda ad: (cached(ad, sbase, feats, batch), {})
+            self._loss = lambda sbase, ad: (cached(ad, sbase, feats, batch), {})
             keys = ("loss",)
         else:
-            self._loss = lambda ad: T.feature_calibration_loss(tbase, sbase, ad, batch, cfg)
+            self._loss = lambda sbase, ad: T.feature_calibration_loss(tbase, sbase, ad, batch,
+                                                                      cfg)
             keys = ("feature_mse", "loss")
-        self.metrics = {k: torch.zeros((), dtype=torch.float32, device=self.device)
+        shape = (len(states),) if self.batched else ()
+        self.metrics = {k: torch.zeros(shape, dtype=torch.float32, device=self.device)
                         for k in keys}
-        self._zeros: Dict[int, torch.Tensor] = {}
         self.backend_key = substrate.active_backend_key()
         self._ptrs = self._input_ptrs()
         self.stream = stream
@@ -529,7 +562,7 @@ class CompiledCalibStep:
         self._failed = False
 
     def _input_ptrs(self) -> Tuple[int, ...]:
-        frozen = [self.student_base, self.batch,
+        frozen = [[m.student_base for m in self.members], self.batch,
                   self.teacher_base if self.feats is None else self.feats]
         return tuple(t.data_ptr() for t in tree_lib.tensors(frozen))
 
@@ -546,17 +579,19 @@ class CompiledCalibStep:
                 "moved after it was built; build a new step")
 
     def _run(self) -> None:
-        with torch.enable_grad():
-            loss, aux = self._loss(self.adapters)
-            grads = torch.autograd.grad(loss, self.leaves, allow_unused=True)
-        for i, g in enumerate(grads):
-            if g is None and i not in self._zeros:
-                self._zeros[i] = torch.zeros_like(self.leaves[i])
-        grads = [self._zeros[i] if g is None else g for i, g in enumerate(grads)]
-        for k, v in {**aux, "loss": loss}.items():
-            self.metrics[k].copy_(v.detach())
-        adamw_update_(tree_lib.unflatten(self.adapters, grads), self.opt_state,
-                      self.adapters, self.opt, self.betas)
+        for j, m in enumerate(self.members):
+            with torch.enable_grad():
+                loss, aux = self._loss(m.student_base, m.adapters)
+                grads = torch.autograd.grad(loss, m.leaves, allow_unused=True)
+            for i, g in enumerate(grads):
+                if g is None and i not in m.zeros:
+                    m.zeros[i] = torch.zeros_like(m.leaves[i])
+            grads = [m.zeros[i] if g is None else g for i, g in enumerate(grads)]
+            for k, v in {**aux, "loss": loss}.items():
+                (self.metrics[k][j] if self.batched else self.metrics[k]).copy_(v.detach())
+            adamw_update_(tree_lib.unflatten(m.adapters, grads), m.opt_state, m.adapters,
+                          self.opt, self.betas)
+            del loss, aux, grads
 
     def __call__(self) -> Dict[str, torch.Tensor]:
         from repro_torch import graphs
@@ -587,15 +622,17 @@ class CompiledCalibStep:
         self.calls += 1
         return self.metrics
 
-    def state(self) -> CalibState:
+    def state(self):
         """Detached copies of the adapters and the AdamW state after the
-        calls so far (they alias neither the static leaves nor the pool)."""
+        calls so far (they alias neither the static leaves nor the pool):
+        a ``CalibState``, or a list of them for a list."""
         def copy(tree):
             return tree_lib.map_tensors(lambda t: t.detach().clone(), tree)
 
-        return CalibState(self.teacher_base, self.student_base, copy(self.adapters),
-                          AdamState(*(copy(s) for s in self.opt_state)),
-                          self.start + self.calls)
+        out = [CalibState(self.teacher_base, m.student_base, copy(m.adapters),
+                          AdamState(*(copy(s) for s in m.opt_state)), m.start + self.calls)
+               for m in self.members]
+        return out if self.batched else out[0]
 
     def release(self) -> None:
         """Drop the graph: its private pool returns to the allocator."""

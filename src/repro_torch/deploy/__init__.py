@@ -8,6 +8,9 @@
     session = dep.serve()          # merged adapters + backend scope
     toks, dt = session.generate(prompt)
 
+the fleet (``repro_torch.fleet``: ``Fleet``, ``RecalibrationScheduler``,
+also importable from here),
+
 and the paper's CNN experiment, one cell at a time:
 
     r = resnet_cell(method="dora", rank=2, drift=0.20, samples=10)
@@ -25,6 +28,21 @@ from repro_torch.deploy.serving import (  # noqa: F401
     generate,
     prefill_and_cache,
 )
+
+
+_FLEET_EXPORTS = (
+    "Fleet", "FleetCalibrationReport", "FleetReport",
+    "RecalibrationScheduler", "fleet_compile_count",
+)
+
+
+def __getattr__(name):
+    # the fleet imports this package: its names resolve on first use
+    if name in _FLEET_EXPORTS:
+        import repro_torch.fleet as _fleet
+
+        return getattr(_fleet, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def resnet_cell(**kwargs):

@@ -1,10 +1,10 @@
 """``Deployment`` — the lifecycle object from programming to serving.
-Port of ``repro/deploy/deployment.py`` (the calibration registry with
-``drift_signature`` waits).
+Port of ``repro/deploy/deployment.py``.
 
 * ``Deployment.program(cfg, seed, backend=..., device=...)`` — init the
   teacher from the seed and program every RRAM leaf (programming-time
-  drift included).
+  drift included); ``seed`` is an int (teacher ``seed``, codes ``seed +
+  1``) or a ``(teacher_seed, program_seed)`` pair (a fleet's chip).
 * ``Deployment.from_arrays(...)`` — adopt a teacher, codes and adapters
   made elsewhere (the reference package, through ``interop``); drift
   continues from those codes.
@@ -22,6 +22,9 @@ Port of ``repro/deploy/deployment.py`` (the calibration registry with
   launches no kernel, and the codes are never written. On the card its
   step is one CUDA graph per call (``CompiledCalibStep``: step 1 eager,
   then a capture, then replays), as the reference jits it once per call.
+  With ``registry=`` (``repro_torch.registry``) the run is recorded under
+  the deployment's ``drift_signature()``, and ``warm_start=True`` seeds
+  the adapters and AdamW state from the nearest stable reference first.
 * ``dep.logit_mse(batch)`` — teacher/student logit MSE, the drift gap
   and what calibration recovers of it.
 * ``dep.serve(accum=...)`` — merged DoRA magnitudes and, under
@@ -46,7 +49,7 @@ import hashlib
 import json
 import math
 import os
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -128,6 +131,57 @@ def device_name(device: torch.device) -> str:
     return torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
 
 
+def seed_pair(seed) -> Tuple[int, int]:
+    """``(teacher_seed, program_seed)`` from an int seed (``seed``, ``seed +
+    1``, the reference's ``(PRNGKey(s), PRNGKey(s + 1))``) or an explicit
+    pair (the reference's ``_key_pair``)."""
+    if isinstance(seed, (tuple, list)):
+        teacher, program = seed
+        return int(teacher), int(program)
+    return int(seed), int(seed) + 1
+
+
+def open_snapshot(directory, step: Optional[int], meta_name: str, device):
+    """``(manager, step, meta)`` of a snapshot the port wrote on ``device``'s
+    type and card model (``step`` None: the latest). Raises before any
+    work: ``FileNotFoundError`` without a step, ``ValueError`` on a
+    reference snapshot (its lifecycle holds JAX keys), on one without the
+    port's meta, or on another device type or card model."""
+    manager = as_manager(directory)
+    if step is None:
+        step = manager.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no snapshots in {directory}")
+    if "teacher_key" in manager.leaf_names(step, "lifecycle"):
+        raise ValueError("this snapshot was written by the reference package: its "
+                         "lifecycle holds JAX keys, which the port does not replay")
+    meta_path = os.path.join(manager.directory, meta_name)
+    meta = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    if "codes_digest" not in meta:
+        raise ValueError(f"{meta_path} records no device or digest; the port "
+                         "restores only snapshots it wrote")
+    where = (meta["device_type"], meta["device_name"])
+    if where != (device.type, device_name(device)):
+        raise ValueError(
+            f"the snapshot was taken on {where[1]} ({where[0]}); its generators do "
+            f"not replay bitwise on {device_name(device)} ({device.type})")
+    return manager, step, meta
+
+
+def check_digests(replayed, meta) -> None:
+    """Raise ``ValueError`` when the replayed ``codes`` or ``codes_view``
+    differ from the snapshot's digests."""
+    for what, tree, key in (("codes", replayed.codes, "codes_digest"),
+                            ("codes_view", replayed.codes_view, "view_digest")):
+        got = code_digest(tree)
+        if got != meta[key]:
+            raise ValueError(f"the replayed {what} differ from the snapshot's "
+                             f"(digest {got}, recorded {meta[key]})")
+
+
 def _program_trees(cfg, teacher_seed: int, program_seed: int, device):
     """The programming event: the teacher's params from generator
     ``teacher_seed``, their codes from ``program_seed`` (per-leaf
@@ -186,8 +240,8 @@ def _device_batch(batch: Dict, device) -> Dict:
 @dataclasses.dataclass
 class CalibrationReport:
     """Outcome of one ``Deployment.calibrate`` call; ``to_json`` and
-    ``from_json`` round-trip it exactly. ``warm_started``/``warm_source``
-    stay at their defaults until the calibration registry is ported."""
+    ``from_json`` round-trip it exactly, so the calibration registry keeps
+    it verbatim in an artifact's sidecar."""
 
     losses: List[float]          # per-step feature MSE (Algorithm 1 loss)
     epochs_run: int
@@ -269,15 +323,18 @@ class Deployment:
         return self.teacher_base["embed"]["embedding"].device
 
     @classmethod
-    def program(cls, cfg, seed: int = 0, *, backend: str = "dequant",
+    def program(cls, cfg, seed=0, *, backend: str = "dequant",
                 adapters: Optional[Pytree] = None,
                 device="cuda") -> "Deployment":
         """The programming event: the teacher from generator ``seed``,
-        the codes from ``seed + 1`` (per-leaf streams)."""
-        params, codes = _program_trees(cfg, seed, seed + 1, resolve_device(device))
+        the codes from ``seed + 1`` (per-leaf streams); a pair
+        ``(teacher_seed, program_seed)`` gives both (``Fleet.chip_seed``)."""
+        teacher_seed, program_seed = seed_pair(seed)
+        params, codes = _program_trees(cfg, teacher_seed, program_seed,
+                                       resolve_device(device))
         return cls(cfg, backend, params["base"], codes,
                    params["adapters"] if adapters is None else adapters,
-                   teacher_seed=seed, program_seed=seed + 1)
+                   teacher_seed=teacher_seed, program_seed=program_seed)
 
     @classmethod
     def from_arrays(cls, cfg, teacher_base, codes, adapters, *,
@@ -386,7 +443,8 @@ class Deployment:
         self, batch_or_samples: Union[Dict, int] = 10, *,
         steps: int = 20, lr: float = 1e-3, opt: Optional[AdamW] = None,
         seq_len: int = 32, cached_teacher: Optional[bool] = None,
-        loss_threshold: float = 0.0,
+        loss_threshold: float = 0.0, registry=None, warm_start: bool = False,
+        record: bool = True,
     ) -> CalibrationReport:
         """Algorithm 1 over the whole model: train only the SRAM side-cars
         against the frozen teacher, on the current (drifted) base.
@@ -400,9 +458,22 @@ class Deployment:
         the rest replay it; the graph and its pool are released before the
         call returns. The optimizer state carries over to the next call;
         the adapters left on the deployment are copies that require no
-        grad."""
+        grad.
+
+        With ``registry`` (a ``CalibrationRegistry``) the run is recorded
+        afterwards as the next version under this deployment's ``(cfg,
+        backend, drift_signature())`` key (``record=False`` skips it) and
+        checked against the key's reference; with ``warm_start=True`` the
+        adapters and the AdamW state are first seeded from the nearest
+        stable reference (cold when the registry has none), and the report
+        names it (``warm_source``)."""
         cfg = self.cfg
         opt = opt if opt is not None else AdamW(lr=lr)
+        warm = None
+        if registry is not None and warm_start:
+            from repro_torch.registry.warmstart import seed_deployment
+
+            warm = seed_deployment(self, registry)
         batch = _device_batch(calibration_batch(cfg, batch_or_samples, seq_len),
                               self.device)
         use_cached = True if cached_teacher is None else bool(cached_teacher)
@@ -424,13 +495,28 @@ class Deployment:
                 step.release()
         self.adopt(state)
         n_base, n_adapters = T.count_params({"base": self.base, "adapters": self.adapters})
-        return CalibrationReport(
+        report = CalibrationReport(
             losses=losses, epochs_run=len(losses),
             sram_bytes=sram_bytes(self.adapters), rram_bytes=rram_bytes(self.base),
             base_params=n_base, adapter_params=n_adapters,
             calibrated_fraction=n_adapters / max(n_base, 1),
             backend=self.backend, drift_events=len(self.drift_hours),
+            warm_started=warm is not None, warm_source=None if warm is None else warm.name,
         )
+        if registry is not None and record:
+            registry.record(cfg, self.backend, self.drift_signature(), adapters=self.adapters,
+                            opt_state=self.opt_state, report=report)
+        return report
+
+    def drift_signature(self) -> np.ndarray:
+        """This deployment's registry signature: the device feature (from
+        the programming seed) and its drift and fault state
+        (``registry/warmstart.drift_signature``)."""
+        from repro_torch.registry.warmstart import drift_signature
+
+        return drift_signature(self.cfg.rram, self.program_seed, field_hours=self.field_hours,
+                               drift_events=len(self.drift_hours),
+                               fault_events=len(self.fault_specs))
 
     def reset_adapters(self) -> "Deployment":
         """Discard the side-cars back to the fresh (output-preserving)
@@ -528,27 +614,7 @@ class Deployment:
         or on another device type or card model, and after the replay when
         the codes or the view differ from the snapshot's digest."""
         device = resolve_device(device)
-        manager = as_manager(directory)
-        if step is None:
-            step = manager.latest_step()
-        if step is None:
-            raise FileNotFoundError(f"no snapshots in {directory}")
-        if "teacher_key" in manager.leaf_names(step, "lifecycle"):
-            raise ValueError("this snapshot was written by the reference package: its "
-                             "lifecycle holds JAX keys, which the port does not replay")
-        meta_path = os.path.join(manager.directory, _DEPLOYMENT_META)
-        meta = {}
-        if os.path.exists(meta_path):
-            with open(meta_path) as f:
-                meta = json.load(f)
-        if "codes_digest" not in meta:
-            raise ValueError(f"{meta_path} records no device or digest; the port "
-                             "restores only snapshots it wrote")
-        where = (meta["device_type"], meta["device_name"])
-        if where != (device.type, device_name(device)):
-            raise ValueError(
-                f"the snapshot was taken on {where[1]} ({where[0]}); its generators do "
-                f"not replay bitwise on {device_name(device)} ({device.type})")
+        manager, step, meta = open_snapshot(directory, step, _DEPLOYMENT_META, device)
         backend = backend or meta.get("backend", "dequant")
         life = manager.restore(step, {"lifecycle": {
             "teacher_seed": np.zeros((), np.int64),
@@ -566,12 +632,7 @@ class Deployment:
                 dep.advance(hours)
         if meta["fault_events"]:
             dep.inject([FaultSpec.from_dict(d) for d in meta["fault_events"]])
-        for what, tree, key in (("codes", dep.codes, "codes_digest"),
-                                ("codes_view", dep.codes_view, "view_digest")):
-            got = code_digest(tree)
-            if got != meta[key]:
-                raise ValueError(f"the replayed {what} differ from the snapshot's "
-                                 f"(digest {got}, recorded {meta[key]})")
+        check_digests(dep, meta)
         restored = manager.restore(step, {"adapters": dep.adapters,
                                           "opt": adamw_init(dep.adapters)}, device=device)
         dep.adapters = restored["adapters"]

@@ -20,13 +20,19 @@ here, so ``build_map`` takes those draws as ``draws={path: (up, un)}``.
 Without them, leaf ``path`` draws ``up`` and then ``un`` from
 ``rram.make_generator(device, *spec.key_data, crc32(path))``: replayable
 from the spec alone and independent of the order of injection.
-``FaultSpec.for_chip`` and ``build_fleet_map`` wait for the fleet.
+
+The fleet. ``FaultSpec.for_chip(i)`` mixes chip ``i`` into the key words
+(``np.random.SeedSequence``, not JAX's ``fold_in``), and
+``build_fleet_map`` draws each selected chip's leaves from its
+``for_chip`` spec, with exact-identity rows for the chips not selected,
+so chip ``i``'s row of a fleet's map is bitwise
+``build_map(codes_i, spec.for_chip(i))``.
 """
 from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +73,16 @@ class FaultSpec:
     @property
     def param(self) -> Dict[str, float]:
         return dict(self.params)
+
+    def for_chip(self, chip: int) -> "FaultSpec":
+        """The per-chip event: chip ``chip`` mixed into the key words, so a
+        solo ``Deployment.inject(spec.for_chip(i))`` draws bitwise what
+        ``Fleet.inject(spec, chips=[i])`` drew for chip ``i``. A keyless
+        spec is its own per-chip event."""
+        if self.key_data is None:
+            return self
+        words = np.random.SeedSequence([*self.key_data, int(chip)]).generate_state(2, np.uint32)
+        return dataclasses.replace(self, key_data=_key_words(words))
 
     def to_dict(self) -> dict:
         return {
@@ -212,4 +228,46 @@ def build_map(codes, spec: FaultSpec, cfg: rram.RramConfig,
         if spec.key_data is not None:
             d = draws[path] if draws is not None else leaf_draws(spec, path, shape, device)
         leaves[path] = leaf_fault(spec, d, shape, cfg, device)
+    return FaultMap(leaves)
+
+
+# identity of each field for a chip the spec does not select
+_IDENTITY = {"stuck_mask_pos": False, "stuck_val_pos": 0, "stuck_mask_neg": False,
+             "stuck_val_neg": 0, "cap_pos": None, "cap_neg": None,
+             "retain_pos": 1.0, "retain_neg": 1.0}
+
+
+def build_fleet_map(per_chip_codes, spec: FaultSpec, cfg: rram.RramConfig,
+                    chips: Sequence[int], n_chips: int,
+                    draws: Optional[Mapping[int, Mapping[str, Draws]]] = None) -> FaultMap:
+    """Materialize ``spec`` over a fleet: each field carries a leading
+    ``(n_chips,)`` axis matching the stacked codes. Row ``c`` of a selected
+    chip is ``build_map``'s record drawn from ``spec.for_chip(c)``; the
+    other rows are the exact identity (nothing stuck, caps at
+    ``code_max``, retention 1, I-V strength 0). ``per_chip_codes`` gives
+    the per-chip leaf shapes and device (one chip's codes tree); ``draws``
+    maps a chip to its ``{path: (up, un)}`` (the reference's, in parity
+    tests)."""
+    chips = [int(c) for c in chips]
+    cm = int(cfg.code_max)
+    leaves: Dict[str, LeafFaults] = {}
+    for path, xw in rram_leaves(per_chip_codes):
+        shape, device = tuple(xw.g_pos.shape), xw.g_pos.device
+        if spec.key_data is None:
+            strength = torch.zeros((n_chips,), dtype=torch.float32, device=device)
+            strength[chips] = _f32(spec.param["strength"], device)
+            leaves[path] = LeafFaults(iv_strength=strength)
+            continue
+        full: Dict[str, torch.Tensor] = {}
+        for c in chips:
+            chip_spec = spec.for_chip(c)
+            d = (draws[c][path] if draws is not None
+                 else leaf_draws(chip_spec, path, shape, device))
+            for name, t in leaf_fault(chip_spec, d, shape, cfg, device).fields().items():
+                if name not in full:
+                    fill = _IDENTITY[name]
+                    full[name] = torch.full((n_chips,) + shape, cm if fill is None else fill,
+                                            dtype=t.dtype, device=device)
+                full[name][c] = t
+        leaves[path] = LeafFaults(**full)
     return FaultMap(leaves)

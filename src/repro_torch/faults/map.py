@@ -77,7 +77,8 @@ class LeafFaults:
     """Fault state of one RRAM leaf. A ``None`` field is the exact
     identity of its stage. Shapes match the leaf's ``g_pos``/``g_neg``;
     ``iv_strength`` is a 0-dim f32 tensor (a property of the column
-    driver, not of a cell)."""
+    driver, not of a cell), or a fleet's ``(n_chips,)`` vector, one per
+    row of the leaf's leading chip axis."""
 
     stuck_mask_pos: Optional[torch.Tensor] = None  # bool, True = pinned
     stuck_val_pos: Optional[torch.Tensor] = None   # uint8, 0 outside masks
@@ -103,21 +104,24 @@ class LeafFaults:
             for f in _FIELDS
         })
 
-    def _apply_device(self, g, mask, val, cap, retain, code_max: int, table=None):
-        if self.iv_strength is not None and table is None:
-            table = iv_table(self.iv_strength, code_max, g.device)
+    def _apply_device(self, g, mask, val, cap, retain, code_max: int, iv=None):
+        """One stage chain over ``g``; ``iv`` is the I-V strength of these
+        rows (``None``: the record's own)."""
+        iv = self.iv_strength if iv is None else iv
         if g.dim() > 2:  # a stacked leaf: one matrix at a time
+            # a fleet's I-V strength is a vector over the chip axis
+            per_row = iv is not None and iv.dim() > 0
             out = torch.empty_like(g)
             for i in range(g.shape[0]):
                 out[i] = self._apply_device(
                     g[i], *(None if t is None else t[i] for t in (mask, val, cap, retain)),
-                    code_max, table)
+                    code_max, iv[i] if per_row else iv)
             return out
         gf = g.to(torch.float32)
         if retain is not None:
             gf = torch.round(gf * retain.to(torch.float32))
-        if table is not None:
-            gf = table[gf.long()]
+        if iv is not None:
+            gf = iv_table(iv, code_max, g.device)[gf.long()]
         if cap is not None:
             gf = torch.minimum(gf, cap.to(torch.float32))
         if mask is not None:

@@ -2283,3 +2283,137 @@ def test_rglru_calibrate_graph_is_bitwise_the_eager_steps(cuda, monkeypatch):
     from repro_torch.configs import get_arch
 
     _recurrent_calibration(get_arch("recurrentgemma-9b").smoke, cuda, monkeypatch, 20)
+
+
+# ---------------------------------------------------------------------------
+# the fleet and the calibration registry
+# ---------------------------------------------------------------------------
+
+
+def _tensors_bitwise(a, b):
+    from repro_torch import tree as tree_lib
+
+    ta, tb = tree_lib.tensors(a), tree_lib.tensors(b)
+    return len(ta) == len(tb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and _bytes_equal(x.reshape(-1), y.reshape(-1)) for x, y in zip(ta, tb))
+
+
+def _fleet_and_solos(cuda, chips=(0, 2)):
+    """A smoke fleet of 3 chips on the card, programmed and aged 24, 168
+    and 6 h, and solo deployments of ``chips`` with the same seeds and
+    history."""
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+    from repro_torch.fleet import Fleet
+
+    cfg = get_arch("qwen3-1.7b").smoke
+    fleet = Fleet.program(cfg, 0, n_chips=3, backend="codes", device=cuda)
+    hours = [24.0, 168.0, 6.0]
+    solos = {i: Deployment.program(cfg, (fleet.teacher_seed, fleet.chip_seed(i)),
+                                   backend="codes", device=cuda) for i in chips}
+    for i, dep in solos.items():
+        assert _tensors_bitwise(dep.codes, fleet.chip(i).codes), i
+        dep.advance(hours[i])
+    fleet.advance(hours)
+    for i, dep in solos.items():
+        assert _tensors_bitwise(dep.codes, fleet.chip(i).codes), i
+    return fleet, solos
+
+
+def test_fleet_chip_is_its_solo_deployment_on_the_card(cuda):
+    """Chip ``i`` of a fleet on the card is bitwise the solo deployment
+    with its seeds: codes after programming and heterogeneous drift, then
+    every calibration loss, the adapters and the AdamW state."""
+    import numpy as np
+
+    fleet, solos = _fleet_and_solos(cuda)
+    report = fleet.calibrate(4, steps=4, seq_len=16)
+    for i, dep in solos.items():
+        solo = dep.calibrate(4, steps=4, seq_len=16)
+        assert np.asarray(solo.losses, np.float32).tolist() == report.losses[:, i].tolist()
+        chip = fleet.chip(i)
+        assert _tensors_bitwise(dep.adapters, chip.adapters), i
+        assert _tensors_bitwise([*dep.opt_state], [*chip.opt_state]), i
+        assert chip.step == dep.step == 4
+
+
+def test_fleet_calibration_graph_is_bitwise_the_eager_steps(cuda, monkeypatch):
+    """``Fleet.calibrate`` builds one step over its chips and captures it
+    once; every chip's losses, adapters and AdamW state equal the eager
+    step functions run from the same start on the fleet's stream; no
+    kernel launches."""
+    from repro_torch.deploy import calibration_batch
+    from repro_torch.deploy import deployment as D
+    from repro_torch.fleet import fleet as F
+
+    fleet, _ = _fleet_and_solos(cuda, chips=())
+    batch = calibration_batch(fleet.cfg, 4, 16)
+    starts = [(F._clone(F._rows(fleet.adapters, c)),
+               F._clone(F._rows(fleet.optimizer_state(), c))) for c in range(3)]
+    captures = _count_captures(monkeypatch)
+    K.reset_launch_counts()
+    C.reset_launch_counts()
+    report = fleet.calibrate(batch, steps=5)
+    torch.cuda.synchronize()
+    assert set(K.launch_counts().values()) == {0} and C.launch_counts() == {"crossbar_mvm": 0}
+    assert len(captures) == 1
+    for c in range(3):
+        dep = fleet.chip(c)
+        dep.base = F._take(fleet.base, c)
+        losses, state = _eager_calibration(dep, starts[c], D._device_batch(batch, cuda), 5,
+                                           True, fleet._calib_stream())
+        assert losses == report.losses[:, c].tolist(), (c, losses)
+        got = fleet.chip(c)
+        assert _tensors_bitwise(state.adapters, got.adapters), c
+        assert _tensors_bitwise([*state.opt_state], [*got.opt_state]), c
+
+
+def test_fleet_serve_prefill_is_the_solo_sessions(cuda):
+    """``fleet.serve(i)``'s prefill logits through the kernels bitwise the
+    solo deployment's session's, after calibration, for both launchers."""
+    fleet, solos = _fleet_and_solos(cuda)
+    fleet.calibrate(4, steps=3, seq_len=16)
+    for dep in solos.values():
+        dep.calibrate(4, steps=3, seq_len=16)
+    g = torch.Generator().manual_seed(4)
+    for rows, launcher in ((3, "dora_linear_gemv"), (30, "dora_linear")):
+        tokens = torch.randint(0, fleet.cfg.vocab, (3, rows), generator=g).to(cuda)
+        for i, dep in solos.items():
+            K.reset_launch_counts()
+            got, _ = fleet.serve(i).prefill(tokens, rows + 8)
+            torch.cuda.synchronize()
+            assert K.launch_counts()[launcher] > 0, K.launch_counts()
+            want, _ = dep.serve().prefill(tokens, rows + 8)
+            assert _bytes_equal(want, got), (i, rows)
+
+
+def test_fleet_warm_start_on_the_card_names_its_source(cuda, tmp_path):
+    """A fleet recorded into a registry, aged and reset, warm-starts every
+    chip on the card from the nearest reference (named: one of the
+    recorded keys, none of them the chip's current one), its calibration's
+    mean loss over the chips below the cold start's at the same codes. A
+    chip's nearest reference may be a sibling's (the device features of
+    two chips can lie closer than a chip's own drift states): per chip the
+    warm start is not always the lower."""
+    import numpy as np
+
+    from repro_torch.registry import CalibrationRegistry
+
+    fleet, _ = _fleet_and_solos(cuda, chips=())
+    reg = CalibrationRegistry(str(tmp_path))
+    fleet.calibrate(4, steps=6, seq_len=16, registry=reg)
+    recorded = {reg.key_for(fleet.cfg, fleet.backend, fleet.chip_signature(c)).name
+                for c in range(3)}
+    fleet.advance(24.0)
+    fleet.reset_adapters()
+    cold = fleet.calibrate(4, steps=3, seq_len=16, record=False)
+    fleet.reset_adapters()
+    warm = fleet.calibrate(4, steps=3, seq_len=16, registry=reg, warm_start=True)
+    assert warm.warm_started_chips == [0, 1, 2] and cold.warm_started_chips == []
+    for c, name in zip(warm.chips, warm.warm_sources):
+        key = reg.key_for(fleet.cfg, fleet.backend, fleet.chip_signature(c))
+        source, version = name.split("@")
+        assert version == "v1" and source in recorded and source != key.name
+    assert warm.initial_loss.mean() < cold.initial_loss.mean()
+    assert warm.final_loss.mean() < cold.final_loss.mean()
