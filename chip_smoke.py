@@ -14,9 +14,11 @@ experts, sliding window) at its full widths and 1 layer, then
 deepseek-v2-lite (multi-head latent attention, a dense first layer,
 shared experts) at its full widths and 3 layers, then the encoder-decoder
 seamless-m4t-large-v2 at its full widths and 8 + 8 layers, then the
-vision-prefix paligemma-3b at its full widths and all 18 layers, then
-falcon-mamba-7b and recurrentgemma-9b at a cut depth, and last a fleet of
-four qwen3-1.7b chips with its calibration registry and scheduler.
+vision-prefix paligemma-3b at its full widths and 9 of its 18 layers, then
+falcon-mamba-7b and recurrentgemma-9b at a cut depth, then a fleet of
+four qwen3-1.7b chips with its calibration registry and scheduler, and
+last qwen3-1.7b served tensor-parallel by four ranks on the card, with an
+elastic re-mesh.
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
@@ -323,20 +325,21 @@ Phases (any failure exits non-zero; no failure is caught):
                 rows, K up to 8192; the decoder's and the head's through
                 both GEMVs at 4; the unfused ones through the ADC) and phase
                 4 times them.
-  14. vlm    — paligemma-3b at its published widths and all 18 layers
-                (d 2048, 8 heads of 256 and one KV head, a gated tanh-GELU
-                MLP of 16384, RMSNorm, embed_scale, a tied head of 257216,
-                DoRA rank 8, 256 patches of a stubbed SigLIP tower ahead of
-                the text, attending to each other bidirectionally):
+  14. vlm    — paligemma-3b at its published widths and VLM_LAYERS (9)
+                of its 18 layers (cut for the script's time; d 2048, 8 heads of
+                256 and one KV head, a gated tanh-GELU MLP of 16384,
+                RMSNorm, embed_scale, a tied head of 257216, DoRA rank 8,
+                256 patches of a stubbed SigLIP tower ahead of the text,
+                attending to each other bidirectionally):
                 program -> advance(24) -> calibrate(10, steps=20) (each
                 32-token sample behind its own 256 patches; phase 11's
                 gates) -> serve(), serve(accum="int8") and a codes_adc
                 deployment, each through phase 5's drive with phase 5's
                 prompts, the first three behind an image each and the last
                 text-only, in an engine of 384 positions: exact launch
-                counts (72 GEMV launches a tick or text chunk, 72 tiled a
-                vision admission and the fused prefill, 18 x (qkv, o,
-                gate_up, down); codes_adc 126 a forward, unfused),
+                counts (36 GEMV launches a tick or text chunk, 36 tiled a
+                vision admission and the fused prefill, 9 x (qkv, o,
+                gate_up, down); codes_adc 63 a forward, unfused),
                 prefill_chunks the 5 text chunks and 3 vision units,
                 compile_count 5 (decode, chunks 8, 16, 32 and the vision
                 admission) and flat, every replay bitwise its eager step
@@ -472,6 +475,29 @@ Phases (any failure exits non-zero; no failure is caught):
                 teacher-feature seconds, the fleet's step ms captured vs
                 eager beside one solo chip's, capture seconds, peak and
                 retained memory, snapshot and restore seconds.
+  18. mesh   — qwen3-1.7b at full width and all 28 layers, tensor-parallel:
+                four ranks (spawned processes, ``launch.mesh.run_ranks``)
+                on the one card over gloo, a (2, 2) ("data", "model")
+                mesh. Each rank programs the deployment (one rank at a time;
+                every rank's code digest equal) and, for the f32 and the
+                int8 body, serves it on the mesh (4 leaves sharded, none
+                replicated): the fused prefill of 3 x 32 tokens, generate of
+                16 greedy tokens, phase 5's engine traffic (twice for f32;
+                every tick and chunk 112 GEMV launches, the prefill 112
+                tiled ones; compile_count flat; no step captured) and once
+                more with a re-mesh at tick 3 (failed_hosts 1, (1, 2);
+                ranks 2-3 leave the loop).
+                Rank 0 then serves the single-device session alone (the
+                others wait): the prefill logits, the generated tokens,
+                every engine stream and the survivors' streams after the
+                re-mesh bitwise its; each fused leaf of layer 0 on its two
+                column blocks at 1, 4, 32 and 96 rows, both launchers and
+                bodies, bitwise the whole leaf's launch. Reported: the mesh
+                tick's ms a rank (all four ranks share the card) beside the
+                single-device captured and eager ticks, the all-gathers' ms
+                and bytes a tick (CUDA events), spawn, init and program
+                seconds, each rank's peak memory programming and serving,
+                the parent's memory, the phase's seconds.
 The last line is the contract line; the line before it the kernel table,
 where ``dora_linear_narrow`` is the fused linear's narrow body: its
 launches are the f32 body's f32-x launches of phases 5, 11 and 12 (the
@@ -485,7 +511,9 @@ decode tick and chunk, phase 13's encoder admissions, phase 14's vision
 admissions and fused prefill, and phase 15's 300-token and phase 16's
 2100-token admissions and their fused prefills; every entry's, phases
 13's to 16's launches. The launches of ``dora_linear_gemv`` and
-``dora_linear`` also count phase 17's f32 sessions of fleet chips 0 and 3.
+``dora_linear`` also count phase 17's f32 sessions of fleet chips 0 and 3,
+and rows 1-4 those of phase 18's rank 0 (its counted engine drive and
+fused prefill of each body on the mesh).
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -698,9 +726,11 @@ ENCDEC_HEAD = ("head", 1024, 256206, 8)
 # the encoder admission's rows through the tiled bodies and the ADC: the
 # longest input and a ragged one
 ENCDEC_ENC_M = (ENCDEC_SRC_LEN, 333)
-# phase 14: paligemma-3b at its published widths and all 18 layers; phase
+# phase 14: paligemma-3b at its published widths and VLM_LAYERS of its 18
+# (cut for the script's time when phase 18 came); phase
 # 5's traffic, the first three requests behind an image of 256 patches and
 # the last text-only, in an engine of 384 positions (256 + 40 + 16 fit)
+VLM_LAYERS = 9
 VLM_MAX_LEN = 384
 VLM_IMAGES = (True, True, True, False)
 # the steps phase 14's traffic compiles per session: phase 5's four and the
@@ -4615,7 +4645,7 @@ def phase_encdec(device, seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the vision prefix, paligemma-3b at its full 18 layers
+# phase 14: the vision prefix, paligemma-3b at VLM_LAYERS of its 18 layers
 # ---------------------------------------------------------------------------
 
 VLM_CELL = dataclasses.make_dataclass("VlmCell", ["tag", "arch"])("vlm", "paligemma-3b")
@@ -4885,7 +4915,8 @@ def vlm_serve_checked(dep, seed):
 
 
 def phase_vlm(device, seed):
-    """Phase 14: paligemma-3b at its FULL config (all 18 layers).
+    """Phase 14: paligemma-3b at its FULL widths, ``VLM_LAYERS`` of its 18
+    layers.
     ``Deployment.program(codes)`` -> ``advance(24)`` -> ``calibrate(10,
     steps=20)`` (each 32-token sample behind its own 256 patches) -> the
     three sessions' serving checks. Every check raises."""
@@ -4896,6 +4927,7 @@ def phase_vlm(device, seed):
     t_phase = time.perf_counter()
     cfg = get_arch(VLM_CELL.arch).full
     assert (cfg.n_layers, cfg.vision_tokens) == (18, 256)
+    cfg = dataclasses.replace(cfg, n_layers=VLM_LAYERS)
     memory()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4909,8 +4941,8 @@ def phase_vlm(device, seed):
               "rram_bytes": dep.rram_bytes(), "sram_bytes": dep.sram_bytes(),
               "teacher_bytes": tree_bytes(dep.teacher_base),
               "resident_allocated_bytes": allocated, "resident_reserved_bytes": reserved}
-    log(f"[vlm] {cfg.name} at all {cfg.n_layers} layers: {n_base:,} weights, {n_adapters:,} "
-        f"side-car parameters; program + advance(24) {t_setup:.2f} s; resident "
+    log(f"[vlm] {cfg.name} at {cfg.n_layers} of its 18 layers: {n_base:,} weights, "
+        f"{n_adapters:,} side-car parameters; program + advance(24) {t_setup:.2f} s; resident "
         f"{allocated / 2**30:.2f} GiB (teacher {result['teacher_bytes'] / 2**30:.2f}, codes "
         f"{result['rram_bytes'] / 2**30:.2f})")
     result["calibration"] = moe_calibrate(dep, VLM_CELL)
@@ -5741,6 +5773,292 @@ def phase_fleet(device, seed, smi):
     return result
 
 
+# phase 18: qwen3-1.7b at full width and all 28 layers, tensor-parallel:
+# MESH_RANKS ranks (processes) on the one card over gloo, on a MESH_SHAPE
+# ("data", "model") mesh; the engine loses a host (a data row) at tick
+# MESH_REMESH_AT and goes on over MESH_DEGRADED
+MESH_RANKS = 4
+MESH_SHAPE = (2, 2)
+MESH_DEGRADED = (1, 2)
+MESH_REMESH_AT = 3
+MESH_GEN = 16               # greedy tokens of the session's generate
+MESH_BLOCK_M = (1, 4, 32, PREFILL_ROWS)
+MESH_TICKS = 8              # timed ticks of the warm mesh engine
+MESH_TIMEOUT = 600
+
+
+def mesh_engine(session, prompts, remesh_at=None):
+    """Phase 5's engine traffic on a mesh session, as ``engine_run`` drives
+    it (a request submitted a tick, then drained), the launch counters
+    reset before and read after; with ``remesh_at``, ``remesh()`` after
+    that tick. Every rank of the session's mesh runs it at once."""
+    from repro_torch.deploy import ServeEngine
+
+    engine = ServeEngine(session, max_slots=SLOTS, max_len=ENGINE_MAX_LEN)
+    reqs, plan = [], None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    pending = list(prompts)
+    while not engine.left:
+        if pending:
+            reqs.append(engine.submit(pending.pop(0).numpy(), max_new=MAX_NEW))
+        busy = engine.step()
+        if remesh_at is not None and engine.tick == remesh_at and plan is None:
+            plan = engine.remesh()
+        if not busy and not pending:
+            break
+    torch.cuda.synchronize()
+    stats = engine.stats()
+    return {"seconds": time.perf_counter() - t0, "launches": read_counts(),
+            "decode_steps": stats["decode_steps"], "prefill_chunks": stats["prefill_chunks"],
+            "tick_ms": 1e3 * stats["decode_seconds"] / max(1, stats["decode_steps"]),
+            "compile_count": stats["compile_count"], "left": engine.left,
+            "streams": [list(r.tokens) for r in reqs],
+            "plan": None if plan is None else [plan.failed_hosts, list(plan.new_mesh_shape)]}
+
+
+class Lease:
+    """The owner of a step leased outside an engine."""
+
+
+@contextlib.contextmanager
+def allgather_events(into):
+    """Record CUDA events around every ``tp_column_allgather`` while inside
+    (``(start, end, gathered bytes)`` appended to ``into``); the program is
+    not changed."""
+    from repro_torch.substrate import prepared as P
+
+    real = P.tp_column_allgather
+
+    def timed(y, n_total, group):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real(y, n_total, group)
+        end.record()
+        into.append((start, end, out.numel() * out.element_size()))
+        return out
+
+    P.tp_column_allgather = timed
+    try:
+        yield
+    finally:
+        P.tp_column_allgather = real
+
+
+def column_block_checks(host_params, device, seed):
+    """Each fused leaf of layer 0, launched on its two column blocks with the
+    whole leaf's plan, bitwise the whole leaf's launch's columns: both
+    launchers (the GEMV up to 64 rows), both bodies, at ``MESH_BLOCK_M``."""
+    from repro_torch.kernels import dora_linear as K
+
+    body = host_params["base"]["body"][0]
+    leaves = {"qkv": body["mixer"]["_qkv"]["w"], "o": body["mixer"]["o"]["w"],
+              "gate_up": body["ffn"]["_gate_up"]["w"], "down": body["ffn"]["down"]["w"]}
+    g = torch.Generator(device=device).manual_seed(seed)
+    checked = 0
+    for name, leaf in leaves.items():
+        ops = [getattr(leaf, f)[0] for f in ("g_pos", "g_neg", "scale", "lora_a", "lora_b",
+                                              "gamma")]
+        n = leaf.n
+        w = n // 2
+        for m in MESH_BLOCK_M:
+            x = (torch.randn((m, leaf.k), generator=g, device=device) * 0.5).to(torch.bfloat16)
+            for fn in ((K.dora_linear_gemv, K.dora_linear) if m <= 64 else (K.dora_linear,)):
+                for accum in ("f32", "int8"):
+                    whole = fn(x, *ops, accum=accum)
+                    for i in range(2):
+                        gp, gn, scale, a, b, gamma = (
+                            t if t is ops[3] else t[:, i * w:(i + 1) * w].contiguous()
+                            for t in ops)
+                        got = fn(x, gp, gn, scale, a, b, gamma, accum=accum, plan_n=n)
+                        assert torch.equal(got, whole[:, i * w:(i + 1) * w]), (
+                            name, m, fn.__name__, accum, i)
+                        checked += 1
+    torch.cuda.synchronize()
+    return checked
+
+
+def mesh_rank(rank, world, device, seed, t_spawn):
+    """Phase 18 in one rank (``launch.mesh.run_ranks``): program qwen3-1.7b
+    FULL, check every rank programmed the same codes, then for each body
+    serve it on the (2, 2) mesh: the fused prefill, greedy generation, the
+    engine traffic twice (exact launches, ``compile_count`` flat) and once
+    with a re-mesh; rank 0 also serves the single-device session beside
+    each, on its own while the others wait, and checks the column blocks.
+    Returns host values for the parent's gates."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+    from repro_torch.deploy.deployment import code_digest
+    from repro_torch.launch.mesh import make_host_mesh
+
+    started = time.time() - t_spawn
+    t_rank = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("qwen3_1_7b").full
+    # one rank programs at a time and hands its allocator's spare blocks
+    # back to the card before the next: four programming peaks at once
+    # (~15 GiB each, the drift's f32 temporaries) did not fit beside the
+    # parent process
+    for turn in range(world):
+        if turn == rank:
+            t0 = time.perf_counter()
+            dep = Deployment.program(cfg, seed, backend="codes", device=device).advance(24)
+            torch.cuda.synchronize()
+            t_program = time.perf_counter() - t0
+            program_peak = torch.cuda.max_memory_allocated(device)
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    digests = [None] * world
+    dist.all_gather_object(digests, code_digest(dep.codes))
+    assert digests == [digests[0]] * world, digests
+    mesh = make_host_mesh(MESH_SHAPE, device=device)
+    prompts, tokens, _ = serving_inputs(cfg.vocab, seed, device)
+    n_leaves = 4 * cfg.n_layers
+    out = {"rank": rank, "started_s": started, "program_s": t_program, "digest": digests[0],
+           "program_peak_bytes": program_peak, "bodies": {}}
+    torch.cuda.reset_peak_memory_stats(device)
+    for accum in ("f32", "int8"):
+        suffix = "" if accum == "f32" else "/int8"
+        session = dep.serve(accum=accum, mesh=mesh)
+        torch.cuda.empty_cache()  # the fusion's temporaries, for the other ranks
+        assert session.shard_stats == {"sharded": 4, "replicated": 0}, session.shard_stats
+        run = {"stats": session.shard_stats}
+        reset_counts()
+        (run["prefill_ms"],), logits = time_prefill(session, tokens)
+        expect_counts(read_counts(), {"dora_linear" + suffix: n_leaves})
+        run["prefill_launches"] = n_leaves
+        run["generate"], _ = session.generate(tokens[:, :MESH_GEN].cpu(), gen_len=MESH_GEN)
+        # the f32 body drives twice (compile_count flat), the int8 body once
+        drives = [mesh_engine(session, prompts) for _ in range(2 if accum == "f32" else 1)]
+        for d in drives:
+            units = d["decode_steps"] + d["prefill_chunks"]
+            expect_counts(d["launches"], {"dora_linear_gemv" + suffix: n_leaves * units})
+        # the generate's steps and the engine's, each built once
+        assert all(d["compile_count"] == len(list(session.steps)) for d in drives), [
+            d["compile_count"] for d in drives]
+        assert all(d["streams"] == drives[0]["streams"] for d in drives)
+        run["engine"] = drives[0]
+        run["compile_count"] = [d["compile_count"] for d in drives]
+        run["graphs"] = sum(s.graph is not None for s in session.steps)
+        assert run["graphs"] == 0 and all(s.eager for s in session.steps)
+        # the warm mesh tick, with CUDA events around every all-gather
+        events, owner = [], Lease()
+        step = session.decode_step_fn(SLOTS, ENGINE_MAX_LEN, owner=owner)
+        host = torch.stack([torch.randint(0, cfg.vocab, (SLOTS,), generator=torch.Generator()
+                                          .manual_seed(2)), torch.arange(SLOTS) * 10 + 40])
+        step(host)
+        torch.cuda.synchronize()
+        with allgather_events(events):
+            t0 = time.perf_counter()
+            for _ in range(MESH_TICKS):
+                torch.argmax(step(host)[:, -1], dim=-1).cpu()
+            torch.cuda.synchronize()
+            run["tick_ms"] = 1e3 * (time.perf_counter() - t0) / MESH_TICKS
+        run["allgather_ms_per_tick"] = sum(s.elapsed_time(e) for s, e, _ in events) / MESH_TICKS
+        run["allgathers_per_tick"] = len(events) / MESH_TICKS
+        run["allgather_bytes_per_tick"] = sum(b for _, _, b in events) / MESH_TICKS
+        del step, owner, events
+        remeshed = mesh_engine(session, prompts, remesh_at=MESH_REMESH_AT)
+        assert remeshed["plan"] == [1, list(MESH_DEGRADED)], remeshed["plan"]
+        assert remeshed["left"] == (mesh.index("data") >= MESH_DEGRADED[0]), remeshed["left"]
+        run["remesh"] = remeshed
+        run["logits"] = logits.cpu()
+        del session, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:  # alone on the card: the single-device twin
+            solo = dep.serve(accum=accum)
+            (run["solo_prefill_ms"],), want = time_prefill(solo, tokens)
+            run["prefill_bitwise"] = same_bytes(want.cpu(), run["logits"])
+            run["solo_generate"], _ = solo.generate(tokens[:, :MESH_GEN].cpu(),
+                                                    gen_len=MESH_GEN)
+            run["solo_engine"] = engine_run(solo, prompts, MAX_NEW)
+            run["solo_engine"].pop("ttft_s")
+            run["solo_tick"] = tick_times(solo, ticks=8, rounds=1)
+            if accum == "f32":
+                run["column_blocks"] = column_block_checks(solo.params, device, seed)
+            del solo, want
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        run["logits"] = None
+        out["bodies"][accum] = run
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    out["rank_s"] = time.perf_counter() - t_rank
+    return out
+
+
+def phase_mesh(device, seed):
+    """Phase 18: ``MESH_RANKS`` ranks on the card (``mesh_rank``); the
+    parent gates what they return."""
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    parent = memory()
+    stats = {}
+    ranks = run_ranks(mesh_rank, MESH_RANKS, device=device, timeout=MESH_TIMEOUT,
+                      args=(seed, time.time()), stats=stats)
+    init_s = stats["init_seconds"]
+    survivors = [r for r in ranks if not r["bodies"]["f32"]["remesh"]["left"]]
+    assert [r["rank"] for r in survivors] == [0, 1], [r["rank"] for r in survivors]
+    solo = ranks[0]["bodies"]
+    result = {"ranks": MESH_RANKS, "shape": list(MESH_SHAPE), "degraded": list(MESH_DEGRADED),
+              "spawn_s": [r["started_s"] for r in ranks], "init_s": init_s,
+              "program_s": [r["program_s"] for r in ranks],
+              "program_peak_bytes": [r["program_peak_bytes"] for r in ranks],
+              "peak_bytes": [r["peak_bytes"] for r in ranks], "parent_bytes": list(parent),
+              "rank_s": [r["rank_s"] for r in ranks], "bodies": {}}
+    for accum in ("f32", "int8"):
+        twin = solo[accum]
+        assert twin["prefill_bitwise"], accum
+        for r in ranks:
+            run = r["bodies"][accum]
+            assert (run["generate"] == twin["solo_generate"]).all(), (accum, r["rank"])
+            assert run["engine"]["streams"] == twin["solo_engine"]["streams"], (accum, r["rank"])
+        for r in survivors:
+            assert r["bodies"][accum]["remesh"]["streams"] == twin["solo_engine"]["streams"], (
+                accum, r["rank"])
+        body = {key: [r["bodies"][accum][key] for r in ranks]
+                for key in ("tick_ms", "allgather_ms_per_tick", "prefill_ms", "compile_count")}
+        body.update(allgathers_per_tick=twin["allgathers_per_tick"],
+                    allgather_bytes_per_tick=twin["allgather_bytes_per_tick"],
+                    solo_tick=twin["solo_tick"], solo_prefill_ms=twin["solo_prefill_ms"],
+                    engine_tick_ms=[r["bodies"][accum]["engine"]["tick_ms"] for r in ranks],
+                    launches=twin["engine"]["launches"],
+                    prefill_launches=twin["prefill_launches"],
+                    remesh_launches=twin["remesh"]["launches"],
+                    remesh_seconds=[r["bodies"][accum]["remesh"]["seconds"] for r in ranks],
+                    column_blocks=twin.get("column_blocks"))
+        result["bodies"][accum] = body
+        share = [a / t for a, t in zip(body["allgather_ms_per_tick"], body["tick_ms"])]
+        log(f"[mesh] {accum}: prefill, generate ({MESH_GEN} tokens) and engine streams bitwise "
+            f"the single-device session's on all {MESH_RANKS} ranks; after the re-mesh at tick "
+            f"{MESH_REMESH_AT} ranks 0-1 bitwise it too, ranks 2-3 left; mesh tick "
+            + ", ".join(f"{t:.2f}" for t in body["tick_ms"]) + " ms a rank, all-gathers "
+            + ", ".join(f"{a:.2f}" for a in body["allgather_ms_per_tick"])
+            + f" ms of it ({', '.join(f'{s:.0%}' for s in share)}; "
+            f"{body['allgathers_per_tick']:.0f} a tick, {body['allgather_bytes_per_tick']} bytes)"
+            f"; single-device tick captured {twin['solo_tick']['captured']:.3f} ms, eager "
+            f"{twin['solo_tick']['eager']:.3f} ms; compile_count {body['compile_count']}"
+            + (f"; {twin['column_blocks']} column blocks bitwise" if accum == "f32" else ""))
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] rank start (spawn, imports, init) "
+        f"{', '.join(f'{s:.2f}' for s in result['spawn_s'])} s, of it init "
+        f"{', '.join(f'{s:.2f}' for s in init_s)} s, program "
+        f"{', '.join(f'{s:.2f}' for s in result['program_s'])} s (one rank at a time), peak "
+        f"{', '.join(f'{b / 2**30:.2f}' for b in result['program_peak_bytes'])} GiB a rank "
+        f"programming, then serving "
+        f"{', '.join(f'{b / 2**30:.2f}' for b in result['peak_bytes'])} GiB; the parent held "
+        f"{parent[0] / 2**30:.2f} GiB allocated, {parent[1] / 2**30:.2f} reserved; "
+        f"phase 18 took {result['phase_seconds']:.2f} s")
+    return result
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -5822,8 +6140,12 @@ def main():
     memory()
     lap("16 rglru")
     fleet = phase_fleet(device, args.seed, smi)
-    memory()
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("17 fleet")
+    mesh = phase_mesh(device, args.seed)
+    memory()
+    lap("18 mesh")
     for cell, result in ((SSM_CELL, ssm), (RGLRU_CELL, rglru)):
         for body, run in result["serving"].items():
             adm = run["admissions"]
@@ -5869,6 +6191,12 @@ def main():
                if k not in ("dora_linear_gemv", "dora_linear")) <= {0}, fleet["launches"]
     for name in ("dora_linear_gemv", "dora_linear"):
         launches[name] += fleet["launches"][name]
+    # phase 18's rank 0: its counted engine drive (GEMV) and fused prefill
+    # (tiled) of each body on the mesh
+    for accum, suffix in (("f32", ""), ("int8", "/int8")):
+        body = mesh["bodies"][accum]
+        launches["dora_linear_gemv" + suffix] += body["launches"]["dora_linear_gemv" + suffix]
+        launches["dora_linear" + suffix] += body["prefill_launches"]
     # (name, source, TPU kernel, rows, leaf of the timed rows, timed kernel)
     table = (
         ("dora_linear_gemv", "dora_linear.cu", "dora_linear.py:194", SLOTS, None, None),
@@ -5910,7 +6238,7 @@ def main():
                        "encdec": encdec, "vlm": vlm, "paligemma_kernels": worst["paligemma"],
                        "ssm": ssm, "falcon_kernels": worst["falcon"], "rglru": rglru,
                        "recurrentgemma_kernels": worst["recurrentgemma"], "fleet": fleet,
-                       "kernels": kernels},
+                       "mesh": mesh, "kernels": kernels},
                       f,
                       indent=1, default=str)
     log(json.dumps({"kernels": kernels}))

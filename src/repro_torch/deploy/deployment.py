@@ -642,14 +642,25 @@ class Deployment:
 
     # -- serving --------------------------------------------------------------
 
-    def serve(self, *, accum: str = "f32") -> serving.ServeSession:
+    def serve(self, *, accum: str = "f32", mesh=None) -> serving.ServeSession:
         """Merge the DoRA magnitudes (Algorithm 2 line 12) and bind a
         session. Under ``codes`` the params are the prepared tree (q/k/v
         and gate/up fused into single launches) and ``accum`` ("f32" or
         "int8") picks the kernel body; other backends ignore it. Under
-        ``codes_adc`` the params hold the raw per-leaf codes."""
+        ``codes_adc`` the params hold the raw per-leaf codes.
+
+        ``mesh`` (a ``launch.mesh.Mesh`` holding this rank) binds the
+        session tensor-parallel: every rank of the mesh calls it, keeps
+        the column blocks of the column-shardable prepared leaves for its
+        place on the ``"model"`` axis, and the session's steps gather the
+        columns (bitwise the single-device session). Codes backend only;
+        ``session.reshard`` re-binds after an elastic degradation."""
         if accum not in ("f32", "int8"):
             raise ValueError(f"accum must be 'f32' or 'int8', got {accum!r}")
+        if mesh is not None and self.backend != "codes":
+            raise ValueError(
+                f"mesh serving runs the prepared codes fast path; "
+                f"backend={self.backend!r} is single-device")
         options = {}
         with torch.no_grad():
             merged = merge_adapters_for_serve(self.base, self.adapters)
@@ -658,7 +669,7 @@ class Deployment:
                 base = substrate.prepare_base_for_serve(self.base, merged, self.cfg)
                 options["accum"] = accum
         return serving.ServeSession(self, {"base": base, "adapters": merged},
-                                    options=options)
+                                    options=options, mesh=mesh)
 
     def rram_bytes(self) -> int:
         return rram_bytes(self.base)

@@ -1,7 +1,7 @@
 """Continuous-batching serve engine over the batched decode step. Port
 of ``repro/deploy/engine.py`` for attention stacks (decoder-only,
 encoder-decoder, or behind a vision prefix) and recurrent stacks (the
-SSM, and RG-LRU beside local attention) (``remesh`` waits).
+SSM, and RG-LRU beside local attention).
 
 * **Slots.** A fixed ``(max_slots, max_len)`` decode cache; each
   in-flight request owns one row, finished rows are recycled.
@@ -70,6 +70,13 @@ SSM, and RG-LRU beside local attention) (``remesh`` waits).
   Greedy argmax, sampling and the token's copy to the host stay outside.
 * **Unified retirement.** Every exit goes through ``_finish``, so
   ``generated_tokens == first_tokens + decode_tokens`` always.
+* **Tensor-parallel serving and the elastic re-mesh.** Over a session
+  bound to a mesh every rank runs the same engine on the same requests
+  (SPMD) through the session's eager mesh steps; such an engine is
+  decoder-only. ``remesh`` moves the session onto a degraded mesh after
+  a host is lost, rebuilds the slots' cache by replaying every in-flight
+  slot, and returns the ``ElasticPlan``; a rank the new mesh drops leaves
+  the serving loop (``step`` returns False).
 """
 from __future__ import annotations
 
@@ -82,6 +89,7 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.deploy import serving
 from repro_torch.models import moe as M
 
@@ -120,6 +128,18 @@ class Request:
     @property
     def vision_len(self) -> int:
         return 0 if self.patch_embeds is None else int(self.patch_embeds.shape[0])
+
+
+class _Lease:
+    """The owner of a step leased for one call (``ServeEngine.remesh``)."""
+
+
+def _row(cache: dict, slot: int) -> dict:
+    """Row ``slot`` of a batched cache as a batch-1 cache of views."""
+    return {key: tree_lib.map_tensors(
+                (lambda t: t[:, slot:slot + 1]) if key == "body" else (lambda t: t[slot:slot + 1]),
+                v)
+            for key, v in cache.items()}
 
 
 def _pow2_ceil(n: int) -> int:
@@ -178,6 +198,7 @@ class ServeEngine:
         self.prefix_hits = 0          # full-prompt snapshot hits
         self.prefix_partial_hits = 0  # shared-prefix (partial) hits
         self._next_rid = 0
+        self.left = False           # dropped from the mesh by remesh
 
     @property
     def generated_tokens(self) -> int:
@@ -195,6 +216,8 @@ class ServeEngine:
         ``patch_embeds`` (P, d), likewise, a vision request's image (P =
         ``cfg.vision_tokens``), counted against ``max_len``. Their bytes,
         in the dtype given, seed the prefix cache's hash chain."""
+        if self.left:
+            raise RuntimeError("this rank left the mesh (remesh): its engine takes no request")
         serving._check_sampling_args(temperature, key)
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
@@ -203,6 +226,9 @@ class ServeEngine:
             raise ValueError("empty prompt")
         if prompt.min() < 0 or prompt.max() >= self.cfg.vocab:
             raise ValueError(f"prompt tokens must lie in [0, {self.cfg.vocab})")
+        if self.session.mesh is not None and (enc_embeds is not None
+                                              or patch_embeds is not None):
+            raise ValueError("mesh serving is decoder-only: no encoder input or image")
         if self.cfg.encoder_layers:
             if enc_embeds is None:
                 raise ValueError("encoder-decoder request needs enc_embeds")
@@ -470,7 +496,9 @@ class ServeEngine:
     def step(self) -> bool:
         """Admit what fits, advance every admitting slot by one chunk,
         then every active slot by one token (one call of the leased decode
-        step). False when idle."""
+        step). False when idle, and on a rank that ``remesh`` dropped."""
+        if self.left:
+            return False
         self._admit_pending()
         for slot in range(self.max_slots):
             req = self.slot_req[slot]
@@ -520,6 +548,99 @@ class ServeEngine:
         """Admit and step until every submitted request retired."""
         while self.step():
             pass
+
+    # -- elastic degradation -------------------------------------------------
+
+    @torch.no_grad()
+    def remesh(self, new_mesh=None, *, n_failed_hosts: int = 1):
+        """A host dropped mid-serve: re-bind the session to the degraded
+        mesh and rebuild the slots' cache by replaying every in-flight slot
+        from its deterministic lifecycle, the prompt and the tokens already
+        emitted. Returns the ``ElasticPlan``. Every rank of the old mesh
+        calls it at the same tick.
+
+        Without ``new_mesh`` the session's mesh loses its trailing
+        ``n_failed_hosts`` data-axis rows (``launch.mesh.make_elastic_mesh``);
+        the model axis keeps its ranks in order, so the params are sharded
+        as before and the replayed streams are bitwise the undisturbed
+        engine's. A rank the new mesh does not hold leaves the serving loop
+        here: its engine steps no more.
+
+        Replay runs each slot's admission again, the prompt through the
+        chunks (or the one fused prefill of an unchunked stack) that its
+        admission ran (the prefix cache's snapshot at ``k`` tokens was made
+        by the chunks of ``[0, k)``), then feeds each emitted token but the
+        pending one at its original position through a decode step of the
+        engine's batch, the slot in its own row: the launches of the
+        original ticks, at their row count. Rows are independent, but an
+        MoE stack whose capacity can drop tokens couples them, and there
+        the replay is not exact. Host state (clocks, the pending token,
+        the requests' generators) carries over untouched."""
+        from repro_torch.launch.mesh import make_elastic_mesh
+        from repro_torch.models import transformer as T
+        from repro_torch.runtime.fault import ElasticPlan
+
+        mesh = self.session.mesh
+        if new_mesh is None:
+            if mesh is None:
+                raise ValueError(
+                    "remesh needs either an explicit new_mesh or a session "
+                    "already bound to a mesh to degrade")
+            plan = ElasticPlan.plan(n_failed_hosts, self.tick, rows=int(mesh.shape["data"]),
+                                    cols=int(mesh.shape["model"]))
+            new_mesh = make_elastic_mesh(n_failed_hosts, base_mesh=mesh)
+        else:
+            dropped = 0
+            if mesh is not None and "data" in mesh.shape:
+                dropped = int(mesh.shape["data"]) - int(new_mesh.shape.get("data", 1))
+            plan = ElasticPlan(failed_hosts=max(dropped, 0),
+                               new_mesh_shape=tuple(new_mesh.ranks.shape),
+                               restore_step=self.tick, notes="explicit re-mesh")
+        if not new_mesh.member:
+            self.left = True
+            return plan
+        live = [r for r in (*self.slot_req, *self.pending) if r is not None]
+        if any(r.enc_embeds is not None or r.patch_embeds is not None for r in live):
+            raise ValueError("mesh serving is decoder-only: a request in flight carries an "
+                             "encoder input or an image")
+        self.session.reshard(new_mesh)
+        self._decode = self.session.decode_step_fn(self.max_slots, self.max_len, owner=self,
+                                                   src_len=self.src_len)
+        self.cache = self._decode.cache
+        lease = _Lease()  # a second decode step: the replay's own rows
+        replay = self.session.decode_step_fn(self.max_slots, self.max_len, owner=lease,
+                                             src_len=self.src_len)
+        for slot in np.flatnonzero(self.active):
+            req = self.slot_req[slot]
+            self._replay_admission(req)
+            T.write_cache_slot(replay.cache, self._staging, slot)
+            pos0 = req.vision_len + req.prompt_len
+            host = np.zeros((2, self.max_slots), np.int64)
+            for j, t in enumerate(req.tokens[:-1]):
+                host[:, slot] = (t, pos0 + j)
+                replay(torch.from_numpy(host))
+            T.write_cache_slot(self.cache, _row(replay.cache, slot), slot)
+        return plan
+
+    def _replay_admission(self, req: Request) -> None:
+        """Rebuild ``req``'s admitted batch-1 cache in the staging cache,
+        bitwise what its admission left there: the fused prefill of its
+        prompt for an unchunked stack, else its chunks from a zeroed
+        cache. Under a mesh a request carries no encoder input or image."""
+        if not self.chunked:
+            self.session.prefill_fn(req.prompt_len, self.max_len)(
+                torch.tensor(req.prompt)[None])
+            return
+        k = req.prefix_hit_tokens
+        self._staging_flat.zero_()
+        for a, b_ in self._spans(0, k) + self._spans(k, req.prompt_len):
+            n = b_ - a
+            width = self._bucket(n)
+            host = np.zeros(width + 2, np.int64)
+            host[:n] = req.prompt[a:b_]
+            host[width:] = (req.vision_len + a, n)
+            self.session.prefill_chunk_fn(width, self.max_len, self.src_len)(
+                torch.from_numpy(host))
 
     @property
     def num_active(self) -> int:

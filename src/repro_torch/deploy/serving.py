@@ -13,6 +13,14 @@ width, max_len, src_len)`` (``StepRegistry``, ``CompiledStep``) and
 replays them. ``ServeSession.prefill``, the module-level
 ``prefill_and_cache`` and ``generate`` loop stay eager. Everything runs
 under ``torch.no_grad()``.
+
+A session bound to a mesh (``ServeSession(mesh=)``, ``reshard``) serves
+tensor-parallel: its params hold this rank's column blocks
+(``substrate.ShardedPrepared``), whose outputs every rank gathers over
+gloo. It keeps one step registry per mesh, as the reference keys its
+steps on the mesh, and runs those steps eagerly on the card: a gloo
+collective cannot be captured into a CUDA graph. Each mesh step is built
+once and never captured; the single-device registry keeps its graphs.
 """
 from __future__ import annotations
 
@@ -42,13 +50,17 @@ def backend_scope(backend: str, cfg=None, **options):
 
 @torch.no_grad()
 def prefill_and_cache(params, tokens: torch.Tensor, cfg, max_len: int, enc_embeds=None,
-                      patch_embeds=None):
+                      patch_embeds=None, mesh=None):
     """Fused prefill: ONE forward over the prompt fills every layer's K/V
     (and, after the encoder over ``enc_embeds``, its cross lines; with
     ``patch_embeds`` (B, P, d), the vision prefix's K/V at [0, P) first).
-    Returns ``(last_logits (B, 1, V), cache)``."""
+    Returns ``(last_logits (B, 1, V), cache)``. ``mesh``: the mesh that
+    ``params`` (a sharded serve tree) are placed on; the mesh path is
+    decoder-only."""
     from repro_torch.models import transformer as T
 
+    if mesh is not None and (enc_embeds is not None or patch_embeds is not None):
+        raise ValueError("mesh serving is decoder-only (no enc_embeds/patch_embeds)")
     if cfg.encoder_layers and enc_embeds is None:
         raise ValueError("encoder-decoder config needs enc_embeds")
     return T.prefill(params, tokens, cfg, int(max_len), enc_embeds, patch_embeds)
@@ -140,7 +152,12 @@ class CompiledStep:
     the kernels' launch counters are restored after it, and each replay
     adds the launches its capture recorded. An error in warm-up or capture
     propagates, and a step whose capture failed raises on every later
-    call: nothing runs on eagerly."""
+    call: nothing runs on eagerly.
+
+    A step of a mesh's registry (``StepRegistry(eager=True)``) runs ``fn``
+    on every call, on the card too, and is never captured: its collectives
+    go through gloo, which a CUDA graph cannot hold. That is its design,
+    not a fallback: no capture is attempted."""
 
     def __init__(self, registry: "StepRegistry", key: tuple, fn: Callable[[], torch.Tensor],
                  inputs: torch.Tensor, flat: Optional[torch.Tensor] = None,
@@ -157,9 +174,14 @@ class CompiledStep:
         self._failed = False
 
     @property
+    def eager(self) -> bool:
+        """Runs its function on every call: on the CPU, or a mesh's step."""
+        return self.registry.eager or self.inputs.device.type != "cuda"
+
+    @property
     def compiled(self) -> bool:
-        """Captured (card), or built (CPU: the step has no graph there)."""
-        return self.graph is not None or self.inputs.device.type != "cuda"
+        """Captured (card), or built (CPU, or a mesh's eager step)."""
+        return self.graph is not None or self.eager
 
     def lease(self, owner) -> bool:
         """Hand the step to ``owner`` unless a live owner holds it; the
@@ -176,7 +198,7 @@ class CompiledStep:
         if self._failed:
             raise RuntimeError(f"step {self.key} failed to capture; it does not run eagerly")
         self.inputs.copy_(host)
-        if self.inputs.device.type != "cuda":
+        if self.eager:
             return self.fn()
         if self.graph is None:
             return self._warm_up_and_capture()
@@ -204,11 +226,13 @@ class StepRegistry:
     when engines alive at once lease steps of one key), the graphs' memory
     pool and capture stream, and the addresses of the params the graphs
     read (checked on the CPU too, so that a test there sees what the card
-    would refuse). ``params`` returns the session's params tree."""
+    would refuse). ``params`` returns the session's params tree. A mesh's
+    registry is ``eager``: its steps are built once and never captured."""
 
-    def __init__(self, device, params: Callable[[], dict]):
+    def __init__(self, device, params: Callable[[], dict], *, eager: bool = False):
         self.device = torch.device(device)
         self._params = params
+        self.eager = eager
         self._ptrs: Optional[Tuple[int, ...]] = None
         self._steps: Dict[tuple, List[CompiledStep]] = {}
         self._pool = None
@@ -256,7 +280,8 @@ class StepRegistry:
         return (s for steps in self._steps.values() for s in steps)
 
     def compile_count(self) -> int:
-        """Graphs captured on the card; steps built on the CPU."""
+        """Graphs captured on the card; steps built on the CPU or of a
+        mesh."""
         return sum(s.compiled for s in self)
 
 
@@ -271,15 +296,62 @@ class ServeSession:
     """A deployment bound for serving: adapters merged, backend scope
     applied around every call. ``params`` is the ``{"base", "adapters"}``
     tree the transformer consumes; ``options`` are the backend options
-    every call runs under (``accum`` for ``codes``)."""
+    every call runs under (``accum`` for ``codes``).
 
-    def __init__(self, deployment, params, options: Optional[dict] = None):
+    ``mesh`` binds the session tensor-parallel (``reshard``); the
+    unsharded tree stays in ``_host_params``, the source of every
+    re-mesh."""
+
+    def __init__(self, deployment, params, options: Optional[dict] = None, mesh=None):
         self.deployment = deployment
+        self._host_params = params
         self.params = params
         self.options = dict(options or {})
+        self.mesh = None
+        self.shard_stats: Optional[dict] = None
         self._auto_key_calls = 0
-        self.steps = StepRegistry(deployment.device, lambda: self.params)
+        # one registry per mesh (None: single-device, CUDA graphs)
+        self._registries = {None: StepRegistry(deployment.device, lambda: self.params)}
         self._staging: Dict[Tuple[int, int], Tuple[torch.Tensor, dict]] = {}
+        if mesh is not None:
+            self.reshard(mesh)
+
+    @property
+    def steps(self) -> StepRegistry:
+        """The step registry of the session's current mesh."""
+        return self._registries[self.mesh]
+
+    def reshard(self, mesh):
+        """(Re)bind this session to ``mesh``: wrap every column-shardable
+        prepared leaf (``substrate.shard_prepared_for_serve``) and keep
+        this rank's blocks (``substrate.place_serve_params``); ``None``
+        returns to the single-device tree and its graphs. The mesh gets a
+        fresh registry of eager steps, built on first use. Codes backend
+        and decoder-only configs; the mesh must hold this rank, on the
+        deployment's device."""
+        if mesh is None:
+            self.mesh, self.params, self.shard_stats = None, self._host_params, None
+            return self
+        if self.backend != "codes":
+            raise ValueError(
+                f"mesh serving runs the prepared codes fast path; "
+                f"backend={self.backend!r} is single-device")
+        if self.cfg.encoder_layers:
+            raise ValueError("mesh serving is decoder-only (no encoder)")
+        if not mesh.member:
+            raise ValueError(f"{mesh} does not hold this rank")
+        if mesh.device != self.device:
+            raise ValueError(f"{mesh} places this rank on {mesh.device}; the deployment "
+                             f"is on {self.device}")
+        wrapped, stats = substrate.shard_prepared_for_serve(self._host_params, mesh)
+        self.params = substrate.place_serve_params(wrapped, mesh)
+        self.mesh, self.shard_stats = mesh, stats
+        self._registries[mesh] = StepRegistry(self.device, lambda: self.params, eager=True)
+        return self
+
+    def _decoder_only(self, what: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(f"mesh serving is decoder-only (no {what})")
 
     @property
     def cfg(self):
@@ -358,6 +430,7 @@ class ServeSession:
         frames in the config's dtype. One step per source length."""
         from repro_torch.models import transformer as T
 
+        self._decoder_only("encoder")
         if not 0 < s_src <= src_len:
             raise ValueError(f"an encoder input of {s_src} frames does not fit src_len "
                              f"{src_len}")
@@ -385,6 +458,7 @@ class ServeSession:
         computes no logits."""
         from repro_torch.models import transformer as T
 
+        self._decoder_only("vision prefix")
         p_ = self.cfg.vision_tokens
         if not p_:
             raise ValueError(f"{self.cfg.name} has no vision prefix (vision_tokens 0)")
@@ -464,7 +538,7 @@ class ServeSession:
     def prefill(self, tokens, max_len: int, enc_embeds=None, patch_embeds=None):
         with self.scope():
             return prefill_and_cache(self.params, tokens, self.cfg, max_len, enc_embeds,
-                                     patch_embeds)
+                                     patch_embeds, mesh=self.mesh)
 
     def generate(self, prompt, *, gen_len: int = 16, temperature: float = 0.0,
                  key: Optional[torch.Generator] = None, enc_embeds=None, patch_embeds=None

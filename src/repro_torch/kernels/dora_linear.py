@@ -157,14 +157,18 @@ def _check(x, g_pos, g_neg, scale, a, b, gamma):
     return m, k, n, r
 
 
-def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
+def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma, plan_n=None):
     m, k, n, r = _check(x, g_pos, g_neg, scale, a, b, gamma)
+    # the launch policy (narrow or not, parts of K, tiles) is the whole
+    # leaf's for a column block, so that its columns sum in the same order;
+    # buffers and tickets are the block's own
+    plan_n = n if plan_n is None else int(plan_n)
     lib = build()
     int8 = accum == "int8"
     f32 = dict(dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), **f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if autotune.use_narrow(n, accum, x.dtype == torch.float32):
+    if autotune.use_narrow(plan_n, accum, x.dtype == torch.float32):
         # one sum per slab of K, column and row: the N columns and the R
         # ranks, each rounded up to 4
         slabs = -(-k // autotune.MIN_SPLIT_ROWS)
@@ -183,7 +187,7 @@ def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
     head = [x.data_ptr(), int(x.dtype == torch.bfloat16)]
     xs_ptr = None if xs is None else xs.data_ptr()
     if kind == "dora_linear_gemv" and (int8 or x.dtype == torch.bfloat16):
-        parts = autotune.gemv_plan(m, n, k, accum)
+        parts = autotune.gemv_plan(m, plan_n, k, accum)
         # each K part's raw sums (f32, int32 for int8), added in part order
         # by the strip's last block
         ws = torch.empty((parts, m, n), dtype=torch.int32 if int8 else torch.float32,
@@ -212,7 +216,7 @@ def _launch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
         # the tensor-core bodies (int8; f32 with bf16 x) split K when their
         # tiles alone leave SMs idle; the parts' raw sums go through ws,
         # summed in order. f32 x with the f32 body (SIMT) ignores the plan.
-        plan = autotune.tiled_tiles(m, n, k, accum)
+        plan = autotune.tiled_tiles(m, plan_n, k, accum)
         ws = None
         if plan.splits(k) > 1 and (int8 or x.dtype == torch.bfloat16):
             ws = torch.empty((plan.splits(k), m, n),
@@ -235,7 +239,7 @@ def _launched(kind: str, accum: str, x, err: int, out):
     return out
 
 
-def _dispatch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
+def _dispatch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma, plan_n=None):
     if accum not in autotune.ACCUMS:
         raise ValueError(f"accum must be one of {autotune.ACCUMS}, got {accum!r}")
     refuse_autograd(kind, x, g_pos, g_neg, scale, a, b, gamma)
@@ -245,21 +249,25 @@ def _dispatch(kind: str, accum: str, x, g_pos, g_neg, scale, a, b, gamma):
         return ref(x, g_pos, g_neg, scale, a, b, gamma)
     if device.type != "cuda":
         raise ValueError(f"no {kind} kernel for device {device}")
-    return _launch(kind, accum, x, g_pos, g_neg, scale, a, b, gamma)
+    return _launch(kind, accum, x, g_pos, g_neg, scale, a, b, gamma, plan_n)
 
 
-def dora_linear(x, g_pos, g_neg, scale, a, b, gamma, *, accum: str = "f32") -> torch.Tensor:
+def dora_linear(x, g_pos, g_neg, scale, a, b, gamma, *, accum: str = "f32",
+                plan_n=None) -> torch.Tensor:
     """Tiled launcher: x (M, K) f32|bf16; g_pos/g_neg (K, N) u8; scale,
-    gamma (1, N) f32; a (K, r) f32; b (r, N) f32 -> (M, N) f32."""
-    return _dispatch("dora_linear", accum, x, g_pos, g_neg, scale, a, b, gamma)
+    gamma (1, N) f32; a (K, r) f32; b (r, N) f32 -> (M, N) f32.
+    ``plan_n`` (N by default): the width the launch policy is chosen for,
+    the whole leaf's when the operands are a column block of it."""
+    return _dispatch("dora_linear", accum, x, g_pos, g_neg, scale, a, b, gamma, plan_n)
 
 
-def dora_linear_gemv(x, g_pos, g_neg, scale, a, b, gamma, *, accum: str = "f32") -> torch.Tensor:
-    """Decode launcher (M <= GEMV_MAX_M): the operands of
+def dora_linear_gemv(x, g_pos, g_neg, scale, a, b, gamma, *, accum: str = "f32",
+                     plan_n=None) -> torch.Tensor:
+    """Decode launcher (M <= GEMV_MAX_M): the operands and ``plan_n`` of
     ``dora_linear``."""
     if x.shape[0] > autotune.GEMV_MAX_M:
         raise ValueError(
             f"dora_linear_gemv takes at most {autotune.GEMV_MAX_M} rows, "
             f"got {x.shape[0]}"
         )
-    return _dispatch("dora_linear_gemv", accum, x, g_pos, g_neg, scale, a, b, gamma)
+    return _dispatch("dora_linear_gemv", accum, x, g_pos, g_neg, scale, a, b, gamma, plan_n)

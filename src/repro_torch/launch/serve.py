@@ -22,6 +22,9 @@ card raises).
     python -m repro_torch.launch.serve --arch recurrentgemma-9b --layers 8 \
         --backend codes
     python -m repro_torch.launch.serve --arch recurrentgemma-9b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --backend codes --mesh-model 2
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --smoke --backend codes \
+        --mesh-model 4 --device cpu
 
 ``--layers`` cuts the depth and keeps every width: mixtral-8x22b's 56
 layers (141 G weights) do not fit one 80 GB card; 2 layers take ~22 GB.
@@ -43,12 +46,19 @@ a teacher and calibration; 8 layers (two (rglru, rglru, local) groups and
 the two epilogue rglru layers) take 1.78 G weights beside the 1.05 G tied
 embedding. Its engine admits by one fused prefill too (a recurrent stack
 does not chunk); the local layers keep a rolling window of 2048.
+
+``--mesh-model N`` serves tensor-parallel: N ranks (spawned processes,
+``launch.mesh.run_ranks``) on a (1, N) ("data", "model") mesh, each
+holding its column block of every column-shardable leaf, all on the card
+(``cuda:0`` over gloo when there is one card) or on the CPU with
+``--device cpu``. Codes backend only; rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch import deploy
@@ -73,18 +83,42 @@ def main(argv=None):
                     help="torch device; the default needs a CUDA card")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers (widths kept)")
+    ap.add_argument("--mesh-model", type=int, default=0,
+                    help="tensor-parallel degree: serve on a (1, N) ('data', 'model') "
+                         "mesh of N ranks (codes backend only)")
     args = ap.parse_args(argv)
+    if args.mesh_model > 1:
+        if args.backend != "codes":
+            raise SystemExit("--mesh-model serves the codes backend only")
+        from repro_torch.launch.mesh import rank_device, run_ranks
+
+        rank_device(args.device, 0)  # no card: raise here, before any rank starts
+        outs = run_ranks(_serve, args.mesh_model, device=args.device, args=(args,))
+        print(outs[0])
+        return
+    print(_serve(0, 1, args.device, args))
+
+
+def _serve(rank, world, device, args) -> str:
+    """Program, drift and serve (one rank of a mesh when ``world`` > 1);
+    returns the report, which rank 0 of a mesh prints."""
     arch = get_arch(args.arch)
     cfg = arch.smoke if args.smoke else arch.full
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    mesh = None
+    if world > 1:
+        from repro_torch.launch.mesh import make_host_mesh
 
-    dep = deploy.Deployment.program(cfg, args.seed, backend=args.backend,
-                                    device=args.device)
+        mesh = make_host_mesh((1, world), device=device)
+
+    dep = deploy.Deployment.program(cfg, args.seed, backend=args.backend, device=device)
     if args.drift_hours > 0:
         dep.advance(args.drift_hours)
-    session = dep.serve()
-    print(session.describe())
+    session = dep.serve(mesh=mesh)
+    lines = [session.describe()]
+    if mesh is not None:
+        lines.append(f"mesh {mesh.shape} over {world} ranks: {session.shard_stats}")
 
     g = make_generator("cpu", args.seed, 1)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=g)
@@ -103,9 +137,10 @@ def main(argv=None):
     # dt times exactly the decode ticks; first tokens come from prefill
     decode_toks = args.batch * max(args.gen - 1, 0)
     tps = decode_toks / dt if dt > 0 else float("nan")
-    print(f"backend={args.backend} generated {toks.shape} "
-          f"(decode: {decode_toks} tok in {dt:.2f}s = {tps:.1f} tok/s)")
-    print(toks[:2])
+    lines.append(f"backend={args.backend} generated {toks.shape} "
+                 f"(decode: {decode_toks} tok in {dt:.2f}s = {tps:.1f} tok/s)")
+    lines.append(np.array2string(toks[:2]))
+    return "\n".join(lines)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from repro_torch.core import dora
 from repro_torch.core.dora import AdapterConfig
 from repro_torch.core.rram import CrossbarWeight
-from repro_torch.substrate.prepared import PreparedCrossbar
+from repro_torch.substrate.prepared import PreparedCrossbar, ShardedPrepared
 
 
 def init_linear(
@@ -41,7 +41,7 @@ def linear(
     prepared leaves go to the substrate backends; float leaves take the
     plain path. ``adapter=None``/``{}`` is the plain base matmul."""
     w = base["w"]
-    if isinstance(w, (CrossbarWeight, PreparedCrossbar)):
+    if isinstance(w, (CrossbarWeight, PreparedCrossbar, ShardedPrepared)):
         from repro_torch.substrate import crossbar_linear
 
         return crossbar_linear(x, w, adapter, acfg, backend=backend)

@@ -25,9 +25,14 @@ from repro_torch.substrate.exec import (  # noqa: F401
 )
 from repro_torch.substrate.prepared import (  # noqa: F401
     PreparedCrossbar,
+    ShardedPrepared,
     fuse_crossbars,
+    place_serve_params,
     prepare_base_for_serve,
     prepare_crossbar,
     prepared_ref_forward,
     rimc_linear_prepared,
+    serve_param_specs,
+    shard_prepared_for_serve,
+    tp_column_allgather,
 )

@@ -27,8 +27,10 @@ from repro_torch.core import dora as dora_lib
 from repro_torch.core.dora import AdapterConfig
 from repro_torch.core.rram import CrossbarWeight, RramConfig, dequantize
 from repro_torch.substrate import exec as X
+from repro_torch.substrate import prepared as P
 from repro_torch.substrate.prepared import (
     PreparedCrossbar,
+    ShardedPrepared,
     prepared_ref_forward,
     rimc_linear_prepared,
 )
@@ -138,6 +140,12 @@ class DequantBackend(Backend):
     name = "dequant"
 
     def linear(self, x, xw, adapter, acfg):
+        if isinstance(xw, ShardedPrepared):
+            raise TypeError(
+                "dequant reads full-extent prepared leaves; a sharded "
+                "serve tree only executes inside the codes backend's "
+                "tensor-parallel steps"
+            )
         if isinstance(xw, PreparedCrossbar):
             return prepared_ref_forward(x, xw)
         return dora_lib.adapted_forward(x, dequantize(xw), adapter, acfg)
@@ -146,11 +154,17 @@ class DequantBackend(Backend):
 @register_backend
 class CodesBackend(Backend):
     """Deployment path: the fused CUDA kernel over resident uint8 codes
-    (its plain version for tensors on the CPU)."""
+    (its plain version for tensors on the CPU). A ``ShardedPrepared`` leaf
+    runs the kernel on this rank's column block, planned for the whole
+    leaf, then gathers the columns over the rank's subgroup
+    (``prepared.tp_column_allgather``): bitwise the unsharded launch."""
 
     name = "codes"
 
     def linear(self, x, xw, adapter, acfg, *, accum="f32"):
+        if isinstance(xw, ShardedPrepared):
+            y = rimc_linear_prepared(x, xw.local, accum=accum, plan_n=xw.n_total)
+            return P.tp_column_allgather(y, xw.n_total, xw.group)
         if isinstance(xw, PreparedCrossbar):
             return rimc_linear_prepared(x, xw, accum=accum)
         gamma = _gamma_for(xw, adapter, acfg)
@@ -201,7 +215,7 @@ class CodesAdcBackend(Backend):
     def linear(self, x, xw, adapter, acfg, *, rram_cfg=None, code_max=None,
                adc_bits=None):
         code_max, adc_bits = resolve_adc_limits(rram_cfg, code_max, adc_bits)
-        if isinstance(xw, PreparedCrossbar):
+        if isinstance(xw, (PreparedCrossbar, ShardedPrepared)):
             raise TypeError(
                 "codes_adc reads raw per-leaf codes; prepared (fused) trees "
                 "are codes-backend serving artifacts"

@@ -55,10 +55,13 @@ def dora_gamma(xw: CrossbarWeight, adapter: dict) -> torch.Tensor:
     return (adapter["dora_m"].to(torch.float32) / norm)[None, :]
 
 
-def launch(xf: torch.Tensor, gp, gn, scale, a, b, gamma, *, accum: str = "f32") -> torch.Tensor:
-    """The launcher for ``xf``'s row count: GEMV while M fits one block."""
+def launch(xf: torch.Tensor, gp, gn, scale, a, b, gamma, *, accum: str = "f32",
+           plan_n=None) -> torch.Tensor:
+    """The launcher for ``xf``'s row count: GEMV while M fits one block.
+    ``plan_n``: the width the launch is planned for (a column block's
+    whole leaf; N by default)."""
     fn = dora_linear_gemv if autotune.use_gemv(xf.shape[0]) else dora_linear
-    return fn(xf, gp, gn, scale, a, b, gamma, accum=accum)
+    return fn(xf, gp, gn, scale, a, b, gamma, accum=accum, plan_n=plan_n)
 
 
 def rimc_linear(

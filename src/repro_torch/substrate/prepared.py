@@ -1,6 +1,5 @@
 """Serve-time operand preparation for the codes fast path. Port of
-``repro/substrate/prepared.py`` (single device; ``ShardedPrepared`` and
-tensor-parallel serving wait).
+``repro/substrate/prepared.py``.
 
 * ``PreparedCrossbar`` — the codes plus the baked adapter operands (A,
   B, per-column scale, merged gamma) of one leaf or of several fused
@@ -13,6 +12,11 @@ tensor-parallel serving wait).
   for its prepared form, fusing q/k/v and gate/up; ``xattn`` subtrees
   never fuse.
 * ``rimc_linear_prepared`` — the hot-path dispatch.
+* ``ShardedPrepared`` / ``shard_prepared_for_serve`` /
+  ``place_serve_params`` — tensor-parallel serving: a rank holds the
+  column block of each column-shardable leaf for its place on the mesh's
+  ``"model"`` axis, runs the kernel on it and all-gathers the columns
+  (``tp_column_allgather``).
 
 The CUDA kernel masks ragged edges itself, so ``serve_alignment`` is
 (1, 1) on every device and prepared operands are never padded.
@@ -23,6 +27,7 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.rram import CrossbarWeight
 from repro_torch.substrate import exec as X
@@ -127,17 +132,20 @@ def prepared_ref_forward(x: torch.Tensor, prep: PreparedCrossbar) -> torch.Tenso
 
 
 def rimc_linear_prepared(x: torch.Tensor, prep: PreparedCrossbar, *,
-                         accum: str = "f32") -> torch.Tensor:
+                         accum: str = "f32", plan_n: Optional[int] = None) -> torch.Tensor:
     """Hot-path fused linear over a 2-D prepared leaf: flatten x to
     (M, K) and launch; the only per-call tensor work besides the kernel
     is the cast of the f32 result back to x's dtype. The int8 body reads
     the same uint8 codes (the reference bakes s8 recodes into the tree
-    for it; here the kernel recodes in registers)."""
+    for it; here the kernel recodes in registers). ``plan_n`` is the
+    width the launch is planned for: the whole leaf's for a column block
+    (``ShardedPrepared.n_total``), so that the block's columns sum in the
+    order the whole leaf's do."""
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1]).contiguous()
     y = X.launch(
         xf, prep.g_pos, prep.g_neg, prep.scale, prep.lora_a, prep.lora_b,
-        prep.gamma, accum=accum,
+        prep.gamma, accum=accum, plan_n=plan_n,
     )
     return y.reshape(*lead, prep.n).to(x.dtype)
 
@@ -211,3 +219,132 @@ def prepare_base_for_serve(base, adapters, cfg, *, faults=None):
         return b
 
     return walk(base, adapters)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: column-sharded prepared leaves
+# ---------------------------------------------------------------------------
+
+_PREP_FIELDS = ("g_pos", "g_neg", "scale", "lora_a", "lora_b", "gamma")
+
+
+@dataclasses.dataclass
+class ShardedPrepared:
+    """Column-parallel wrapper around one ``PreparedCrossbar``.
+
+    ``local.n`` is the width of one rank's block, ``n_total`` the whole
+    leaf's. Out of ``shard_prepared_for_serve`` the operands are still the
+    whole leaf's; ``place_serve_params`` keeps this rank's contiguous
+    column block of ``g_pos``, ``g_neg``, ``scale``, ``lora_b`` and
+    ``gamma`` (``lora_a``, the K-side factor, is replicated) and binds
+    ``group``, the rank's process subgroup along ``axis``. The codes
+    backend runs the prepared kernel on the block, planned for
+    ``n_total``, and ``tp_column_allgather`` rebuilds the whole output:
+    every column comes from one rank's full K reduction, so the result is
+    the unsharded launch's bit for bit."""
+
+    local: PreparedCrossbar
+    n_total: int
+    axis: str = "model"
+    group: object = None
+
+
+def tp_column_allgather(y: torch.Tensor, n_total: int, group) -> torch.Tensor:
+    """Gather every rank's column block of ``y`` over ``group`` and
+    concatenate them on the last dimension, in rank order along the axis.
+    The values are the reference's zero-scatter ``psum``'s: each column is
+    one rank's, unchanged. On gloo a CUDA block is staged through host
+    memory by the backend itself."""
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y.contiguous(), group=group)
+    out = torch.cat(parts, dim=-1)
+    if out.shape[-1] != n_total:
+        raise ValueError(f"gathered {out.shape[-1]} columns of a {n_total}-column leaf")
+    return out
+
+
+def _prep_like(prep: PreparedCrossbar, fn) -> PreparedCrossbar:
+    """``prep`` with each operand ``fn(name, operand)``."""
+    return dataclasses.replace(prep, **{nm: fn(nm, getattr(prep, nm)) for nm in _PREP_FIELDS})
+
+
+def shard_prepared_for_serve(params, mesh, *, tp: str = "model"):
+    """Wrap every column-shardable ``PreparedCrossbar`` leaf of a serve
+    params tree in ``ShardedPrepared``; return ``(params, stats)``.
+
+    A leaf is shardable when its path matches a tensor-parallel rule of
+    ``sharding.rules.PARAM_RULES`` ("T" anywhere in the spec: the columns
+    of a linear are independent whatever the rule's orientation), it
+    carries no N padding, and its N divides ``mesh.shape[tp]`` — the
+    reference's policy, which reads nothing of the mesh but that size. MoE
+    expert stacks are never prepared leaves and always replicate."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.sharding import rules as R
+
+    size = int(mesh.shape[tp])
+    stats = {"sharded": 0, "replicated": 0}
+
+    def leaf(path, v):
+        if not isinstance(v, PreparedCrossbar):
+            return v
+        ok = (size > 1 and R.serve_tp_shardable(R._path_str(path))
+              and v.g_pos.shape[-1] == v.n and v.n % size == 0)
+        if not ok:
+            stats["replicated"] += 1
+            return v
+        stats["sharded"] += 1
+        n_local = v.n // size
+        return ShardedPrepared(dataclasses.replace(v, n=n_local, splits=(n_local,)), v.n, tp)
+
+    out = tree_lib.map_with_path(leaf, params,
+                                 is_leaf=lambda v: isinstance(v, PreparedCrossbar))
+    return out, stats
+
+
+def serve_param_specs(params):
+    """The placement of every leaf of a serve tree (``sharding.rules``'
+    tuples): a ``ShardedPrepared``'s operands split their last dim over its
+    axis, but ``lora_a``; everything else is replicated (``()``)."""
+    from repro_torch import tree as tree_lib
+
+    def leaf(path, v):
+        if isinstance(v, ShardedPrepared):
+            def spec(nm, t):
+                return () if nm == "lora_a" else (None,) * (t.dim() - 1) + (v.axis,)
+
+            return ShardedPrepared(_prep_like(v.local, spec), v.n_total, v.axis)
+        if isinstance(v, PreparedCrossbar):
+            return _prep_like(v, lambda nm, t: ())
+        return ()
+
+    return tree_lib.map_with_path(
+        leaf, params, is_leaf=lambda v: isinstance(v, (ShardedPrepared, PreparedCrossbar)))
+
+
+def place_serve_params(params, mesh):
+    """This rank's serve tree on ``mesh`` (``serve_param_specs``): each
+    ``ShardedPrepared`` keeps its rank's contiguous column blocks, made
+    once here (the kernel takes contiguous operands only) and bound to the
+    rank's subgroup along its axis; every replicated tensor is the tree's
+    own, not copied."""
+    from repro_torch import tree as tree_lib
+
+    specs = serve_param_specs(params)
+
+    def block(t, spec):
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                width = t.shape[dim] // mesh.shape[axis]
+                t = t.narrow(dim, mesh.index(axis) * width, width)
+        return t.to(mesh.device).contiguous()
+
+    def leaf(path, v):
+        if not isinstance(v, ShardedPrepared):
+            return v
+        spec = specs
+        for key in path:
+            spec = spec[int(key)] if isinstance(spec, list) else spec[key]
+        local = _prep_like(v.local, lambda nm, t: block(t, getattr(spec.local, nm)))
+        return ShardedPrepared(local, v.n_total, v.axis, mesh.group(v.axis))
+
+    return tree_lib.map_with_path(leaf, params, is_leaf=lambda v: isinstance(v, ShardedPrepared))

@@ -32,7 +32,8 @@ def path_str(path: Sequence[str]) -> str:
 
 def map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], tree):
     """``fn`` over every tensor, including the tensor fields of dataclass
-    leaves (their int/tuple fields are kept)."""
+    leaves and of the dataclasses they hold (``ShardedPrepared.local``);
+    their other fields are kept."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
@@ -40,6 +41,8 @@ def map_tensors(fn: Callable[[torch.Tensor], torch.Tensor], tree):
             f.name: map_tensors(fn, getattr(tree, f.name))
             for f in dataclasses.fields(tree)
             if isinstance(getattr(tree, f.name), torch.Tensor)
+            or (dataclasses.is_dataclass(getattr(tree, f.name))
+                and not isinstance(getattr(tree, f.name), type))
         })
     if isinstance(tree, dict):
         return {k: map_tensors(fn, v) for k, v in tree.items()}

@@ -2417,3 +2417,105 @@ def test_fleet_warm_start_on_the_card_names_its_source(cuda, tmp_path):
         assert version == "v1" and source in recorded and source != key.name
     assert warm.initial_loss.mean() < cold.initial_loss.mean()
     assert warm.final_loss.mean() < cold.final_loss.mean()
+
+
+# tensor-parallel serving (substrate.ShardedPrepared): a rank launches the
+# kernel on its contiguous column block of a leaf, planned for the whole
+# leaf (plan_n), and must produce the unsharded launch's columns bit for
+# bit; the blocks of a (., 2) and a (., 4) mesh
+BLOCK_M = [("gemv", 1), ("gemv", 4), ("gemv", 32), ("tiled", 1), ("tiled", 4), ("tiled", 32),
+           ("tiled", 96), ("tiled", 256)]
+
+
+def _column_block(ops, i, size):
+    """Operands of block ``i`` of ``size``: contiguous column slices of the
+    codes, scale, B and gamma; x and A whole."""
+    x, gp, gn, scale, a, b, gamma = ops
+    w = gp.shape[-1] // size
+    cut = [t[:, i * w:(i + 1) * w].contiguous() for t in (gp, gn, scale)]
+    return (x, *cut, a, b[:, i * w:(i + 1) * w].contiguous(),
+            gamma[:, i * w:(i + 1) * w].contiguous())
+
+
+@pytest.mark.parametrize("accum", autotune.ACCUMS)
+@pytest.mark.parametrize("launcher,m", BLOCK_M, ids=[f"{k}-{m}" for k, m in BLOCK_M])
+@pytest.mark.parametrize("leaf", LEAVES, ids=[lf[0] for lf in LEAVES])
+def test_column_block_is_the_whole_leafs_columns(cuda, leaf, launcher, m, accum):
+    _, k, n, r = leaf
+    fn = K.dora_linear_gemv if launcher == "gemv" else K.dora_linear
+    ops = operands(m, k, n, r, cuda, seed=m)
+    whole = fn(*ops, accum=accum)
+    for size in (2, 4):
+        w = n // size
+        for i in range(size):
+            got = fn(*_column_block(ops, i, size), accum=accum, plan_n=n)
+            torch.cuda.synchronize()
+            assert torch.equal(got, whole[:, i * w:(i + 1) * w]), (size, i)
+
+
+@pytest.mark.parametrize("accum", autotune.ACCUMS)
+@pytest.mark.parametrize("launcher,m", [("gemv", 4), ("tiled", 96)])
+def test_column_block_plans_for_the_whole_leaf(cuda, launcher, m, accum, monkeypatch):
+    """The launch policy of a block is asked about the whole leaf's N: the
+    narrow test, the GEMV's parts of K and the tiled body's tiles."""
+    _, k, n, r = LEAVES[2]
+    seen = []
+    for name in ("use_narrow", "gemv_plan", "tiled_tiles"):
+        real = getattr(autotune, name)
+
+        def spy(*args, _real=real, _name=name):
+            seen.append((_name, args[0] if _name == "use_narrow" else args[1]))
+            return _real(*args)
+
+        monkeypatch.setattr(autotune, name, spy)
+    fn = K.dora_linear_gemv if launcher == "gemv" else K.dora_linear
+    fn(*_column_block(operands(m, k, n, r, cuda), 1, 2), accum=accum, plan_n=n)
+    torch.cuda.synchronize()
+    assert seen and all(width == n for _, width in seen), seen
+    assert {"gemv_plan" if launcher == "gemv" else "tiled_tiles"} <= {s for s, _ in seen}
+
+
+def _mesh_rank(rank, world, device, accum):
+    """One rank of a (1, 2) mesh on the card: the qwen3-1.7b smoke session
+    sharded over both ranks; rank 0 also serves it single-device."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.deploy import Deployment
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("qwen3_1_7b").smoke
+    dep = Deployment.program(cfg, 0, backend="codes", device=device).advance(24)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 6)))
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (3, 30)))
+    session = dep.serve(accum=accum, mesh=make_host_mesh((1, 2), device=device))
+    K.reset_launch_counts()
+    out = {"stats": session.shard_stats, "streams": session.generate(prompt, gen_len=6)[0],
+           "logits": session.prefill(tokens.to(device), 40)[0].cpu(),
+           "launches": K.launch_counts(), "compile_count": session.compile_count()}
+    if rank == 0:
+        solo = dep.serve(accum=accum)
+        out["solo_streams"] = solo.generate(prompt, gen_len=6)[0]
+        out["solo_logits"] = solo.prefill(tokens.to(device), 40)[0].cpu()
+    return out
+
+
+@pytest.mark.parametrize("accum", autotune.ACCUMS)
+def test_two_rank_mesh_on_one_card_is_the_single_device_session(cuda, accum):
+    """Two ranks on cuda:0 over gloo: greedy streams and prefill logits
+    (90 rows: the tiled launcher) bitwise the single-device session's, the
+    kernels launched, the mesh's steps eager (compile_count: the steps
+    built, no graph)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    ranks = run_ranks(_mesh_rank, 2, device="cuda", timeout=600, args=(accum,))
+    solo = ranks[0]
+    for got in ranks:
+        assert got["stats"]["sharded"] > 0 and got["stats"]["replicated"] == 0, got["stats"]
+        assert (got["streams"] == solo["solo_streams"]).all()
+        assert torch.equal(got["logits"], solo["solo_logits"])
+        suffix = "" if accum == "f32" else "/int8"
+        assert got["launches"]["dora_linear_gemv" + suffix] > 0, got["launches"]
+        assert got["launches"]["dora_linear" + suffix] > 0, got["launches"]
+        assert got["compile_count"] > 0
